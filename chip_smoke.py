@@ -21,8 +21,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
             the kernel once per layer.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
-table ({"kernels": [...]}, launches counted over the forward and serve
-runs only) and, last, {"ok": true, "device": {...}}.  fp32 matrix
+table ({"kernels": [...]}; ``launches`` is the sum over the forward and
+serve runs, ``launches_by_path`` each run's own count) and, last,
+{"ok": true, "device": {...}}.  fp32 matrix
 products run in full fp32 (TF32 off) so the plain versions are exact
 yardsticks.
 """
@@ -37,6 +38,12 @@ H100_FP32_FLOPS = 67e12      # non-tensor-core fp32, SXM, 700 W
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16
 H100_BYTES_PER_S = 3.35e12   # HBM3
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# bench.py's transformer width, and the requests the main paths send it
+MODEL = dict(vocab_size=32000, d_model=1024, n_layers=12, n_heads=16,
+             max_len=1024)
+FORWARD = (8, 1024)              # B x L scored by forward
+SERVE = ((4, 128), (2, 512))     # B prompts x P tokens per generate
+NEW_TOKENS = 32
 
 
 class CheckFailed(Exception):
@@ -146,11 +153,18 @@ def phase_build(mt, card):
 
 
 def flash_cases():
-    main = dict(bh=128, lq=1024, lk=1024, d=64, causal=True, window=0)
-    shapes = [main, dict(main, causal=False), dict(main, window=256),
-              dict(main, lq=1000, lk=1000),
-              dict(main, lq=256, causal=False),
-              dict(main, d=32), dict(main, bh=64, d=128)]
+    """The shapes the main paths give the kernel (forward's, and each
+    serve request's prefill), then a sweep of the kernel's options."""
+    h = MODEL["n_heads"]
+    dh = MODEL["d_model"] // h
+    b, l = FORWARD
+    main = dict(bh=b * h, lq=l, lk=l, d=dh, causal=True, window=0)
+    shapes = [dict(main, path="forward")]
+    shapes += [dict(main, bh=b * h, lq=p, lk=p, path="serve")
+               for b, p in SERVE]
+    shapes += [dict(main, path="sweep", **kw) for kw in (
+        dict(causal=False), dict(window=256), dict(lq=1000, lk=1000),
+        dict(lq=256, causal=False), dict(d=32), dict(bh=64, d=128))]
     return [dict(s, dtype=dt) for dt in ("float32", "bfloat16")
             for s in shapes]
 
@@ -192,8 +206,8 @@ def phase_kernels(mt, torch):
                                   torch, reps=5)
         row["bound_ms"], row["bound_by"] = bound(case)
         row["library_ms"] = None
-        if case["causal"] and not case["window"] and case["lq"] == 1024 \
-                and case["d"] == 64:
+        if case["causal"] and not case["window"] \
+                and case["lq"] == case["lk"]:
             # yardstick only: the port never calls it
             sdpa = torch.nn.functional.scaled_dot_product_attention
             row["library_ms"] = time_ms(
@@ -219,8 +233,7 @@ def phase_kernels(mt, torch):
 def build_model(device):
     from incubator_mxnet_tpu_torch.gluon.model_zoo.transformer import \
         TransformerLM
-    return TransformerLM(32000, d_model=1024, n_layers=12, n_heads=16,
-                         max_len=1024, device=device)
+    return TransformerLM(**MODEL, device=device)
 
 
 def phase_forward(mt, torch):
@@ -230,14 +243,18 @@ def phase_forward(mt, torch):
                               mt.random.generator(SEED))
     n_params = sum(p.numel() for p in net.parameters())
     gen = torch.Generator().manual_seed(SEED + 1)
-    toks = torch.randint(0, 32000, (8, 1024), generator=gen).cuda()
+    b, l = FORWARD
+    vocab = MODEL["vocab_size"]
+    toks = torch.randint(0, vocab, (b, l), generator=gen).cuda()
     with torch.inference_mode():
         mt.ops.reset_launches()
         logits = net(toks)                    # the main path
         torch.cuda.synchronize()
         n = launches["flash_fwd"]
-        check(n == 12, f"forward launched flash_fwd {n} times, not 12")
-        check(tuple(logits.shape) == (8, 1024, 32000), "logits shape")
+        layers = MODEL["n_layers"]
+        check(n == layers,
+              f"forward launched flash_fwd {n} times, not {layers}")
+        check(tuple(logits.shape) == (b, l, vocab), "logits shape")
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
         del logits
         ms = wall_ms(lambda: net(toks), torch)
@@ -251,9 +268,9 @@ def phase_forward(mt, torch):
         ref = cpu_net(short.cpu())
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
     check(rel <= 1e-3, f"card vs CPU logits rel err {rel} > 1e-3")
-    emit({"phase": "forward", "params": n_params, "batch": 8,
-          "seq": 1024, "flash_launches": n, "ms_per_forward": ms,
-          "tokens_per_s": 8 * 1024 / ms * 1e3,
+    emit({"phase": "forward", "params": n_params, "batch": b,
+          "seq": l, "flash_launches": n, "ms_per_forward": ms,
+          "tokens_per_s": b * l / ms * 1e3,
           "cpu_rel_err": rel, "cpu_tol": 1e-3, "profile": prof})
     return net, n
 
@@ -261,10 +278,12 @@ def phase_forward(mt, torch):
 def phase_serve(mt, torch, net):
     launches = mt.ops.LAUNCHES
     gen = torch.Generator().manual_seed(SEED + 2)
-    total_launches = 0
-    for b, p in ((4, 128), (2, 512)):
-        prompts = torch.randint(0, 32000, (b, p), generator=gen).cuda()
-        new = 32
+    counts = []
+    layers = MODEL["n_layers"]
+    for b, p in SERVE:
+        prompts = torch.randint(0, MODEL["vocab_size"], (b, p),
+                                generator=gen).cuda()
+        new = NEW_TOKENS
         mt.ops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -272,8 +291,9 @@ def phase_serve(mt, torch, net):
         torch.cuda.synchronize()
         gen_ms = (time.perf_counter() - t0) * 1e3
         n = launches["flash_fwd"]
-        total_launches += n
-        check(n == 12, f"prefill launched flash_fwd {n} times, not 12")
+        counts.append(n)
+        check(n == layers,
+              f"prefill launched flash_fwd {n} times, not {layers}")
         check(tuple(out.shape) == (b, p + new), "generate shape")
         check(bool((out[:, :p] == prompts).all()), "prompt echoed")
         with torch.inference_mode():
@@ -291,7 +311,7 @@ def phase_serve(mt, torch, net):
               "generate_ms": full_ms,
               "tokens_per_s": b * new / full_ms * 1e3,
               "teacher_forced_agree": agree, "profile": prof})
-    return total_launches
+    return counts
 
 
 def card_line():
@@ -322,7 +342,9 @@ def main():
         entry = phase_kernels(mt, torch)
         net, fwd_launches = phase_forward(mt, torch)
         serve_launches = phase_serve(mt, torch, net)
-        entry["launches"] = fwd_launches + serve_launches
+        entry["launches"] = fwd_launches + sum(serve_launches)
+        entry["launches_by_path"] = {"forward": fwd_launches,
+                                     "serve": serve_launches}
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

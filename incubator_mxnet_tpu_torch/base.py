@@ -1,28 +1,7 @@
-"""Errors and dtype names of the port (twin of
-``incubator_mxnet_tpu/base.py``, the subset the port uses)."""
-import torch
-
+"""Errors of the port (twin of ``incubator_mxnet_tpu/base.py``, the
+subset the port uses)."""
 __version__ = "0.1.0"
-
-_ALIASES = {"float": "float32", "double": "float64", "half": "float16",
-            "bf16": "bfloat16"}
-_DTYPES = {"float32": torch.float32, "float64": torch.float64,
-           "float16": torch.float16, "bfloat16": torch.bfloat16,
-           "uint8": torch.uint8, "int8": torch.int8, "int32": torch.int32,
-           "int64": torch.int64}
 
 
 class MXNetError(RuntimeError):
     """Error raised by the port's framework code."""
-
-
-def torch_dtype(dtype):
-    """A dtype name ('float32', 'bf16', ...) or torch.dtype, as a
-    torch.dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = _ALIASES.get(str(dtype), str(dtype))
-    if name not in _DTYPES:
-        raise TypeError(f"unknown dtype {dtype!r}; known: "
-                        f"{sorted(_DTYPES)}")
-    return _DTYPES[name]

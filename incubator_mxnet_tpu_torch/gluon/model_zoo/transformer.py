@@ -45,8 +45,6 @@ def _jln(x, gb):
 
 def _ffn_rows(lw, x2d):
     """Dense FFN on flattened (T, D) tokens."""
-    if "moe" in lw:
-        raise _not_ported("the MoE FFN (ops/moe.py)", "MoE")
     return torch.relu(x2d @ lw["up"][0].T + lw["up"][1]) \
         @ lw["down"][0].T + lw["down"][1]
 
@@ -63,8 +61,7 @@ class CausalSelfAttention(nn.Module):
     (``attn_window``): query i sees keys (i - window, i]."""
 
     def __init__(self, d_model, n_heads, seq_parallel=False, rope=False,
-                 n_kv_heads=None, attn_window=0, device=None,
-                 dtype="float32"):
+                 n_kv_heads=None, attn_window=0, device=None):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model ({d_model}) must be a multiple "
@@ -87,21 +84,28 @@ class CausalSelfAttention(nn.Module):
         self._kv = kv
         self._dh = d_model // n_heads
         self.qkv = Dense(d_model + 2 * kv * self._dh, d_model,
-                         device=device, dtype=dtype)
-        self.proj = Dense(d_model, d_model, device=device, dtype=dtype)
+                         device=device)
+        self.proj = Dense(d_model, d_model, device=device)
 
-    def forward(self, x):
+    def forward(self, x, kv_out=None):
+        """Attention over x (B, L, d).  A list ``kv_out`` receives this
+        layer's K and V as (B, L, kv, dh), after RoPE: what a KV cache
+        holds."""
         b, l, d = x.shape
         h, dh, kv = self._h, self._dh, self._kv
         kvd = kv * dh
         q, k, v = self.qkv(x).split([d, kvd, kvd], dim=2)
+        q = q.reshape(b, l, h, dh)
+        k = k.reshape(b, l, kv, dh)
+        v = v.reshape(b, l, kv, dh)
+        if self._rope:
+            q, k = rope_fn(q), rope_fn(k)
+        if kv_out is not None:
+            kv_out.append((k, v))
         if kv != h:
             # each kv group serves h/kv query heads
-            k = k.reshape(b, l, kv, dh).repeat_interleave(h // kv, dim=2)
-            v = v.reshape(b, l, kv, dh).repeat_interleave(h // kv, dim=2)
-        if self._rope:
-            q = rope_fn(q.reshape(b, l, h, dh))
-            k = rope_fn(k.reshape(b, l, h, dh))
+            k = k.repeat_interleave(h // kv, dim=2)
+            v = v.repeat_interleave(h // kv, dim=2)
         out = flash_attention(_heads(q, b, l, h, dh),
                               _heads(k, b, l, h, dh),
                               _heads(v, b, l, h, dh),
@@ -115,24 +119,22 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, d_model, n_heads, mlp_ratio=4, dropout=0.0,
                  seq_parallel=False, moe_experts=0, rope=False,
-                 n_kv_heads=None, attn_window=0, device=None,
-                 dtype="float32"):
+                 n_kv_heads=None, attn_window=0, device=None):
         super().__init__()
         if moe_experts:
             raise _not_ported("moe_experts > 0 (ops/moe.py)", "MoE")
-        kw = dict(device=device, dtype=dtype)
-        self.ln1 = LayerNorm(d_model, **kw)
+        self.ln1 = LayerNorm(d_model, device=device)
         self.attn = CausalSelfAttention(
             d_model, n_heads, seq_parallel=seq_parallel, rope=rope,
-            n_kv_heads=n_kv_heads, attn_window=attn_window, **kw)
-        self.ln2 = LayerNorm(d_model, **kw)
+            n_kv_heads=n_kv_heads, attn_window=attn_window, device=device)
+        self.ln2 = LayerNorm(d_model, device=device)
         self.up = Dense(mlp_ratio * d_model, d_model, activation="relu",
-                        **kw)
-        self.down = Dense(d_model, mlp_ratio * d_model, **kw)
+                        device=device)
+        self.down = Dense(d_model, mlp_ratio * d_model, device=device)
         self.drop = Dropout(dropout)
 
-    def forward(self, x):
-        x = x + self.drop(self.attn(self.ln1(x)))
+    def forward(self, x, kv_out=None):
+        x = x + self.drop(self.attn(self.ln1(x), kv_out))
         return x + self.drop(self.down(self.up(self.ln2(x))))
 
 
@@ -142,22 +144,20 @@ class TransformerLM(nn.Module):
     Parameters as the JAX package's: vocab_size, d_model, n_layers,
     n_heads, max_len (learned positions), mlp_ratio, dropout, pos
     ('learned' or 'rope'), n_kv_heads, attn_window; plus ``device``
-    (None: the first CUDA card, raising if there is none) and
-    ``dtype``.  Parameters are uninitialized until
-    ``initializer.initialize`` or ``convert.load_reference_weights``.
+    (None: the first CUDA card, raising if there is none).  Parameters
+    are float32 and uninitialized until ``initializer.initialize`` or
+    ``convert.load_reference_weights``.
     """
 
     def __init__(self, vocab_size, d_model=512, n_layers=6, n_heads=8,
                  max_len=1024, mlp_ratio=4, dropout=0.0,
                  seq_parallel=False, moe_experts=0, pos="learned",
-                 n_kv_heads=None, attn_window=0, device=None,
-                 dtype="float32"):
+                 n_kv_heads=None, attn_window=0, device=None):
         super().__init__()
         if pos not in ("learned", "rope"):
             raise ValueError(
                 f"pos must be 'learned' or 'rope', got {pos!r}")
-        device = context.resolve(device)
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=context.resolve(device))
         self._d = d_model
         self._max_len = max_len
         self._pos_kind = pos
@@ -190,8 +190,12 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens):
         """Logits (B, L, V) for int tokens (B, L)."""
-        tokens = self._tokens(tokens)
-        b, l = tokens.shape
+        return self.head(self.ln_f(self._hidden(self._tokens(tokens))))
+
+    def _hidden(self, tokens, kv_out=None):
+        """The last block's output (B, L, d); ``kv_out`` collects each
+        layer's K/V (see ``CausalSelfAttention.forward``)."""
+        l = tokens.shape[1]
         if l > self._max_len:
             raise ValueError(
                 f"sequence {l} exceeds max_len {self._max_len}")
@@ -199,8 +203,8 @@ class TransformerLM(nn.Module):
         if self._pos_kind == "learned":
             x = x + self.pos(torch.arange(l, device=x.device))[None]
         for blk in self.blocks:
-            x = blk(x)
-        return self.head(self.ln_f(x))
+            x = blk(x, kv_out)
+        return x
 
     # ------------------------------------------------------------ decode
     def _decode_params(self):
@@ -269,7 +273,7 @@ class TransformerLM(nn.Module):
             return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
         wts = self._decode_params()     # no autograd: inference mode
-        caches, logits = self._prefill(wts, prompt, total)
+        caches, logits = self._prefill(prompt, total)
         toks = torch.zeros((b, total), dtype=torch.int64,
                            device=self.device)
         toks[:, :p] = prompt
@@ -280,52 +284,29 @@ class TransformerLM(nn.Module):
             toks[:, i + 1] = pick(self._step(wts, caches, toks[:, i], i))
         return toks.to(torch.int32)
 
-    def _dims(self):
-        d, h, kv = self._d, self.n_heads, self.n_kv_heads
-        dh = d // h
-        return d, h, kv, dh, kv * dh
-
-    def _prefill(self, wts, prompt, total):
-        """Batched forward over the prompt: fills the first P cache
-        positions of every layer and returns the last position's
-        logits.  Attention is the flash kernel on K/V repeated to all
-        heads, causal with the model's window."""
-        d, h, kv, dh, kvd = self._dims()
+    def _prefill(self, prompt, total):
+        """``forward`` over the prompt (through the flash kernel), which
+        also fills the first P positions of a (B, kv, total, dh) K/V
+        cache per layer; returns the caches and the last position's
+        logits."""
         b, p = prompt.shape
-        x = wts["embed"][prompt] * math.sqrt(d)
-        if self._pos_kind == "learned":
-            x = x + wts["pos"][:p]
+        kvs = []
+        x = self._hidden(prompt, kvs)
         caches = []
-        for lw in wts["layers"]:
-            xa = _jln(x, lw["ln1"])
-            qkv = xa @ lw["qkv"][0].T + lw["qkv"][1]
-            q = qkv[..., :d].reshape(b, p, h, dh)
-            k = qkv[..., d:d + kvd].reshape(b, p, kv, dh)
-            v = qkv[..., d + kvd:].reshape(b, p, kv, dh)
-            if self._pos_kind == "rope":
-                q, k = rope_fn(q), rope_fn(k)
-            # the cache holds only the kv head groups
-            kc = x.new_zeros((b, kv, total, dh))
-            vc = x.new_zeros((b, kv, total, dh))
+        for k, v in kvs:
+            kc = k.new_zeros((b, k.shape[2], total, k.shape[3]))
+            vc = torch.zeros_like(kc)
             kc[:, :, :p] = k.transpose(1, 2)
             vc[:, :, :p] = v.transpose(1, 2)
-            rep = h // kv
-            o = flash_attention(
-                _heads(q, b, p, h, dh),
-                _heads(k.repeat_interleave(rep, dim=2), b, p, h, dh),
-                _heads(v.repeat_interleave(rep, dim=2), b, p, h, dh),
-                causal=True, window=self.attn_window)
-            o = o.reshape(b, h, p, dh).transpose(1, 2).reshape(b, p, d)
-            x = x + o @ lw["proj"][0].T + lw["proj"][1]
-            xm = _jln(x, lw["ln2"])
-            x = x + _ffn_rows(lw, xm.reshape(b * p, d)).reshape(b, p, d)
             caches.append((kc, vc))
-        return caches, _jln(x[:, -1], wts["ln_f"]) @ wts["head"].T
+        return caches, self.head(self.ln_f(x[:, -1]))
 
     def _step(self, wts, caches, tok, i):
         """One token per batch row at absolute position i: writes its
         K/V into the caches in place and returns (B, V) logits."""
-        d, h, kv, dh, kvd = self._dims()
+        d, h, kv = self._d, self.n_heads, self.n_kv_heads
+        dh = d // h
+        kvd = kv * dh
         b = tok.shape[0]
         window = self.attn_window
         lo = max(0, i - window + 1) if window else 0

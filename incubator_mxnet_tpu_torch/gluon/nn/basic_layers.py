@@ -3,21 +3,23 @@
 with the JAX package's parameter names and layouts: ``Dense`` weight
 (units, in_units), ``Embedding`` weight (input_dim, output_dim),
 ``LayerNorm`` ``gamma``/``beta``.  Input widths are given up front
-(PyTorch's idiom) instead of inferred at the first call.
+(PyTorch's idiom) instead of inferred at the first call.  Parameters
+are float32, the dtype the model serves in.
 """
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from ... import context
-from ...base import torch_dtype
 
 __all__ = ["Dense", "Embedding", "LayerNorm", "Dropout"]
 
+_EPS = 1e-5
 
-def _empty(shape, device, dtype):
+
+def _empty(shape, device):
     return nn.Parameter(torch.empty(shape, device=context.resolve(device),
-                                    dtype=torch_dtype(dtype)))
+                                    dtype=torch.float32))
 
 
 class Dense(nn.Module):
@@ -26,14 +28,14 @@ class Dense(nn.Module):
     ``activation="relu"``."""
 
     def __init__(self, units, in_units, activation=None, use_bias=True,
-                 device=None, dtype="float32"):
+                 device=None):
         super().__init__()
         if activation not in (None, "relu"):
             raise ValueError(f"activation {activation!r}: this slice "
                              "has None and 'relu'")
         self._relu = activation == "relu"
-        self.weight = _empty((units, in_units), device, dtype)
-        self.bias = _empty((units,), device, dtype) if use_bias else None
+        self.weight = _empty((units, in_units), device)
+        self.bias = _empty((units,), device) if use_bias else None
 
     def forward(self, x):
         out = F.linear(x, self.weight, self.bias)
@@ -43,10 +45,9 @@ class Dense(nn.Module):
 class Embedding(nn.Module):
     """Row lookup in a (input_dim, output_dim) table."""
 
-    def __init__(self, input_dim, output_dim, device=None,
-                 dtype="float32"):
+    def __init__(self, input_dim, output_dim, device=None):
         super().__init__()
-        self.weight = _empty((input_dim, output_dim), device, dtype)
+        self.weight = _empty((input_dim, output_dim), device)
 
     def forward(self, x):
         return F.embedding(x.long(), self.weight)
@@ -55,16 +56,14 @@ class Embedding(nn.Module):
 class LayerNorm(nn.Module):
     """Layer normalization over the last axis, eps 1e-5."""
 
-    def __init__(self, in_channels, epsilon=1e-5, device=None,
-                 dtype="float32"):
+    def __init__(self, in_channels, device=None):
         super().__init__()
-        self._epsilon = epsilon
-        self.gamma = _empty((in_channels,), device, dtype)
-        self.beta = _empty((in_channels,), device, dtype)
+        self.gamma = _empty((in_channels,), device)
+        self.beta = _empty((in_channels,), device)
 
     def forward(self, x):
         return F.layer_norm(x, self.gamma.shape, self.gamma, self.beta,
-                            self._epsilon)
+                            _EPS)
 
 
 class Dropout(nn.Module):

@@ -46,19 +46,9 @@ class One(Initializer):
 
 
 class Xavier(Initializer):
-    """Glorot init: uniform(-s, s) or normal(0, s) with
-    s = sqrt(magnitude / factor), factor from the fans of shape
-    (out, in, *kernel) as ``factor_type`` says."""
-
-    def __init__(self, rnd_type="uniform", factor_type="avg",
-                 magnitude=3):
-        if rnd_type not in ("uniform", "gaussian"):
-            raise ValueError("bad rnd_type")
-        if factor_type not in ("avg", "in", "out"):
-            raise ValueError("bad factor_type")
-        self.rnd_type = rnd_type
-        self.factor_type = factor_type
-        self.magnitude = float(magnitude)
+    """Glorot init with the reference's defaults (uniform, fan average,
+    magnitude 3): uniform(-s, s) with s = sqrt(3 / ((fan_in + fan_out)
+    / 2)), fans from the shape (out, in, *kernel)."""
 
     def _init_weight(self, name, arr, generator):
         shape = arr.shape
@@ -66,17 +56,10 @@ class Xavier(Initializer):
             raise ValueError(f"Xavier requires ndim>=2, got {name} "
                              f"{tuple(shape)}")
         hw_scale = float(np.prod(shape[2:])) if len(shape) > 2 else 1.0
-        fan_in = shape[1] * hw_scale
-        fan_out = shape[0] * hw_scale
-        factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
-                  "out": fan_out}[self.factor_type]
-        scale = float(np.sqrt(self.magnitude / factor))
-        if self.rnd_type == "uniform":
-            draw = torch.rand(shape, generator=generator) * (2 * scale) \
-                - scale
-        else:
-            draw = torch.randn(shape, generator=generator) * scale
-        arr.copy_(draw)
+        factor = (shape[0] + shape[1]) * hw_scale / 2.0
+        scale = float(np.sqrt(3.0 / factor))
+        arr.copy_(torch.rand(shape, generator=generator) * (2 * scale)
+                  - scale)
 
 
 def initialize(module, init, generator=None):

@@ -50,37 +50,8 @@ def _reference_fwd(q, k, v, causal, scale, window=0):
 
 
 # ---------------------------------------------------------------- bands
-# Python twins of the JAX kernel's band helpers (the tests hold them
-# against the originals), and the key-tile range the CUDA kernel walks.
-
-def _block_live(iq, jk, bq, bk, causal, window):
-    """Does the (q-tile iq, k-tile jk) block hold any unmasked pair?"""
-    if not causal:
-        return True
-    live = jk * bk <= (iq + 1) * bq - 1
-    if window > 0:
-        live = live and (jk + 1) * bk - 1 >= iq * bq - window + 1
-    return live
-
-
-def _band_nj(window, b_res, b_str, n_str):
-    """Tiles of size b_str that a resident tile of size b_res meets in
-    a band of ``window`` (+1 for alignment), capped at n_str."""
-    return min(n_str, (b_res + window - 2) // b_str + 2)
-
-
-def _band_base_k(iq, bq, bk, window):
-    """First k-tile of q-tile iq's band (k >= iq*bq - window + 1)."""
-    return max((iq * bq - (window - 1)) // bk, 0)
-
-
-def _band_k_index(iq, j, bq, bk, nk, window):
-    """(k-tile, valid) for inner step j of q-tile iq, clamped in range;
-    ``valid`` excludes clamp duplicates and tiles past the diagonal."""
-    base = _band_base_k(iq, bq, bk, window)
-    last = min(((iq + 1) * bq - 1) // bk, nk - 1)
-    return min(base + j, nk - 1), base + j <= last
-
+# The key-tile range the CUDA kernel walks (the tests hold it against the
+# JAX kernel's band helpers and against the mask itself).
 
 def _k_tile_range(iq, lq, lk, causal, window, bq=BQ, bk=BK):
     """[first, stop) of the key tiles that q-tile iq visits, exactly as
