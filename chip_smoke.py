@@ -6,29 +6,41 @@ NVIDIA card and check it.
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
-1. build    compile every csrc/*.cu of the port with nvcc (sm_90a).
-2. kernels  hold each hand kernel against its plain PyTorch version on
-            the card at the main path's shapes and a sweep of others,
-            and time kernel, plain version, library call and bound.
-3. forward  TransformerLM at bench.py's transformer width (vocab 32000,
-            d 1024, 12 layers, 16 heads, max_len 1024; seeded Xavier
-            weights) scores B=8 x L=1024 tokens; logits are finite, the
-            flash kernel ran once per layer, and the logits match the
-            same weights on the CPU's plain path.
-4. serve    answers requests with ``generate`` (4 prompts of 128 tokens,
-            2 of 512, greedy, 32 new tokens); each answer equals the
-            teacher-forced argmax of ``forward``, and each prefill ran
-            the kernel once per layer.
+1. build       compile every csrc/*.cu of the port with nvcc (sm_90a);
+               ptxas's registers and spills for each kernel.
+2. kernels     hold flash_fwd against its plain PyTorch version on the
+               card at the main paths' shapes and a sweep of others,
+               and time kernel, plain version, library call and bound.
+3. kernels_bwd the same for flash_dq and flash_dkv against the plain
+               backward, at the train path's shape (bf16 and fp32) and
+               the forward's sweep.
+4. forward     TransformerLM at bench.py's transformer width (vocab
+               32000, d 1024, 12 layers, 16 heads, max_len 1024; seeded
+               Xavier weights) scores B=8 x L=1024 tokens; logits are
+               finite, the flash kernel ran once per layer, and the
+               logits match the same weights on the CPU's plain path.
+5. serve       answers requests with ``generate`` (4 prompts of 128
+               tokens, 2 of 512, greedy, 32 new tokens); each answer
+               equals the teacher-forced argmax of ``forward``, and each
+               prefill ran the kernel once per layer.
+6. train       (i) one fp32 loss and every parameter's gradient at B=1 x
+               L=256 on the card equal the same weights' on the CPU's
+               plain path; (ii) bench.py's training step (B=8 x L=1024,
+               Adam lr 1e-4, bf16 compute over fp32 masters, its LM
+               loss and tokens) takes 2 warm-up and 8 timed steps: losses
+               finite and falling, masters fp32, and each step ran
+               flash_fwd, flash_dq and flash_dkv once per layer; (iii)
+               step ms, tokens/s, MFU, peak memory and a profile.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
-table ({"kernels": [...]}; ``launches`` is the sum over the forward and
-serve runs, ``launches_by_path`` each run's own count) and, last,
-{"ok": true, "device": {...}}.  fp32 matrix
-products run in full fp32 (TF32 off) so the plain versions are exact
-yardsticks.
+table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
+runs, ``launches_by_path`` each run's own count) and, last,
+{"ok": true, "device": {...}}.  fp32 matrix products run in full fp32
+(TF32 off) so the plain versions are exact yardsticks.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -38,12 +50,19 @@ H100_FP32_FLOPS = 67e12      # non-tensor-core fp32, SXM, 700 W
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16
 H100_BYTES_PER_S = 3.35e12   # HBM3
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# backward: sums over up to 1024 keys or queries in another order (fp32);
+# the output's bf16 rounding (bf16)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # bench.py's transformer width, and the requests the main paths send it
 MODEL = dict(vocab_size=32000, d_model=1024, n_layers=12, n_heads=16,
              max_len=1024)
 FORWARD = (8, 1024)              # B x L scored by forward
 SERVE = ((4, 128), (2, 512))     # B prompts x P tokens per generate
 NEW_TOKENS = 32
+TRAIN = (8, 1024)                # B x L of bench.py's training step
+TRAIN_CHECK = (1, 256)           # B x L of the card-vs-CPU gradient check
+WARMUP_STEPS, TIMED_STEPS = 2, 8
+TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 class CheckFailed(Exception):
@@ -113,9 +132,27 @@ def profile(fn, torch):
     except RuntimeError as exc:   # a measurement, not a check
         return {"error": str(exc)}
     busy = sum(ms for _, ms in rows)
+    by_class = {}
+    for key, ms in rows:
+        cls = kernel_class(key)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
     return {"wall_ms": wall, "device_ms": busy,
             "device_busy_share": busy / wall if rows else None,
+            "device_ms_by_class": by_class,
             "top_ms": [[k[:60], ms] for k, ms in rows[:6]]}
+
+
+def kernel_class(name):
+    """The layer a device kernel belongs to, from its name: the port's
+    flash kernels, matrix products (cuBLAS), or the rest (elementwise,
+    reductions, normalization, copies)."""
+    for tag in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if tag in name:
+            return tag
+    if any(t in name.lower() for t in ("gemm", "nvjet", "xmma",
+                                       "cutlass")):
+        return "matmul"
+    return "other"
 
 
 def live_pairs(lq, lk, causal, window):
@@ -126,30 +163,76 @@ def live_pairs(lq, lk, causal, window):
                for i in range(lq))
 
 
-def bound(case):
+def _bound(nbytes, flops, dtype):
     """Least time for the work on an H100: max of bytes / 3.35 TB/s and
-    operations / the dtype's peak."""
-    bh, lq, lk, d = case["bh"], case["lq"], case["lk"], case["d"]
-    size = 4 if case["dtype"] == "float32" else 2
-    nbytes = size * bh * d * (2 * lq + 2 * lk) + 4 * bh * lq
-    flops = 4 * d * bh * live_pairs(lq, lk, case["causal"], case["window"])
-    peak = H100_FP32_FLOPS if case["dtype"] == "float32" \
-        else H100_BF16_FLOPS
+    operations / the dtype's peak; and which of the two it is."""
+    peak = H100_FP32_FLOPS if dtype == "float32" else H100_BF16_FLOPS
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops \
         else "operations"
 
 
+def bound(case):
+    """flash_fwd: reads q, k, v; writes o and lse; 4*D flops per kept
+    pair."""
+    bh, lq, lk, d = case["bh"], case["lq"], case["lk"], case["d"]
+    size = 4 if case["dtype"] == "float32" else 2
+    nbytes = size * bh * d * (2 * lq + 2 * lk) + 4 * bh * lq
+    flops = 4 * d * bh * live_pairs(lq, lk, case["causal"], case["window"])
+    return _bound(nbytes, flops, case["dtype"])
+
+
+def bwd_bound(case, kernel):
+    """flash_dq reads q, k, v, g, lse, delta and writes dq, 6*D flops
+    per kept pair (s, dp, dq); flash_dkv reads the same and writes dk
+    and dv, 8*D flops per kept pair (s, dp, dv, dk)."""
+    bh, lq, lk, d = case["bh"], case["lq"], case["lk"], case["d"]
+    size = 4 if case["dtype"] == "float32" else 2
+    pairs = live_pairs(lq, lk, case["causal"], case["window"])
+    reads = size * bh * d * (2 * lq + 2 * lk) + 8 * bh * lq
+    if kernel == "flash_dq":
+        nbytes, flops = reads + size * bh * lq * d, 6 * d * bh * pairs
+    else:
+        nbytes, flops = reads + 2 * size * bh * lk * d, 8 * d * bh * pairs
+    return _bound(nbytes, flops, case["dtype"])
+
+
+_KERNEL_NAME = re.compile(
+    r"(flash_[a-z]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E")
+
+
+def ptxas_report(log):
+    """{kernel<dtype, D>: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = _KERNEL_NAME.search(ln)
+            if m:
+                dt = "bf16" if "bfloat16" in m.group(2) else "f32"
+                name = f"{m.group(1)}<{dt},{m.group(3)}>"
+            else:
+                name = ln.split("'")[1]
+            out[name] = {}
+        elif name is not None and "spill stores" in ln:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", ln)
+            out[name].update({f"spill_{k}": int(v) for v, k in nums})
+        elif name is not None and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
 def phase_build(mt, card):
     t0 = time.perf_counter()
     built = mt.ops._build.build()
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for b in built.values()
-             for ln in b["log"].splitlines() if "registers" in ln
-             or "spill" in ln]
+    ptxas = {}
+    for b in built.values():
+        ptxas.update(ptxas_report(b["log"]))
     emit({"phase": "build", "card": card, "seconds": seconds,
-          "kernels": sorted(built), "ptxas": ptxas})
+          "sources": sorted(built), "ptxas": ptxas})
 
 
 def flash_cases():
@@ -209,9 +292,11 @@ def phase_kernels(mt, torch):
         if case["causal"] and not case["window"] \
                 and case["lq"] == case["lk"]:
             # yardstick only: the port never calls it
+            # (1, BH, L, D): SDPA's fused backends take 4-D only
             sdpa = torch.nn.functional.scaled_dot_product_attention
             row["library_ms"] = time_ms(
-                lambda: sdpa(q, k, v, is_causal=True), torch)
+                lambda: sdpa(q[None], k[None], v[None], is_causal=True),
+                torch)
         rows.append(row)
         if main_entry is None:
             main_entry = row
@@ -228,6 +313,104 @@ def phase_kernels(mt, torch):
             "shape": [m["bh"], m["lq"], m["d"]], "dtype": m["dtype"],
             "causal": True, "tol": m["tol"],
             "cases_within_tol": len(rows)}
+
+
+def bwd_cases():
+    """The train path's shape (in bf16, the train dtype, and in fp32),
+    then the forward sweep's other shapes."""
+    h = MODEL["n_heads"]
+    b, l = TRAIN
+    main = dict(bh=b * h, lq=l, lk=l, d=MODEL["d_model"] // h,
+                causal=True, window=0)
+    shapes = [dict(main, path="train")]
+    shapes += [dict(main, path="sweep", **kw) for kw in (
+        dict(causal=False), dict(window=256), dict(lq=1000, lk=1000),
+        dict(lq=256, causal=False), dict(lq=256), dict(d=32),
+        dict(bh=64, d=128))]
+    return [dict(s, dtype=dt) for dt in ("bfloat16", "float32")
+            for s in shapes]
+
+
+def phase_kernels_bwd(mt, torch):
+    from incubator_mxnet_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for case in bwd_cases():
+        dt = getattr(torch, case["dtype"])
+
+        def rand(n):
+            return torch.randn(case["bh"], n, case["d"], generator=gen,
+                               device="cuda").to(dt)
+
+        q, k, v, g = rand(case["lq"]), rand(case["lk"]), rand(case["lk"]), \
+            rand(case["lq"])
+        causal, window = case["causal"], case["window"]
+        scale = 1.0 / math.sqrt(case["d"])
+        o, lse = flash.flash_attention_fwd(q, k, v, causal, scale, window)
+        delta = flash._delta(g, o)
+        args = (q, k, v, g, lse, delta, causal, scale, window)
+        got = (flash._launch_dq(*args),) + flash._launch_dkv(*args)
+        ref = flash._reference_bwd(q, k, v, o, lse, g, causal, scale,
+                                   window)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[case["dtype"]]
+        row = dict(case, tol=tol)
+        worst = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            diff = (a.float() - b.float()).abs()
+            row[f"max_abs_err_{name}"] = diff.max().item()
+            worst = max(worst, (diff / (tol + tol * b.float().abs()))
+                        .max().item())
+        row["worst_over_tol"] = worst
+        check(math.isfinite(worst) and worst <= 1.0,
+              f"flash_dq/flash_dkv disagree with the plain backward: "
+              f"{row}")
+        for kernel, fn, plain in (
+                ("flash_dq", flash._launch_dq, flash._reference_dq),
+                ("flash_dkv", flash._launch_dkv, flash._reference_dkv)):
+            row[f"{kernel}_ms"] = time_ms(lambda: fn(*args), torch)
+            row[f"{kernel}_plain_ms"] = time_ms(lambda: plain(*args),
+                                                torch, reps=5)
+            row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = \
+                bwd_bound(case, kernel)
+        row["kernels_sum_ms"] = row["flash_dq_ms"] + row["flash_dkv_ms"]
+        row["library_ms"] = None
+        if not window and (not causal or case["lq"] == case["lk"]):
+            # yardstick only, SDPA's backward (dq, dk, dv together):
+            # the port never calls it
+            # (1, BH, L, D): SDPA's fused backends take 4-D only
+            ql, kl, vl = (t[None].detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            out = sdpa(ql, kl, vl, is_causal=causal)
+            row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                out, (ql, kl, vl), g[None], retain_graph=True), torch)
+            del ql, kl, vl, out
+        rows.append(row)
+        del q, k, v, g, o, lse, delta, got, ref
+    emit({"phase": "kernels_bwd", "cases": rows})
+    m = rows[0]
+    entries = []
+    for kernel, line, errs in (("flash_dq", 220, ("dq",)),
+                               ("flash_dkv", 262, ("dk", "dv"))):
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "incubator_mxnet_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"incubator_mxnet_tpu/ops/flash.py:{line}",
+            "launches": None,
+            "max_abs_err": max(m[f"max_abs_err_{e}"] for e in errs),
+            "ms": m[f"{kernel}_ms"], "plain_ms": m[f"{kernel}_plain_ms"],
+            "bound_ms": m[f"{kernel}_bound_ms"],
+            "bound_by": m[f"{kernel}_bound_by"],
+            "library_ms": m["library_ms"],
+            "library_is": "SDPA backward (dq, dk, dv together); compare "
+                          "with the sum of flash_dq and flash_dkv",
+            "shape": [m["bh"], m["lq"], m["d"]], "dtype": m["dtype"],
+            "causal": True, "tol": m["tol"],
+            "cases_within_tol": len(rows)})
+    return entries
 
 
 def build_model(device):
@@ -314,6 +497,142 @@ def phase_serve(mt, torch, net):
     return counts
 
 
+def lm_loss(outputs, labels):
+    """bench.py's LM loss (bench.py:224-236): logsumexp minus the
+    picked logit, in fp32, averaged over tokens."""
+    logits = outputs[0].float()
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logits.logsumexp(-1) - picked).mean()
+
+
+def train_check_cpu(mt, torch, net):
+    """(i) one fp32 loss and its gradients on the card (kernels) against
+    the same weights on the CPU (plain versions), B=1 x L=256.
+
+    Tolerances: loss rel err <= 1e-4.  Gradients: at this width the
+    CPU's own fp32 gradient moves by up to ~3e-3 (per parameter,
+    relative norm; median ~3e-4) when its weights are nudged by 1e-7,
+    which moves the logits by ~1e-6, as summation order on the card
+    does (the forward phase's rel err): ReLU inputs within rounding of
+    0 flip.  This run measures that floor and prints it.  So every
+    parameter's rel err must be <= 1e-2 and their median <= 3e-3; a
+    kernel or plumbing fault gives O(1).  The kernels themselves are
+    held elementwise in the kernels_bwd phase."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    b, l = TRAIN_CHECK
+    x, y = (torch.randint(0, MODEL["vocab_size"], (b, l), generator=gen)
+            for _ in range(2))
+
+    def loss_and_grads(model, x, y):
+        names, params = zip(*model.named_parameters())
+        loss = lm_loss([model(x)], y)
+        grads = torch.autograd.grad(loss, params)
+        return float(loss.detach()), dict(zip(names, grads))
+
+    def rel_errs(got, ref):
+        out = {}
+        for name, r in ref.items():
+            norm = r.norm().item()
+            if norm > 0.0:      # e.g. embedding rows no token uses
+                out[name] = (got[name].cpu() - r).norm().item() / norm
+        return out
+
+    def summary(errs):
+        vals = sorted(errs.values())
+        worst = max(errs, key=errs.get)
+        return {"median": vals[len(vals) // 2], "worst": errs[worst],
+                "worst_param": worst}
+
+    mt.ops.reset_launches()
+    card_loss, card_grads = loss_and_grads(net, x.cuda(), y.cuda())
+    torch.cuda.synchronize()
+    n = {k: mt.ops.LAUNCHES[k] for k in TRAIN_KERNELS}
+    check(all(v == MODEL["n_layers"] for v in n.values()),
+          f"gradient check launched {n}, not one per layer each")
+    cpu_net = build_model("cpu")
+    cpu_net.load_state_dict({k: v.cpu() for k, v in
+                             net.state_dict().items()})
+    cpu_loss, cpu_grads = loss_and_grads(cpu_net, x, y)
+    errs = rel_errs(card_grads, cpu_grads)
+    with torch.no_grad():       # the CPU's own floor: nudge by 1e-7
+        for p in cpu_net.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+    floor = summary(rel_errs(loss_and_grads(cpu_net, x, y)[1], cpu_grads))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    got = summary(errs)
+    check(loss_rel <= 1e-4, f"card vs CPU loss rel err {loss_rel} > 1e-4")
+    check(got["worst"] <= 1e-2 and got["median"] <= 3e-3,
+          f"card vs CPU gradients {got} beyond 1e-2 worst / 3e-3 "
+          f"median (CPU's own floor {floor})")
+    return {"batch": b, "seq": l, "loss_card": card_loss,
+            "loss_cpu": cpu_loss, "loss_rel_err": loss_rel,
+            "loss_tol": 1e-4, "grad_rel_err": got,
+            "grad_tol": {"worst": 1e-2, "median": 3e-3},
+            "cpu_floor_nudge_1e-7": floor,
+            "params_checked": len(errs),
+            "params_zero_grad_skipped": len(cpu_grads) - len(errs)}
+
+
+def phase_train(mt, torch, net, card):
+    import numpy as np
+
+    launches = mt.ops.LAUNCHES
+    cpu_check = train_check_cpu(mt, torch, net)
+    b, l = TRAIN
+    vocab = MODEL["vocab_size"]
+    step = mt.parallel.ShardedTrainStep(
+        net, optimizer="adam", optimizer_params=dict(learning_rate=1e-4),
+        loss_fn=lm_loss, compute_dtype=torch.bfloat16)
+    rs = np.random.RandomState(0)       # bench.py's tokens and labels
+    toks = torch.from_numpy(
+        rs.randint(0, vocab, (b, l)).astype(np.int32)).cuda()
+    labels = torch.from_numpy(
+        rs.randint(0, vocab, (b, l)).astype(np.int32)).cuda()
+    counts = {k: [] for k in TRAIN_KERNELS}
+
+    def one_step():
+        mt.ops.reset_launches()
+        loss = step(toks, labels)               # the main path
+        for k in TRAIN_KERNELS:
+            counts[k].append(launches[k])
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [one_step() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    losses += [one_step() for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    layers = MODEL["n_layers"]
+    for k, n in counts.items():
+        check(all(c == layers for c in n),
+              f"train steps launched {k} {n} times, not {layers} each")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(all(p.dtype == torch.float32 for p in net.parameters()),
+          "masters are not fp32")
+    prof = profile(lambda: step(toks, labels), torch)
+    tok_s = b * l / step_ms * 1e3
+    flops_tok = net.train_flops_per_token(l)
+    emit({"phase": "train", "card": card, "cpu_check": cpu_check,
+          "batch": b, "seq": l, "optimizer": "adam", "lr": 1e-4,
+          "compute_dtype": "bfloat16", "warmup_steps": WARMUP_STEPS,
+          "timed_steps": TIMED_STEPS, "losses": losses,
+          "warmup_ms": warm_ms, "step_ms": step_ms,
+          "tokens_per_s": tok_s, "train_flops_per_token": flops_tok,
+          "mfu": flops_tok * tok_s / H100_BF16_FLOPS,
+          "mfu_peak": "989 TFLOP/s bf16 dense",
+          "peak_memory_bytes": peak, "launches_per_step": counts,
+          "profile": prof})
+    return counts
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -338,18 +657,36 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     try:
         card = card_line()
-        phase_build(mt, card)
-        entry = phase_kernels(mt, torch)
-        net, fwd_launches = phase_forward(mt, torch)
-        serve_launches = phase_serve(mt, torch, net)
-        entry["launches"] = fwd_launches + sum(serve_launches)
+        seconds = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            seconds[name] = time.perf_counter() - t0
+            return out
+
+        timed("build", phase_build, mt, card)
+        entry = timed("kernels", phase_kernels, mt, torch)
+        bwd_entries = timed("kernels_bwd", phase_kernels_bwd, mt, torch)
+        net, fwd_launches = timed("forward", phase_forward, mt, torch)
+        serve_launches = timed("serve", phase_serve, mt, torch, net)
+        train_launches = timed("train", phase_train, mt, torch, net,
+                               card)
+        emit({"phase_seconds": seconds})
         entry["launches_by_path"] = {"forward": fwd_launches,
-                                     "serve": serve_launches}
+                                     "serve": serve_launches,
+                                     "train": train_launches["flash_fwd"]}
+        for e in bwd_entries:
+            e["launches_by_path"] = {"train": train_launches[e["name"]]}
+        for e in [entry] + bwd_entries:
+            e["launches"] = sum(
+                n if isinstance(n, int) else sum(n)
+                for n in e["launches_by_path"].values())
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(card)
-    emit({"kernels": [entry]})
+    emit({"kernels": [entry] + bwd_entries})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

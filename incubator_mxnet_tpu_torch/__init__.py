@@ -11,9 +11,10 @@ the caller passes ``device="cpu"``, which runs the plain PyTorch path.
 This package imports neither JAX nor ``incubator_mxnet_tpu``.
 """
 from .base import __version__, MXNetError
-from . import base, context, random, initializer, ops, gluon, convert
+from . import (base, context, random, initializer, ops, gluon, convert,
+               parallel)
 from .context import cpu, gpu, default_device
 
 __all__ = ["__version__", "MXNetError", "base", "context", "random",
-           "initializer", "ops", "gluon", "convert", "cpu", "gpu",
-           "default_device"]
+           "initializer", "ops", "gluon", "convert", "parallel", "cpu",
+           "gpu", "default_device"]

@@ -1,18 +1,21 @@
-"""Decoder-only transformer LM, inference slice (twin of
-``incubator_mxnet_tpu/gluon/model_zoo/transformer.py``).
+"""Decoder-only transformer LM (twin of
+``incubator_mxnet_tpu/gluon/model_zoo/transformer.py``): inference and
+training.
 
-``TransformerLM.forward`` scores a batch of token sequences;
-``generate`` runs one batched prefill and then decodes token by token
-against a preallocated KV cache, as the JAX package's ``_build_decode``
-does.  Every layer's attention in ``forward`` and in the prefill goes
-through ``ops.flash.flash_attention``: on a CUDA card that is the
-hand-written kernel ``csrc/flash_fwd.cu``.  The one-token decode step
-attends to the cache with plain matrix products, as the JAX package
-does outside any kernel.
+``TransformerLM.forward`` scores a batch of token sequences and is
+differentiable: under ``.train()`` its dropout is active, and a train
+step (``parallel.ShardedTrainStep``) takes its gradient.  ``generate``
+runs one batched prefill and then decodes token by token against a
+preallocated KV cache, as the JAX package's ``_build_decode`` does.
+Every layer's attention in ``forward`` and in the prefill goes through
+``ops.flash.flash_attention``: on a CUDA card that is the hand-written
+kernel ``csrc/flash_fwd.cu``, and its gradient the kernels
+``flash_dq`` and ``flash_dkv`` of ``csrc/flash_bwd.cu``.  The one-token
+decode step attends to the cache with plain matrix products, as the JAX
+package does outside any kernel.
 
 Not in this slice (each raises ``NotImplementedError``): MoE FFNs,
-sequence parallelism, int8 weights, the paged serving builders, and
-training (the flash backward).
+sequence parallelism, int8 weights and the paged serving builders.
 """
 import math
 
@@ -103,7 +106,8 @@ class CausalSelfAttention(nn.Module):
         if kv_out is not None:
             kv_out.append((k, v))
         if kv != h:
-            # each kv group serves h/kv query heads
+            # each kv group serves h/kv query heads (autograd sums the
+            # groups' dk/dv over the repeated heads)
             k = k.repeat_interleave(h // kv, dim=2)
             v = v.repeat_interleave(h // kv, dim=2)
         out = flash_attention(_heads(q, b, l, h, dh),
@@ -160,6 +164,7 @@ class TransformerLM(nn.Module):
         kw = dict(device=context.resolve(device))
         self._d = d_model
         self._max_len = max_len
+        self._mlp_ratio = mlp_ratio
         self._pos_kind = pos
         self.embed = Embedding(vocab_size, d_model, **kw)
         if pos == "learned":
@@ -205,6 +210,21 @@ class TransformerLM(nn.Module):
         for blk in self.blocks:
             x = blk(x, kv_out)
         return x
+
+    def train_flops_per_token(self, seq_len):
+        """Matmul FLOPs per token of one forward + backward step (the
+        3x-forward rule), for MFU; the JAX model's count."""
+        d = self._d
+        mlp = 2 * 2 * d * self._mlp_ratio * d       # dense up + down
+        kvd = self.n_kv_heads * (d // self.n_heads)
+        att_span = min(seq_len, self.attn_window) \
+            if self.attn_window else seq_len
+        per_layer = (2 * d * (d + 2 * kvd)          # qkv (GQA-sized)
+                     + 2 * d * d                    # proj
+                     + 2 * 2 * att_span * d         # scores + att @ v
+                     + mlp)
+        vocab = self.head.weight.shape[0]
+        return 3 * (self.n_layers * per_layer + 2 * d * vocab)
 
     # ------------------------------------------------------------ decode
     def _decode_params(self):
@@ -273,7 +293,12 @@ class TransformerLM(nn.Module):
             return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
         wts = self._decode_params()     # no autograd: inference mode
-        caches, logits = self._prefill(prompt, total)
+        was_training = self.training
+        self.eval()                     # no dropout in the prefill
+        try:
+            caches, logits = self._prefill(prompt, total)
+        finally:
+            self.train(was_training)
         toks = torch.zeros((b, total), dtype=torch.int64,
                            device=self.device)
         toks[:, :p] = prompt

@@ -1,16 +1,18 @@
-"""Gluon basic layers the inference slice needs (twin of
+"""Gluon basic layers of the port (twin of
 ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``), as ``nn.Module``s
 with the JAX package's parameter names and layouts: ``Dense`` weight
 (units, in_units), ``Embedding`` weight (input_dim, output_dim),
 ``LayerNorm`` ``gamma``/``beta``.  Input widths are given up front
 (PyTorch's idiom) instead of inferred at the first call.  Parameters
-are float32, the dtype the model serves in.
+are float32: the dtype the model serves in, and the master weights a
+train step updates.
 """
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from ... import context
+from ... import random as _random
 
 __all__ = ["Dense", "Embedding", "LayerNorm", "Dropout"]
 
@@ -67,16 +69,25 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout: the identity at inference, the only mode this slice
-    runs.  Training-mode dropout comes with the training slice."""
+    """Inverted dropout: in training mode each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate); the identity in
+    ``eval()``.  The mask draws from ``random.current_generator``: the
+    generator the train step hands down through
+    ``random.key_provider``, else the package's default generator for
+    the input's device, never torch's global one."""
 
     def __init__(self, rate):
         super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
         self._rate = float(rate)
 
     def forward(self, x):
-        if self.training and self._rate > 0.0:
-            raise NotImplementedError(
-                "training-mode dropout is not ported yet; it comes with "
-                "the training slice (call .eval())")
-        return x
+        if not self.training or self._rate == 0.0:
+            return x
+        gen = _random.current_generator(x.device)
+        keep = torch.rand(x.shape, generator=gen, device=x.device) \
+            >= self._rate
+        return torch.where(keep, x / (1.0 - self._rate),
+                           torch.zeros((), dtype=x.dtype,
+                                       device=x.device))

@@ -1,16 +1,19 @@
-"""Flash attention forward on a hand-written Hopper kernel.
+"""Flash attention on hand-written Hopper kernels, forward and backward.
 
 Port of ``incubator_mxnet_tpu/ops/flash.py``: the Pallas TPU kernel
 ``_fwd_kernel`` becomes the CUDA kernel ``csrc/flash_fwd.cu`` (one
 block per (bh, 64-row query tile), an online-softmax loop over the key
-tiles of the band, fp32 accumulation; see the source's header).
+tiles of the band, fp32 accumulation), and ``_dq_kernel`` and
+``_dkv_kernel`` become ``flash_dq`` and ``flash_dkv`` in
+``csrc/flash_bwd.cu`` (one block per 64-row query tile and per 64-row
+key tile, P rebuilt from the forward's ``lse``; see the sources'
+headers).  ``_FlashAttention`` ties them together as the JAX op's
+``custom_vjp`` does.
 
-For a CUDA tensor, ``flash_attention`` launches the kernel or raises:
-there is no fallback.  For a CPU tensor it computes the plain version,
-``_reference_fwd``, which is also what the kernel is held against on
-the card.  The backward kernels (``_dq_kernel``/``_dkv_kernel``)
-belong to the training slice; until then a call that would need a
-gradient raises.
+For a CUDA tensor, ``flash_attention`` and its backward launch the
+kernels or raise: there is no fallback.  For a CPU tensor they compute
+the plain versions, ``_reference_fwd`` and ``_reference_bwd``, which
+are also what the kernels are held against on the card.
 """
 import ctypes
 import math
@@ -36,17 +39,68 @@ def _reference_fwd(q, k, v, causal, scale, window=0):
     (q_pos >= k_pos, both from 0); ``window > 0`` keeps keys
     (i - window, i].  Returns (o in q's dtype, lse (BH, Lq) fp32)."""
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
-    lq, lk = q.shape[1], k.shape[1]
-    qp = torch.arange(lq, device=q.device)[:, None]
-    kp = torch.arange(lk, device=q.device)[None, :]
-    if causal:
-        mask = qp >= kp
-        if window > 0:
-            mask &= (qp - kp) < window
-        s = torch.where(mask[None], s, torch.full_like(s, _NEG))
+    keep = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep[None], s, torch.full_like(s, _NEG))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype), lse
+
+
+def _mask(lq, lk, causal, window, device):
+    """(Lq, Lk) bool of the pairs the mask keeps, or None (all)."""
+    if not causal:
+        return None
+    qp = torch.arange(lq, device=device)[:, None]
+    kp = torch.arange(lk, device=device)[None, :]
+    keep = qp >= kp
+    if window > 0:
+        keep &= (qp - kp) < window
+    return keep
+
+
+def _delta(g, o):
+    """rowsum(g * o) in fp32, (BH, Lq): computed outside the backward
+    kernels, as the JAX package's ``_flash_bwd`` does."""
+    return (g.float() * o.float()).sum(-1)
+
+
+def _reference_p_ds(q, k, v, g, lse, delta, causal, scale, window):
+    """The backward's P-rebuild recipe in fp32 (the JAX package's
+    ``_dq_kernel`` / ``_dkv_kernel`` body): p = exp(s - lse), zero
+    where masked; ds = p * (g v^T - delta) * scale."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    p = torch.exp(s - lse[..., None])
+    keep = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    if keep is not None:
+        p = p.masked_fill(~keep[None], 0.0)
+    dp = torch.matmul(g.float(), v.float().transpose(1, 2))
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def _reference_dq(q, k, v, g, lse, delta, causal, scale, window=0):
+    """Plain version of ``flash_dq``: dq = ds k, in q's dtype."""
+    _, ds = _reference_p_ds(q, k, v, g, lse, delta, causal, scale, window)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def _reference_dkv(q, k, v, g, lse, delta, causal, scale, window=0):
+    """Plain version of ``flash_dkv``: dk = ds^T q, dv = p^T g, in k's
+    and v's dtypes."""
+    p, ds = _reference_p_ds(q, k, v, g, lse, delta, causal, scale, window)
+    dk = torch.matmul(ds.transpose(1, 2), q.float())
+    dv = torch.matmul(p.transpose(1, 2), g.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _reference_bwd(q, k, v, o, lse, g, causal, scale, window=0):
+    """Plain PyTorch attention backward in fp32, the kernels' oracle:
+    (dq, dk, dv) from the forward's o and lse and the output gradient
+    g, in q's, k's and v's dtypes."""
+    delta = _delta(g, o)
+    dq = _reference_dq(q, k, v, g, lse, delta, causal, scale, window)
+    return (dq,) + _reference_dkv(q, k, v, g, lse, delta, causal, scale,
+                                  window)
 
 
 # ---------------------------------------------------------------- bands
@@ -62,6 +116,22 @@ def _k_tile_range(iq, lq, lk, causal, window, bq=BQ, bk=BK):
         return 0, nk
     stop = min(nk, (min((iq + 1) * bq, lq) - 1) // bk + 1)
     first = max(0, iq * bq - window + 1) // bk if window > 0 else 0
+    return first, stop
+
+
+def _q_tile_range(jk, lq, lk, causal, window, bq=BQ, bk=BK):
+    """[first, stop) of the query tiles that k-tile jk visits, exactly
+    as ``flash_dkv`` in csrc/flash_bwd.cu computes it: from the causal
+    diagonal to the end of the window band.  Empty (first == stop) for
+    a key tile past the last query (causal, Lk > Lq)."""
+    nq = -(-lq // bq)
+    if not causal:
+        return 0, nq
+    first = min(nq, jk * bk // bq)
+    stop = nq
+    if window > 0:
+        stop = min(nq, (min((jk + 1) * bk, lk) - 1 + window - 1) // bq
+                   + 1)
     return first, stop
 
 
@@ -87,12 +157,6 @@ def _check_args(q, k, v, causal, window):
             "window > 0 requires self-attention shapes (lq == lk); "
             f"got lq={q.shape[1]}, lk={k.shape[1]} — a query past "
             "the key horizon would have an empty key set")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet (the _dq/_dkv kernels "
-            "come with the training slice); call it under "
-            "torch.no_grad() or torch.inference_mode()")
 
 
 _SIGNATURES = {
@@ -100,25 +164,38 @@ _SIGNATURES = {
                       + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "mxt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+_BWD_SIGNATURES = {
+    "mxt_flash_dq": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "mxt_flash_dkv": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                      + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "mxt_flash_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def _check_kernel_args(q, *others):
+    """What the kernels take: one device and dtype (float32 or
+    bfloat16), head dim in HEAD_DIMS, contiguous tensors."""
+    for t in others:
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError("q, k, v (and g) must share device and "
+                             "dtype")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head dim {HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    if not all(t.is_contiguous() for t in (q,) + others):
+        raise ValueError("flash kernel takes contiguous q, k, v (and g)")
 
 
 def _launch(q, k, v, causal, scale, window):
     """Run csrc/flash_fwd.cu on CUDA tensors; raises on what the
     kernel does not take or on a failed launch."""
-    for t in (k, v):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError("q, k, v must share device and dtype")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash kernel takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+    _check_kernel_args(q, k, v)
     bh, lq, d = q.shape
     lk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dim {HEAD_DIMS}, "
-                         f"got {d}")
-    if not (q.is_contiguous() and k.is_contiguous()
-            and v.is_contiguous()):
-        raise ValueError("flash kernel takes contiguous q, k, v")
     o = torch.empty_like(q)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_fwd", _SIGNATURES)
@@ -135,6 +212,85 @@ def _launch(q, k, v, causal, scale, window):
     return o, lse
 
 
+def _raise_bwd(lib, name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.mxt_flash_bwd_error_string(rc).decode())
+
+
+def _check_bwd_args(q, k, v, g, lse, delta):
+    """What the backward kernels take: ``_check_kernel_args`` for q, k,
+    v and g, and lse and delta as contiguous fp32 (BH, Lq)."""
+    _check_kernel_args(q, k, v, g)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != q.shape[:2] \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous fp32 "
+                             f"{tuple(q.shape[:2])} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _launch_dq(q, k, v, g, lse, delta, causal, scale, window):
+    """Run ``flash_dq`` (csrc/flash_bwd.cu) on CUDA tensors; returns dq
+    in q's dtype."""
+    _check_bwd_args(q, k, v, g, lse, delta)
+    bh, lq, d = q.shape
+    dq = torch.empty_like(q)
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mxt_flash_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, lq,
+            k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal), window,
+            scale, stream)
+    _raise_bwd(lib, "flash_dq", rc)
+    _build.LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, g, lse, delta, causal, scale, window):
+    """Run ``flash_dkv`` (csrc/flash_bwd.cu) on CUDA tensors; returns
+    (dk, dv) in k's and v's dtype."""
+    _check_bwd_args(q, k, v, g, lse, delta)
+    bh, lq, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mxt_flash_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bh, lq, k.shape[1], d, _DTYPE_CODES[q.dtype],
+            int(causal), window, scale, stream)
+    _raise_bwd(lib, "flash_dkv", rc)
+    _build.LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, o, lse, g, causal, scale, window):
+    """The backward on CUDA tensors: delta with plain torch ops, then
+    ``flash_dq`` and ``flash_dkv``, each of which raises on what it does
+    not take before its library is loaded."""
+    delta = _delta(g, o)
+    dq = _launch_dq(q, k, v, g, lse, delta, causal, scale, window)
+    return (dq,) + _launch_dkv(q, k, v, g, lse, delta, causal, scale,
+                               window)
+
+
+def _prepare(q, k, v, causal, scale, window):
+    causal = bool(causal)
+    window = int(window)
+    _check_args(q, k, v, causal, window)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None \
+        else float(scale)
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return causal, scale, window
+
+
 def flash_attention_fwd(q, k, v, causal=True, scale=None, window=0):
     """Tiled online-softmax attention.  q (BH, Lq, D), k/v (BH, Lk, D).
 
@@ -142,21 +298,44 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, window=0):
     residual the backward rebuilds P from.  ``window > 0`` (requires
     ``causal`` and Lq == Lk): query i sees keys (i - window, i].
     CUDA tensors run the kernel (float32 or bfloat16, D in 32/64/128,
-    any L); CPU tensors run the plain version.
+    any L); CPU tensors run the plain version.  No gradient flows
+    through it: ``flash_attention`` is the differentiable op.
     """
-    causal = bool(causal)
-    window = int(window)
-    _check_args(q, k, v, causal, window)
-    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None \
-        else float(scale)
+    causal, scale, window = _prepare(q, k, v, causal, scale, window)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale, window)
-    if q.device.type == "cpu":
-        return _reference_fwd(q, k, v, causal, scale, window)
-    raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                     f"{q.device}")
+    return _reference_fwd(q, k, v, causal, scale, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward saves (q, k,
+    v, o, lse), and the backward rebuilds P from them: ``flash_dq`` and
+    ``flash_dkv`` for CUDA tensors, ``_reference_bwd`` for CPU ones
+    (the JAX op's ``custom_vjp``, ``_flash_vjp_fwd`` /
+    ``_flash_vjp_bwd``).  Takes the arguments ``_prepare`` returns."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = _launch_bwd if q.device.type == "cuda" else _reference_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, g.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, scale=None, window=0):
-    """``flash_attention_fwd``'s output alone (the JAX op's surface)."""
+    """Attention output (the JAX op's surface), differentiable in q, k
+    and v.  Under autograd it saves what the backward kernels need;
+    otherwise (inference) it runs the forward alone and saves
+    nothing."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        args = _prepare(q, k, v, causal, scale, window)
+        return _FlashAttention.apply(q, k, v, *args)
     return flash_attention_fwd(q, k, v, causal, scale, window)[0]

@@ -1,12 +1,15 @@
 """The port's flash attention (incubator_mxnet_tpu_torch/ops/flash.py)
-against the JAX package's (incubator_mxnet_tpu/ops/flash.py).
+against the JAX package's (incubator_mxnet_tpu/ops/flash.py), forward
+and backward.
 
-On the CPU the port's wrapper runs its plain version; the JAX side runs
-its Pallas kernel in interpret mode, or its reference path where the
-128-tiling does not cover the shape.  Tolerance 2e-5, as the JAX
-package's own flash tests use.  The kernel's loop bounds (which key
-tiles each query tile visits, ``_k_tile_range``) are held against the
-JAX kernel's band helpers and against the mask itself.
+On the CPU the port's wrappers run their plain versions; the JAX side
+runs its Pallas kernels in interpret mode, or its reference path where
+the 128-tiling does not cover the shape.  Forward tolerance 2e-5, as the
+JAX package's own flash tests use; gradients 1e-4, since they sum
+products over every key and query in another order.  The kernels' loop
+bounds (which key tiles each query tile visits, ``_k_tile_range``, and
+which query tiles each key tile visits, ``_q_tile_range``) are held
+against the JAX kernels' band helpers and against the mask itself.
 """
 import math
 
@@ -15,12 +18,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from incubator_mxnet_tpu.ops import flash as jflash  # noqa: E402
 from incubator_mxnet_tpu_torch.ops import flash as tflash  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _inputs(bh, lq, d, lk=None, seed=0):
@@ -91,8 +96,12 @@ def test_argument_errors():
         tflash.flash_attention(q, k, torch.zeros(1, 16, 16))
     with pytest.raises(ValueError, match=r"\(BH, L, D\)"):
         tflash.flash_attention(q[0], k[0], v[0])
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tflash.flash_attention(q.requires_grad_(), k, v)
+    # gradients flow (through _FlashAttention and its plain backward)
+    qg = q.clone().requires_grad_()
+    (dq,) = torch.autograd.grad(tflash.flash_attention(qg, k, v).sum(),
+                                (qg,))
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
+    assert float(dq.abs().max()) > 0
     with pytest.raises(ValueError, match="cuda or cpu"):
         tflash.flash_attention(*(t.to("meta") for t in (k, k, v)))
 
@@ -160,3 +169,163 @@ def test_kernel_tile_range_covers_exactly_the_kept_pairs(causal, window):
                     if rows[:, jk * bk:(jk + 1) * bk].any()}
             first, stop = tflash._k_tile_range(iq, lq, lk, causal, window)
             assert set(range(first, stop)) == live, (lq, lk, iq)
+
+
+def test_bwd_kernel_wrapper_refuses_what_the_kernels_do_not_take():
+    # checked before the library is loaded, so no card is needed
+    x = torch.zeros(2, 64, 64)
+    lse = torch.zeros(2, 64)
+
+    def bwd(q, k, v, g, lse=lse):
+        return tflash._launch_bwd(q, k, v, q, lse, g, True, 0.1, 0)
+
+    h = x.half()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bwd(h, h, h, h)
+    y = torch.zeros(2, 64, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        bwd(y, y, y, y)
+    nc = torch.zeros(64, 2, 64).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(x, x, x, nc)
+    with pytest.raises(ValueError, match="share device and dtype"):
+        bwd(x, x, x, x.bfloat16())
+    with pytest.raises(ValueError, match="lse must be"):
+        bwd(x, x, x, x, lse.double())
+    with pytest.raises(ValueError, match="delta must be"):
+        tflash._launch_dkv(x, x, x, x, lse, lse[:, :8], True, 0.1, 0)
+
+
+def test_inference_saves_nothing_training_saves_the_residuals():
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _inputs(1, 16, 32))
+    with torch.no_grad():
+        assert tflash.flash_attention(q, k, v).grad_fn is None
+    out = tflash.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+
+
+# ------------------------------------------------------------ backward
+
+def _grads_port(arrs, g, **kw):
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs)
+    o = tflash.flash_attention(q, k, v, **kw)
+    return [t.numpy() for t in torch.autograd.grad(
+        o, (q, k, v), torch.from_numpy(g))]
+
+
+def _grads_autograd_reference(arrs, g, causal, scale, window=0):
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs)
+    o, _ = tflash._reference_fwd(q, k, v, causal, scale, window)
+    return [t.numpy() for t in torch.autograd.grad(
+        o, (q, k, v), torch.from_numpy(g))]
+
+
+def _grads_jax_kernel(arrs, g, causal, scale, window=0):
+    """The Pallas forward and backward kernels, interpret mode."""
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    o, lse = jflash._flash_fwd(jq, jk, jv, causal, scale, True, window)
+    return [np.asarray(t) for t in jflash._flash_bwd(
+        jq, jk, jv, o, lse, jnp.asarray(g), causal, scale, True, window)]
+
+
+def _check_grads(arrs, causal, window=0, seed=10):
+    g = np.random.RandomState(seed).normal(
+        0, 1, arrs[0].shape).astype(np.float32)
+    scale = 1.0 / math.sqrt(arrs[0].shape[-1])
+    got = _grads_port(arrs, g, causal=causal, window=window)
+    for ref in (_grads_jax_kernel(arrs, g, causal, scale, window),
+                _grads_autograd_reference(arrs, g, causal, scale,
+                                          window)):
+        for name, a, b in zip("dq dk dv".split(), got, ref):
+            np.testing.assert_allclose(a, b, err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("l", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_matches_jax_kernel(causal, l):
+    _check_grads(_inputs(2, l, 64, seed=4), causal)
+
+
+def test_bwd_window_matches_jax_kernel():
+    _check_grads(_inputs(2, 256, 32, seed=5), True, window=64)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_lq_ne_lk_matches_jax_kernel(causal):
+    _check_grads(_inputs(2, 128, 32, lk=256, seed=6), causal)
+
+
+def test_bwd_ragged_length_matches_jax_reference_path():
+    # L=200 is not 128-divisible: the JAX op takes its reference path,
+    # and jax.vjp differentiates that
+    arrs = _inputs(2, 200, 64, seed=7)
+    g = np.random.RandomState(8).normal(0, 1, arrs[0].shape) \
+        .astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jflash.flash_attention(
+        q, k, v, causal=True, scale=0.3, interpret=True),
+        *(jnp.asarray(a) for a in arrs))
+    ref = vjp(jnp.asarray(g))
+    got = _grads_port(arrs, g, causal=True, scale=0.3)
+    for name, a, b in zip("dq dk dv".split(), got, ref):
+        np.testing.assert_allclose(a, np.asarray(b), err_msg=name,
+                                   **GRAD_TOL)
+
+
+def test_bwd_causal_keys_past_the_last_query_get_zero_gradient():
+    # causal, Lk > Lq: keys past the last query are seen by no query
+    arrs = _inputs(2, 64, 32, lk=200, seed=9)
+    g = np.ones(arrs[0].shape, np.float32)
+    _, dk, dv = _grads_port(arrs, g, causal=True)
+    assert not dk[:, 64:].any() and not dv[:, 64:].any()
+    assert dk[:, :64].any() and dv[:, :64].any()
+
+
+def test_q_band_helpers_match_jax():
+    # flash_dkv's loop bounds, at the JAX kernel's 128-tiles: the query
+    # tiles its banded grid visits (_band_nj/_band_q_index) and the ones
+    # it keeps live (_block_live)
+    for l in (128, 256, 512, 1024):
+        nq = l // 128
+        for window in (0, 1, 64, 127, 128, 129, 300):
+            nj = jflash._band_nj(window, 128, 128, nq) if window else nq
+            for jk in range(nq):
+                first, stop = tflash._q_tile_range(jk, l, l, True, window,
+                                                   128, 128)
+                live = {iq for iq in range(nq) if bool(jflash._block_live(
+                    iq, jk, 128, 128, True, window))}
+                if window:
+                    visited = set()
+                    for j in range(nj):
+                        iq, valid = jflash._band_q_index(
+                            jk, j, 128, 128, nq, window)
+                        if valid:
+                            visited.add(int(iq))
+                    assert visited == live, (l, window, jk)
+                assert set(range(first, stop)) == live, (l, window, jk)
+
+
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0),
+                                           (True, 1), (True, 16),
+                                           (True, 64), (True, 100)])
+def test_kernel_q_tile_range_covers_exactly_the_kept_pairs(causal, window):
+    # at the CUDA kernel's 64-tiles, ragged lengths and lq != lk
+    bq, bk = tflash.BQ, tflash.BK
+    shapes = [(1, 1), (63, 63), (64, 64), (65, 65), (200, 200),
+              (257, 257)]
+    if not window:
+        shapes += [(64, 200), (200, 64), (130, 257), (1, 130)]
+    for lq, lk in shapes:
+        qp = np.arange(lq)[:, None]
+        kp = np.arange(lk)[None, :]
+        keep = np.ones((lq, lk), bool)
+        if causal:
+            keep = qp >= kp
+            if window:
+                keep &= qp - kp < window
+        for jk in range(math.ceil(lk / bk)):
+            cols = keep[:, jk * bk:(jk + 1) * bk]
+            live = {iq for iq in range(math.ceil(lq / bq))
+                    if cols[iq * bq:(iq + 1) * bq].any()}
+            first, stop = tflash._q_tile_range(jk, lq, lk, causal, window)
+            assert set(range(first, stop)) == live, (lq, lk, jk)

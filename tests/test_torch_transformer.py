@@ -149,12 +149,18 @@ def test_features_outside_the_slice_raise():
         TransformerLM(VOCAB, **CFG, moe_experts=2, device="cpu")
     with pytest.raises(NotImplementedError, match="seq_parallel"):
         TransformerLM(VOCAB, **CFG, seq_parallel=True, device="cpu")
+    # training-mode dropout is in the slice now: it runs, and generate's
+    # prefill leaves it out
     net = _port_only(dropout=0.1)
     toks = torch.from_numpy(_tokens(1, 4))
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError, match="dropout"):
-            net(toks)
-        assert net.eval()(toks).shape == (1, 4, VOCAB)
+        assert net(toks).shape == (1, 4, VOCAB)
+        ref = net.eval()(toks)
+    net.train()
+    np.testing.assert_array_equal(
+        net.generate(toks, 1).numpy()[:, -1],
+        ref[:, -1].argmax(-1).numpy())
+    assert net.training
 
 
 _FORBIDDEN = ("jax", "jaxlib", "incubator_mxnet_tpu")
