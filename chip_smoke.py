@@ -31,6 +31,20 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                finite and falling, masters fp32, and each step ran
                flash_fwd, flash_dq and flash_dkv once per layer; (iii)
                step ms, tokens/s, MFU, peak memory and a profile.
+7. rtc         the user-kernel path (rtc_examples.py): builds the four
+               CUDA twins of the Pallas user kernels through
+               rtc.compile_kernel (ptxas report), holds each against
+               its plain version at the JAX test's shape and at fp32
+               (8192, 4096), and times kernel, plain version, library
+               call and bound; drives each twin through nd and
+               autograd (rtc_ops); runs the example's eager loop grown
+               to an SGD step at full width, x (8192, 1024) . w (1024,
+               4096) through scale_shift_relu against t (8192, 4096),
+               5 steps (rtc_train): losses finite and falling, one
+               fused_scale_shift_relu launch per step, and one step's
+               loss and gradient equal the CPU's plain path; times the
+               host cost of an eager call; and checks that
+               nd._internal._flash_attention launches flash_fwd.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -202,6 +216,16 @@ _KERNEL_NAME = re.compile(
     r"(flash_[a-z]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E")
 
 
+def _demangle(mangled):
+    """The function name of a mangled C++ name (``_Z5scalePKfPffx`` ->
+    ``scale``); anything else unchanged."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    return mangled[start:start + int(m.group(1))]
+
+
 def ptxas_report(log):
     """{kernel<dtype, D>: {"registers", "spill_stores", "spill_loads"}}
     from nvcc's -Xptxas -v output."""
@@ -213,7 +237,7 @@ def ptxas_report(log):
                 dt = "bf16" if "bfloat16" in m.group(2) else "f32"
                 name = f"{m.group(1)}<{dt},{m.group(3)}>"
             else:
-                name = ln.split("'")[1]
+                name = _demangle(ln.split("'")[1])
             out[name] = {}
         elif name is not None and "spill stores" in ln:
             nums = re.findall(r"(\d+) bytes spill (stores|loads)", ln)
@@ -633,6 +657,277 @@ def phase_train(mt, torch, net, card):
     return counts
 
 
+# ------------------------------------------------------------------ rtc
+# The user-kernel path: the four Pallas user kernels' CUDA twins
+# (incubator_mxnet_tpu_torch/rtc_examples.py, csrc/rtc/*.cu) built
+# through rtc.compile_kernel, and the eager loop of
+# examples/custom_pallas_kernel.py grown to an SGD step at full width.
+RTC_FULL = (8192, 4096)          # B*L = 8 x 1024 rows by the MLP width
+RTC_X = (8192, 1024)             # the path's x; w is (1024, 4096)
+RTC_STEPS = 5
+RTC_LR = 100.0                   # the loss is a mean over 33.5M entries
+RTC_ALPHA, RTC_BETA = 2.0, 0.5   # the example's parameters
+# (kernel, test shape and params (the JAX test's own), full-width params;
+# alpha 1.7 is no power of two, so an FMA differs from two roundings)
+RTC_CASES = (
+    ("scale", (2, 3), dict(alpha=3.0), dict(alpha=1.7)),
+    ("addone", (32, 16), {}, {}),
+    ("fused_scale_shift_relu", (3, 4), dict(alpha=2.0, beta=0.5),
+     dict(alpha=1.7, beta=0.3)),
+    ("scale_shift", (256, 256), dict(alpha=2.0, beta=-1.0),
+     dict(alpha=1.7, beta=0.3)))
+RTC_REPLACES = {
+    "scale": "tests/test_rtc.py:20",
+    "addone": "tests/test_rtc.py:93",
+    "fused_scale_shift_relu": "examples/custom_pallas_kernel.py:27",
+    "scale_shift": "tools/flash_compile_check.py:90"}
+DISPATCH_CALLS = 1000
+
+
+def rtc_within_tol(name, x, got, ref, params):
+    """scale and addone round once in both versions: equal bit for bit.
+    x * alpha + beta is one FMA on the card and two roundings in the
+    plain version: within 2 ulp of |x * alpha| + |beta|, which bounds
+    the gap even where the sum cancels.  Returns the worst |error| over
+    its allowance (0 when equal)."""
+    diff = (got - ref).abs()
+    if name in ("scale", "addone"):
+        return math.inf if bool((diff != 0).any()) else 0.0
+    import torch
+    terms = (x * params["alpha"]).abs() + abs(params["beta"])
+    ulp = torch.nextafter(terms, torch.full_like(terms, math.inf)) - terms
+    return (diff / (2 * ulp)).max().item()
+
+
+def rtc_library_call(name, x, params, torch):
+    """One PyTorch call that computes the same function, or None."""
+    if name == "scale":
+        return lambda: torch.mul(x, params["alpha"])
+    if name == "addone":
+        return lambda: torch.add(x, 1.0)
+    if name == "scale_shift":       # beta + alpha * x, broadcast
+        beta = torch.tensor(params["beta"], device=x.device)
+        return lambda: torch.add(beta, x, alpha=params["alpha"])
+    return None                     # no single call fuses relu(ax + b)
+
+
+def rtc_kernel_checks(ex, torch):
+    """Build the four twins (one nvcc each, all together) and hold each
+    against its plain version at the JAX test's shape and at full
+    width; time kernel, plain version and library call at full width."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(ex.NAMES)) as pool:
+        built = dict(zip(ex.NAMES, pool.map(
+            lambda n: ex.kernel(n).build(), ex.NAMES)))
+    build_s = time.perf_counter() - t0
+    ptxas = {}
+    for b in built.values():
+        ptxas.update(ptxas_report(b["log"]))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 20)
+    rows, entries = [], {}
+    for name, shape, params, full_params in RTC_CASES:
+        fn, plain = ex.kernel(name), ex.reference(name)
+        row = {"name": name}
+        for tag, shp, prm in (("test", shape, params),
+                              ("full", RTC_FULL, full_params)):
+            x = torch.randn(shp, generator=gen, device="cuda")
+            got, ref = fn(x, **prm), plain(x, **prm)
+            torch.cuda.synchronize()
+            worst = rtc_within_tol(name, x, got, ref, prm)
+            row[f"{tag}_shape"] = list(shp)
+            row[f"{tag}_max_abs_err"] = (got - ref).abs().max().item()
+            row[f"{tag}_worst_over_tol"] = worst
+            check(worst <= 1.0, f"{name} disagrees with its plain "
+                                f"version at {shp}: {row}")
+        nbytes = 2 * x.numel() * 4          # read x, write o, once each
+        flops = x.numel() * (2 if "beta" in prm else 1)
+        row["ms"] = time_ms(lambda: fn(x, **prm), torch)
+        row["plain_ms"] = time_ms(lambda: plain(x, **prm), torch)
+        lib = rtc_library_call(name, x, prm, torch)
+        row["library_ms"] = time_ms(lib, torch) if lib else None
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, "float32")
+        row["gbytes_per_s"] = nbytes / row["ms"] / 1e6
+        rows.append(row)
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"incubator_mxnet_tpu_torch/csrc/rtc/{name}.cu",
+            "replaces": RTC_REPLACES[name], "launches": None,
+            "max_abs_err": row["full_max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": list(RTC_FULL), "dtype": "float32",
+            "tol": "bit-exact" if name in ("scale", "addone")
+                   else "2 ulp of |x*alpha|+|beta|"}
+        del x, got, ref
+    return {"build_seconds": build_s, "ptxas": ptxas, "cases": rows}, \
+        entries
+
+
+def rtc_plain_grad(x, w, t, torch):
+    """The path's loss gradient by the plain formula (any dtype)."""
+    w = w.clone().requires_grad_()
+    z = RTC_ALPHA * (x @ w) + RTC_BETA
+    loss = ((torch.relu(z) - t) ** 2).mean()
+    return torch.autograd.grad(loss, w)[0]
+
+
+def rtc_cpu_check(mt, ex, torch, data):
+    """One step of the path on the card against the same step on the
+    CPU's plain path (fp32, TF32 off).  Loss: rel 1e-5.  Gradient
+    (relative norm): the ReLU mask flips where alpha*x.w + beta is
+    within rounding of 0, and each flip moves the gradient by a whole
+    entry's share; fp32 against float64 already differs by ~9e-5 at
+    this shape for that reason.  So the card's gradient must be within
+    max(1e-4, 3 x that floor), measured in this run."""
+    x, w0, t = data
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xn, wn, tn = (mt.nd.array(a, ctx=dev) for a in (x, w0, t))
+        wn.attach_grad()
+        loss = ex.train_step(xn, wn, tn, RTC_LR, RTC_ALPHA, RTC_BETA)
+        out[dev] = (float(loss.asnumpy()), wn.grad.handle.cpu())
+    g64 = rtc_plain_grad(*(a.cuda().double() for a in (x, w0, t)),
+                         torch).cpu()
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    floor = rel(out["cpu"][1], g64)
+    grad_tol = max(1e-4, 3 * floor)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = rel(out["cuda"][1], out["cpu"][1])
+    check(loss_rel <= 1e-5, f"rtc path: card vs CPU loss rel err "
+                            f"{loss_rel} > 1e-5")
+    check(grad_rel <= grad_tol, f"rtc path: card vs CPU gradient rel err "
+                                f"{grad_rel} > {grad_tol} (floor {floor})")
+    return {"loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
+            "loss_rel_err": loss_rel, "loss_tol": 1e-5,
+            "grad_rel_err": grad_rel, "grad_tol": grad_tol,
+            "fp32_vs_fp64_floor": floor}
+
+
+def rtc_dispatch(mt, ex, torch):
+    """Host cost of one eager call on a (4, 4) CUDA array, in us: a
+    registered op through nd, the bare torch op, an rtc kernel through
+    nd and its compile_kernel callable alone."""
+    a = mt.nd.ones((4, 4))
+    t = a.handle
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DISPATCH_CALLS * 1e6
+
+    fn = ex.kernel("scale")
+    return {"shape": [4, 4], "calls": DISPATCH_CALLS,
+            "nd_relu_us": per_call(lambda: mt.nd.relu(a)),
+            "torch_relu_us": per_call(lambda: torch.relu(t)),
+            "nd_rtc_scale_us": per_call(
+                lambda: mt.nd.rtc_scale(a, alpha=2.0)),
+            "compile_kernel_scale_us": per_call(
+                lambda: fn(t, alpha=2.0)),
+            "torch_mul_us": per_call(lambda: torch.mul(t, 2.0))}
+
+
+def rtc_ops_path(mt, ex, torch):
+    """Each twin through the user surface at full width, as its JAX
+    home uses it: scale registered with its VJP and differentiated
+    through nd and autograd (tests/test_rtc.py), addone and scale_shift
+    called as compile_kernel callables (tests/test_rtc.py:107,
+    tools/flash_compile_check.py:102).  Returns the launch counts."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    x = mt.nd.NDArray(torch.randn(RTC_FULL, generator=gen, device="cuda"))
+    x.attach_grad()
+    mt.ops.reset_launches()
+    with mt.autograd.record():                       # the main path
+        y = mt.nd.rtc_scale(x, alpha=3.0)
+    y.backward()
+    ex.kernel("addone")(x.handle.detach())
+    ex.kernel("scale_shift")(x.handle.detach(), alpha=2.0, beta=-1.0)
+    torch.cuda.synchronize()
+    counts = {n: mt.ops.LAUNCHES[n] for n in ("scale", "addone",
+                                             "scale_shift")}
+    check(all(n == 1 for n in counts.values()),
+          f"rtc ops path launched {counts}, not one each")
+    check(bool((x.grad.handle == 3.0).all()), "rtc_scale's VJP")
+    return counts
+
+
+def phase_rtc(mt, torch):
+    from incubator_mxnet_tpu_torch import rtc_examples as ex
+
+    kernels, entries = rtc_kernel_checks(ex, torch)
+    ex.register_scale_shift_relu()
+    fwd, bwd = ex.scale_vjp()
+    mt.rtc.register("rtc_scale", ex.kernel("scale"), arg_names=["data"],
+                    vjp=(fwd, bwd))
+    ops_counts = rtc_ops_path(mt, ex, torch)
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(RTC_X, generator=gen)
+    w0 = torch.randn(RTC_X[1], RTC_FULL[1], generator=gen) \
+        / math.sqrt(RTC_X[1])
+    t = torch.randn(RTC_FULL, generator=gen)
+    cpu_check = rtc_cpu_check(mt, ex, torch, (x, w0, t))
+    xn, wn, tn = (mt.nd.array(a) for a in (x, w0, t))   # None: the card
+    wn.attach_grad()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.ops.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(RTC_STEPS):                           # the main path
+        t0 = time.perf_counter()
+        loss = ex.train_step(xn, wn, tn, RTC_LR, RTC_ALPHA, RTC_BETA)
+        losses.append(float(loss.asnumpy()))             # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    n = mt.ops.LAUNCHES["fused_scale_shift_relu"]
+    peak = torch.cuda.max_memory_allocated()
+    check(n == RTC_STEPS, f"rtc path launched fused_scale_shift_relu {n} "
+                          f"times in {RTC_STEPS} steps")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"rtc path loss did not fall: {losses}")
+    prof = profile(lambda: ex.train_step(xn, wn, tn, RTC_LR, RTC_ALPHA,
+                                         RTC_BETA), torch)
+    dispatch = rtc_dispatch(mt, ex, torch)
+    # the registered flash op on CUDA arrays
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    q, k, v = (torch.randn(2, 128, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    mt.ops.reset_launches()
+    o = mt.nd._internal._flash_attention(*(mt.nd.NDArray(a)
+                                           for a in (q, k, v)))
+    torch.cuda.synchronize()
+    nd_flash = mt.ops.LAUNCHES["flash_fwd"]
+    ref, _ = mt.ops.flash._reference_fwd(q, k, v, True, 1 / 8.0)
+    err = (o.handle - ref).abs().max().item()
+    check(nd_flash == 1, f"nd._flash_attention launched flash_fwd "
+                         f"{nd_flash} times")
+    check(err <= TOL["float32"] * (1 + ref.abs().max().item()),
+          f"nd._flash_attention err {err}")
+    emit({"phase": "rtc", "kernels": kernels, "cpu_check": cpu_check,
+          "x": list(RTC_X), "w": [RTC_X[1], RTC_FULL[1]],
+          "t": list(RTC_FULL), "lr": RTC_LR, "alpha": RTC_ALPHA,
+          "beta": RTC_BETA, "steps": RTC_STEPS, "losses": losses,
+          "step_ms": step_ms, "peak_memory_bytes": peak,
+          "launches": {"rtc_train": n, "rtc_ops": ops_counts},
+          "profile": prof, "dispatch": dispatch,
+          "nd_flash_attention": {"shape": [2, 128, 64], "launches":
+                                 nd_flash, "max_abs_err": err}})
+    entries["fused_scale_shift_relu"]["launches_by_path"] = {
+        "rtc_train": n}
+    for name, c in ops_counts.items():
+        entries[name]["launches_by_path"] = {"rtc_ops": c}
+    return [entries[n] for n in ex.NAMES], nd_flash
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -672,13 +967,16 @@ def main():
         serve_launches = timed("serve", phase_serve, mt, torch, net)
         train_launches = timed("train", phase_train, mt, torch, net,
                                card)
+        del net
+        rtc_entries, nd_flash = timed("rtc", phase_rtc, mt, torch)
         emit({"phase_seconds": seconds})
         entry["launches_by_path"] = {"forward": fwd_launches,
                                      "serve": serve_launches,
-                                     "train": train_launches["flash_fwd"]}
+                                     "train": train_launches["flash_fwd"],
+                                     "nd": nd_flash}
         for e in bwd_entries:
             e["launches_by_path"] = {"train": train_launches[e["name"]]}
-        for e in [entry] + bwd_entries:
+        for e in [entry] + bwd_entries + rtc_entries:
             e["launches"] = sum(
                 n if isinstance(n, int) else sum(n)
                 for n in e["launches_by_path"].values())
@@ -686,7 +984,7 @@ def main():
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(card)
-    emit({"kernels": [entry] + bwd_entries})
+    emit({"kernels": [entry] + bwd_entries + rtc_entries})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -7,6 +7,11 @@
 ``head``.  Both packages keep the same layouts (Dense weights are
 (out, in)), so each array is copied as it is.  This module imports
 neither JAX nor the JAX package: it reads plain arrays.
+
+Arrays of the ``nd`` surface need no function here: they cross between
+the packages as numpy arrays (``nd.array(x.asnumpy(), ctx=...)``),
+through DLPack (``nd.from_dlpack``), or as files, since ``nd.save`` and
+``nd.load`` keep the JAX package's npz format.
 """
 import numpy as np
 import torch

@@ -10,6 +10,10 @@ key tile, P rebuilt from the forward's ``lse``; see the sources'
 headers).  ``_FlashAttention`` ties them together as the JAX op's
 ``custom_vjp`` does.
 
+The op is registered as ``_flash_attention`` (``nd._internal``), the JAX
+op's name, with its parameters less ``interpret``, which picks the
+Pallas interpreter and has no counterpart here.
+
 For a CUDA tensor, ``flash_attention`` and its backward launch the
 kernels or raise: there is no fallback.  For a CPU tensor they compute
 the plain versions, ``_reference_fwd`` and ``_reference_bwd``, which
@@ -21,6 +25,7 @@ import math
 import torch
 
 from . import _build
+from .registry import defop
 
 __all__ = ["flash_attention", "flash_attention_fwd"]
 
@@ -339,3 +344,12 @@ def flash_attention(q, k, v, causal=True, scale=None, window=0):
         args = _prepare(q, k, v, causal, scale, window)
         return _FlashAttention.apply(q, k, v, *args)
     return flash_attention_fwd(q, k, v, causal, scale, window)[0]
+
+
+@defop("_flash_attention")
+def _flash_attention_op(q, k, v, causal=True, scale=None, window=0):
+    """Registry surface of :func:`flash_attention` (q/k/v: (BH, L, D));
+    on CUDA arrays it launches ``flash_fwd`` (and, under autograd, the
+    backward kernels)."""
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           window=window)

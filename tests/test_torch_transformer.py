@@ -170,9 +170,21 @@ def _forbidden(name):
     return name.split(".")[0] in _FORBIDDEN
 
 
+# modules of each slice that the walk below must reach
+_SLICE_MODULES = ("ops.flash", "gluon.model_zoo.transformer",
+                  "parallel.data_parallel", "ops.registry", "ops.elemwise",
+                  "ops.reduce", "ops.matrix", "ops.indexing", "ops.init_op",
+                  "ops.optimizer_op", "engine", "autograd",
+                  "ndarray.ndarray", "ndarray.register", "rtc",
+                  "rtc_examples")
+
+
 def test_port_imports_no_jax():
     files = sorted((ROOT / "incubator_mxnet_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    rel = {str(p.relative_to(ROOT / "incubator_mxnet_tpu_torch"))[:-3]
+           .replace("/", ".") for p in files[:-1]}
+    assert set(_SLICE_MODULES) <= rel, set(_SLICE_MODULES) - rel
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -190,6 +202,9 @@ def test_port_imports_no_jax():
         "    __import__(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{_FORBIDDEN!r}]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        f"missing = [m for m in {_SLICE_MODULES!r} if p.__name__ + '.' "
+        "+ m not in sys.modules]\n"
+        "assert not missing, missing\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
