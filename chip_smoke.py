@@ -7,7 +7,10 @@ NVIDIA card and check it.
 Phases, each printing one JSON line; any failed check exits non-zero:
 
 1. build       compile every csrc/*.cu of the port with nvcc (sm_90a);
-               ptxas's registers and spills for each kernel.
+               ptxas's registers and spills for each kernel; each
+               kernel's HGMMA (wgmma) and HMMA (mma.sync) count in the
+               SASS (cuobjdump): every bf16 flash_dq/flash_dkv kernel
+               must have tensor-core instructions.
 2. kernels     hold flash_fwd against its plain PyTorch version on the
                card at the main paths' shapes and a sweep of others,
                and time kernel, plain version, library call and bound.
@@ -212,8 +215,10 @@ def bwd_bound(case, kernel):
     return _bound(nbytes, flops, case["dtype"])
 
 
+# flash_dq_kernel<float, 64> (CUDA cores) or flash_dq_tc_kernel<64> (the
+# tensor cores, bf16 only), mangled
 _KERNEL_NAME = re.compile(
-    r"(flash_[a-z]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E")
+    r"(flash_[a-z_]+_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
 
 
 def _demangle(mangled):
@@ -226,19 +231,27 @@ def _demangle(mangled):
     return mangled[start:start + int(m.group(1))]
 
 
+def kernel_name(mangled):
+    """``flash_dq_kernel<f32,64>``, ``flash_dq_tc_kernel<bf16,64>``, or
+    the demangled function name of any other kernel."""
+    m = _KERNEL_NAME.search(mangled)
+    if not m:
+        return _demangle(mangled)
+    dt = "f32" if m.group(2) == "f" else "bf16"
+    return f"{m.group(1)}<{dt},{m.group(3)}>"
+
+
 def ptxas_report(log):
     """{kernel<dtype, D>: {"registers", "spill_stores", "spill_loads"}}
-    from nvcc's -Xptxas -v output."""
+    from nvcc's -Xptxas -v output, and ptxas's warnings about wgmma
+    (serialized pipelines) under "wgmma_warnings"."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = _KERNEL_NAME.search(ln)
-            if m:
-                dt = "bf16" if "bfloat16" in m.group(2) else "f32"
-                name = f"{m.group(1)}<{dt},{m.group(3)}>"
-            else:
-                name = _demangle(ln.split("'")[1])
+            name = kernel_name(ln.split("'")[1])
             out[name] = {}
+        elif "wgmma" in ln:
+            out.setdefault("wgmma_warnings", []).append(ln.strip())
         elif name is not None and "spill stores" in ln:
             nums = re.findall(r"(\d+) bytes spill (stores|loads)", ln)
             out[name].update({f"spill_{k}": int(v) for v, k in nums})
@@ -248,15 +261,46 @@ def ptxas_report(log):
     return out
 
 
+def sass_tensor_ops(path):
+    """{kernel: {"hgmma", "hmma"}}: each kernel's count of wgmma
+    (HGMMA) and mma.sync (HMMA) instructions in the SASS of a built
+    library, from cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", ln)
+        if fn:
+            name = kernel_name(fn.group(1))
+            out[name] = {"hgmma": 0, "hmma": 0}
+        elif name is not None:
+            op = re.search(r"\b(HGMMA|HMMA)\b", ln)
+            if op:
+                out[name][op.group(1).lower()] += 1
+    return out
+
+
 def phase_build(mt, card):
+    build = mt.ops._build
     t0 = time.perf_counter()
-    built = mt.ops._build.build()
+    built = build.build()
     seconds = time.perf_counter() - t0
     ptxas = {}
     for b in built.values():
         ptxas.update(ptxas_report(b["log"]))
+    sass = sass_tensor_ops(build._target(build.sources()["flash_bwd"]))
     emit({"phase": "build", "card": card, "seconds": seconds,
-          "sources": sorted(built), "ptxas": ptxas})
+          "sources": sorted(built), "ptxas": ptxas,
+          "sass_tensor_ops": sass})
+    # the bf16 backward kernels, one per head dim each, on tensor cores
+    bf16 = {k: v for k, v in sass.items()
+            if k.startswith(("flash_dq", "flash_dkv")) and "<bf16," in k}
+    check(len(bf16) == 2 * len(mt.ops.flash.HEAD_DIMS)
+          and all(v["hgmma"] + v["hmma"] > 0 for v in bf16.values()),
+          f"bf16 flash_dq/flash_dkv without tensor-core instructions: "
+          f"{bf16}")
 
 
 def flash_cases():

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a), fp32 and bf16 inputs: two
-// kernels, flash_dq and flash_dkv.
+// kernels, flash_dq and flash_dkv, each in two builds: bf16 on the tensor
+// cores (wgmma fed by TMA), fp32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel` (both
 // launched by `_flash_bwd`) in incubator_mxnet_tpu/ops/flash.py.  Same
@@ -18,16 +19,46 @@
 // What bounds it on the card: the math.  At the training shape (BH=128,
 // L=1024, D=64, causal, 67.2 M kept pairs) flash_dq does 6*D flops per
 // kept pair (s, dp, dq: 25.8 GFLOP) and flash_dkv 8*D (s, dp, dv, dk:
-// 34.4 GFLOP), against about 85 and 102 MB of operands in bf16; in fp32
-// on the CUDA cores that is ~0.39 and ~0.51 ms of operations and ~0.05 ms
-// of memory traffic.  The design is the forward's (csrc/flash_fwd.cu):
-// every operand of the products sits in shared memory, rows padded by 4
-// floats so the 128-bit loads that feed the FMA units are free of bank
-// conflicts, and each thread owns a 4 x 4 block of the score tile and
-// 4 rows of its output.  The two score products run in separate loops so
-// that fewer operands are live in registers at once.  bf16 is widened to
-// fp32 on load and everything accumulates in fp32: right first; wgmma,
-// TMA and tensor cores are later work.
+// 34.4 GFLOP), against about 85 and 102 MB of operands in bf16: 0.026
+// and 0.035 ms at the dense bf16 tensor-core rate, ~0.05 ms of memory
+// traffic.
+//
+// bf16 (flash_dq_tc_kernel, flash_dkv_tc_kernel): a block is one
+// warpgroup (128 threads), which issues every product as wgmma m64nNk16
+// (bf16 operands, fp32 accumulators in registers); its thread 0 also
+// issues the TMA loads.  The block's own 64-row tiles (q and g for dq, k
+// and v for dk/dv) are loaded once; the other side's tiles stream through
+// a ring of STAGES buffers guarded by mbarriers, so tile t+1 loads while
+// tile t is computed.  There is no separate producer warp: with one
+// (160 threads a block), flash_dkv at D=64 spilled under a two-blocks-an-
+// SM bound and ran one block an SM without it; with 128 threads it takes
+// 176 registers, no spills, two blocks an SM.  Operands stay bf16 in
+// shared memory, in the 128-byte swizzle that TMA writes and wgmma's
+// descriptors read (64-byte at D=32; D=128 is two 64-column chunks).
+// The score products (s, dp) read both
+// operands from shared memory, K-major; the gradient products take P and
+// dS straight from the score accumulators: the fp32 accumulator of
+// m64n64k16 already has the register layout of wgmma's A operand, so
+// each pair is rounded to packed bf16 in place and B (the streamed or
+// resident tile, d contiguous) is read MN-major.  That rounding of P and
+// dS is the one numeric change from the fp32 recipe; every sum stays
+// fp32 and dq/dk/dv are rounded to bf16 once, at the end.  Masks work on
+// the accumulator fragment (row warp*16 + lane/4 (+8), column 8*j +
+// 2*(lane%4) (+1)) and only on tiles that the diagonal, the window edge
+// or a ragged end crosses.  lse and delta come per row from device
+// memory (dq) or per column with each query tile by TMA (dk/dv).
+// Tensor maps are 3-D (BH, L, D) with 64-row boxes, so rows past L
+// inside a head are zero-filled; they are encoded on the host at each
+// call and passed as __grid_constant__ parameters.
+//
+// fp32 (flash_dq_kernel, flash_dkv_kernel): the forward's design
+// (csrc/flash_fwd.cu) on the CUDA cores, where fp32 keeps its full
+// precision (TF32 would not): every operand of the products sits in
+// shared memory, rows padded by 4 floats so the 128-bit loads that feed
+// the FMA units are free of bank conflicts, and each thread owns a 4 x 4
+// block of the score tile and 4 rows of its output.  The two score
+// products run in separate loops so that fewer operands are live in
+// registers at once.
 //
 // What differs from the TPU kernels:
 // - The Pallas grids are sequential and carry the dq (dk, dv) sums across
@@ -43,22 +74,25 @@
 //   Lk > Lq a key tile past the last query visits no query tile and writes
 //   zeros.
 // - Any L is covered: padded query rows (past Lq) are loaded as zeros and
-//   masked, so they add nothing to dk/dv, and their lse/delta are never
-//   read; padded keys (past Lk) are masked, so they add nothing to dq.
+//   masked, so they add nothing to dk/dv; padded keys (past Lk) are
+//   masked, so they add nothing to dq.
 // - lse and delta are (BH, Lq) fp32, without the TPU's 8-lane padding.
-// - Shared memory: flash_dkv holds k, v, q and g tiles and the p and ds
-//   tiles, 170 KB at D=128, past the 48 KB static limit, so both kernels
-//   take dynamic shared memory after cudaFuncSetAttribute.
+// - Shared memory: the fp32 flash_dkv holds k, v, q and g tiles and the p
+//   and ds tiles, 170 KB at D=128, past the 48 KB static limit, so every
+//   kernel takes dynamic shared memory after cudaFuncSetAttribute.
 //
 // Layout: q, g and dq (BH, Lq, D); k, v, dk and dv (BH, Lk, D); lse and
-// delta (BH, Lq) fp32; all contiguous.  The kernels allocate nothing and
-// run on the caller's stream; the C entry points return a cudaError_t (or
-// a negative code for arguments they do not take).
+// delta (BH, Lq) fp32; all contiguous, bf16 ones 16-byte aligned (TMA).
+// The kernels allocate nothing and run on the caller's stream; the C
+// entry points return a cudaError_t (or a negative code for arguments
+// they do not take).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -68,17 +102,10 @@ constexpr int THREADS = 256;  // thread (ty, tx) = (tid / 16, tid % 16)
 constexpr int PS = 64 + 4;    // padded row of a (64 x 64) score tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // W consecutive floats from shared memory in one vector load.
 template <int W>
@@ -384,6 +411,554 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ bf16: wgmma fed by TMA
+
+constexpr int STAGES = 2;            // ring of streamed tiles
+constexpr int WARPS = 4;             // one warpgroup
+constexpr int TC_THREADS = 32 * WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory layout of one (64 x D) bf16 tile: CHUNKS chunks of 64
+// rows x W columns, each row W * 2 bytes (one swizzle span), as the TMA
+// box {W, 64, 1} writes it.
+template <int D>
+struct Tile {
+  static constexpr int W = D < 64 ? D : 64;
+  static constexpr int ROW = W * 2;               // bytes
+  static constexpr int CHUNKS = D / W;
+  static constexpr int CHUNK = 64 * ROW;          // bytes
+  static constexpr int BYTES = CHUNKS * CHUNK;
+  static constexpr uint64_t SWIZZLE = D < 64 ? 2 : 1;  // 64B : 128B
+  static constexpr int GROUP = 8 * ROW;           // an 8-row swizzle atom
+};
+
+// Byte offsets of the two kernels' shared memory from a 1024-aligned
+// base: the block's own two tiles, the ring, lse/delta slices (dkv) and
+// the barriers (full[STAGES], empty[STAGES], resident).
+template <int D>
+struct TcSmem {
+  static constexpr int T = Tile<D>::BYTES;
+  static constexpr int RING = 2 * T;                          // own tiles
+  static constexpr int ROWS = RING + STAGES * 2 * T;          // lse, delta
+  static constexpr int BARS = ROWS + STAGES * 2 * BQ * 4;
+  static constexpr size_t bytes = BARS + (2 * STAGES + 1) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Until the barrier's phase of this parity has completed.  A phase that
+// has not completed after 4 s (far past any load or tile of work) traps,
+// so a fault shows as a launch error, not as a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 4000000000ull) __trap();
+}
+
+// One (64 x D) tile, rows [row, row + 64) of head bh, into shared memory
+// at dst by TMA; completes `bytes` on the barrier.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap& map,
+                                         int row, int bh, uint32_t bar) {
+  const uint64_t m = reinterpret_cast<uint64_t>(&map);
+#pragma unroll
+  for (int c = 0; c < Tile<D>::CHUNKS; ++c)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+            dst + c * Tile<D>::CHUNK),
+        "l"(m), "r"(bar), "r"(c * Tile<D>::W), "r"(row), "r"(bh)
+        : "memory");
+}
+
+// 64 consecutive floats of a 1-D map from element `at` (zeros past its end).
+__device__ __forceinline__ void tma_row(uint32_t dst, const CUtensorMap& map,
+                                        int at, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(at)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a swizzled tile at `addr`.  Both byte
+// offsets are the 8-row atom: the K-major operands (K = 16 columns
+// within one swizzle row) read only the stride between atoms, and the
+// MN-major ones (N = W columns, one atom wide) step K over two atoms.
+template <int D>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  constexpr uint64_t off = Tile<D>::GROUP >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (off << 16) |
+         (off << 32) | (Tile<D>::SWIZZLE << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of accumulator registers
+// across the asynchronous wgmma and its wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define MXT_D8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64) (+)= A (64 x 16) . B (16 x 64), both from shared memory,
+// K-major; accumulate = 0 overwrites d.
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MXT_D8(0), MXT_D8(8), MXT_D8(16), MXT_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x W) += A (64 x 16, bf16 pairs in registers) . B (16 x W) from
+// shared memory, MN-major (transposed).
+template <int W>
+__device__ __forceinline__ void mma_rs(float (&d)[W / 2], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t db);
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MXT_D8(0), MXT_D8(8), MXT_D8(16), MXT_D8(24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<32>(float (&d)[16], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : MXT_D8(0), MXT_D8(8)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+#undef MXT_D8
+
+// s = A . B^T over D, for two (64 x D) tiles in shared memory.
+template <int D>
+__device__ __forceinline__ void score_tc(float (&s)[32], uint32_t a,
+                                         uint32_t b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk * 16 / L::W) * L::CHUNK + (kk * 16 % L::W) * 2;
+    mma_ss_n64(s, desc<D>(a + off), desc<D>(b + off), kk > 0);
+  }
+}
+
+// acc += A . B: A the (64 x 64) bf16 fragments a[16] (4 per 16-column
+// step), B a (64 x D) tile in shared memory.
+template <int D>
+__device__ __forceinline__ void accumulate_tc(
+    float (&acc)[Tile<D>::CHUNKS][Tile<D>::W / 2], const uint32_t (&a)[16],
+    uint32_t b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<L::W>(acc[c], a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                   a[4 * kk + 3],
+                   desc<D>(b + c * L::CHUNK + kk * 16 * L::ROW));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Does every pair of the (query tile q0, key tile k0) block survive the
+// mask?  Then the block skips it.
+__device__ __forceinline__ bool interior(int q0, int k0, int lq, int lk,
+                                         int causal, int window) {
+  bool all = q0 + BQ <= lq && k0 + BK <= lk;
+  if (causal) {
+    all = all && k0 + BK - 1 <= q0;
+    if (window > 0) all = all && q0 + BQ - 1 - k0 < window;
+  }
+  return all;
+}
+
+// The (64 x W) accumulator chunks of this thread's rows r0 and r0 + 8 to
+// bf16 rows of `out` (row stride D), rows at or past `valid` skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(
+    const float (&acc)[Tile<D>::CHUNKS][Tile<D>::W / 2],
+    __nv_bfloat16* out, int r0, int valid, int lane) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= valid) continue;
+#pragma unroll
+    for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+      for (int j = 0; j < L::W / 8; ++j) {
+        const int col = c * 64 + 8 * j + 2 * (lane & 3);
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + col) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2 * h],
+                                  acc[c][4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// One block (one warpgroup) per (bh, query tile).  The thread owns query
+// rows r0 = warp*16 + lane/4 and r0 + 8.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, D < 128 ? 3 : 2)
+flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv,
+                   const __grid_constant__ CUtensorMap mg,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int bh_count, int lq,
+                   int lk, int causal, int window, float scale) {
+  using L = Tile<D>;
+  using S = TcSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sq = base, sg = base + L::BYTES;
+  const uint32_t bars = base + S::BARS;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t resident = bars + 8 * 2 * STAGES;
+  auto ring_k = [&](int s) { return base + S::RING + s * 2 * L::BYTES; };
+
+  const int nq = (lq + BQ - 1) / BQ;
+  // the longest causal rows are scheduled first
+  const int iq = nq - 1 - blockIdx.x / bh_count;
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = iq * BQ;
+  // key tiles [kt0, kt1) hold every kept pair of this query tile
+  const int nk = (lk + BK - 1) / BK;
+  int kt0 = 0, kt1 = nk;
+  if (causal) {
+    kt1 = min(nk, (min(q0 + BQ, lq) - 1) / BK + 1);
+    if (window > 0) kt0 = max(0, q0 - window + 1) / BK;
+  }
+  const int n = kt1 - kt0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WARPS);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: the block's own tiles once, and each
+  // streamed tile into its ring stage once the stage is free
+  auto load = [&](int i) {
+    const int s = i % STAGES;
+    mbar_expect_tx(full(s), 2 * L::BYTES);
+    tma_tile<D>(ring_k(s), mk, (kt0 + i) * BK, bh, full(s));
+    tma_tile<D>(ring_k(s) + L::BYTES, mv, (kt0 + i) * BK, bh, full(s));
+  };
+  if (threadIdx.x == 0 && n > 0) {
+    mbar_expect_tx(resident, 2 * L::BYTES);
+    tma_tile<D>(sq, mq, q0, bh, resident);
+    tma_tile<D>(sg, mg, q0, bh, resident);
+    for (int i = 0; i < min(n, STAGES); ++i) load(i);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = q0 + r0 + 8 * h;
+    const bool in = qp < lq;  // padded rows: never read past Lq
+    lse2[h] = in ? lse[(size_t)bh * lq + qp] * LOG2E : 0.f;
+    dl[h] = in ? delta[(size_t)bh * lq + qp] : 0.f;
+  }
+  float acc[L::CHUNKS][L::W / 2];
+#pragma unroll
+  for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < L::W / 2; ++i) acc[c][i] = 0.f;
+
+  if (n > 0) mbar_wait(resident, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const int k0 = (kt0 + i) * BK;
+    const uint32_t sk = ring_k(s), sv = sk + L::BYTES;
+    mbar_wait(full(s), (i / STAGES) & 1);
+    float sc[32], dp[32];
+    wg_fence();
+    score_tc<D>(sc, sq, sk);  // s = q k^T
+    wg_commit();
+    score_tc<D>(dp, sg, sv);  // dp = g v^T
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(sc);
+    const bool edge = !interior(q0, k0, lq, lk, causal, window);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int h = (e >> 1) & 1;
+      float p = exp2f(fmaf(sc[e], sl2, -lse2[h]));
+      if (edge) {
+        const int qp = q0 + r0 + 8 * h;
+        const int kp = k0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        if (!kept(qp, kp, lq, lk, causal, window)) p = 0.f;
+      }
+      sc[e] = p;
+    }
+    wg_wait<0>();
+    reg_fence(dp);
+    uint32_t a[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int h = r & 1;
+      a[r] = pack_bf16(sc[2 * r] * (dp[2 * r] - dl[h]) * scale,
+                       sc[2 * r + 1] * (dp[2 * r + 1] - dl[h]) * scale);
+    }
+    wg_fence();
+    accumulate_tc<D>(acc, a, sk);  // dq += ds k
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < L::CHUNKS; ++c) reg_fence(acc[c]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (threadIdx.x == 0 && i + STAGES < n) {
+      mbar_wait(empty(s), (i / STAGES) & 1);
+      load(i + STAGES);
+    }
+  }
+  store_rows<D>(acc, dq + ((size_t)bh * lq + q0) * D, r0, lq - q0, lane);
+}
+
+// One block (one warpgroup) per (bh, key tile).  The thread owns key rows
+// r0 = warp*16 + lane/4 and r0 + 8 of the transposed score tiles and of
+// dk and dv.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv,
+                    const __grid_constant__ CUtensorMap mg,
+                    const __grid_constant__ CUtensorMap mlse,
+                    const __grid_constant__ CUtensorMap mdelta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int bh_count, int lq,
+                    int lk, int causal, int window, float scale) {
+  using L = Tile<D>;
+  using S = TcSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const float* rows_f =
+      reinterpret_cast<const float*>(smem_raw + (base - raw) + S::ROWS);
+  const uint32_t sk = base, sv = base + L::BYTES;
+  const uint32_t bars = base + S::BARS;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t resident = bars + 8 * 2 * STAGES;
+  auto ring_q = [&](int s) { return base + S::RING + s * 2 * L::BYTES; };
+  // lse of stage s at rows_f[s * 2 * BQ], delta right after it
+  auto ring_rows = [&](int s) { return base + S::ROWS + s * 2 * BQ * 4; };
+
+  // the first key tiles see the most query tiles: scheduled first
+  const int jk = blockIdx.x / bh_count;
+  const int bh = blockIdx.x % bh_count;
+  const int k0 = jk * BK;
+  // query tiles [it0, it1) hold every kept pair of this key tile: from
+  // the causal diagonal to the end of the window band
+  const int nq = (lq + BQ - 1) / BQ;
+  int it0 = 0, it1 = nq;
+  if (causal) {
+    it0 = min(nq, k0 / BQ);
+    if (window > 0)
+      it1 = min(nq, (min(k0 + BK, lk) - 1 + window - 1) / BQ + 1);
+  }
+  const int n = it1 - it0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WARPS);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: the block's own tiles once, and each
+  // streamed tile with its lse and delta into its ring stage once the
+  // stage is free
+  auto load = [&](int i) {
+    const int s = i % STAGES;
+    const int q0 = (it0 + i) * BQ;
+    mbar_expect_tx(full(s), 2 * L::BYTES + 2 * BQ * 4);
+    tma_tile<D>(ring_q(s), mq, q0, bh, full(s));
+    tma_tile<D>(ring_q(s) + L::BYTES, mg, q0, bh, full(s));
+    // rows past Lq read the next head's values (or zeros past the end):
+    // their pairs are masked
+    tma_row(ring_rows(s), mlse, bh * lq + q0, full(s));
+    tma_row(ring_rows(s) + BQ * 4, mdelta, bh * lq + q0, full(s));
+  };
+  if (threadIdx.x == 0 && n > 0) {
+    mbar_expect_tx(resident, 2 * L::BYTES);
+    tma_tile<D>(sk, mk, k0, bh, resident);
+    tma_tile<D>(sv, mv, k0, bh, resident);
+    for (int i = 0; i < min(n, STAGES); ++i) load(i);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const float sl2 = scale * LOG2E;
+  float acc_k[L::CHUNKS][L::W / 2], acc_v[L::CHUNKS][L::W / 2];
+#pragma unroll
+  for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < L::W / 2; ++i) acc_k[c][i] = acc_v[c][i] = 0.f;
+
+  if (n > 0) mbar_wait(resident, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const int q0 = (it0 + i) * BQ;
+    const uint32_t sq = ring_q(s), sg = sq + L::BYTES;
+    const float* lse_s = rows_f + s * 2 * BQ;
+    const float* delta_s = lse_s + BQ;
+    mbar_wait(full(s), (i / STAGES) & 1);
+    float st[32], dpt[32];
+    wg_fence();
+    score_tc<D>(st, sk, sq);  // s^T = k q^T
+    wg_commit();
+    score_tc<D>(dpt, sv, sg);  // dp^T = v g^T
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(st);
+    const bool edge = !interior(q0, k0, lq, lk, causal, window);
+    uint32_t a[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qc = 8 * j + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * j + e;
+        float p = exp2f(fmaf(st[idx], sl2, -(e & 1 ? l2.y : l2.x) * LOG2E));
+        if (edge) {
+          const int kp = k0 + r0 + 8 * (e >> 1);
+          if (!kept(q0 + qc + (e & 1), kp, lq, lk, causal, window)) p = 0.f;
+        }
+        st[idx] = p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) a[r] = pack_bf16(st[2 * r], st[2 * r + 1]);
+    wg_fence();
+    accumulate_tc<D>(acc_v, a, sg);  // dv += p^T g
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(dpt);
+    uint32_t b[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * (lane & 3));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = 4 * j + 2 * h;
+        b[2 * j + h] = pack_bf16(st[idx] * (dpt[idx] - d2.x) * scale,
+                                 st[idx + 1] * (dpt[idx + 1] - d2.y) * scale);
+      }
+    }
+    wg_fence();
+    accumulate_tc<D>(acc_k, b, sq);  // dk += ds^T q
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < L::CHUNKS; ++c) {
+      reg_fence(acc_k[c]);
+      reg_fence(acc_v[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (threadIdx.x == 0 && i + STAGES < n) {
+      mbar_wait(empty(s), (i / STAGES) & 1);
+      load(i + STAGES);
+    }
+  }
+  // every row of the tile is written, zeros where no query reached it
+  store_rows<D>(acc_k, dk + ((size_t)bh * lk + k0) * D, r0, lk - k0, lane);
+  store_rows<D>(acc_v, dv + ((size_t)bh * lk + k0) * D, r0, lk - k0, lane);
+}
+
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta;
@@ -435,13 +1010,131 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled is a driver-API call: fetched through the
+// runtime, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (bh, rows, D) bf16 tensor at `base` as 3-D TMA boxes of 64 rows x
+// Tile<D>::W columns, swizzled as wgmma reads them; rows past `rows` are
+// zero-filled.
+template <int D>
+int tile_map(CUtensorMap* map, const void* base, int bh, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return -5;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)Tile<D>::W, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+// n fp32 values at `base` as a 1-D map of 64-value boxes.
+int row_map(CUtensorMap* map, const float* base, long long n) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return -5;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused at rank 1
+  const cuuint32_t box[1] = {BQ};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+template <int D>
+int launch_dq_tc(const Args& a) {
+  CUtensorMap mq, mk, mv, mg;
+  int rc;
+  if ((rc = tile_map<D>(&mq, a.q, a.bh, a.lq)) ||
+      (rc = tile_map<D>(&mk, a.k, a.bh, a.lk)) ||
+      (rc = tile_map<D>(&mv, a.v, a.bh, a.lk)) ||
+      (rc = tile_map<D>(&mg, a.g, a.bh, a.lq)))
+    return rc;
+  const size_t smem = TcSmem<D>::bytes;
+  unsigned blocks = 0;
+  cudaError_t err = prepare(flash_dq_tc_kernel<D>, smem,
+                            (a.lq + BQ - 1) / BQ, a.bh, &blocks);
+  if (err != cudaSuccess) return err;
+  flash_dq_tc_kernel<D><<<blocks, TC_THREADS, smem, a.stream>>>(
+      mq, mk, mv, mg, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq),
+      a.bh, a.lq, a.lk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_tc(const Args& a) {
+  CUtensorMap mq, mk, mv, mg, mlse, mdelta;
+  const long long rows = (long long)a.bh * a.lq;
+  if (rows > 0x7fffffffLL) return -3;  // TMA coordinates are 32-bit
+  int rc;
+  if ((rc = tile_map<D>(&mq, a.q, a.bh, a.lq)) ||
+      (rc = tile_map<D>(&mk, a.k, a.bh, a.lk)) ||
+      (rc = tile_map<D>(&mv, a.v, a.bh, a.lk)) ||
+      (rc = tile_map<D>(&mg, a.g, a.bh, a.lq)) ||
+      (rc = row_map(&mlse, a.lse, rows)) ||
+      (rc = row_map(&mdelta, a.delta, rows)))
+    return rc;
+  const size_t smem = TcSmem<D>::bytes;
+  unsigned blocks = 0;
+  cudaError_t err = prepare(flash_dkv_tc_kernel<D>, smem,
+                            (a.lk + BK - 1) / BK, a.bh, &blocks);
+  if (err != cudaSuccess) return err;
+  flash_dkv_tc_kernel<D><<<blocks, TC_THREADS, smem, a.stream>>>(
+      mq, mk, mv, mg, mlse, mdelta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.bh, a.lq, a.lk, a.causal,
+      a.window, a.scale);
+  return cudaGetLastError();
+}
+
 // which = 0: flash_dq, 1: flash_dkv
-template <typename T>
-int dispatch_d(int which, int d, const Args& a) {
+int dispatch_f32(int which, int d, const Args& a) {
   switch (d) {
-    case 32: return which ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
-    case 64: return which ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
-    case 128: return which ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+    case 32: return which ? launch_dkv<float, 32>(a) : launch_dq<float, 32>(a);
+    case 64: return which ? launch_dkv<float, 64>(a) : launch_dq<float, 64>(a);
+    case 128:
+      return which ? launch_dkv<float, 128>(a) : launch_dq<float, 128>(a);
+    default: return -2;
+  }
+}
+
+int dispatch_bf16(int which, int d, const Args& a) {
+  switch (d) {
+    case 32: return which ? launch_dkv_tc<32>(a) : launch_dq_tc<32>(a);
+    case 64: return which ? launch_dkv_tc<64>(a) : launch_dq_tc<64>(a);
+    case 128: return which ? launch_dkv_tc<128>(a) : launch_dq_tc<128>(a);
     default: return -2;
   }
 }
@@ -449,8 +1142,8 @@ int dispatch_d(int which, int d, const Args& a) {
 int dispatch(int which, int d, int dtype, const Args& a) {
   if (a.bh < 1 || a.lq < 1 || a.lk < 1 || a.window < 0) return -3;
   switch (dtype) {
-    case 0: return dispatch_d<float>(which, d, a);
-    case 1: return dispatch_d<__nv_bfloat16>(which, d, a);
+    case 0: return dispatch_f32(which, d, a);
+    case 1: return dispatch_bf16(which, d, a);
     default: return -1;
   }
 }
@@ -459,7 +1152,8 @@ int dispatch(int which, int d, int dtype, const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Each returns 0 on success, a
 // cudaError_t from the launch, or -1 (dtype) / -2 (head dim) / -3 (sizes)
-// for arguments the kernel does not take.
+// for arguments the kernel does not take, -4 / -5 when the driver cannot
+// describe a bf16 operand to TMA.
 extern "C" int mxt_flash_dq(const void* q, const void* k, const void* v,
                             const void* g, const void* lse,
                             const void* delta, void* dq, int bh, int lq,
@@ -487,6 +1181,8 @@ extern "C" const char* mxt_flash_bwd_error_string(int code) {
     case -1: return "unsupported dtype";
     case -2: return "unsupported head dim";
     case -3: return "bad sizes";
+    case -4: return "cuTensorMapEncodeTiled refused an operand";
+    case -5: return "the driver has no cuTensorMapEncodeTiled";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -6,9 +6,10 @@ block per (bh, 64-row query tile), an online-softmax loop over the key
 tiles of the band, fp32 accumulation), and ``_dq_kernel`` and
 ``_dkv_kernel`` become ``flash_dq`` and ``flash_dkv`` in
 ``csrc/flash_bwd.cu`` (one block per 64-row query tile and per 64-row
-key tile, P rebuilt from the forward's ``lse``; see the sources'
-headers).  ``_FlashAttention`` ties them together as the JAX op's
-``custom_vjp`` does.
+key tile, P rebuilt from the forward's ``lse``; bf16 on the tensor
+cores with ``wgmma`` fed by TMA, fp32 on the CUDA cores; see the
+sources' headers).  ``_FlashAttention`` ties them together as the JAX
+op's ``custom_vjp`` does.
 
 The op is registered as ``_flash_attention`` (``nd._internal``), the JAX
 op's name, with its parameters less ``interpret``, which picks the
@@ -180,7 +181,8 @@ _BWD_SIGNATURES = {
 
 def _check_kernel_args(q, *others):
     """What the kernels take: one device and dtype (float32 or
-    bfloat16), head dim in HEAD_DIMS, contiguous tensors."""
+    bfloat16), head dim in HEAD_DIMS, contiguous tensors at 16-byte
+    aligned addresses (the bf16 backward reads them by TMA)."""
     for t in others:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v (and g) must share device and "
@@ -193,6 +195,9 @@ def _check_kernel_args(q, *others):
                          f"got {q.shape[-1]}")
     if not all(t.is_contiguous() for t in (q,) + others):
         raise ValueError("flash kernel takes contiguous q, k, v (and g)")
+    if any(t.data_ptr() % 16 for t in (q,) + others):
+        raise ValueError("flash kernel takes q, k, v (and g) at 16-byte "
+                         "aligned addresses")
 
 
 def _launch(q, k, v, causal, scale, window):
@@ -225,14 +230,17 @@ def _raise_bwd(lib, name, rc):
 
 def _check_bwd_args(q, k, v, g, lse, delta):
     """What the backward kernels take: ``_check_kernel_args`` for q, k,
-    v and g, and lse and delta as contiguous fp32 (BH, Lq)."""
+    v and g, and lse and delta as contiguous, 16-byte aligned fp32
+    (BH, Lq)."""
     _check_kernel_args(q, k, v, g)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or t.shape != q.shape[:2] \
-                or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name} must be contiguous fp32 "
-                             f"{tuple(q.shape[:2])} on {q.device}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+                or not t.is_contiguous() or t.device != q.device \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte "
+                             f"aligned fp32 {tuple(q.shape[:2])} on "
+                             f"{q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
 
 
 def _launch_dq(q, k, v, g, lse, delta, causal, scale, window):

@@ -329,3 +329,92 @@ def test_kernel_q_tile_range_covers_exactly_the_kept_pairs(causal, window):
                     if cols[iq * bq:(iq + 1) * bq].any()}
             first, stop = tflash._q_tile_range(jk, lq, lk, causal, window)
             assert set(range(first, stop)) == live, (lq, lk, jk)
+
+
+# ---------------------------------------------------------------- bf16
+
+def _bf16_inputs(bh, l, d, seed):
+    """q, k, v and the output gradient g as numpy fp32 values that bf16
+    holds exactly, so both packages get the same bf16 tensors."""
+    arrs = _inputs(bh, l, d, seed=seed)
+    arrs.append(np.random.RandomState(seed + 1).normal(
+        0, 1, arrs[0].shape).astype(np.float32))
+    return [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+            for a in arrs]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_bf16_matches_jax_kernel(causal):
+    # the port's bf16 backward on the CPU (its plain version) against the
+    # Pallas kernels in interpret mode on the same bf16 inputs, within
+    # the bf16 tolerance of chip_smoke.py's kernels_bwd (2e-2 abs + rel)
+    arrs = _bf16_inputs(2, 128, 64, seed=12)
+    scale = 1.0 / 8.0
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in arrs)
+    o, lse = jflash._flash_fwd(jq, jk, jv, causal, scale, True)
+    ref = jflash._flash_bwd(jq, jk, jv, o, lse, jg, causal, scale, True)
+    q, k, v = (torch.from_numpy(a).bfloat16().requires_grad_()
+               for a in arrs[:3])
+    out = tflash.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v),
+                              torch.from_numpy(arrs[3]).bfloat16())
+    for name, a, b in zip("dq dk dv".split(), got, ref):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16
+        np.testing.assert_allclose(
+            a.float().numpy(), np.asarray(b.astype(jnp.float32)),
+            rtol=2e-2, atol=2e-2, err_msg=name)
+
+
+def _tensor_core_recipe_bwd(q, k, v, o, lse, g, causal, scale):
+    """The arithmetic of the bf16 kernels in csrc/flash_bwd.cu: products
+    of bf16 operands summed in fp32, P and dS rounded to bf16 before the
+    gradient products (they feed wgmma from registers), dq/dk/dv rounded
+    to bf16 once at the end."""
+    delta = tflash._delta(g, o)
+    p, ds = tflash._reference_p_ds(q, k, v, g, lse, delta, causal, scale,
+                                   0)
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dq = ds @ k.float()
+    dk = ds.transpose(1, 2) @ q.float()
+    dv = p.transpose(1, 2) @ g.float()
+    return [t.bfloat16() for t in (dq, dk, dv)]
+
+
+def test_bf16_recipe_rounding_stays_inside_the_card_tolerance():
+    # The rounding of P and dS that the tensor-core kernels add, against
+    # the plain backward the card holds them to, at chip_smoke.py's bf16
+    # BWD_TOL.  Worst |error| / (tol * (1 + |ref|)) seen here: 0.365
+    # (dv; dq 0.192, dk 0.205), where the two sums land one bf16 step
+    # apart after the outputs' own rounding.
+    from chip_smoke import BWD_TOL
+    tol = BWD_TOL["bfloat16"]
+    q, k, v, g = (torch.from_numpy(a).bfloat16()
+                  for a in _bf16_inputs(2, 512, 64, seed=13))
+    scale = 1.0 / 8.0
+    o, lse = tflash._reference_fwd(q, k, v, True, scale)
+    got = _tensor_core_recipe_bwd(q, k, v, o, lse, g, True, scale)
+    ref = tflash._reference_bwd(q, k, v, o, lse, g, True, scale)
+    worst = {}
+    for name, a, b in zip("dq dk dv".split(), got, ref):
+        a, b = a.float(), b.float()
+        worst[name] = ((a - b).abs() / (tol * (1 + b.abs()))).max().item()
+    assert max(worst.values()) <= 1.0, worst
+
+
+def test_kernel_wrappers_refuse_unaligned_tensors():
+    # TMA reads the bf16 backward's operands: a contiguous view 4 bytes
+    # past an aligned base is refused before the library is loaded
+    x = torch.zeros(2, 64, 64)
+    lse = torch.zeros(2, 64)
+    mis = torch.zeros(2 * 64 * 64 + 1)[1:].view(2, 64, 64)
+    assert mis.is_contiguous() and mis.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash._launch(mis, x, x, True, 0.1, 0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash._launch_bwd(x, x, x, x, lse, mis, True, 0.1, 0)
+    lse_mis = torch.zeros(2 * 64 + 1)[1:].view(2, 64)
+    for launch in (tflash._launch_dq, tflash._launch_dkv):
+        with pytest.raises(ValueError, match="lse must be"):
+            launch(x, x, x, x, lse_mis, lse, True, 0.1, 0)
+        with pytest.raises(ValueError, match="delta must be"):
+            launch(x, x, x, x, lse, lse_mis, True, 0.1, 0)
