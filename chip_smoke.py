@@ -9,11 +9,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
 1. build       compile every csrc/*.cu of the port with nvcc (sm_90a);
                ptxas's registers and spills for each kernel; each
                kernel's HGMMA (wgmma) and HMMA (mma.sync) count in the
-               SASS (cuobjdump): every bf16 flash_dq/flash_dkv kernel
-               must have tensor-core instructions.
+               SASS (cuobjdump): every bf16 flash_fwd/flash_dq/flash_dkv
+               kernel must have HGMMA, and flash_fwd's at D=64 no spills.
 2. kernels     hold flash_fwd against its plain PyTorch version on the
-               card at the main paths' shapes and a sweep of others,
-               and time kernel, plain version, library call and bound.
+               card at the main paths' shapes (fp32 forward and serve,
+               bf16 train) and a sweep of others, and time kernel, plain
+               version, library call and bound.
 3. kernels_bwd the same for flash_dq and flash_dkv against the plain
                backward, at the train path's shape (bf16 and fp32) and
                the forward's sweep.
@@ -54,6 +55,15 @@ table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
 runs, ``launches_by_path`` each run's own count) and, last,
 {"ok": true, "device": {...}}.  fp32 matrix products run in full fp32
 (TF32 off) so the plain versions are exact yardsticks.
+
+Times: ``ms`` (a kernel's, its plain version's as ``plain_ms``, its
+library call's as ``library_ms``) is device time per call, from
+torch.profiler over back-to-back calls: the summed device time of the
+call's kernels over the count, so host time and gaps between launches
+drop out; a trace with no device event is taken again and counted
+(``device_ms_traces``, printed with ``phase_seconds``).  ``call_ms`` is
+the time of one call between two CUDA events, which also counts the
+host's work before the launch.
 """
 import json
 import math
@@ -95,8 +105,10 @@ def check(ok, what):
         raise CheckFailed(what)
 
 
-def time_ms(fn, torch, warmup=3, reps=20):
-    """Median device time of one call, from CUDA events."""
+def call_ms(fn, torch, warmup=3, reps=20):
+    """Median time of one call between two CUDA events.  The card is
+    idle when the first is recorded, so this counts the host's work
+    before the launch too: the cost a lone call pays."""
     for _ in range(warmup):
         fn()
     times = []
@@ -109,6 +121,48 @@ def time_ms(fn, torch, warmup=3, reps=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+# traces device_ms took, and those that held no device event at all
+TRACES = {"taken": 0, "empty": 0}
+TRACE_ATTEMPTS = 3
+
+
+def device_ms(fn, torch, what, warmup=3, reps=20):
+    """Device time of one call of ``what``: the summed device time of
+    the kernels (and copies) of ``reps`` back-to-back calls under
+    torch.profiler, over ``reps``.  Host time and the gaps between
+    launches drop out.  A trace that holds no device event at all (seen
+    on the card for calls that launched kernels) is taken again, up to
+    TRACE_ATTEMPTS traces, and counted in TRACES["empty"], which the run
+    prints; if none has device time the check fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        TRACES["taken"] += 1
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+        TRACES["empty"] += 1
+    raise CheckFailed(f"torch.profiler recorded no device time for "
+                      f"{what} in {TRACE_ATTEMPTS} traces")
+
+
+def timed_ms(fn, torch, what, reps=20):
+    """(device ms, call ms) of one call: ``device_ms``, ``call_ms``."""
+    return (device_ms(fn, torch, what, reps=reps),
+            call_ms(fn, torch, reps=reps))
 
 
 def wall_ms(fn, torch, reps=3):
@@ -287,25 +341,29 @@ def phase_build(mt, card):
     t0 = time.perf_counter()
     built = build.build()
     seconds = time.perf_counter() - t0
-    ptxas = {}
-    for b in built.values():
-        ptxas.update(ptxas_report(b["log"]))
-    sass = sass_tensor_ops(build._target(build.sources()["flash_bwd"]))
+    ptxas, sass = {}, {}
+    for name, src in build.sources().items():
+        lib = build._target(src)
+        ptxas.update(ptxas_report(lib.with_suffix(".log").read_text()))
+        sass.update(sass_tensor_ops(lib))
     emit({"phase": "build", "card": card, "seconds": seconds,
           "sources": sorted(built), "ptxas": ptxas,
           "sass_tensor_ops": sass})
-    # the bf16 backward kernels, one per head dim each, on tensor cores
-    bf16 = {k: v for k, v in sass.items()
-            if k.startswith(("flash_dq", "flash_dkv")) and "<bf16," in k}
-    check(len(bf16) == 2 * len(mt.ops.flash.HEAD_DIMS)
-          and all(v["hgmma"] + v["hmma"] > 0 for v in bf16.values()),
-          f"bf16 flash_dq/flash_dkv without tensor-core instructions: "
-          f"{bf16}")
+    # the bf16 kernels (flash_fwd, flash_dq, flash_dkv; one per head dim
+    # each) on the tensor cores, by wgmma
+    bf16 = {k: v for k, v in sass.items() if "<bf16," in k}
+    check(len(bf16) == 3 * len(mt.ops.flash.HEAD_DIMS)
+          and all(v["hgmma"] > 0 for v in bf16.values()),
+          f"bf16 flash kernels without HGMMA: {bf16}")
+    fwd64 = ptxas.get("flash_fwd_tc_kernel<bf16,64>", {})
+    check(fwd64.get("spill_stores") == 0 and fwd64.get("spill_loads") == 0,
+          f"flash_fwd_tc_kernel<bf16,64> spills: {fwd64}")
 
 
 def flash_cases():
     """The shapes the main paths give the kernel (forward's, and each
-    serve request's prefill), then a sweep of the kernel's options."""
+    serve request's prefill, in fp32; the train step's, which is
+    forward's, in bf16), then a sweep of the kernel's options."""
     h = MODEL["n_heads"]
     dh = MODEL["d_model"] // h
     b, l = FORWARD
@@ -316,8 +374,20 @@ def flash_cases():
     shapes += [dict(main, path="sweep", **kw) for kw in (
         dict(causal=False), dict(window=256), dict(lq=1000, lk=1000),
         dict(lq=256, causal=False), dict(d=32), dict(bh=64, d=128))]
-    return [dict(s, dtype=dt) for dt in ("float32", "bfloat16")
-            for s in shapes]
+    cases = [dict(s, dtype=dt) for dt in ("float32", "bfloat16")
+             for s in shapes]
+    for c in cases:
+        if c["dtype"] == "bfloat16" and c["path"] == "forward":
+            c["path"] = "train"
+    return cases
+
+
+def worst_by_dtype(rows):
+    """{dtype: the largest worst_over_tol of its cases}."""
+    out = {}
+    for r in rows:
+        out[r["dtype"]] = max(out.get(r["dtype"], 0.0), r["worst_over_tol"])
+    return out
 
 
 def phase_kernels(mt, torch):
@@ -326,7 +396,6 @@ def phase_kernels(mt, torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = []
-    main_entry = None
     for case in flash_cases():
         dt = getattr(torch, case["dtype"])
         q = torch.randn(case["bh"], case["lq"], case["d"], generator=gen,
@@ -351,36 +420,42 @@ def phase_kernels(mt, torch):
         check(math.isfinite(row["worst_over_tol"])
               and row["worst_over_tol"] <= 1.0,
               f"flash_fwd disagrees with its plain version: {row}")
-        row["ms"] = time_ms(lambda: flash.flash_attention_fwd(
-            q, k, v, causal=args[3], scale=scale, window=args[5]), torch)
-        row["plain_ms"] = time_ms(lambda: flash._reference_fwd(*args),
-                                  torch, reps=5)
+        row["ms"], row["call_ms"] = timed_ms(
+            lambda: flash.flash_attention_fwd(
+                q, k, v, causal=args[3], scale=scale, window=args[5]),
+            torch, f"flash_fwd {case}")
+        row["plain_ms"] = device_ms(lambda: flash._reference_fwd(*args),
+                                    torch, f"plain flash_fwd {case}",
+                                    reps=10)
         row["bound_ms"], row["bound_by"] = bound(case)
-        row["library_ms"] = None
+        row["library_ms"] = row["library_call_ms"] = None
         if case["causal"] and not case["window"] \
                 and case["lq"] == case["lk"]:
             # yardstick only: the port never calls it
             # (1, BH, L, D): SDPA's fused backends take 4-D only
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            row["library_ms"] = time_ms(
+            row["library_ms"], row["library_call_ms"] = timed_ms(
                 lambda: sdpa(q[None], k[None], v[None], is_causal=True),
-                torch)
+                torch, f"SDPA {case}")
         rows.append(row)
-        if main_entry is None:
-            main_entry = row
         del q, k, v, o, lse, ro, rlse
-    emit({"phase": "kernels", "cases": rows})
-    m = main_entry
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "incubator_mxnet_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "incubator_mxnet_tpu/ops/flash.py:121",
-            "launches": None, "max_abs_err": m["max_abs_err"],
-            "ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"],
-            "shape": [m["bh"], m["lq"], m["d"]], "dtype": m["dtype"],
-            "causal": True, "tol": m["tol"],
-            "cases_within_tol": len(rows)}
+    emit({"phase": "kernels", "cases": rows,
+          "worst_over_tol": worst_by_dtype(rows)})
+    m = next(r for r in rows if r["path"] == "forward")
+    t = next(r for r in rows if r["path"] == "train")
+    keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_call_ms", "tol")
+    return dict({k: m[k] for k in keys},
+                name="flash_fwd", route="cuda",
+                source="incubator_mxnet_tpu_torch/csrc/flash_fwd.cu",
+                replaces="incubator_mxnet_tpu/ops/flash.py:121",
+                launches=None, shape=[m["bh"], m["lq"], m["d"]],
+                dtype=m["dtype"], causal=True,
+                cases_within_tol=len(rows),
+                bf16_train=dict({k: t[k] for k in keys},
+                                shape=[t["bh"], t["lq"], t["d"]],
+                                dtype=t["dtype"], causal=True,
+                                over_library=t["ms"] / t["library_ms"]))
 
 
 def bwd_cases():
@@ -439,13 +514,15 @@ def phase_kernels_bwd(mt, torch):
         for kernel, fn, plain in (
                 ("flash_dq", flash._launch_dq, flash._reference_dq),
                 ("flash_dkv", flash._launch_dkv, flash._reference_dkv)):
-            row[f"{kernel}_ms"] = time_ms(lambda: fn(*args), torch)
-            row[f"{kernel}_plain_ms"] = time_ms(lambda: plain(*args),
-                                                torch, reps=5)
+            row[f"{kernel}_ms"], row[f"{kernel}_call_ms"] = timed_ms(
+                lambda: fn(*args), torch, f"{kernel} {case}")
+            row[f"{kernel}_plain_ms"] = device_ms(
+                lambda: plain(*args), torch, f"plain {kernel} {case}",
+                reps=10)
             row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = \
                 bwd_bound(case, kernel)
         row["kernels_sum_ms"] = row["flash_dq_ms"] + row["flash_dkv_ms"]
-        row["library_ms"] = None
+        row["library_ms"] = row["library_call_ms"] = None
         if not window and (not causal or case["lq"] == case["lk"]):
             # yardstick only, SDPA's backward (dq, dk, dv together):
             # the port never calls it
@@ -453,12 +530,15 @@ def phase_kernels_bwd(mt, torch):
             ql, kl, vl = (t[None].detach().clone().requires_grad_()
                           for t in (q, k, v))
             out = sdpa(ql, kl, vl, is_causal=causal)
-            row["library_ms"] = time_ms(lambda: torch.autograd.grad(
-                out, (ql, kl, vl), g[None], retain_graph=True), torch)
+            row["library_ms"], row["library_call_ms"] = timed_ms(
+                lambda: torch.autograd.grad(
+                    out, (ql, kl, vl), g[None], retain_graph=True), torch,
+                f"SDPA backward {case}")
             del ql, kl, vl, out
         rows.append(row)
         del q, k, v, g, o, lse, delta, got, ref
-    emit({"phase": "kernels_bwd", "cases": rows})
+    emit({"phase": "kernels_bwd", "cases": rows,
+          "worst_over_tol": worst_by_dtype(rows)})
     m = rows[0]
     entries = []
     for kernel, line, errs in (("flash_dq", 220, ("dq",)),
@@ -469,10 +549,12 @@ def phase_kernels_bwd(mt, torch):
             "replaces": f"incubator_mxnet_tpu/ops/flash.py:{line}",
             "launches": None,
             "max_abs_err": max(m[f"max_abs_err_{e}"] for e in errs),
-            "ms": m[f"{kernel}_ms"], "plain_ms": m[f"{kernel}_plain_ms"],
+            "ms": m[f"{kernel}_ms"], "call_ms": m[f"{kernel}_call_ms"],
+            "plain_ms": m[f"{kernel}_plain_ms"],
             "bound_ms": m[f"{kernel}_bound_ms"],
             "bound_by": m[f"{kernel}_bound_by"],
             "library_ms": m["library_ms"],
+            "library_call_ms": m["library_call_ms"],
             "library_is": "SDPA backward (dq, dk, dv together); compare "
                           "with the sum of flash_dq and flash_dkv",
             "shape": [m["bh"], m["lq"], m["d"]], "dtype": m["dtype"],
@@ -788,10 +870,14 @@ def rtc_kernel_checks(ex, torch):
                                 f"version at {shp}: {row}")
         nbytes = 2 * x.numel() * 4          # read x, write o, once each
         flops = x.numel() * (2 if "beta" in prm else 1)
-        row["ms"] = time_ms(lambda: fn(x, **prm), torch)
-        row["plain_ms"] = time_ms(lambda: plain(x, **prm), torch)
+        row["ms"], row["call_ms"] = timed_ms(lambda: fn(x, **prm), torch,
+                                             name)
+        row["plain_ms"] = device_ms(lambda: plain(x, **prm), torch,
+                                    f"plain {name}")
         lib = rtc_library_call(name, x, prm, torch)
-        row["library_ms"] = time_ms(lib, torch) if lib else None
+        row["library_ms"], row["library_call_ms"] = \
+            timed_ms(lib, torch, f"{name}'s library call") if lib \
+            else (None, None)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, "float32")
         row["gbytes_per_s"] = nbytes / row["ms"] / 1e6
         rows.append(row)
@@ -800,8 +886,10 @@ def rtc_kernel_checks(ex, torch):
             "source": f"incubator_mxnet_tpu_torch/csrc/rtc/{name}.cu",
             "replaces": RTC_REPLACES[name], "launches": None,
             "max_abs_err": row["full_max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_call_ms": row["library_call_ms"],
             "shape": list(RTC_FULL), "dtype": "float32",
             "tol": "bit-exact" if name in ("scale", "addone")
                    else "2 ulp of |x*alpha|+|beta|"}
@@ -1013,7 +1101,7 @@ def main():
                                card)
         del net
         rtc_entries, nd_flash = timed("rtc", phase_rtc, mt, torch)
-        emit({"phase_seconds": seconds})
+        emit({"phase_seconds": seconds, "device_ms_traces": TRACES})
         entry["launches_by_path"] = {"forward": fwd_launches,
                                      "serve": serve_launches,
                                      "train": train_launches["flash_fwd"],

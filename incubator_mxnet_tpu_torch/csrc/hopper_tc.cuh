@@ -1,0 +1,364 @@
+// Shared pieces of the port's Hopper (sm_90a) tensor-core kernels:
+// flash_fwd_tc_kernel (csrc/flash_fwd.cu), flash_dq_tc_kernel and
+// flash_dkv_tc_kernel (csrc/flash_bwd.cu).
+//
+// A block is one warpgroup (128 threads) that issues every product as
+// wgmma m64nNk16 (bf16 operands, fp32 accumulators in registers); its
+// thread 0 also issues the TMA loads.  Operand tiles are 64 rows of D
+// bf16 values in shared memory, in the 128-byte swizzle that TMA writes
+// and wgmma's descriptors read (64-byte at D=32; D=128 is two 64-column
+// chunks).  Streamed tiles go through a ring of STAGES buffers guarded by
+// mbarriers; a barrier phase that has not completed after 4 s traps, so
+// a lost load is a launch error, not a hung card.  Tensor maps are 3-D
+// (D, L, BH) with 64-row boxes, so rows past L inside a head are
+// zero-filled; they are encoded on the host at each call through the
+// runtime's driver entry point (no -lcuda) and passed as
+// __grid_constant__ parameters.
+//
+// The fp32 accumulator of m64n64k16 already has the register layout of
+// wgmma's A operand: thread (warp, lane) holds rows warp*16 + lane/4 and
+// +8, columns 8*j + 2*(lane%4) (+1) in d[4*j + 2*h (+1)] for row half h,
+// and the pair (d[2r], d[2r+1]) rounded to packed bf16 is register r of
+// the A fragment (4 registers per 16-column step).  So a score tile goes
+// from one product to the next without touching shared memory.
+//
+// Each .cu that includes this header builds into its own library; the
+// build hashes every csrc/*.cuh with the source (ops/_build.py), so an
+// edited header rebuilds its users.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;               // query rows per tile
+constexpr int BK = 64;               // keys per tile
+constexpr int STAGES = 2;            // ring of streamed tiles
+constexpr int WARPS = 4;             // one warpgroup
+constexpr int TC_THREADS = 32 * WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory layout of one (64 x D) bf16 tile: CHUNKS chunks of 64
+// rows x W columns, each row W * 2 bytes (one swizzle span), as the TMA
+// box {W, 64, 1} writes it.
+template <int D>
+struct Tile {
+  static constexpr int W = D < 64 ? D : 64;
+  static constexpr int ROW = W * 2;               // bytes
+  static constexpr int CHUNKS = D / W;
+  static constexpr int CHUNK = 64 * ROW;          // bytes
+  static constexpr int BYTES = CHUNKS * CHUNK;
+  static constexpr uint64_t SWIZZLE = D < 64 ? 2 : 1;  // 64B : 128B
+  static constexpr int GROUP = 8 * ROW;           // an 8-row swizzle atom
+};
+
+// Does the mask keep the pair (query qp, key kp)?  Padded rows past Lq or
+// Lk never are.
+__device__ __forceinline__ bool kept(int qp, int kp, int lq, int lk,
+                                     int causal, int window) {
+  bool keep = qp < lq && kp < lk;
+  if (causal) {
+    keep = keep && qp >= kp;
+    if (window > 0) keep = keep && qp - kp < window;
+  }
+  return keep;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Until the barrier's phase of this parity has completed.  A phase that
+// has not completed after 4 s (far past any load or tile of work) traps,
+// so a fault shows as a launch error, not as a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 4000000000ull) __trap();
+}
+
+// One (64 x D) tile, rows [row, row + 64) of head bh, into shared memory
+// at dst by TMA; completes `bytes` on the barrier.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap& map,
+                                         int row, int bh, uint32_t bar) {
+  const uint64_t m = reinterpret_cast<uint64_t>(&map);
+#pragma unroll
+  for (int c = 0; c < Tile<D>::CHUNKS; ++c)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+            dst + c * Tile<D>::CHUNK),
+        "l"(m), "r"(bar), "r"(c * Tile<D>::W), "r"(row), "r"(bh)
+        : "memory");
+}
+
+// 64 consecutive floats of a 1-D map from element `at` (zeros past its end).
+__device__ __forceinline__ void tma_row(uint32_t dst, const CUtensorMap& map,
+                                        int at, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(at)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a swizzled tile at `addr`.  Both byte
+// offsets are the 8-row atom: the K-major operands (K = 16 columns
+// within one swizzle row) read only the stride between atoms, and the
+// MN-major ones (N = W columns, one atom wide) step K over two atoms.
+template <int D>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  constexpr uint64_t off = Tile<D>::GROUP >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (off << 16) |
+         (off << 32) | (Tile<D>::SWIZZLE << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of accumulator registers
+// across the asynchronous wgmma and its wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define MXT_D8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64) (+)= A (64 x 16) . B (16 x 64), both from shared memory,
+// K-major; accumulate = 0 overwrites d.
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MXT_D8(0), MXT_D8(8), MXT_D8(16), MXT_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x W) += A (64 x 16, bf16 pairs in registers) . B (16 x W) from
+// shared memory, MN-major (transposed).
+template <int W>
+__device__ __forceinline__ void mma_rs(float (&d)[W / 2], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t db);
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MXT_D8(0), MXT_D8(8), MXT_D8(16), MXT_D8(24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<32>(float (&d)[16], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : MXT_D8(0), MXT_D8(8)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+#undef MXT_D8
+
+// s = A . B^T over D, for two (64 x D) tiles in shared memory.
+template <int D>
+__device__ __forceinline__ void score_tc(float (&s)[32], uint32_t a,
+                                         uint32_t b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk * 16 / L::W) * L::CHUNK + (kk * 16 % L::W) * 2;
+    mma_ss_n64(s, desc<D>(a + off), desc<D>(b + off), kk > 0);
+  }
+}
+
+// acc += A . B: A the (64 x 64) bf16 fragments a[16] (4 per 16-column
+// step), B a (64 x D) tile in shared memory.
+template <int D>
+__device__ __forceinline__ void accumulate_tc(
+    float (&acc)[Tile<D>::CHUNKS][Tile<D>::W / 2], const uint32_t (&a)[16],
+    uint32_t b) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<L::W>(acc[c], a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                   a[4 * kk + 3],
+                   desc<D>(b + c * L::CHUNK + kk * 16 * L::ROW));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Does every pair of the (query tile q0, key tile k0) block survive the
+// mask?  Then the block skips it.
+__device__ __forceinline__ bool interior(int q0, int k0, int lq, int lk,
+                                         int causal, int window) {
+  bool all = q0 + BQ <= lq && k0 + BK <= lk;
+  if (causal) {
+    all = all && k0 + BK - 1 <= q0;
+    if (window > 0) all = all && q0 + BQ - 1 - k0 < window;
+  }
+  return all;
+}
+
+// The (64 x W) accumulator chunks of this thread's rows r0 and r0 + 8 to
+// bf16 rows of `out` (row stride D), rows at or past `valid` skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(
+    const float (&acc)[Tile<D>::CHUNKS][Tile<D>::W / 2],
+    __nv_bfloat16* out, int r0, int valid, int lane) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= valid) continue;
+#pragma unroll
+    for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+      for (int j = 0; j < L::W / 8; ++j) {
+        const int col = c * 64 + 8 * j + 2 * (lane & 3);
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + col) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2 * h],
+                                  acc[c][4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// ------------------------------------------------ host: tensor maps
+
+// cuTensorMapEncodeTiled is a driver-API call: fetched through the
+// runtime, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (bh, rows, D) bf16 tensor at `base` as 3-D TMA boxes of 64 rows x
+// Tile<D>::W columns, swizzled as wgmma reads them; rows past `rows` are
+// zero-filled.
+template <int D>
+int tile_map(CUtensorMap* map, const void* base, int bh, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return -5;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)Tile<D>::W, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+// n fp32 values at `base` as a 1-D map of 64-value boxes.
+int row_map(CUtensorMap* map, const float* base, long long n) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return -5;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused at rank 1
+  const cuuint32_t box[1] = {BQ};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+}  // namespace

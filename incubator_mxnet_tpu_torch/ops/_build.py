@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into the
 git-ignored ``_build/`` directory of the package, and loaded with
-``ctypes``.  The library's file name carries a hash of its source, so
-an edited source is rebuilt and a stale library is never loaded.
+``ctypes``.  The library's file name carries a hash of its source and
+of every header ``csrc/*.cuh`` (which the sources include), so an
+edited source or header is rebuilt and a stale library is never loaded.
 Sources build in parallel: one ``nvcc`` process per source, all started
 together.
 
@@ -50,7 +51,8 @@ def reset_launches():
 
 
 def sources():
-    """Kernel name -> source path, for every ``csrc/*.cu``."""
+    """Kernel name -> source path, for every ``csrc/*.cu`` (a header
+    ``*.cuh`` is never built alone)."""
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
@@ -67,8 +69,13 @@ def _nvcc():
 
 
 def _target(src):
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    """The library of ``src``, named by a hash of the source and of
+    every ``csrc/*.cuh``."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def _compile(jobs):

@@ -1,14 +1,15 @@
 """Flash attention on hand-written Hopper kernels, forward and backward.
 
 Port of ``incubator_mxnet_tpu/ops/flash.py``: the Pallas TPU kernel
-``_fwd_kernel`` becomes the CUDA kernel ``csrc/flash_fwd.cu`` (one
-block per (bh, 64-row query tile), an online-softmax loop over the key
-tiles of the band, fp32 accumulation), and ``_dq_kernel`` and
-``_dkv_kernel`` become ``flash_dq`` and ``flash_dkv`` in
-``csrc/flash_bwd.cu`` (one block per 64-row query tile and per 64-row
-key tile, P rebuilt from the forward's ``lse``; bf16 on the tensor
-cores with ``wgmma`` fed by TMA, fp32 on the CUDA cores; see the
-sources' headers).  ``_FlashAttention`` ties them together as the JAX
+``_fwd_kernel`` becomes the CUDA kernel ``flash_fwd`` in
+``csrc/flash_fwd.cu`` (one block per (bh, 64-row query tile), an
+online-softmax loop over the key tiles of the band, fp32 sums), and
+``_dq_kernel`` and ``_dkv_kernel`` become ``flash_dq`` and
+``flash_dkv`` in ``csrc/flash_bwd.cu`` (one block per 64-row query
+tile and per 64-row key tile, P rebuilt from the forward's ``lse``).
+Each runs bf16 on the tensor cores, ``wgmma`` fed by TMA (the shared
+pieces are ``csrc/hopper_tc.cuh``), and fp32 on the CUDA cores; see
+the sources' headers.  ``_FlashAttention`` ties them together as the JAX
 op's ``custom_vjp`` does.
 
 The op is registered as ``_flash_attention`` (``nd._internal``), the JAX
@@ -31,7 +32,7 @@ from .registry import defop
 __all__ = ["flash_attention", "flash_attention_fwd"]
 
 _NEG = -1e30
-# the kernel's tile sizes (csrc/flash_fwd.cu BQ/BK)
+# the kernels' tile sizes (csrc/hopper_tc.cuh BQ/BK)
 BQ = 64
 BK = 64
 HEAD_DIMS = (32, 64, 128)
@@ -182,7 +183,7 @@ _BWD_SIGNATURES = {
 def _check_kernel_args(q, *others):
     """What the kernels take: one device and dtype (float32 or
     bfloat16), head dim in HEAD_DIMS, contiguous tensors at 16-byte
-    aligned addresses (the bf16 backward reads them by TMA)."""
+    aligned addresses (the bf16 kernels read them by TMA)."""
     for t in others:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v (and g) must share device and "

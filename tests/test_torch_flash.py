@@ -333,10 +333,10 @@ def test_kernel_q_tile_range_covers_exactly_the_kept_pairs(causal, window):
 
 # ---------------------------------------------------------------- bf16
 
-def _bf16_inputs(bh, l, d, seed):
+def _bf16_inputs(bh, l, d, seed, lk=None):
     """q, k, v and the output gradient g as numpy fp32 values that bf16
     holds exactly, so both packages get the same bf16 tensors."""
-    arrs = _inputs(bh, l, d, seed=seed)
+    arrs = _inputs(bh, l, d, lk=lk, seed=seed)
     arrs.append(np.random.RandomState(seed + 1).normal(
         0, 1, arrs[0].shape).astype(np.float32))
     return [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
@@ -418,3 +418,111 @@ def test_kernel_wrappers_refuse_unaligned_tensors():
             launch(x, x, x, x, lse_mis, lse, True, 0.1, 0)
         with pytest.raises(ValueError, match="delta must be"):
             launch(x, x, x, x, lse, lse_mis, True, 0.1, 0)
+
+
+# ------------------------------------------------- bf16 forward recipe
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def _tensor_core_recipe_fwd(q, k, v, causal, scale, window=0):
+    """The arithmetic of flash_fwd_tc_kernel (csrc/flash_fwd.cu): bf16
+    q.k^T products summed in fp32, the scale (times log2 e, in fp32)
+    applied to the accumulator, an online softmax over the 64-key tiles
+    of the band (``_k_tile_range``) with l summed from the fp32 p, P
+    rounded to bf16 before P.v, o rounded to bf16 once at the end.
+    Returns (o bf16, lse (BH, Lq) fp32)."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    sl2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
+    keep = tflash._mask(lq, lk, causal, window, q.device)
+    o = torch.zeros(bh, lq, d)
+    lse = torch.zeros(bh, lq)
+    for iq in range(math.ceil(lq / tflash.BQ)):
+        rows = slice(iq * tflash.BQ, (iq + 1) * tflash.BQ)
+        qt = q[:, rows].float()
+        n = qt.shape[1]
+        m = torch.full((bh, n), -math.inf)
+        l = torch.zeros(bh, n)
+        acc = torch.zeros(bh, n, d)
+        for jk in range(*tflash._k_tile_range(iq, lq, lk, causal, window)):
+            cols = slice(jk * tflash.BK, (jk + 1) * tflash.BK)
+            t = (qt @ k[:, cols].float().transpose(1, 2)) * sl2
+            if keep is not None:
+                t = t.masked_fill(~keep[rows, cols], -math.inf)
+            m_new = torch.maximum(m, t.amax(-1))
+            mu = torch.where(m_new == -math.inf, 0.0, m_new)
+            alpha = torch.exp2(m - mu)
+            p = torch.exp2(t - mu[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] \
+                + p.bfloat16().float() @ v[:, cols].float()
+            m = m_new
+        live = l > 0
+        o[:, rows] = torch.where(live[..., None], acc / l[..., None], 0.0)
+        lse[:, rows] = torch.where(live, (m + torch.log2(l)) * LN2,
+                                   -math.inf)
+    return o.bfloat16(), lse
+
+
+def _bf16_qkv(bh, lq, d, seed, lk=None):
+    return [torch.from_numpy(a).bfloat16()
+            for a in _bf16_inputs(bh, lq, d, seed, lk)[:3]]
+
+
+@pytest.mark.parametrize("causal,window,l", [(True, 0, 512),
+                                             (False, 0, 512),
+                                             (True, 100, 200)])
+def test_bf16_fwd_recipe_stays_inside_the_card_tolerance(causal, window,
+                                                         l):
+    # The rounding of P that the tensor-core forward adds, against the
+    # plain version the card holds it to, at chip_smoke.py's bf16 TOL.
+    # Worst |error| / (tol * (1 + |ref|)) of o seen here: 0.192 (causal,
+    # L=512), 0.078 (not causal), 0.259 (window 100, L=200), where the
+    # two sums land one bf16 step apart after o's own rounding; of lse
+    # under 1e-5, since l sums the fp32 p.
+    from chip_smoke import TOL
+    tol = TOL["bfloat16"]
+    q, k, v = _bf16_qkv(4, l, 64, seed=14)
+    o, lse = _tensor_core_recipe_fwd(q, k, v, causal, 0.125, window)
+    ro, rlse = tflash._reference_fwd(q, k, v, causal, 0.125, window)
+    assert o.dtype == ro.dtype == torch.bfloat16
+    worst = {}
+    for name, a, b in (("o", o, ro), ("lse", lse, rlse)):
+        a, b = a.float(), b.float()
+        worst[name] = ((a - b).abs() / (tol * (1 + b.abs()))).max().item()
+    assert max(worst.values()) <= 1.0, worst
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_fwd_recipe_matches_jax_kernel(causal):
+    # the recipe's o and lse against the Pallas forward in interpret mode
+    # on the same bf16 inputs, within 2e-2 (abs + rel)
+    q, k, v = _bf16_qkv(2, 256, 64, seed=15)
+    o, lse = _tensor_core_recipe_fwd(q, k, v, causal, 0.125)
+    jo, jlse = jflash._flash_fwd(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+        causal, 0.125, True)
+    assert jo.dtype == jnp.bfloat16
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(jo.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("causal,window,lq,lk", [(True, 0, 256, 256),
+                                                 (False, 0, 130, 200),
+                                                 (True, 64, 200, 200)])
+def test_bf16_fwd_recipe_lse_rebuilds_rows_that_sum_to_one(causal, window,
+                                                           lq, lk):
+    # The backward rebuilds P as exp(s * scale - lse) (its plain version,
+    # _reference_p_ds): from the recipe's lse every kept row sums to 1
+    # within 1e-2.
+    q, k, v = _bf16_qkv(2, lq, 64, seed=16, lk=lk)
+    _, lse = _tensor_core_recipe_fwd(q, k, v, causal, 0.125, window)
+    zeros = torch.zeros(2, lq)
+    p, _ = tflash._reference_p_ds(q, k, v, q, lse, zeros, causal, 0.125,
+                                  window)
+    np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, atol=1e-2)

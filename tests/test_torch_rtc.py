@@ -277,15 +277,14 @@ def _on_card(shape):
 
 
 def test_cuda_call_without_card_raises_and_never_runs_the_plain_version(
-        monkeypatch):
+        monkeypatch, tmp_path):
     def no_nvcc():
         raise RuntimeError("nvcc not found (test)")
 
     monkeypatch.setattr(_build, "_nvcc", no_nvcc)
-    monkeypatch.setattr(_build, "BUILD_DIR",
-                        _build.BUILD_DIR / "missing-for-test")
-    monkeypatch.setattr(_build, "RTC_DIR",
-                        _build.BUILD_DIR / "missing-for-test" / "rtc")
+    # an empty build directory outside the source tree: nothing is built
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "RTC_DIR", tmp_path / "rtc")
     calls = []
     for name in ex.NAMES:
         k = ex.kernel(name)
@@ -328,6 +327,29 @@ def test_package_kernels_exclude_the_user_kernel_sources():
     a = _build._source_target("x", "k")
     assert a.parent == _build.RTC_DIR and a.name.startswith("libk-")
     assert a != _build._source_target("y", "k")
+
+
+def test_package_library_hashes_the_headers_its_sources_include(
+        monkeypatch, tmp_path):
+    # a library is named by its source and every csrc/*.cuh, so an edited
+    # header rebuilds its users; a header is never a kernel of its own
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    src = tmp_path / "k.cu"
+    src.write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// v1\n")
+    assert _build.sources() == {"k": src}
+    first = _build._target(src)
+    assert first.parent == tmp_path / "_build"
+    assert first.name.startswith("libk-") and first.suffix == ".so"
+    assert _build._target(src) == first
+    header.write_text("// v2\n")
+    second = _build._target(src)
+    assert second != first
+    src.write_text('#include "shared.cuh"\n// edited\n')
+    assert _build._target(src) not in (first, second)
+    assert not (tmp_path / "_build").exists()
 
 
 # --------------------------------------- the four kernels against JAX's
