@@ -10,11 +10,16 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                ptxas's registers and spills for each kernel; each
                kernel's HGMMA (wgmma) and HMMA (mma.sync) count in the
                SASS (cuobjdump): every bf16 flash_fwd/flash_dq/flash_dkv
-               kernel must have HGMMA, and flash_fwd's at D=64 no spills.
+               kernel and the fp32 (split-TF32) flash_fwd kernel at each
+               head dim must have HGMMA; the fp32 forward at every head
+               dim and the bf16 forward at D=64 no spills; no wgmma
+               serialized by ptxas.
 2. kernels     hold flash_fwd against its plain PyTorch version on the
                card at the main paths' shapes (fp32 forward and serve,
                bf16 train) and a sweep of others, and time kernel, plain
-               version, library call and bound.
+               version, library call and bound; each case names the
+               kernel it ran (fp32: flash_fwd_tf32_kernel, bf16:
+               flash_fwd_tc_kernel).
 3. kernels_bwd the same for flash_dq and flash_dkv against the plain
                backward, at the train path's shape (bf16 and fp32) and
                the forward's sweep.
@@ -48,7 +53,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                fused_scale_shift_relu launch per step, and one step's
                loss and gradient equal the CPU's plain path; times the
                host cost of an eager call; and checks that
-               nd._internal._flash_attention launches flash_fwd.
+               nd._internal._flash_attention launches flash_fwd.  The
+               eager-call timing (dispatch) also profiles the rtc
+               kernel's calls, alone and through nd, with cProfile
+               (host_profile).
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -75,6 +83,10 @@ import time
 SEED = 0
 H100_FP32_FLOPS = 67e12      # non-tensor-core fp32, SXM, 700 W
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16
+H100_TF32_FLOPS = 495e12     # dense tensor-core tf32
+# fp32-accurate products on the tensor cores: split-TF32, three tf32
+# products per fp32 product
+H100_SPLIT_TF32_FLOPS = H100_TF32_FLOPS / 3
 H100_BYTES_PER_S = 3.35e12   # HBM3
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 # backward: sums over up to 1024 keys or queries in another order (fp32);
@@ -90,6 +102,9 @@ TRAIN = (8, 1024)                # B x L of bench.py's training step
 TRAIN_CHECK = (1, 256)           # B x L of the card-vs-CPU gradient check
 WARMUP_STEPS, TIMED_STEPS = 2, 8
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# the kernel flash_fwd launches for each dtype (csrc/flash_fwd.cu)
+FWD_KERNELS = {"float32": "flash_fwd_tf32_kernel",
+               "bfloat16": "flash_fwd_tc_kernel"}
 
 
 class CheckFailed(Exception):
@@ -234,14 +249,26 @@ def live_pairs(lq, lk, causal, window):
                for i in range(lq))
 
 
-def _bound(nbytes, flops, dtype):
+def _bound(nbytes, flops, peak):
     """Least time for the work on an H100: max of bytes / 3.35 TB/s and
-    operations / the dtype's peak; and which of the two it is."""
-    peak = H100_FP32_FLOPS if dtype == "float32" else H100_BF16_FLOPS
+    operations / ``peak`` FLOP/s; and which of the two it is."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops \
         else "operations"
+
+
+def _matmul_bounds(nbytes, flops, dtype):
+    """A flash kernel's bound: bf16 at the dense bf16 rate; fp32 at the
+    split-TF32 rate (the least time for fp32-accurate products on the
+    tensor cores), with the CUDA cores' bound beside it as
+    ``cuda_core_bound_ms``."""
+    if dtype != "float32":
+        ms, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+        return {"bound_ms": ms, "bound_by": by}
+    ms, by = _bound(nbytes, flops, H100_SPLIT_TF32_FLOPS)
+    return {"bound_ms": ms, "bound_by": by, "cuda_core_bound_ms":
+            _bound(nbytes, flops, H100_FP32_FLOPS)[0]}
 
 
 def bound(case):
@@ -251,7 +278,7 @@ def bound(case):
     size = 4 if case["dtype"] == "float32" else 2
     nbytes = size * bh * d * (2 * lq + 2 * lk) + 4 * bh * lq
     flops = 4 * d * bh * live_pairs(lq, lk, case["causal"], case["window"])
-    return _bound(nbytes, flops, case["dtype"])
+    return _matmul_bounds(nbytes, flops, case["dtype"])
 
 
 def bwd_bound(case, kernel):
@@ -266,13 +293,15 @@ def bwd_bound(case, kernel):
         nbytes, flops = reads + size * bh * lq * d, 6 * d * bh * pairs
     else:
         nbytes, flops = reads + 2 * size * bh * lk * d, 8 * d * bh * pairs
-    return _bound(nbytes, flops, case["dtype"])
+    return _matmul_bounds(nbytes, flops, case["dtype"])
 
 
-# flash_dq_kernel<float, 64> (CUDA cores) or flash_dq_tc_kernel<64> (the
-# tensor cores, bf16 only), mangled
+# flash_dq_kernel<float, 64> (CUDA cores), flash_dq_tc_kernel<64> (the
+# tensor cores, bf16) or flash_fwd_tf32_kernel<64> (the tensor cores,
+# fp32 as split-TF32), mangled.  The name follows its length (digits);
+# the anonymous namespace before it also holds "_flash_fwd_cu_<hash>"
 _KERNEL_NAME = re.compile(
-    r"(flash_[a-z_]+_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
+    r"(?<=\d)(flash_[a-z0-9_]*?_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
 
 
 def _demangle(mangled):
@@ -286,13 +315,14 @@ def _demangle(mangled):
 
 
 def kernel_name(mangled):
-    """``flash_dq_kernel<f32,64>``, ``flash_dq_tc_kernel<bf16,64>``, or
-    the demangled function name of any other kernel."""
+    """``flash_dq_kernel<f32,64>``, ``flash_dq_tc_kernel<bf16,64>``,
+    ``flash_fwd_tf32_kernel<f32,64>``, or the demangled function name
+    of any other kernel."""
     m = _KERNEL_NAME.search(mangled)
     if not m:
         return _demangle(mangled)
-    dt = "f32" if m.group(2) == "f" else "bf16"
-    return f"{m.group(1)}<{dt},{m.group(3)}>"
+    fp32 = m.group(2) == "f" or "_tf32_" in m.group(1)
+    return f"{m.group(1)}<{'f32' if fp32 else 'bf16'},{m.group(3)}>"
 
 
 def ptxas_report(log):
@@ -349,15 +379,22 @@ def phase_build(mt, card):
     emit({"phase": "build", "card": card, "seconds": seconds,
           "sources": sorted(built), "ptxas": ptxas,
           "sass_tensor_ops": sass})
-    # the bf16 kernels (flash_fwd, flash_dq, flash_dkv; one per head dim
-    # each) on the tensor cores, by wgmma
-    bf16 = {k: v for k, v in sass.items() if "<bf16," in k}
-    check(len(bf16) == 3 * len(mt.ops.flash.HEAD_DIMS)
-          and all(v["hgmma"] > 0 for v in bf16.values()),
-          f"bf16 flash kernels without HGMMA: {bf16}")
-    fwd64 = ptxas.get("flash_fwd_tc_kernel<bf16,64>", {})
-    check(fwd64.get("spill_stores") == 0 and fwd64.get("spill_loads") == 0,
-          f"flash_fwd_tc_kernel<bf16,64> spills: {fwd64}")
+    # on the tensor cores, by wgmma: the bf16 kernels (flash_fwd,
+    # flash_dq, flash_dkv; one per head dim each) and the fp32 forward
+    dims = mt.ops.flash.HEAD_DIMS
+    tc = {k: v for k, v in sass.items()
+          if "<bf16," in k or k.startswith("flash_fwd_tf32_kernel<")}
+    check(len(tc) == 4 * len(dims)
+          and all(v["hgmma"] > 0 for v in tc.values()),
+          f"tensor-core flash kernels without HGMMA: {tc}")
+    no_spill = ["flash_fwd_tc_kernel<bf16,64>"] + [
+        f"flash_fwd_tf32_kernel<f32,{d}>" for d in dims]
+    spills = {k: ptxas.get(k) for k in no_spill
+              if ptxas.get(k, {}).get("spill_stores") != 0
+              or ptxas.get(k, {}).get("spill_loads") != 0}
+    check(not spills, f"forward kernels spill: {spills}")
+    check(not ptxas.get("wgmma_warnings"),
+          f"ptxas serialized wgmma: {ptxas.get('wgmma_warnings')}")
 
 
 def flash_cases():
@@ -414,7 +451,8 @@ def phase_kernels(mt, torch):
         ratio = (diff / (tol + tol * ro.float().abs())).max().item()
         lse_ratio = ((lse - rlse).abs()
                      / (tol + tol * rlse.abs())).max().item()
-        row = dict(case, max_abs_err=diff.max().item(),
+        row = dict(case, kernel=FWD_KERNELS[case["dtype"]],
+                   max_abs_err=diff.max().item(),
                    max_abs_err_lse=(lse - rlse).abs().max().item(),
                    tol=tol, worst_over_tol=max(ratio, lse_ratio))
         check(math.isfinite(row["worst_over_tol"])
@@ -427,7 +465,7 @@ def phase_kernels(mt, torch):
         row["plain_ms"] = device_ms(lambda: flash._reference_fwd(*args),
                                     torch, f"plain flash_fwd {case}",
                                     reps=10)
-        row["bound_ms"], row["bound_by"] = bound(case)
+        row.update(bound(case))
         row["library_ms"] = row["library_call_ms"] = None
         if case["causal"] and not case["window"] \
                 and case["lq"] == case["lk"]:
@@ -443,14 +481,16 @@ def phase_kernels(mt, torch):
           "worst_over_tol": worst_by_dtype(rows)})
     m = next(r for r in rows if r["path"] == "forward")
     t = next(r for r in rows if r["path"] == "train")
-    keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_call_ms", "tol")
+    keys = ("kernel", "max_abs_err", "ms", "call_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call_ms", "tol")
     return dict({k: m[k] for k in keys},
                 name="flash_fwd", route="cuda",
                 source="incubator_mxnet_tpu_torch/csrc/flash_fwd.cu",
                 replaces="incubator_mxnet_tpu/ops/flash.py:121",
                 launches=None, shape=[m["bh"], m["lq"], m["d"]],
                 dtype=m["dtype"], causal=True,
+                cuda_core_bound_ms=m["cuda_core_bound_ms"],
+                over_library=m["ms"] / m["library_ms"],
                 cases_within_tol=len(rows),
                 bf16_train=dict({k: t[k] for k in keys},
                                 shape=[t["bh"], t["lq"], t["d"]],
@@ -519,8 +559,8 @@ def phase_kernels_bwd(mt, torch):
             row[f"{kernel}_plain_ms"] = device_ms(
                 lambda: plain(*args), torch, f"plain {kernel} {case}",
                 reps=10)
-            row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = \
-                bwd_bound(case, kernel)
+            row.update({f"{kernel}_{k}": v for k, v in
+                        bwd_bound(case, kernel).items()})
         row["kernels_sum_ms"] = row["flash_dq_ms"] + row["flash_dkv_ms"]
         row["library_ms"] = row["library_call_ms"] = None
         if not window and (not causal or case["lq"] == case["lk"]):
@@ -540,9 +580,13 @@ def phase_kernels_bwd(mt, torch):
     emit({"phase": "kernels_bwd", "cases": rows,
           "worst_over_tol": worst_by_dtype(rows)})
     m = rows[0]
+    f = next(r for r in rows
+             if r["path"] == "train" and r["dtype"] == "float32")
     entries = []
     for kernel, line, errs in (("flash_dq", 220, ("dq",)),
                                ("flash_dkv", 262, ("dk", "dv"))):
+        keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "cuda_core_bound_ms")
         entries.append({
             "name": kernel, "route": "cuda",
             "source": "incubator_mxnet_tpu_torch/csrc/flash_bwd.cu",
@@ -559,7 +603,14 @@ def phase_kernels_bwd(mt, torch):
                           "with the sum of flash_dq and flash_dkv",
             "shape": [m["bh"], m["lq"], m["d"]], "dtype": m["dtype"],
             "causal": True, "tol": m["tol"],
-            "cases_within_tol": len(rows)})
+            "cases_within_tol": len(rows),
+            "fp32_train": dict(
+                {k: f[f"{kernel}_{k}"] for k in keys},
+                max_abs_err=max(f[f"max_abs_err_{e}"] for e in errs),
+                library_ms=f["library_ms"],
+                library_call_ms=f["library_call_ms"],
+                shape=[f["bh"], f["lq"], f["d"]], dtype="float32",
+                causal=True, tol=f["tol"])})
     return entries
 
 
@@ -878,7 +929,8 @@ def rtc_kernel_checks(ex, torch):
         row["library_ms"], row["library_call_ms"] = \
             timed_ms(lib, torch, f"{name}'s library call") if lib \
             else (None, None)
-        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, "float32")
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops,
+                                                  H100_FP32_FLOPS)
         row["gbytes_per_s"] = nbytes / row["ms"] / 1e6
         rows.append(row)
         entries[name] = {
@@ -941,10 +993,36 @@ def rtc_cpu_check(mt, ex, torch, data):
             "fp32_vs_fp64_floor": floor}
 
 
+def host_profile(fn, torch, calls=DISPATCH_CALLS, top=10):
+    """Where a call's host time goes: cProfile over ``calls`` calls, the
+    functions with the most time of their own, in us per call.  The
+    profiler adds its own cost to every Python call it sees, so the
+    total is inflated; the shares are the measurement."""
+    import cProfile
+    import pstats
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(v[2] for v in stats.values())
+    rows = sorted(((v[2], f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
+                   for k, v in stats.items()), reverse=True)[:top]
+    return {"profiled_us_per_call": total / calls * 1e6,
+            "top_own_us_per_call": [[name, t / calls * 1e6]
+                                    for t, name in rows]}
+
+
 def rtc_dispatch(mt, ex, torch):
     """Host cost of one eager call on a (4, 4) CUDA array, in us: a
     registered op through nd, the bare torch op, an rtc kernel through
-    nd and its compile_kernel callable alone."""
+    nd and its compile_kernel callable alone; and where the rtc calls'
+    time goes (``host_profile``)."""
     a = mt.nd.ones((4, 4))
     t = a.handle
 
@@ -965,7 +1043,12 @@ def rtc_dispatch(mt, ex, torch):
                 lambda: mt.nd.rtc_scale(a, alpha=2.0)),
             "compile_kernel_scale_us": per_call(
                 lambda: fn(t, alpha=2.0)),
-            "torch_mul_us": per_call(lambda: torch.mul(t, 2.0))}
+            "torch_mul_us": per_call(lambda: torch.mul(t, 2.0)),
+            "host_profile": {
+                "compile_kernel_scale": host_profile(
+                    lambda: fn(t, alpha=2.0), torch),
+                "nd_rtc_scale": host_profile(
+                    lambda: mt.nd.rtc_scale(a, alpha=2.0), torch)}}
 
 
 def rtc_ops_path(mt, ex, torch):

@@ -53,10 +53,11 @@
 // barriers, descriptors, the wgmma wrappers, tensor maps) are shared with
 // the bf16 forward in csrc/hopper_tc.cuh.
 //
-// fp32 (flash_dq_kernel, flash_dkv_kernel): the forward's design
-// (csrc/flash_fwd.cu) on the CUDA cores, where fp32 keeps its full
-// precision (TF32 would not): every operand of the products sits in
-// shared memory, rows padded by 4 floats so the 128-bit loads that feed
+// fp32 (flash_dq_kernel, flash_dkv_kernel): on the CUDA cores, in full
+// fp32.  One TF32 product per product cannot meet the fp32 check;
+// split-TF32 (three tf32 products, as flash_fwd_tf32_kernel in
+// csrc/flash_fwd.cu does) can, and is these kernels' next redesign.
+// Every operand of the products sits in shared memory, rows padded by 4 floats so the 128-bit loads that feed
 // the FMA units are free of bank conflicts, and each thread owns a 4 x 4
 // block of the score tile and 4 rows of its output.  The two score
 // products run in separate loops so that fewer operands are live in

@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a), fp32 and bf16 inputs, in
-// two builds: bf16 on the tensor cores (wgmma fed by TMA), fp32 on the
-// CUDA cores.
+// two builds, both on the tensor cores (wgmma fed by TMA): bf16 as it
+// is, fp32 as split-TF32 (three tf32 products per fp32 product).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (launched by `_flash_fwd`)
 // in incubator_mxnet_tpu/ops/flash.py.  Same function: for each query row,
@@ -13,9 +13,10 @@
 // causal, 67.2 M kept pairs) it does 4*D flops per kept pair, 17.2 GFLOP,
 // against q, k, v and o: 67.6 MB in bf16, 134 MB in fp32.  bf16: 0.0202 ms
 // of memory traffic at 3.35 TB/s against 0.0174 ms at the dense bf16
-// tensor-core rate (989 TFLOP/s), so the bytes bound it.  fp32: 0.26 ms at
-// the 67 TFLOP/s CUDA-core rate against 0.04 ms of traffic, so the math
-// does.
+// tensor-core rate (989 TFLOP/s), so the bytes bound it.  fp32: three
+// tf32 products per product, 51.5 GFLOP at 495 TFLOP/s, 0.104 ms,
+// against 0.040 ms of traffic, so the math does (on the CUDA cores, 67
+// TFLOP/s, it would be 0.26 ms).
 //
 // bf16 (flash_fwd_tc_kernel): a block is one warpgroup (128 threads) per
 // (bh, 64-row query tile).  Its thread 0 loads the q tile once by TMA
@@ -40,12 +41,48 @@
 // at the end.  The design moves each k and v tile from device memory once
 // per query tile, and keeps s and P out of shared memory.
 //
-// fp32 (flash_fwd_kernel): every operand of the two products sits in
-// shared memory, each K/V tile is streamed from device memory once per
-// 64-row query tile, and the FMA units are fed from 128-bit
-// shared-memory loads (rows padded by 4 floats, so the loads are free of
-// bank conflicts) at 16 FMAs per loaded vector pair.  fp32 keeps its full
-// precision (TF32 would not).
+// fp32 (flash_fwd_tf32_kernel): the bf16 kernel's block, ring, schedule
+// and online softmax, with every product split.  One tf32 product keeps
+// 11 of fp32's 24 mantissa bits and cannot meet the fp32 check (5e-5,
+// abs + rel).  Split-TF32 can: each operand x becomes hi + lo, hi = x
+// with its low 13 bits cleared (tf32_hi) and lo = x - hi (exact), and a
+// product a.b becomes lo_a.hi_b + hi_a.lo_b + hi_a.hi_b summed in fp32
+// (lo.lo, 2^-22 of the product, is dropped; the tensor core keeps 11
+// bits of lo, 2^-21).  So a tile takes 3 x D/8 wgmma m64nNk8 for s and
+// 3 x BKT/8 per W-column chunk of o.  Where the design meets trouble:
+// - tf32 operands in shared memory must be K-major: PTX has no transpose
+//   flag for .tf32.  s = q . k^T is K-major as TMA lands q and k (rows
+//   along D).  For o += P . v the B operand v is (keys, D): MN-major.
+//   So after a (k, v) pair lands, the warpgroup writes v^T (D rows of
+//   BKT keys) into two buffers of its own, hi and lo, in the same pass
+//   (transpose_split); its loads and stores are free of bank conflicts.
+// - The split.  hi is stored with its low bits cleared, not left for the
+//   tensor core to ignore: PTX leaves the tf32 layout to the
+//   implementation (cvt.rna.tf32 clears the bits), so this holds however
+//   the hardware reads the low bits.  q and k are split in place (hi
+//   over the landed tile, lo beside it), one float4 pass that needs no
+//   swizzle arithmetic since both halves share the layout.
+// - P as the A operand from registers.  The tf32 A fragment of m64k8
+//   holds columns t and t + 4 (t = lane % 4) of rows r0 and r0 + 8; the
+//   fp32 accumulator of s holds columns 2t and 2t + 1.  P . v sums over
+//   keys, so v^T's positions are permuted inside each group of 8 (key
+//   8j + 2t at position 8j + t, key 8j + 2t + 1 at 8j + t + 4), and the
+//   score registers are A's words as they stand, split into hi and lo in
+//   registers.  l sums the fp32 p.
+// - Shared memory and occupancy.  Per block: q hi and lo, a 2-stage ring
+//   of (k, v), k lo, v^T hi and lo.  BKT (keys per tile) is 64 at D=32
+//   and 32 at D=64 and 128:
+//     D=32,  BKT=64:  72 KB a block, 3 blocks an SM
+//     D=64,  BKT=32:  88 KB a block, 2 blocks an SM (BKT=64: 144 KB, 1)
+//     D=128, BKT=32: 176 KB a block, 1 block an SM (BKT=64 needs 288 KB)
+//   Two blocks at D=64 let one block's softmax and splits overlap the
+//   other's products.  The o accumulator is D/2 registers a thread, the
+//   score tile BKT/2, P's fragments BKT; q stays in shared memory.
+// - The ring stage is freed once s is done (v was transposed before), so
+//   the next load overlaps the softmax and P . v.  Two barriers a tile:
+//   before the splits (every warp is past the last tile's products, which
+//   read k lo and v^T) and after them, behind a fence.proxy.async, since
+//   wgmma reads shared memory through the async proxy.
 //
 // What differs from the TPU kernel:
 // - The Pallas grid is sequential and carries (m, l, acc) across grid
@@ -62,217 +99,13 @@
 //   are not written.  lse is (BH, Lq), without the TPU's 8-lane padding.
 //
 // Layout: q (BH, Lq, D), k and v (BH, Lk, D), o like q, lse (BH, Lq) fp32,
-// all contiguous, bf16 ones 16-byte aligned (TMA).  The kernels allocate
+// all contiguous and 16-byte aligned (TMA).  The kernels allocate
 // nothing and run on the caller's stream; the C entry point returns a
 // cudaError_t (or a negative code for arguments it does not take).
 
 #include "hopper_tc.cuh"
 
 namespace {
-
-// ------------------------------------------------ fp32: the CUDA cores
-
-constexpr int THREADS = 256;  // thread (ty, tx) = (tid / 16, tid % 16)
-constexpr int PS = BK + 4;    // padded row of the P tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// W consecutive floats from shared memory in one vector load.
-template <int W>
-__device__ __forceinline__ void lds(float (&dst)[W], const float* p);
-template <>
-__device__ __forceinline__ void lds<4>(float (&dst)[4], const float* p) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-}
-template <>
-__device__ __forceinline__ void lds<2>(float (&dst)[2], const float* p) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  dst[0] = t.x; dst[1] = t.y;
-}
-
-// Max and sum over the 16 lanes that share a row group (one half-warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int D>
-struct Smem {
-  static constexpr int DP = D + 4;  // padded row of the Q and K tiles
-  static constexpr size_t floats = 2 * BQ * DP + BK * D + BQ * PS;
-  static constexpr size_t bytes = floats * sizeof(float);
-};
-
-// One block per (bh, query tile).  Each thread owns 4 query rows
-// (ty*4 .. ty*4+3); for S = Q K^T it owns key columns tx + 16*j, and for
-// O it owns output columns (c*16 + tx)*VW .. +VW-1.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int bh_count, int lq, int lk,
-                 int causal, int window, float scale) {
-  constexpr int DP = Smem<D>::DP;
-  constexpr int VW = D >= 64 ? 4 : 2;     // output vector width
-  constexpr int NV = D / (16 * VW);       // output vectors per thread
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][DP], scaled
-  float* Ks = Qs + BQ * DP;                      // [BK][DP]
-  float* Vs = Ks + BK * DP;                      // [BK][D]
-  float* Ps = Vs + BK * D;                       // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int nq = (lq + BQ - 1) / BQ;
-  // the longest causal rows are scheduled first
-  const int iq = nq - 1 - blockIdx.x / bh_count;
-  const int bh = blockIdx.x % bh_count;
-  const int q0 = iq * BQ;
-  const size_t qbase = (size_t)bh * lq * D;
-  const size_t kbase = (size_t)bh * lk * D;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    Qs[r * DP + c] = q0 + r < lq
-        ? to_f(q[qbase + (size_t)(q0 + r) * D + c]) * scale : 0.f;
-  }
-
-  // key tiles [kt0, kt1) hold every kept pair of this query tile
-  const int nk = (lk + BK - 1) / BK;
-  int kt0 = 0, kt1 = nk;
-  if (causal) {
-    kt1 = min(nk, (min(q0 + BQ, lq) - 1) / BK + 1);
-    if (window > 0) kt0 = max(0, q0 - window + 1) / BK;
-  }
-
-  float m[4], l[4], acc[4][NV * VW];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NV * VW; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the last tile's K, V and P are consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < lk;
-      const size_t g = kbase + (size_t)(k0 + r) * D + c;
-      Ks[r * DP + c] = in ? to_f(k[g]) : 0.f;
-      Vs[r * D + c] = in ? to_f(v[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float a[4][4], b[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) lds<4>(a[r], &Qs[(ty * 4 + r) * DP + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) lds<4>(b[j], &Ks[(tx + 16 * j) * DP + d]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[r][j] = fmaf(a[r][e], b[j][e], s[r][j]);
-    }
-
-    // mask, then the online-softmax update of (m, l, acc)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qp = q0 + ty * 4 + r;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        bool keep = kp < lk;
-        if (causal) {
-          keep = keep && qp >= kp;
-          if (window > 0) keep = keep && qp - kp < window;
-        }
-        if (!keep) s[r][j] = -INFINITY;
-        mx = fmaxf(mx, s[r][j]);
-      }
-      const float m_new = fmaxf(m[r], row_max(mx));
-      // all masked so far: weights stay 0 instead of exp(-inf + inf)
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[r] - m_use);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[r][j] - m_use);
-        Ps[(ty * 4 + r) * PS + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[r] = l[r] * alpha + row_sum(rs);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NV * VW; ++c) acc[r][c] *= alpha;
-    }
-    __syncthreads();
-
-    // O += P V over this tile's keys, four keys per step
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float p[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) lds<4>(p[r], &Ps[(ty * 4 + r) * PS + j]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int c = 0; c < NV; ++c) {
-          float vv[VW];
-          lds<VW>(vv, &Vs[(j + e) * D + (c * 16 + tx) * VW]);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int w = 0; w < VW; ++w)
-              acc[r][c * VW + w] = fmaf(p[r][e], vv[w], acc[r][c * VW + w]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qp = q0 + ty * 4 + r;
-    if (qp >= lq) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    T* orow = o + qbase + (size_t)qp * D;
-#pragma unroll
-    for (int c = 0; c < NV; ++c)
-#pragma unroll
-      for (int w = 0; w < VW; ++w)
-        orow[(c * 16 + tx) * VW + w] = from_f<T>(acc[r][c * VW + w] * inv);
-    if (tx == 0)
-      lse[(size_t)bh * lq + qp] = l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
-  }
-}
-
 
 // ------------------------------------------------ bf16: wgmma fed by TMA
 
@@ -457,21 +290,331 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
   store_rows<D>(acc, o + ((size_t)bh * lq + q0) * D, r0, lq - q0, lane);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int bh, int lq, int lk, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  const size_t smem = Smem<D>::bytes;
+// ------------------------------------------------ fp32: split-TF32 wgmma
+
+// Keys per tile of flash_fwd_tf32_kernel and the shared memory it needs
+// (byte offsets from a 1024-aligned base): the q tile's hi (TMA-landed,
+// split in place) and lo halves; a ring of STAGES (k, v) pairs as TMA
+// lands them, k's hi split in place; k's lo; v^T's hi and lo; the
+// barriers (full[STAGES], empty[STAGES], resident).
+template <int D>
+struct Tf32Fwd {
+  static constexpr int BKT = D == 32 ? 64 : 32;
+  static constexpr int Q = BQ * D * 4;     // bytes of one q half
+  static constexpr int KV = BKT * D * 4;   // bytes of k, v, k lo, v^T halves
+  static constexpr int QLO = Q;
+  static constexpr int RING = 2 * Q;
+  static constexpr int KLO = RING + STAGES * 2 * KV;
+  static constexpr int VTHI = KLO + KV;
+  static constexpr int VTLO = VTHI + KV;
+  static constexpr int BARS = VTLO + KV;
+  static constexpr size_t bytes = BARS + (2 * STAGES + 1) * 8 + 1024;
+  // blocks an SM by shared memory (228 KB, 1 KB of it per block reserved)
+  static constexpr int BLOCKS = 233472 / (bytes + 1024);
+  static constexpr int W = D < 64 ? D : 64;   // columns of one o product
+  static constexpr int CHUNKS = D / W;
+};
+
+// hi in place and lo = x - hi beside it, for `count` float4s of a tile
+// (both halves in the same swizzled layout, so no index arithmetic).
+__device__ __forceinline__ void split_tile(float* hi, float* lo, int count) {
+  for (int i = threadIdx.x; i < count; i += TC_THREADS) {
+    const float4 x = reinterpret_cast<const float4*>(hi)[i];
+    const float4 h = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z),
+                                 tf32_hi(x.w));
+    reinterpret_cast<float4*>(hi)[i] = h;
+    reinterpret_cast<float4*>(lo)[i] =
+        make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+  }
+}
+
+// v (BKT keys x D, as TMA landed it) to v^T (D rows x BKT positions,
+// K-major for the P . v product) in hi and lo halves.  Positions are
+// keys permuted inside each group of 8: position 8j + t + 4e holds key
+// 8j + 2t + e (t < 4, e < 2), the order in which the score accumulator
+// holds P's columns (see the kernel).  A warp takes 32 consecutive rows
+// d of v^T for one group of 4 positions: its loads read one 128-byte row
+// of v, its 16-byte stores land in 8 distinct bank groups per phase
+// (the swizzle), so neither side has bank conflicts.
+template <int D, int BKT>
+__device__ __forceinline__ void transpose_split(const float* v, float* vhi,
+                                                float* vlo) {
+  for (int i = threadIdx.x; i < D * BKT / 4; i += TC_THREADS) {
+    const int d = i % D;
+    const int pos = 4 * (i / D);
+    const int key = (pos & ~7) + ((pos >> 2) & 1);  // keys key + 2t
+    float x[4], h[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      x[t] = v[f32_at(key + 2 * t, d, BKT)];
+      h[t] = tf32_hi(x[t]);
+    }
+    const int at = f32_at(d, pos, D);
+    *reinterpret_cast<float4*>(vhi + at) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(vlo + at) =
+        make_float4(x[0] - h[0], x[1] - h[1], x[2] - h[2], x[3] - h[3]);
+  }
+}
+
+// s = q . k^T over D in three tf32 products, lo.hi and hi.lo first (the
+// small terms), then hi.hi; q tiles have BQ rows, k tiles BKT.
+template <int D, int BKT>
+__device__ __forceinline__ void score_tf32(float (&s)[BKT / 2], uint32_t qhi,
+                                           uint32_t qlo, uint32_t khi,
+                                           uint32_t klo) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t oq = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+    const uint32_t ok = (kk / 4) * BKT * 128 + (kk % 4) * 32;
+    mma_ss_tf32<BKT>(s, desc_f32(qlo + oq), desc_f32(khi + ok), kk > 0);
+    mma_ss_tf32<BKT>(s, desc_f32(qhi + oq), desc_f32(klo + ok), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    mma_ss_tf32<BKT>(s, desc_f32(qhi + (kk / 4) * BQ * 128 + (kk % 4) * 32),
+                     desc_f32(khi + (kk / 4) * BKT * 128 + (kk % 4) * 32), 1);
+}
+
+// o += P . v in three tf32 products: P's hi and lo as register A
+// fragments (4 words per 8-key step), v^T's hi and lo tiles (D rows of
+// BKT positions) as B; o in CHUNKS products of W columns.
+template <int D, int BKT>
+__device__ __forceinline__ void accumulate_tf32(
+    float (&acc)[Tf32Fwd<D>::CHUNKS][Tf32Fwd<D>::W / 2],
+    const uint32_t (&ahi)[BKT / 2], const uint32_t (&alo)[BKT / 2],
+    uint32_t vhi, uint32_t vlo) {
+  constexpr int W = Tf32Fwd<D>::W;
+#pragma unroll
+  for (int c = 0; c < Tf32Fwd<D>::CHUNKS; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < BKT / 8; ++kk) {
+      const uint32_t off = (kk / 4) * D * 128 + c * W * 128 + (kk % 4) * 32;
+      mma_rs_tf32<W>(acc[c], alo[4 * kk], alo[4 * kk + 1], alo[4 * kk + 2],
+                     alo[4 * kk + 3], desc_f32(vhi + off));
+      mma_rs_tf32<W>(acc[c], ahi[4 * kk], ahi[4 * kk + 1], ahi[4 * kk + 2],
+                     ahi[4 * kk + 3], desc_f32(vlo + off));
+    }
+#pragma unroll
+    for (int kk = 0; kk < BKT / 8; ++kk) {
+      const uint32_t off = (kk / 4) * D * 128 + c * W * 128 + (kk % 4) * 32;
+      mma_rs_tf32<W>(acc[c], ahi[4 * kk], ahi[4 * kk + 1], ahi[4 * kk + 2],
+                     ahi[4 * kk + 3], desc_f32(vhi + off));
+    }
+  }
+}
+
+// One block (one warpgroup) per (bh, query tile), as the bf16 kernel: the
+// thread owns query rows r0 = warp*16 + lane/4 and r0 + 8, their running
+// max m (log2 units, scale applied), its share of the row sum l and its
+// columns of o, all fp32.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, Tf32Fwd<D>::BLOCKS)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      float* __restrict__ o, float* __restrict__ lse,
+                      int bh_count, int lq, int lk, int causal, int window,
+                      float scale) {
+  using S = Tf32Fwd<D>;
+  constexpr int BKT = S::BKT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // the same bytes for the threads' own loads and stores
+  float* const fbase = reinterpret_cast<float*>(smem_raw + (base - raw));
+  auto at = [&](int off) { return fbase + off / 4; };
+  const uint32_t bars = base + S::BARS;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t resident = bars + 8 * 2 * STAGES;
+  auto ring_k = [&](int s) { return S::RING + s * 2 * S::KV; };
+
+  const int nq = (lq + BQ - 1) / BQ;
+  // the longest causal rows are scheduled first
+  const int iq = nq - 1 - blockIdx.x / bh_count;
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = iq * BQ;
+  // key tiles [kt0, kt1) hold every kept pair of this query tile
+  const int nk = (lk + BKT - 1) / BKT;
+  int kt0 = 0, kt1 = nk;
+  if (causal) {
+    kt1 = min(nk, (min(q0 + BQ, lq) - 1) / BKT + 1);
+    if (window > 0) kt0 = max(0, q0 - window + 1) / BKT;
+  }
+  const int n = kt1 - kt0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WARPS);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: the q tile once, and each (k, v) pair
+  // into its ring stage once the stage is free
+  auto load = [&](int i) {
+    const int s = i % STAGES;
+    mbar_expect_tx(full(s), 2 * S::KV);
+    tma_f32<D, BKT>(base + ring_k(s), mk, (kt0 + i) * BKT, bh, full(s));
+    tma_f32<D, BKT>(base + ring_k(s) + S::KV, mv, (kt0 + i) * BKT, bh,
+                    full(s));
+  };
+  if (threadIdx.x == 0 && n > 0) {
+    mbar_expect_tx(resident, S::Q);
+    tma_f32<D, BQ>(base, mq, q0, bh, resident);
+    for (int i = 0; i < min(n, STAGES); ++i) load(i);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const float sl2 = scale * LOG2E;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[S::CHUNKS][S::W / 2];
+#pragma unroll
+  for (int c = 0; c < S::CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < S::W / 2; ++i) acc[c][i] = 0.f;
+
+  if (n > 0) {
+    mbar_wait(resident, 0);
+    split_tile(at(0), at(S::QLO), S::Q / 16);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const int k0 = (kt0 + i) * BKT;
+    // every warp is past the last tile's products, which read k lo and
+    // v^T; then split this tile's k and v
+    __syncthreads();
+    mbar_wait(full(s), (i / STAGES) & 1);
+    split_tile(at(ring_k(s)), at(S::KLO), S::KV / 16);
+    transpose_split<D, BKT>(at(ring_k(s) + S::KV), at(S::VTHI),
+                            at(S::VTLO));
+    fence_async_smem();
+    __syncthreads();
+
+    float sc[BKT / 2];
+    wg_fence();
+    score_tf32<D, BKT>(sc, base, base + S::QLO, base + ring_k(s),
+                       base + S::KLO);  // s = q k^T
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(sc);
+    // the stage's k and v are consumed: free it for tile i + STAGES
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (threadIdx.x == 0 && i + STAGES < n) {
+      mbar_wait(empty(s), (i / STAGES) & 1);
+      load(i + STAGES);
+    }
+    __syncwarp();
+
+    // scale (log2 units) and mask; the tile's row max
+    const bool edge = !interior<BKT>(q0, k0, lq, lk, causal, window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < BKT / 2; ++e) {
+      const int h = (e >> 1) & 1;
+      float t = sc[e] * sl2;
+      if (edge) {
+        const int qp = q0 + r0 + 8 * h;
+        const int kp = k0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        if (!kept(qp, kp, lq, lk, causal, window)) t = -INFINITY;
+      }
+      sc[e] = t;
+      mx[h] = fmaxf(mx[h], t);
+    }
+    // the online-softmax update of (m, l, o)
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mx[h]));
+      // all masked so far: weights stay 0 instead of exp(-inf + inf)
+      mu[h] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = exp2f(m[h] - mu[h]);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+    // P's A fragments: the accumulator holds columns 8kk + 2t (+1) of
+    // rows r0 (+8) in sc[4kk + 2h (+1)]; with v^T's positions permuted,
+    // A's column t is key 8kk + 2t and column t + 4 key 8kk + 2t + 1, so
+    // a0..a3 = (r0, 2t), (r0 + 8, 2t), (r0, 2t + 1), (r0 + 8, 2t + 1)
+    uint32_t ahi[BKT / 2], alo[BKT / 2];
+#pragma unroll
+    for (int e = 0; e < BKT / 2; ++e) {
+      const int h = (e >> 1) & 1;
+      const float p = exp2f(sc[e] - mu[h]);
+      l[h] += p;
+      const float ph = tf32_hi(p);
+      // e = 4kk + 2h + c goes to fragment word 4kk + h + 2c
+      const int r = (e & ~3) + h + 2 * (e & 1);
+      ahi[r] = __float_as_uint(ph);
+      alo[r] = __float_as_uint(p - ph);
+    }
+#pragma unroll
+    for (int c = 0; c < S::CHUNKS; ++c)
+#pragma unroll
+      for (int j = 0; j < S::W / 2; ++j) acc[c][j] *= alpha[(j >> 1) & 1];
+    wg_fence();
+    accumulate_tf32<D, BKT>(acc, ahi, alo, base + S::VTHI,
+                            base + S::VTLO);  // o += p v
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < S::CHUNKS; ++c) reg_fence(acc[c]);
+  }
+
+  // o = acc / l and lse = m + log(l), in natural units; a row no key
+  // reached gets o = 0 and lse = -inf
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lt = quad_sum(l[h]);
+    inv[h] = lt > 0.f ? 1.f / lt : 0.f;
+    const int qp = q0 + r0 + 8 * h;
+    if ((lane & 3) == 0 && qp < lq)
+      lse[(size_t)bh * lq + qp] =
+          lt > 0.f ? (m[h] + log2f(lt)) * LN2 : -INFINITY;
+  }
+  float* const out = o + ((size_t)bh * lq + q0) * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= lq - q0) continue;
+#pragma unroll
+    for (int c = 0; c < S::CHUNKS; ++c)
+#pragma unroll
+      for (int j = 0; j < S::W / 8; ++j)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + c * S::W + 8 * j +
+                                   2 * (lane & 3)) =
+            make_float2(acc[c][4 * j + 2 * h] * inv[h],
+                        acc[c][4 * j + 2 * h + 1] * inv[h]);
+  }
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int lq, int lk, int causal, int window,
+                float scale, cudaStream_t stream) {
+  using S = Tf32Fwd<D>;
+  CUtensorMap mq, mk, mv;
+  int rc;
+  if ((rc = f32_map(&mq, q, bh, lq, D, BQ)) ||
+      (rc = f32_map(&mk, k, bh, lk, D, S::BKT)) ||
+      (rc = f32_map(&mv, v, bh, lk, D, S::BKT)))
+    return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)S::bytes);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((lq + BQ - 1) / BQ) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_fwd_kernel<T, D><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, bh, lq, lk, causal,
-      window, scale);
+  flash_fwd_tf32_kernel<D><<<(unsigned)blocks, TC_THREADS, S::bytes,
+                             stream>>>(mq, mk, mv, static_cast<float*>(o),
+                                       lse, bh, lq, lk, causal, window,
+                                       scale);
   return cudaGetLastError();
 }
 
@@ -502,9 +645,9 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o,
                  float* lse, int bh, int lq, int lk, int d, int causal,
                  int window, float scale, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<float, 32>(q, k, v, o, lse, bh, lq, lk, causal, window, scale, s);
-    case 64: return launch<float, 64>(q, k, v, o, lse, bh, lq, lk, causal, window, scale, s);
-    case 128: return launch<float, 128>(q, k, v, o, lse, bh, lq, lk, causal, window, scale, s);
+    case 32: return launch_tf32<32>(q, k, v, o, lse, bh, lq, lk, causal, window, scale, s);
+    case 64: return launch_tf32<64>(q, k, v, o, lse, bh, lq, lk, causal, window, scale, s);
+    case 128: return launch_tf32<128>(q, k, v, o, lse, bh, lq, lk, causal, window, scale, s);
     default: return -2;
   }
 }
@@ -525,7 +668,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0 on success, a cudaError_t
 // from the launch, or -1 (dtype) / -2 (head dim) / -3 (sizes) for
 // arguments the kernel does not take, -4 / -5 when the driver cannot
-// describe a bf16 operand to TMA.
+// describe an operand to TMA.
 extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int lq, int lk,
                              int d, int dtype, int causal, int window,

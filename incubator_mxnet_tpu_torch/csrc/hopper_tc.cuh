@@ -1,9 +1,10 @@
 // Shared pieces of the port's Hopper (sm_90a) tensor-core kernels:
-// flash_fwd_tc_kernel (csrc/flash_fwd.cu), flash_dq_tc_kernel and
-// flash_dkv_tc_kernel (csrc/flash_bwd.cu).
+// flash_fwd_tc_kernel and flash_fwd_tf32_kernel (csrc/flash_fwd.cu),
+// flash_dq_tc_kernel and flash_dkv_tc_kernel (csrc/flash_bwd.cu).
 //
 // A block is one warpgroup (128 threads) that issues every product as
-// wgmma m64nNk16 (bf16 operands, fp32 accumulators in registers); its
+// wgmma m64nNk16 (bf16 operands, fp32 accumulators in registers), or as
+// m64nNk8 on tf32 operands for fp32 (the tf32 section below); its
 // thread 0 also issues the TMA loads.  Operand tiles are 64 rows of D
 // bf16 values in shared memory, in the 128-byte swizzle that TMA writes
 // and wgmma's descriptors read (64-byte at D=32; D=128 is two 64-column
@@ -225,7 +226,127 @@ __device__ __forceinline__ void mma_rs<32>(float (&d)[16], uint32_t a0,
       : MXT_D8(0), MXT_D8(8)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
+
+// ------------------------------------------------ tf32 (fp32 operands)
+// A .tf32 operand is a 32-bit register or shared-memory word.  PTX leaves
+// the tf32 layout to the implementation and converts with cvt.rna.tf32,
+// which clears the low 13 bits; the split-fp32 kernels therefore store
+// every operand with those bits already clear (tf32_hi), so the product
+// does not depend on whether the tensor core truncates or rounds them.
+// PTX has no transpose flag for .tf32: both shared-memory operands are
+// K-major.
+
+// d (64 x N) (+)= A (64 x 8) . B (8 x N), tf32 operands from shared
+// memory, both K-major; accumulate = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void mma_ss_tf32(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void mma_ss_tf32<64>(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : MXT_D8(0), MXT_D8(8), MXT_D8(16), MXT_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void mma_ss_tf32<32>(float (&d)[16], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : MXT_D8(0), MXT_D8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N) += A (64 x 8, tf32 words in registers) . B (8 x N) from
+// shared memory, K-major.  Thread (warp, lane) holds A's rows warp*16 +
+// lane/4 (a0: column lane%4, a2: column lane%4 + 4) and the same + 8
+// (a1, a3).
+template <int N>
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[N / 2], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db);
+template <>
+__device__ __forceinline__ void mma_rs_tf32<64>(float (&d)[32], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : MXT_D8(0), MXT_D8(8), MXT_D8(16), MXT_D8(24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs_tf32<32>(float (&d)[16], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : MXT_D8(0), MXT_D8(8)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
 #undef MXT_D8
+
+// The high part of x as tf32 sees it: x with its low 13 bits cleared.
+// x - tf32_hi(x) is exact in fp32 and holds the 13 bits that a single
+// tf32 product would drop.
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// fp32 tiles: rows of D floats stored as D/32 chunks of 32 columns, each
+// row of a chunk one 128-byte swizzle span, as the TMA box {32, rows, 1}
+// writes it.  A k8 tf32 step is 32 bytes, as bf16's k16 is, so the
+// descriptor arithmetic is Tile<64>'s: 8-row atoms of 1024 bytes (the
+// stride between atoms), 128-byte swizzle, and a k step adds 32 bytes to
+// the start address inside the atom's rows.
+__device__ __forceinline__ uint64_t desc_f32(uint32_t addr) {
+  return desc<64>(addr);
+}
+
+// Float index of (row r, column c) in an fp32 tile of `rows` rows: chunk
+// c / 32, then the 16-byte unit (c % 32) / 4 XOR the row's place in its
+// 8-row atom (the 128-byte swizzle; the tile is 1024-byte aligned).
+__device__ __forceinline__ int f32_at(int r, int c, int rows) {
+  return (c >> 5) * rows * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+// Generic-proxy writes to shared memory (st.shared) become visible to the
+// async proxy (wgmma's operand reads, TMA) after this fence and a barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One (ROWS x D) fp32 tile, rows [row, row + ROWS) of head bh, into
+// shared memory at dst by TMA (D / 32 boxes); completes its bytes on the
+// barrier.
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_f32(uint32_t dst, const CUtensorMap& map,
+                                        int row, int bh, uint32_t bar) {
+  const uint64_t m = reinterpret_cast<uint64_t>(&map);
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+            dst + c * ROWS * 128),
+        "l"(m), "r"(bar), "r"(c * 32), "r"(row), "r"(bh)
+        : "memory");
+}
 
 // s = A . B^T over D, for two (64 x D) tiles in shared memory.
 template <int D>
@@ -260,13 +381,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Does every pair of the (query tile q0, key tile k0) block survive the
-// mask?  Then the block skips it.
+// Does every pair of the (query tile q0, key tile k0 of BKN keys) block
+// survive the mask?  Then the block skips it.
+template <int BKN = BK>
 __device__ __forceinline__ bool interior(int q0, int k0, int lq, int lk,
                                          int causal, int window) {
-  bool all = q0 + BQ <= lq && k0 + BK <= lk;
+  bool all = q0 + BQ <= lq && k0 + BKN <= lk;
   if (causal) {
-    all = all && k0 + BK - 1 <= q0;
+    all = all && k0 + BKN - 1 <= q0;
     if (window > 0) all = all && q0 + BQ - 1 - k0 < window;
   }
   return all;
@@ -342,6 +464,27 @@ int tile_map(CUtensorMap* map, const void* base, int bh, int rows) {
       dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+// The (bh, rows, d) fp32 tensor at `base` as 3-D TMA boxes of box_rows
+// rows x 32 columns (one 128-byte swizzle span), swizzled as wgmma reads
+// them; rows past `rows` are zero-filled.
+int f32_map(CUtensorMap* map, const void* base, int bh, int rows, int d,
+            int box_rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return -5;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4,
+                                 (cuuint64_t)rows * d * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -4;
 }
 

@@ -8,7 +8,8 @@ left is the control surface:
 - ``wait(values)``    — block until the given tensors' devices are idle
 - naive mode          — synchronize after every eager op, for debugging
                         (``set_engine_type("naive")``, or the environment
-                        variable ``MXTPU_ENGINE_TYPE=naive``)
+                        variable ``MXTPU_ENGINE_TYPE=naive``, else the
+                        reference's ``MXNET_ENGINE_TYPE=naive``)
 - ``bulk(size)``      — a no-op scope kept for API parity
 """
 import contextlib
@@ -21,9 +22,19 @@ __all__ = ["set_engine_type", "maybe_block", "wait_all", "wait", "bulk"]
 _state = {"naive": None}
 
 
+def get_env(name):
+    """The environment flag ``name`` (``MXTPU_...``), else the same flag
+    under the reference's ``MXNET_`` prefix, else None: the rule of the
+    JAX package's ``utils/env.py``."""
+    raw = os.environ.get(name)
+    if raw is None and name.startswith("MXTPU_"):
+        raw = os.environ.get("MXNET_" + name[len("MXTPU_"):])
+    return raw
+
+
 def _is_naive():
     if _state["naive"] is None:
-        _state["naive"] = os.environ.get("MXTPU_ENGINE_TYPE") == "naive"
+        _state["naive"] = get_env("MXTPU_ENGINE_TYPE") == "naive"
     return _state["naive"]
 
 

@@ -64,7 +64,7 @@ class CausalSelfAttention(nn.Module):
     (``attn_window``): query i sees keys (i - window, i]."""
 
     def __init__(self, d_model, n_heads, seq_parallel=False, rope=False,
-                 n_kv_heads=None, attn_window=0, device=None):
+                 n_kv_heads=None, attn_window=0, *, device=None):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model ({d_model}) must be a multiple "
@@ -86,9 +86,10 @@ class CausalSelfAttention(nn.Module):
         self._h = n_heads
         self._kv = kv
         self._dh = d_model // n_heads
-        self.qkv = Dense(d_model + 2 * kv * self._dh, d_model,
-                         device=device)
-        self.proj = Dense(d_model, d_model, device=device)
+        self.qkv = Dense(d_model + 2 * kv * self._dh, flatten=False,
+                         in_units=d_model, device=device)
+        self.proj = Dense(d_model, flatten=False, in_units=d_model,
+                          device=device)
 
     def forward(self, x, kv_out=None):
         """Attention over x (B, L, d).  A list ``kv_out`` receives this
@@ -119,22 +120,26 @@ class CausalSelfAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm attention + MLP with residuals (GPT-2 layout)."""
+    """Pre-norm attention + MLP with residuals (GPT-2 layout).
+    ``moe_capacity_factor`` is the reference's MoE FFN capacity; the
+    MoE FFN itself (``moe_experts > 0``) is not ported yet."""
 
     def __init__(self, d_model, n_heads, mlp_ratio=4, dropout=0.0,
-                 seq_parallel=False, moe_experts=0, rope=False,
-                 n_kv_heads=None, attn_window=0, device=None):
+                 seq_parallel=False, moe_experts=0,
+                 moe_capacity_factor=1.25, rope=False, n_kv_heads=None,
+                 attn_window=0, *, device=None):
         super().__init__()
-        if moe_experts:
+        if moe_experts > 0:
             raise _not_ported("moe_experts > 0 (ops/moe.py)", "MoE")
-        self.ln1 = LayerNorm(d_model, device=device)
+        self.ln1 = LayerNorm(in_channels=d_model, device=device)
         self.attn = CausalSelfAttention(
             d_model, n_heads, seq_parallel=seq_parallel, rope=rope,
             n_kv_heads=n_kv_heads, attn_window=attn_window, device=device)
-        self.ln2 = LayerNorm(d_model, device=device)
-        self.up = Dense(mlp_ratio * d_model, d_model, activation="relu",
-                        device=device)
-        self.down = Dense(d_model, mlp_ratio * d_model, device=device)
+        self.ln2 = LayerNorm(in_channels=d_model, device=device)
+        self.up = Dense(mlp_ratio * d_model, flatten=False,
+                        activation="relu", in_units=d_model, device=device)
+        self.down = Dense(d_model, flatten=False,
+                          in_units=mlp_ratio * d_model, device=device)
         self.drop = Dropout(dropout)
 
     def forward(self, x, kv_out=None):
@@ -145,18 +150,21 @@ class TransformerBlock(nn.Module):
 class TransformerLM(nn.Module):
     """Token-in, logits-out decoder LM.
 
-    Parameters as the JAX package's: vocab_size, d_model, n_layers,
-    n_heads, max_len (learned positions), mlp_ratio, dropout, pos
-    ('learned' or 'rope'), n_kv_heads, attn_window; plus ``device``
-    (None: the first CUDA card, raising if there is none).  Parameters
+    Parameters as the JAX package's, in its order: vocab_size,
+    d_model, n_layers, n_heads, max_len (learned positions), mlp_ratio,
+    dropout, seq_parallel, moe_experts, moe_capacity_factor, pos
+    ('learned' or 'rope'), n_kv_heads, attn_window; plus the
+    keyword-only ``device`` (None: the first CUDA card, raising if
+    there is none).  Parameters
     are float32 and uninitialized until ``initializer.initialize`` or
     ``convert.load_reference_weights``.
     """
 
     def __init__(self, vocab_size, d_model=512, n_layers=6, n_heads=8,
                  max_len=1024, mlp_ratio=4, dropout=0.0,
-                 seq_parallel=False, moe_experts=0, pos="learned",
-                 n_kv_heads=None, attn_window=0, device=None):
+                 seq_parallel=False, moe_experts=0,
+                 moe_capacity_factor=1.25, pos="learned", n_kv_heads=None,
+                 attn_window=0, *, device=None):
         super().__init__()
         if pos not in ("learned", "rope"):
             raise ValueError(
@@ -173,11 +181,13 @@ class TransformerLM(nn.Module):
             TransformerBlock(d_model, n_heads, mlp_ratio, dropout,
                              seq_parallel=seq_parallel,
                              moe_experts=moe_experts,
+                             moe_capacity_factor=moe_capacity_factor,
                              rope=(pos == "rope"), n_kv_heads=n_kv_heads,
                              attn_window=attn_window, **kw)
             for _ in range(n_layers))
-        self.ln_f = LayerNorm(d_model, **kw)
-        self.head = Dense(vocab_size, d_model, use_bias=False, **kw)
+        self.ln_f = LayerNorm(in_channels=d_model, **kw)
+        self.head = Dense(vocab_size, flatten=False, use_bias=False,
+                          in_units=d_model, **kw)
         self.n_layers = n_layers
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads or n_heads

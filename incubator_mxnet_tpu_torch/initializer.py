@@ -7,13 +7,20 @@ initializer's own rule, ``*bias``/``*beta`` zeros, ``*gamma`` ones.
 Random draws come from an explicit CPU ``torch.Generator`` and are
 copied to the parameter's device, so one seed gives the same weights
 on every device.
+
+``initialize`` gives each parameter its own initializer where its layer
+set one (``Dense(weight_initializer=...)``; the ``init`` attribute),
+else the one it is given, as the reference's ``Parameter.initialize``
+does; a deferred parameter (``in_units=0``) keeps that choice for its
+first forward.
 """
 import numpy as np
 import torch
+from torch.nn.parameter import UninitializedParameter
 
 from .random import default_generator
 
-__all__ = ["Initializer", "Zero", "One", "Xavier", "initialize"]
+__all__ = ["Initializer", "Zero", "One", "Xavier", "create", "initialize"]
 
 
 class Initializer:
@@ -62,9 +69,32 @@ class Xavier(Initializer):
                   - scale)
 
 
+_NAMES = {"zeros": Zero, "ones": One, "xavier": Xavier}
+
+
+def create(init):
+    """An initializer from an instance or from the reference's registry
+    name (``"zeros"``, ``"ones"``, ``"xavier"``; any case)."""
+    if isinstance(init, Initializer):
+        return init
+    try:
+        return _NAMES[init.lower()]()
+    except (AttributeError, KeyError):
+        raise ValueError(f"initializer {init!r}: the port has "
+                         f"{sorted(_NAMES)}") from None
+
+
 def initialize(module, init, generator=None):
-    """Initialize every parameter of ``module`` with ``init``, in the
-    order of ``named_parameters()``; returns the module."""
+    """Initialize every parameter of ``module``, in the order of
+    ``named_parameters()``: with its own initializer if its layer gave
+    it one, else with ``init``.  A deferred parameter records the choice
+    and is initialized at its layer's first forward.  Returns the
+    module."""
     for name, param in module.named_parameters():
-        init(name, param.data, generator)
+        own = getattr(param, "init", None)
+        chosen = create(own) if own is not None else init
+        if isinstance(param, UninitializedParameter):
+            param.deferred_init = (chosen, generator)
+        else:
+            chosen(name, param.data, generator)
     return module

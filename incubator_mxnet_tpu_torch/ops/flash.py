@@ -8,9 +8,11 @@ online-softmax loop over the key tiles of the band, fp32 sums), and
 ``flash_dkv`` in ``csrc/flash_bwd.cu`` (one block per 64-row query
 tile and per 64-row key tile, P rebuilt from the forward's ``lse``).
 Each runs bf16 on the tensor cores, ``wgmma`` fed by TMA (the shared
-pieces are ``csrc/hopper_tc.cuh``), and fp32 on the CUDA cores; see
-the sources' headers.  ``_FlashAttention`` ties them together as the JAX
-op's ``custom_vjp`` does.
+pieces are ``csrc/hopper_tc.cuh``).  In fp32 the forward runs there
+too, as split-TF32 (each operand split into a tf32 high part and the
+rest, three tf32 products per fp32 product), and the backward on the
+CUDA cores; see the sources' headers.  ``_FlashAttention`` ties them
+together as the JAX op's ``custom_vjp`` does.
 
 The op is registered as ``_flash_attention`` (``nd._internal``), the JAX
 op's name, with its parameters less ``interpret``, which picks the
@@ -35,6 +37,9 @@ _NEG = -1e30
 # the kernels' tile sizes (csrc/hopper_tc.cuh BQ/BK)
 BQ = 64
 BK = 64
+# keys per tile of the fp32 forward, by head dim (Tf32Fwd<D>::BKT in
+# csrc/flash_fwd.cu)
+TF32_BK = {32: 64, 64: 32, 128: 32}
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -183,7 +188,7 @@ _BWD_SIGNATURES = {
 def _check_kernel_args(q, *others):
     """What the kernels take: one device and dtype (float32 or
     bfloat16), head dim in HEAD_DIMS, contiguous tensors at 16-byte
-    aligned addresses (the bf16 kernels read them by TMA)."""
+    aligned addresses (the tensor-core kernels read them by TMA)."""
     for t in others:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v (and g) must share device and "
@@ -311,9 +316,10 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, window=0):
     Returns ``(o, lse)``: o in q's dtype, lse (BH, Lq) fp32, the
     residual the backward rebuilds P from.  ``window > 0`` (requires
     ``causal`` and Lq == Lk): query i sees keys (i - window, i].
-    CUDA tensors run the kernel (float32 or bfloat16, D in 32/64/128,
-    any L); CPU tensors run the plain version.  No gradient flows
-    through it: ``flash_attention`` is the differentiable op.
+    CUDA tensors run the kernel (float32 as split-TF32 or bfloat16, D
+    in 32/64/128, any L, 16-byte aligned) or raise; CPU tensors run the
+    plain version.  No gradient flows through it: ``flash_attention``
+    is the differentiable op.
     """
     causal, scale, window = _prepare(q, k, v, causal, scale, window)
     if q.device.type == "cuda":

@@ -155,7 +155,16 @@ def _dims(v, what):
 
 class Kernel:
     """A user kernel from :func:`compile_kernel`: call it on tensors as
-    ``kernel(*arrays, **scalar_params)``."""
+    ``kernel(*arrays, **scalar_params)``.
+
+    What the parse fixes is resolved once: at construction the
+    pointer/scalar partition, each pointer's wanted dtype and each
+    scalar's converter, and at the first CUDA launch the built library's
+    bound launcher and error function.  A launch then does per call only
+    what the call's arrays and params decide (``out_shape``, ``grid``,
+    ``block``, ``shared_mem``, ``scalars``, which may be callables, as
+    in the reference), its checks, and one ctypes call on the current
+    stream."""
 
     def __init__(self, source, name, signature, out_shape, grid, block,
                  shared_mem, scalars, reference):
@@ -174,6 +183,19 @@ class Kernel:
         self.reference = reference
         self.__name__ = name
         self.__doc__ = reference.__doc__ if reference is not None else None
+        pointers = [p for p in self.params if p.pointer]
+        self._pointers = [(p.name, p.base, POINTER_TYPES[p.base])
+                          for p in pointers]
+        self._scalar_names = [p.name for p in self.params if not p.pointer]
+        self._scalar_set = frozenset(self._scalar_names)
+        # each C parameter in order: (pointer index, None) or (scalar
+        # name, its converter)
+        index = {p.name: i for i, p in enumerate(pointers)}
+        self._order = [
+            (index[p.name], None) if p.pointer else
+            (p.name, float if p.base in ("float", "double") else int)
+            for p in self.params]
+        self._launcher = None
 
     def build(self):
         """Build the kernel now (it is built at first launch anyway);
@@ -207,51 +229,62 @@ class Kernel:
                 "version: pass reference= to compile_kernel")
         return self.reference(*arrays, **params)
 
-    def _launch(self, device, arrays, params):
+    def _bind(self):
+        """Build and load the library, and keep its launcher and error
+        function: the first CUDA launch's one-time work."""
         lib = _build.load_source(self.source, self.name, self._signatures)
+        self._launcher = (getattr(lib, f"{self.name}_launch"),
+                          getattr(lib, f"{self.name}_error_name"))
+        return self._launcher
+
+    def _launch(self, device, arrays, params):
+        launch, error_name = self._launcher or self._bind()
         spec = self._resolve(self.out_shape, arrays, params)
         single = isinstance(spec, ShapeDtype)
-        specs = [spec] if single else list(spec)
-        pointers = [p for p in self.params if p.pointer]
-        n_in = len(pointers) - len(specs)
+        specs = (spec,) if single else tuple(spec)
+        n_in = len(self._pointers) - len(specs)
         if len(arrays) != n_in:
             raise TypeError(
                 f"kernel {self.name} takes {n_in} input arrays "
-                f"({[p.name for p in pointers[:n_in]]}), got "
+                f"({[p[0] for p in self._pointers[:n_in]]}), got "
                 f"{len(arrays)}")
         outs = [torch.empty(tuple(s.shape), dtype=torch_dtype(s.dtype),
                             device=device) for s in specs]
-        for p, t in zip(pointers, list(arrays) + outs):
-            want = POINTER_TYPES[p.base]
+        tensors = arrays + tuple(outs)
+        for (name, base, want), t in zip(self._pointers, tensors):
             if want is not None and t.dtype != want:
-                raise TypeError(f"kernel {self.name}: {p.name} is "
-                                f"{p.base}*, got a {t.dtype} tensor")
+                raise TypeError(f"kernel {self.name}: {name} is "
+                                f"{base}*, got a {t.dtype} tensor")
             if not t.is_contiguous():
-                raise ValueError(f"kernel {self.name}: {p.name} must be "
+                raise ValueError(f"kernel {self.name}: {name} must be "
                                  "contiguous")
-        scalars = [p.name for p in self.params if not p.pointer]
-        unknown = sorted(set(params) - set(scalars))
-        if unknown:
+        if not params.keys() <= self._scalar_set:
+            unknown = sorted(set(params) - self._scalar_set)
             raise TypeError(f"kernel {self.name} has no parameter "
-                            f"{unknown}; its scalars are {scalars}")
-        values = dict(self._resolve(self.scalars, arrays, params) or {})
-        values.update(params)
-        missing = [n for n in scalars if n not in values]
-        if missing:
-            raise TypeError(f"kernel {self.name}: no value for {missing}")
-        tensors = iter(list(arrays) + outs)
-        args = [next(tensors).data_ptr() if p.pointer
-                else (float if p.base in ("float", "double") else int)(
-                    values[p.name]) for p in self.params]
+                            f"{unknown}; its scalars are "
+                            f"{self._scalar_names}")
+        values = self._resolve(self.scalars, arrays, params)
+        values = {**values, **params} if values else params
+        try:
+            args = [tensors[key].data_ptr() if conv is None
+                    else conv(values[key]) for key, conv in self._order]
+        except KeyError:
+            missing = [n for n in self._scalar_names if n not in values]
+            raise TypeError(f"kernel {self.name}: no value for "
+                            f"{missing}") from None
         grid = _dims(self._resolve(self.grid, arrays, params), "grid")
         block = _dims(self._resolve(self.block, arrays, params), "block")
         shared = int(self._resolve(self.shared_mem, arrays, params))
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = getattr(lib, f"{self.name}_launch")(
-                *grid, *block, shared, stream, *args)
+        if device.index == torch.cuda.current_device():
+            rc = launch(*grid, *block, shared,
+                        torch.cuda.current_stream(device).cuda_stream,
+                        *args)
+        else:
+            with torch.cuda.device(device):
+                rc = launch(*grid, *block, shared,
+                            torch.cuda.current_stream().cuda_stream, *args)
         if rc != 0:
-            err = getattr(lib, f"{self.name}_error_name")(rc).decode()
+            err = error_name(rc).decode()
             raise MXNetError(f"kernel {self.name}: launch failed: {err}")
         _build.LAUNCHES[self.name] += 1
         return outs[0] if single else tuple(outs)

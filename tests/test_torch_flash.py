@@ -402,14 +402,19 @@ def test_bf16_recipe_rounding_stays_inside_the_card_tolerance():
 
 
 def test_kernel_wrappers_refuse_unaligned_tensors():
-    # TMA reads the bf16 backward's operands: a contiguous view 4 bytes
-    # past an aligned base is refused before the library is loaded
+    # TMA reads the tensor-core kernels' operands (the forward's in fp32
+    # and bf16, the bf16 backward's): a contiguous view 4 or 2 bytes past
+    # an aligned base is refused before the library is loaded
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(2, 64, 64, dtype=dtype)
+        mis = torch.zeros(2 * 64 * 64 + 1, dtype=dtype)[1:].view(2, 64, 64)
+        assert mis.is_contiguous() and mis.data_ptr() % 16
+        for args in ((mis, x, x), (x, mis, x), (x, x, mis)):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                tflash._launch(*args, True, 0.1, 0)
     x = torch.zeros(2, 64, 64)
     lse = torch.zeros(2, 64)
     mis = torch.zeros(2 * 64 * 64 + 1)[1:].view(2, 64, 64)
-    assert mis.is_contiguous() and mis.data_ptr() % 16
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tflash._launch(mis, x, x, True, 0.1, 0)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tflash._launch_bwd(x, x, x, x, lse, mis, True, 0.1, 0)
     lse_mis = torch.zeros(2 * 64 + 1)[1:].view(2, 64)
@@ -526,3 +531,182 @@ def test_bf16_fwd_recipe_lse_rebuilds_rows_that_sum_to_one(causal, window,
     p, _ = tflash._reference_p_ds(q, k, v, q, lse, zeros, causal, 0.125,
                                   window)
     np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, atol=1e-2)
+
+
+# ---------------------------------------------- fp32 split-TF32 recipe
+
+def _tf32(x):
+    """x as the tensor core reads a tf32 operand: its top 19 bits (sign,
+    exponent, 10 mantissa bits), the low 13 cleared by bit mask."""
+    return (x.contiguous().view(torch.int32) & -(1 << 13)).view(
+        torch.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b from tf32 products summed in fp32.  products=3 is the
+    split-TF32 recipe of flash_fwd_tf32_kernel: a = hi + lo with hi =
+    _tf32(a) and lo = a - hi (which the tensor core reads as _tf32(lo)),
+    and a @ b = lo_a @ hi_b + hi_a @ lo_b + hi_a @ hi_b (lo @ lo
+    dropped); products=1 is one tf32 product, hi_a @ hi_b."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    return (_tf32(a - ah) @ bh + ah @ _tf32(b - bh)) + ah @ bh
+
+
+def _pv_order(bk):
+    """The key at each position of v^T's tile in flash_fwd_tf32_kernel:
+    position 8j + t + 4e holds key 8j + 2t + e (the score accumulator's
+    column order, so P's registers are the A fragment as they stand)."""
+    return torch.tensor([8 * (p // 8) + 2 * (p % 4) + (p % 8) // 4
+                         for p in range(bk)])
+
+
+def _split_tf32_recipe_fwd(q, k, v, causal, scale, window=0, products=3):
+    """The arithmetic of flash_fwd_tf32_kernel (csrc/flash_fwd.cu), fp32
+    in and out: s = q.k^T and o += P.v each as ``_tf32_matmul``, the
+    scale (times log2 e) applied to the fp32 accumulator, an online
+    softmax over the key tiles of the band (``_k_tile_range`` at the
+    kernel's keys per tile, ``TF32_BK``), l summed from the fp32 p, the
+    keys of P.v in the kernel's order.  Returns (o, lse (BH, Lq))."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    bk = tflash.TF32_BK[d]
+    sl2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
+    keep = tflash._mask(lq, lk, causal, window, q.device)
+    o = torch.zeros(bh, lq, d)
+    lse = torch.zeros(bh, lq)
+    for iq in range(math.ceil(lq / tflash.BQ)):
+        rows = slice(iq * tflash.BQ, (iq + 1) * tflash.BQ)
+        qt = q[:, rows]
+        n = qt.shape[1]
+        m = torch.full((bh, n), -math.inf)
+        l = torch.zeros(bh, n)
+        acc = torch.zeros(bh, n, d)
+        first, stop = tflash._k_tile_range(iq, lq, lk, causal, window,
+                                           tflash.BQ, bk)
+        for jk in range(first, stop):
+            cols = slice(jk * bk, (jk + 1) * bk)
+            kt, vt = k[:, cols], v[:, cols]
+            t = _tf32_matmul(qt, kt.transpose(1, 2), products) * sl2
+            if keep is not None:
+                t = t.masked_fill(~keep[rows, cols], -math.inf)
+            m_new = torch.maximum(m, t.amax(-1))
+            mu = torch.where(m_new == -math.inf, 0.0, m_new)
+            alpha = torch.exp2(m - mu)
+            p = torch.exp2(t - mu[..., None])
+            l = l * alpha + p.sum(-1)
+            # a ragged last tile is zero-padded to bk keys, as TMA loads it
+            order = _pv_order(bk)[_pv_order(bk) < kt.shape[1]]
+            acc = acc * alpha[..., None] + _tf32_matmul(
+                p[..., order], vt[:, order], products)
+            m = m_new
+        live = l > 0
+        o[:, rows] = torch.where(live[..., None], acc / l[..., None], 0.0)
+        lse[:, rows] = torch.where(live, (m + torch.log2(l)) * LN2,
+                                   -math.inf)
+    return o, lse
+
+
+def _float64_fwd(q, k, v, causal, scale, window=0):
+    """Attention and lse in float64, the exact yardstick."""
+    s = (q.double() @ k.double().transpose(1, 2)) * scale
+    keep = tflash._mask(q.shape[1], k.shape[1], causal, window, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep[None], -math.inf)
+    return torch.softmax(s, -1) @ v.double(), torch.logsumexp(s, -1)
+
+
+def _worst_over_tol(got, ref, tol):
+    """max |got - ref| / (tol * (1 + |ref|)) over o and lse, as
+    chip_smoke.py holds the card's results."""
+    return max(((a.double() - b.double()).abs()
+                / (tol * (1 + b.double().abs()))).max().item()
+               for a, b in zip(got, ref))
+
+
+SPLIT_CASES = [  # (causal, window, L, D)
+    (True, 0, 512, 64), (False, 0, 512, 64), (True, 256, 512, 64),
+    (True, 0, 200, 64), (True, 0, 256, 32), (True, 0, 256, 128)]
+
+
+@pytest.mark.parametrize("causal,window,l,d", SPLIT_CASES)
+def test_split_tf32_recipe_stays_inside_the_card_tolerance(causal, window,
+                                                           l, d):
+    # The recipe's o and lse against float64 and against the plain
+    # version (the card's yardstick), at chip_smoke.py's fp32 TOL (5e-5
+    # abs + rel).  Worst |error| / (tol * (1 + |ref|)) seen here: 0.009
+    # to 0.016 against float64, 0.011 to 0.019 against the plain version
+    # (chip_smoke.py's kernels phase on an H100: 0.031 to 0.097 at its
+    # larger shapes).
+    from chip_smoke import TOL
+    tol = TOL["float32"]
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, l, d, seed=20))
+    scale = 1.0 / math.sqrt(d)
+    got = _split_tf32_recipe_fwd(q, k, v, causal, scale, window)
+    assert _worst_over_tol(got, _float64_fwd(q, k, v, causal, scale,
+                                             window), tol) <= 1.0
+    assert _worst_over_tol(got, tflash._reference_fwd(
+        q, k, v, causal, scale, window), tol) <= 1.0
+
+
+def test_one_tf32_product_fails_the_card_tolerance():
+    # Why the kernel splits: the same recipe with one tf32 product per
+    # product lands far outside 5e-5 (worst ratio 22 here), three
+    # products far inside (0.013)
+    from chip_smoke import TOL
+    tol = TOL["float32"]
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 512, 64, seed=21))
+    ref = _float64_fwd(q, k, v, True, 0.125)
+    one = _split_tf32_recipe_fwd(q, k, v, True, 0.125, products=1)
+    three = _split_tf32_recipe_fwd(q, k, v, True, 0.125, products=3)
+    assert _worst_over_tol(one, ref, tol) > 2.0
+    assert _worst_over_tol(three, ref, tol) < 0.1
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_tf32_recipe_matches_jax_kernel(causal, d):
+    # the recipe's o and lse against the Pallas forward in interpret
+    # mode on the same fp32 inputs, at the parity tests' TOL
+    arrs = _inputs(2, 256, d, seed=22)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = _split_tf32_recipe_fwd(*(torch.from_numpy(a) for a in arrs),
+                                    causal, scale)
+    jo, jlse = jflash._flash_fwd(*(jnp.asarray(a) for a in arrs), causal,
+                                 scale, True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               **TOL)
+
+
+@pytest.mark.parametrize("d", sorted(tflash.TF32_BK))
+def test_tf32_key_tiles_cover_exactly_the_kept_pairs(d):
+    # flash_fwd_tf32_kernel's key loop at its keys per tile (64 at D=32,
+    # 32 at D=64 and 128), ragged lengths and windows included
+    bq, bk = tflash.BQ, tflash.TF32_BK[d]
+    for causal, window in ((False, 0), (True, 0), (True, 1), (True, 40),
+                           (True, 100)):
+        for l in (1, 31, 32, 33, 64, 65, 200, 257):
+            qp = np.arange(l)[:, None]
+            kp = np.arange(l)[None, :]
+            keep = np.ones((l, l), bool)
+            if causal:
+                keep = qp >= kp
+                if window:
+                    keep &= qp - kp < window
+            for iq in range(math.ceil(l / bq)):
+                rows = keep[iq * bq:(iq + 1) * bq]
+                live = {jk for jk in range(math.ceil(l / bk))
+                        if rows[:, jk * bk:(jk + 1) * bk].any()}
+                first, stop = tflash._k_tile_range(iq, l, l, causal,
+                                                   window, bq, bk)
+                assert set(range(first, stop)) == live, (l, window, iq)
+
+
+def test_pv_order_is_a_permutation_within_groups_of_8():
+    order = _pv_order(64).tolist()
+    assert sorted(order) == list(range(64))
+    assert all(k // 8 == p // 8 for p, k in enumerate(order))
+    # the score accumulator's columns 2t, 2t + 1 land on A's t, t + 4
+    assert order[:8] == [0, 2, 4, 6, 1, 3, 5, 7]

@@ -439,6 +439,26 @@ def test_wait_and_engine():
         mt.engine.set_engine_type("threaded")
 
 
+@pytest.mark.parametrize("env,naive", [
+    ({"MXNET_ENGINE_TYPE": "naive"}, True),
+    ({"MXTPU_ENGINE_TYPE": "naive"}, True),
+    ({"MXNET_ENGINE_TYPE": "async"}, False),
+    ({"MXTPU_ENGINE_TYPE": "async", "MXNET_ENGINE_TYPE": "naive"}, False),
+    ({}, False)])
+def test_engine_type_from_the_environment(monkeypatch, env, naive):
+    # MXTPU_ENGINE_TYPE, else the reference's MXNET_ENGINE_TYPE (the JAX
+    # package's utils/env.py rule): both packages pick the same mode
+    from incubator_mxnet_tpu import engine as jengine
+    for name in ("MXTPU_ENGINE_TYPE", "MXNET_ENGINE_TYPE"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setitem(mt.engine._state, "naive", None)
+    monkeypatch.setitem(jengine._state, "naive", None)
+    assert mt.engine._is_naive() is naive
+    assert jengine._is_naive() is naive
+
+
 def test_save_load_across_packages(tmp_path):
     w = np.arange(6, dtype="float32").reshape(2, 3)
     # the JAX package writes, the port reads (a dict, with bfloat16)
