@@ -7,13 +7,15 @@ NVIDIA card and check it.
 Phases, each printing one JSON line; any failed check exits non-zero:
 
 1. build       compile every csrc/*.cu of the port with nvcc (sm_90a);
-               ptxas's registers and spills for each kernel; each
-               kernel's HGMMA (wgmma) and HMMA (mma.sync) count in the
-               SASS (cuobjdump): every bf16 flash_fwd/flash_dq/flash_dkv
-               kernel and the fp32 (split-TF32) flash_fwd kernel at each
-               head dim must have HGMMA; the fp32 forward at every head
-               dim and the bf16 forward at D=64 no spills; no wgmma
-               serialized by ptxas.
+               ptxas's registers and spills for each kernel (those of
+               the fp32 backward at each head dim also on their own,
+               ``tf32_bwd``); each kernel's HGMMA (wgmma) and HMMA
+               (mma.sync) count in the SASS (cuobjdump): every flash
+               kernel (flash_fwd, flash_dq, flash_dkv; bf16 and fp32 as
+               split-TF32) at each head dim must have HGMMA; the fp32
+               forward at every head dim, the fp32 flash_dq and
+               flash_dkv and the bf16 forward at D=64 no spills; no
+               wgmma serialized by ptxas.
 2. kernels     hold flash_fwd against its plain PyTorch version on the
                card at the main paths' shapes (fp32 forward and serve,
                bf16 train) and a sweep of others, and time kernel, plain
@@ -22,7 +24,11 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                flash_fwd_tc_kernel).
 3. kernels_bwd the same for flash_dq and flash_dkv against the plain
                backward, at the train path's shape (bf16 and fp32) and
-               the forward's sweep.
+               the forward's sweep; each case names the kernels it ran
+               (fp32: flash_dq_tf32_kernel and flash_dkv_tf32_kernel,
+               bf16: flash_dq_tc_kernel and flash_dkv_tc_kernel) and
+               checks that a second launch on the same inputs gives
+               bit-identical dq, dk and dv (no atomics).
 4. forward     TransformerLM at bench.py's transformer width (vocab
                32000, d 1024, 12 layers, 16 heads, max_len 1024; seeded
                Xavier weights) scores B=8 x L=1024 tokens; logits are
@@ -39,7 +45,15 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                loss and tokens) takes 2 warm-up and 8 timed steps: losses
                finite and falling, masters fp32, and each step ran
                flash_fwd, flash_dq and flash_dkv once per layer; (iii)
-               step ms, tokens/s, MFU, peak memory and a profile.
+               step ms, tokens/s, MFU, peak memory and a profile; (iv)
+               the default fp32 step (compute_dtype=None) at the same
+               width, batch, optimizer, loss and tokens, from the same
+               seeded weights, once (ii)'s step and its Adam state are
+               freed: 2 warm-up and 3 timed steps, losses finite and
+               falling, each step one launch of flash_fwd, flash_dq and
+               flash_dkv per layer; step ms, tokens/s, peak memory and a
+               profiled step's device ms by class (flash_dq and
+               flash_dkv apart).
 7. rtc         the user-kernel path (rtc_examples.py): builds the four
                CUDA twins of the Pallas user kernels through
                rtc.compile_kernel (ptxas report), holds each against
@@ -101,10 +115,14 @@ NEW_TOKENS = 32
 TRAIN = (8, 1024)                # B x L of bench.py's training step
 TRAIN_CHECK = (1, 256)           # B x L of the card-vs-CPU gradient check
 WARMUP_STEPS, TIMED_STEPS = 2, 8
+FP32_WARMUP_STEPS, FP32_TIMED_STEPS = 2, 3   # step (iv), fp32
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
-# the kernel flash_fwd launches for each dtype (csrc/flash_fwd.cu)
+# the kernel flash_fwd launches for each dtype (csrc/flash_fwd.cu), and
+# those flash_dq and flash_dkv launch (csrc/flash_bwd.cu)
 FWD_KERNELS = {"float32": "flash_fwd_tf32_kernel",
                "bfloat16": "flash_fwd_tc_kernel"}
+BWD_KERNELS = {"float32": ["flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"],
+               "bfloat16": ["flash_dq_tc_kernel", "flash_dkv_tc_kernel"]}
 
 
 class CheckFailed(Exception):
@@ -296,12 +314,11 @@ def bwd_bound(case, kernel):
     return _matmul_bounds(nbytes, flops, case["dtype"])
 
 
-# flash_dq_kernel<float, 64> (CUDA cores), flash_dq_tc_kernel<64> (the
-# tensor cores, bf16) or flash_fwd_tf32_kernel<64> (the tensor cores,
-# fp32 as split-TF32), mangled.  The name follows its length (digits);
-# the anonymous namespace before it also holds "_flash_fwd_cu_<hash>"
-_KERNEL_NAME = re.compile(
-    r"(?<=\d)(flash_[a-z0-9_]*?_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
+# flash_dq_tc_kernel<64> (the tensor cores, bf16) or
+# flash_dq_tf32_kernel<64> (the tensor cores, fp32 as split-TF32),
+# mangled.  The name follows its length (digits); the anonymous
+# namespace before it also holds "_flash_fwd_cu_<hash>"
+_KERNEL_NAME = re.compile(r"(?<=\d)(flash_[a-z0-9_]*?_kernel)ILi(\d+)E")
 
 
 def _demangle(mangled):
@@ -315,14 +332,13 @@ def _demangle(mangled):
 
 
 def kernel_name(mangled):
-    """``flash_dq_kernel<f32,64>``, ``flash_dq_tc_kernel<bf16,64>``,
-    ``flash_fwd_tf32_kernel<f32,64>``, or the demangled function name
-    of any other kernel."""
+    """``flash_dq_tc_kernel<bf16,64>``, ``flash_dq_tf32_kernel<f32,64>``,
+    or the demangled function name of any other kernel."""
     m = _KERNEL_NAME.search(mangled)
     if not m:
         return _demangle(mangled)
-    fp32 = m.group(2) == "f" or "_tf32_" in m.group(1)
-    return f"{m.group(1)}<{'f32' if fp32 else 'bf16'},{m.group(3)}>"
+    fp32 = "_tf32_" in m.group(1)
+    return f"{m.group(1)}<{'f32' if fp32 else 'bf16'},{m.group(2)}>"
 
 
 def ptxas_report(log):
@@ -376,23 +392,27 @@ def phase_build(mt, card):
         lib = build._target(src)
         ptxas.update(ptxas_report(lib.with_suffix(".log").read_text()))
         sass.update(sass_tensor_ops(lib))
-    emit({"phase": "build", "card": card, "seconds": seconds,
-          "sources": sorted(built), "ptxas": ptxas,
-          "sass_tensor_ops": sass})
-    # on the tensor cores, by wgmma: the bf16 kernels (flash_fwd,
-    # flash_dq, flash_dkv; one per head dim each) and the fp32 forward
     dims = mt.ops.flash.HEAD_DIMS
+    tf32_bwd = {k: ptxas.get(k) for d in dims for k in (
+        f"flash_dq_tf32_kernel<f32,{d}>", f"flash_dkv_tf32_kernel<f32,{d}>")}
+    emit({"phase": "build", "card": card, "seconds": seconds,
+          "sources": sorted(built), "ptxas": ptxas, "tf32_bwd": tf32_bwd,
+          "sass_tensor_ops": sass})
+    # on the tensor cores, by wgmma: every flash kernel (flash_fwd,
+    # flash_dq, flash_dkv; bf16 and fp32; one per head dim each)
     tc = {k: v for k, v in sass.items()
-          if "<bf16," in k or k.startswith("flash_fwd_tf32_kernel<")}
-    check(len(tc) == 4 * len(dims)
+          if "<bf16," in k or "_tf32_kernel<" in k}
+    check(len(tc) == 6 * len(dims)
           and all(v["hgmma"] > 0 for v in tc.values()),
           f"tensor-core flash kernels without HGMMA: {tc}")
-    no_spill = ["flash_fwd_tc_kernel<bf16,64>"] + [
+    no_spill = ["flash_fwd_tc_kernel<bf16,64>",
+                "flash_dq_tf32_kernel<f32,64>",
+                "flash_dkv_tf32_kernel<f32,64>"] + [
         f"flash_fwd_tf32_kernel<f32,{d}>" for d in dims]
     spills = {k: ptxas.get(k) for k in no_spill
               if ptxas.get(k, {}).get("spill_stores") != 0
               or ptxas.get(k, {}).get("spill_loads") != 0}
-    check(not spills, f"forward kernels spill: {spills}")
+    check(not spills, f"flash kernels spill: {spills}")
     check(not ptxas.get("wgmma_warnings"),
           f"ptxas serialized wgmma: {ptxas.get('wgmma_warnings')}")
 
@@ -540,7 +560,7 @@ def phase_kernels_bwd(mt, torch):
                                    window)
         torch.cuda.synchronize()
         tol = BWD_TOL[case["dtype"]]
-        row = dict(case, tol=tol)
+        row = dict(case, kernels=BWD_KERNELS[case["dtype"]], tol=tol)
         worst = 0.0
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
             diff = (a.float() - b.float()).abs()
@@ -551,6 +571,14 @@ def phase_kernels_bwd(mt, torch):
         check(math.isfinite(worst) and worst <= 1.0,
               f"flash_dq/flash_dkv disagree with the plain backward: "
               f"{row}")
+        # each block writes only its own rows, with no atomics: a second
+        # launch on the same inputs gives the same bits
+        again = (flash._launch_dq(*args),) + flash._launch_dkv(*args)
+        row["bit_identical"] = all(bool(torch.equal(a, b))
+                                   for a, b in zip(got, again))
+        check(row["bit_identical"], f"flash_dq/flash_dkv differ between "
+                                    f"two launches on the same inputs: "
+                                    f"{row}")
         for kernel, fn, plain in (
                 ("flash_dq", flash._launch_dq, flash._reference_dq),
                 ("flash_dkv", flash._launch_dkv, flash._reference_dkv)):
@@ -576,9 +604,12 @@ def phase_kernels_bwd(mt, torch):
                 f"SDPA backward {case}")
             del ql, kl, vl, out
         rows.append(row)
-        del q, k, v, g, o, lse, delta, got, ref
+        del q, k, v, g, o, lse, delta, got, again, ref
     emit({"phase": "kernels_bwd", "cases": rows,
-          "worst_over_tol": worst_by_dtype(rows)})
+          "worst_over_tol": worst_by_dtype(rows),
+          "cases_within_tol": {dt: sum(r["dtype"] == dt for r in rows)
+                               for dt in BWD_KERNELS},
+          "bit_identical": all(r["bit_identical"] for r in rows)})
     m = rows[0]
     f = next(r for r in rows
              if r["path"] == "train" and r["dtype"] == "float32")
@@ -606,6 +637,7 @@ def phase_kernels_bwd(mt, torch):
             "cases_within_tol": len(rows),
             "fp32_train": dict(
                 {k: f[f"{kernel}_{k}"] for k in keys},
+                kernel=f["kernels"][0 if kernel == "flash_dq" else 1],
                 max_abs_err=max(f[f"max_abs_err_{e}"] for e in errs),
                 library_ms=f["library_ms"],
                 library_call_ms=f["library_call_ms"],
@@ -821,6 +853,9 @@ def phase_train(mt, torch, net, card):
     prof = profile(lambda: step(toks, labels), torch)
     tok_s = b * l / step_ms * 1e3
     flops_tok = net.train_flops_per_token(l)
+    del step                    # and its Adam state, before step (iv)
+    torch.cuda.empty_cache()
+    fp32, fp32_counts = fp32_train(mt, torch, net, toks, labels)
     emit({"phase": "train", "card": card, "cpu_check": cpu_check,
           "batch": b, "seq": l, "optimizer": "adam", "lr": 1e-4,
           "compute_dtype": "bfloat16", "warmup_steps": WARMUP_STEPS,
@@ -830,8 +865,62 @@ def phase_train(mt, torch, net, card):
           "mfu": flops_tok * tok_s / H100_BF16_FLOPS,
           "mfu_peak": "989 TFLOP/s bf16 dense",
           "peak_memory_bytes": peak, "launches_per_step": counts,
-          "profile": prof})
-    return counts
+          "profile": prof, "fp32_step": fp32})
+    return counts, fp32_counts
+
+
+def fp32_train(mt, torch, net, toks, labels):
+    """(iv) the default ShardedTrainStep, fp32 (compute_dtype=None), at
+    bench.py's width and batch with step (ii)'s optimizer, loss and
+    tokens: the path that runs the fp32 flash_dq and flash_dkv once per
+    layer a step.  It starts where (ii) started, from the seeded weights
+    and a fresh Adam state (a fresh Adam on weights that (ii) has moved
+    first steps every parameter by lr and raises the loss).  Returns
+    its record and the launches of each step."""
+    launches = mt.ops.LAUNCHES
+    mt.initializer.initialize(net, mt.initializer.Xavier(),
+                              mt.random.generator(SEED))
+    step = mt.parallel.ShardedTrainStep(
+        net, optimizer="adam", optimizer_params=dict(learning_rate=1e-4),
+        loss_fn=lm_loss)
+    counts = {k: [] for k in TRAIN_KERNELS}
+
+    def one_step():
+        mt.ops.reset_launches()
+        loss = step(toks, labels)               # the main path
+        for k in TRAIN_KERNELS:
+            counts[k].append(launches[k])
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [one_step() for _ in range(FP32_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    losses += [one_step() for _ in range(FP32_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / FP32_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    layers = MODEL["n_layers"]
+    for k, n in counts.items():
+        check(all(c == layers for c in n),
+              f"fp32 train steps launched {k} {n} times, not {layers} "
+              f"each")
+    check(all(math.isfinite(x) for x in losses), f"fp32 losses {losses}")
+    check(losses[-1] < losses[0], f"fp32 loss did not fall: {losses}")
+    check(all(p.dtype == torch.float32 for p in net.parameters()),
+          "parameters are not fp32")
+    prof = profile(lambda: step(toks, labels), torch)
+    b, l = toks.shape
+    return {"compute_dtype": "float32", "warmup_steps": FP32_WARMUP_STEPS,
+            "timed_steps": FP32_TIMED_STEPS, "losses": losses,
+            "warmup_ms": warm_ms, "step_ms": step_ms,
+            "tokens_per_s": b * l / step_ms * 1e3,
+            "peak_memory_bytes": peak, "launches_per_step": counts,
+            "profile": prof}, counts
 
 
 # ------------------------------------------------------------------ rtc
@@ -1180,17 +1269,21 @@ def main():
         bwd_entries = timed("kernels_bwd", phase_kernels_bwd, mt, torch)
         net, fwd_launches = timed("forward", phase_forward, mt, torch)
         serve_launches = timed("serve", phase_serve, mt, torch, net)
-        train_launches = timed("train", phase_train, mt, torch, net,
-                               card)
+        train_launches, fp32_launches = timed("train", phase_train, mt,
+                                              torch, net, card)
         del net
         rtc_entries, nd_flash = timed("rtc", phase_rtc, mt, torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES})
         entry["launches_by_path"] = {"forward": fwd_launches,
                                      "serve": serve_launches,
                                      "train": train_launches["flash_fwd"],
+                                     "fp32_train": fp32_launches["flash_fwd"],
                                      "nd": nd_flash}
         for e in bwd_entries:
-            e["launches_by_path"] = {"train": train_launches[e["name"]]}
+            e["launches_by_path"] = {
+                "train": train_launches[e["name"]],
+                "fp32_train": fp32_launches[e["name"]]}
+            e["fp32_train"]["launches"] = sum(fp32_launches[e["name"]])
         for e in [entry] + bwd_entries + rtc_entries:
             e["launches"] = sum(
                 n if isinstance(n, int) else sum(n)

@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a), fp32 and bf16 inputs: two
-// kernels, flash_dq and flash_dkv, each in two builds: bf16 on the tensor
-// cores (wgmma fed by TMA), fp32 on the CUDA cores.
+// kernels, flash_dq and flash_dkv, each in two builds, both on the tensor
+// cores (wgmma fed by TMA): bf16 as it is, fp32 as split-TF32 (three tf32
+// products per fp32 product).
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel` (both
 // launched by `_flash_bwd`) in incubator_mxnet_tpu/ops/flash.py.  Same
@@ -21,7 +22,8 @@
 // kept pair (s, dp, dq: 25.8 GFLOP) and flash_dkv 8*D (s, dp, dv, dk:
 // 34.4 GFLOP), against about 85 and 102 MB of operands in bf16: 0.026
 // and 0.035 ms at the dense bf16 tensor-core rate, ~0.05 ms of memory
-// traffic.
+// traffic.  In fp32 each product is three tf32 products: 0.156 and 0.208
+// ms at 495 TFLOP/s, against ~0.1 ms of traffic.
 //
 // bf16 (flash_dq_tc_kernel, flash_dkv_tc_kernel): a block is one
 // warpgroup (128 threads), which issues every product as wgmma m64nNk16
@@ -53,15 +55,52 @@
 // barriers, descriptors, the wgmma wrappers, tensor maps) are shared with
 // the bf16 forward in csrc/hopper_tc.cuh.
 //
-// fp32 (flash_dq_kernel, flash_dkv_kernel): on the CUDA cores, in full
-// fp32.  One TF32 product per product cannot meet the fp32 check;
-// split-TF32 (three tf32 products, as flash_fwd_tf32_kernel in
-// csrc/flash_fwd.cu does) can, and is these kernels' next redesign.
-// Every operand of the products sits in shared memory, rows padded by 4 floats so the 128-bit loads that feed
-// the FMA units are free of bank conflicts, and each thread owns a 4 x 4
-// block of the score tile and 4 rows of its output.  The two score
-// products run in separate loops so that fewer operands are live in
-// registers at once.
+// fp32 (flash_dq_tf32_kernel, flash_dkv_tf32_kernel): the bf16 kernels'
+// block, ownership, band walk and masks, with every product split as
+// flash_fwd_tf32_kernel (csrc/flash_fwd.cu) splits its own.  One tf32
+// product keeps 11 of fp32's 24 mantissa bits and cannot meet the fp32
+// check (1e-4, abs + rel); split-TF32 can: x = hi + lo, hi = x with its
+// low 13 bits cleared (tf32_hi), lo = x - hi (exact), and a . b =
+// lo_a . hi_b + hi_a . lo_b + hi_a . hi_b, summed in fp32 by wgmma
+// m64nNk8 .tf32.  Where the design meets trouble:
+// - tf32 operands in shared memory must be K-major (PTX has no transpose
+//   flag for .tf32).  The score products (s = q k^T, dp = g v^T in
+//   flash_dq; s^T = k q^T, dp^T = v g^T in flash_dkv) are K-major as TMA
+//   lands both operands (rows along D): each landed tile is split in
+//   place (hi) with its lo beside it.  The gradient products (dq += ds k;
+//   dv += p^T g, dk += ds^T q) sum over the streamed tile's rows, so
+//   their B operand is that tile transposed: the pass that splits a
+//   landed k (flash_dq) or q and g (flash_dkv) also writes its transpose,
+//   hi and lo, in the same pass (transpose_split in csrc/hopper_tc.cuh),
+//   every element read and written by one thread.
+// - The gradient products take A (ds, or p^T and ds^T) straight from the
+//   score accumulators, split into hi and lo in registers.  The tf32 A
+//   fragment of m64k8 holds columns t and t + 4 (t = lane % 4), the fp32
+//   accumulator columns 2t and 2t + 1, so the transposed tile's positions
+//   are its rows permuted inside each group of 8 (row 8j + 2t at position
+//   8j + t, row 8j + 2t + 1 at 8j + t + 4), as the forward permutes v^T.
+// - Shared memory sets occupancy.  Per block: the resident 64-row tiles'
+//   hi and lo (q, g or k, v: 4 x 64 x D floats), a 2-stage ring of the
+//   streamed pairs, their lo halves, and the transposed copies (k^T for
+//   flash_dq; q^T and g^T for flash_dkv), hi and lo.  BN streamed rows a
+//   tile (keys for dq, queries for dkv; the score products' N):
+//     D=32,  BN=32: dq  64 KB, 3 blocks an SM; dkv  72 KB, 3
+//     D=64,  BN=16: dq  96 KB, 2 blocks an SM; dkv 104 KB, 2
+//                   (BN=32: 128 and 144 KB, 1 block)
+//     D=128, BN=16: dq 192 KB, 1 block an SM;  dkv 208 KB, 1
+//   The transposed tiles of 16 positions are 64-byte rows in the 64-byte
+//   swizzle (tr_at, desc_tr); of 32, 128-byte rows in the 128-byte one.
+// - Barriers.  Each tile: a barrier (every warp is past the last tile's
+//   gradient products, which read the lo halves and the transposes),
+//   the splits, fence.proxy.async (wgmma reads shared memory through the
+//   async proxy) and a barrier; the score products; the ring stage is
+//   freed once both are done (flash_dkv first reads its lse and delta
+//   slices into registers), so the next load overlaps the softmax and
+//   the gradient products.  In flash_dkv, ds^T is computed while dv's
+//   product runs.
+// - lse and delta: per row into registers (flash_dq), per column by TMA
+//   with each streamed tile (flash_dkv).  p = exp(s * scale - lse) with
+//   expf, as the plain version computes it; every sum stays fp32.
 //
 // What differs from the TPU kernels:
 // - The Pallas grids are sequential and carry the dq (dk, dv) sums across
@@ -80,12 +119,12 @@
 //   masked, so they add nothing to dk/dv; padded keys (past Lk) are
 //   masked, so they add nothing to dq.
 // - lse and delta are (BH, Lq) fp32, without the TPU's 8-lane padding.
-// - Shared memory: the fp32 flash_dkv holds k, v, q and g tiles and the p
-//   and ds tiles, 170 KB at D=128, past the 48 KB static limit, so every
-//   kernel takes dynamic shared memory after cudaFuncSetAttribute.
+// - Shared memory: up to 208 KB a block (the fp32 flash_dkv at D=128),
+//   past the 48 KB static limit, so every kernel takes dynamic shared
+//   memory after cudaFuncSetAttribute.
 //
 // Layout: q, g and dq (BH, Lq, D); k, v, dk and dv (BH, Lk, D); lse and
-// delta (BH, Lq) fp32; all contiguous, bf16 ones 16-byte aligned (TMA).
+// delta (BH, Lq) fp32; all contiguous and 16-byte aligned (TMA).
 // The kernels allocate nothing and run on the caller's stream; the C
 // entry points return a cudaError_t (or a negative code for arguments
 // they do not take).
@@ -93,309 +132,6 @@
 #include "hopper_tc.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;  // thread (ty, tx) = (tid / 16, tid % 16)
-constexpr int PS = 64 + 4;    // padded row of a (64 x 64) score tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// W consecutive floats from shared memory in one vector load.
-template <int W>
-__device__ __forceinline__ void lds(float (&dst)[W], const float* p);
-template <>
-__device__ __forceinline__ void lds<4>(float (&dst)[4], const float* p) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-}
-template <>
-__device__ __forceinline__ void lds<2>(float (&dst)[2], const float* p) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  dst[0] = t.x; dst[1] = t.y;
-}
-
-template <int D>
-struct Smem {
-  static constexpr int DP = D + 4;  // padded row of an operand tile
-  // flash_dq: q, g, k, v tiles and the ds tile
-  static constexpr size_t dq_bytes =
-      (4 * 64 * DP + BQ * PS) * sizeof(float);
-  // flash_dkv: k, v, q, g tiles, the p and ds tiles, lse and delta
-  static constexpr size_t dkv_bytes =
-      (4 * 64 * DP + 2 * BK * PS + 2 * BQ) * sizeof(float);
-};
-
-// acc[r][*] += sum over 64 score columns of A[row r][j] * B[j][*], where
-// A is a (64 x PS) score tile in shared memory (this thread's rows
-// ty*4 .. ty*4+3) and B a (64 x DP) operand tile; the thread owns output
-// columns (c*16 + tx)*VW .. +VW-1.
-template <int D>
-__device__ __forceinline__ void accumulate_rows(
-    float (&acc)[4][D / 16], const float* A, const float* B, int ty,
-    int tx) {
-  constexpr int DP = Smem<D>::DP;
-  constexpr int VW = D >= 64 ? 4 : 2;
-  constexpr int NV = D / (16 * VW);
-#pragma unroll 2
-  for (int j = 0; j < 64; j += 4) {
-    float a[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) lds<4>(a[r], &A[(ty * 4 + r) * PS + j]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-#pragma unroll
-      for (int c = 0; c < NV; ++c) {
-        float b[VW];
-        lds<VW>(b, &B[(j + e) * DP + (c * 16 + tx) * VW]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int w = 0; w < VW; ++w)
-            acc[r][c * VW + w] = fmaf(a[r][e], b[w], acc[r][c * VW + w]);
-      }
-    }
-  }
-}
-
-// s[r][j] = sum_d A[ty*4 + r][d] * B[tx + 16*j][d] over two (64 x DP)
-// operand tiles in shared memory.
-template <int D>
-__device__ __forceinline__ void score_tile(float (&s)[4][4], const float* A,
-                                           const float* B, int ty, int tx) {
-  constexpr int DP = Smem<D>::DP;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float a[4][4], b[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) lds<4>(a[r], &A[(ty * 4 + r) * DP + d]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) lds<4>(b[j], &B[(tx + 16 * j) * DP + d]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[r][j] = fmaf(a[r][e], b[j][e], s[r][j]);
-  }
-}
-
-// Rows [0, 64) of a (rows, D) matrix into a (64 x DP) fp32 tile; rows at
-// or past `valid` are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int valid, int tid) {
-  constexpr int DP = Smem<D>::DP;
-  for (int i = tid; i < 64 * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * DP + c] = r < valid ? to_f(src[(size_t)r * D + c]) : 0.f;
-  }
-}
-
-// One block per (bh, query tile); each thread owns 4 query rows
-// (ty*4 .. ty*4+3), key columns tx + 16*j of the score tile, and output
-// columns (c*16 + tx)*VW .. of dq.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ g,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq,
-                int bh_count, int lq, int lk, int causal, int window,
-                float scale) {
-  constexpr int DP = Smem<D>::DP;
-  constexpr int VW = D >= 64 ? 4 : 2;
-  constexpr int NV = D / (16 * VW);
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][DP]
-  float* Gs = Qs + BQ * DP;                      // [BQ][DP]
-  float* Ks = Gs + BQ * DP;                      // [BK][DP]
-  float* Vs = Ks + BK * DP;                      // [BK][DP]
-  float* Ss = Vs + BK * DP;                      // [BQ][PS], ds
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int nq = (lq + BQ - 1) / BQ;
-  // the longest causal rows are scheduled first
-  const int iq = nq - 1 - blockIdx.x / bh_count;
-  const int bh = blockIdx.x % bh_count;
-  const int q0 = iq * BQ;
-  const size_t qbase = ((size_t)bh * lq + q0) * D;
-  const size_t kbase = (size_t)bh * lk * D;
-
-  load_tile<T, D>(Qs, q + qbase, lq - q0, tid);
-  load_tile<T, D>(Gs, g + qbase, lq - q0, tid);
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qp = q0 + ty * 4 + r;
-    const bool in = qp < lq;  // padded rows: never read past Lq
-    lse_r[r] = in ? lse[(size_t)bh * lq + qp] : 0.f;
-    delta_r[r] = in ? delta[(size_t)bh * lq + qp] : 0.f;
-  }
-
-  // key tiles [kt0, kt1) hold every kept pair of this query tile
-  const int nk = (lk + BK - 1) / BK;
-  int kt0 = 0, kt1 = nk;
-  if (causal) {
-    kt1 = min(nk, (min(q0 + BQ, lq) - 1) / BK + 1);
-    if (window > 0) kt0 = max(0, q0 - window + 1) / BK;
-  }
-
-  float acc[4][D / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the last tile's K and ds are consumed
-    load_tile<T, D>(Ks, k + kbase + (size_t)k0 * D, lk - k0, tid);
-    load_tile<T, D>(Vs, v + kbase + (size_t)k0 * D, lk - k0, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    score_tile<D>(s, Qs, Ks, ty, tx);
-    score_tile<D>(dp, Gs, Vs, ty, tx);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qp = q0 + ty * 4 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const float p = kept(qp, kp, lq, lk, causal, window)
-                            ? expf(s[r][j] * scale - lse_r[r]) : 0.f;
-        Ss[(ty * 4 + r) * PS + tx + 16 * j] =
-            p * (dp[r][j] - delta_r[r]) * scale;
-      }
-    }
-    __syncthreads();
-    accumulate_rows<D>(acc, Ss, Ks, ty, tx);  // dq += ds k
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qp = q0 + ty * 4 + r;
-    if (qp >= lq) continue;
-    T* row = dq + ((size_t)bh * lq + qp) * D;
-#pragma unroll
-    for (int c = 0; c < NV; ++c)
-#pragma unroll
-      for (int w = 0; w < VW; ++w)
-        row[(c * 16 + tx) * VW + w] = from_f<T>(acc[r][c * VW + w]);
-  }
-}
-
-// One block per (bh, key tile); each thread owns 4 key rows
-// (ty*4 .. ty*4+3), query columns tx + 16*j of the transposed score tile,
-// and output columns (c*16 + tx)*VW .. of dk and dv.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ g,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int bh_count, int lq, int lk,
-                 int causal, int window, float scale) {
-  constexpr int DP = Smem<D>::DP;
-  constexpr int VW = D >= 64 ? 4 : 2;
-  constexpr int NV = D / (16 * VW);
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [BK][DP]
-  float* Vs = Ks + BK * DP;                      // [BK][DP]
-  float* Qs = Vs + BK * DP;                      // [BQ][DP]
-  float* Gs = Qs + BQ * DP;                      // [BQ][DP]
-  float* Ps = Gs + BQ * DP;                      // [BK][PS], p^T
-  float* Ss = Ps + BK * PS;                      // [BK][PS], ds^T
-  float* Ls = Ss + BK * PS;                      // [BQ], lse
-  float* Ds = Ls + BQ;                           // [BQ], delta
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  // the first key tiles see the most query tiles: scheduled first
-  const int jk = blockIdx.x / bh_count;
-  const int bh = blockIdx.x % bh_count;
-  const int k0 = jk * BK;
-  const size_t kbase = ((size_t)bh * lk + k0) * D;
-  const size_t qbase = (size_t)bh * lq * D;
-
-  load_tile<T, D>(Ks, k + kbase, lk - k0, tid);
-  load_tile<T, D>(Vs, v + kbase, lk - k0, tid);
-
-  // query tiles [it0, it1) hold every kept pair of this key tile: from
-  // the causal diagonal to the end of the window band
-  const int nq = (lq + BQ - 1) / BQ;
-  int it0 = 0, it1 = nq;
-  if (causal) {
-    it0 = min(nq, k0 / BQ);
-    if (window > 0)
-      it1 = min(nq, (min(k0 + BK, lk) - 1 + window - 1) / BQ + 1);
-  }
-
-  float acc_k[4][D / 16], acc_v[4][D / 16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
-
-  for (int it = it0; it < it1; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();  // the last tile's Q, g, p and ds are consumed
-    load_tile<T, D>(Qs, q + qbase + (size_t)q0 * D, lq - q0, tid);
-    load_tile<T, D>(Gs, g + qbase + (size_t)q0 * D, lq - q0, tid);
-    if (tid < BQ) {
-      const bool in = q0 + tid < lq;  // padded rows: never read past Lq
-      Ls[tid] = in ? lse[(size_t)bh * lq + q0 + tid] : 0.f;
-      Ds[tid] = in ? delta[(size_t)bh * lq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    score_tile<D>(s, Ks, Qs, ty, tx);   // s^T
-    score_tile<D>(dp, Vs, Gs, ty, tx);  // dp^T
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int kp = k0 + ty * 4 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        const float p = kept(q0 + qc, kp, lq, lk, causal, window)
-                            ? expf(s[r][j] * scale - Ls[qc]) : 0.f;
-        Ps[(ty * 4 + r) * PS + qc] = p;
-        Ss[(ty * 4 + r) * PS + qc] = p * (dp[r][j] - Ds[qc]) * scale;
-      }
-    }
-    __syncthreads();
-    accumulate_rows<D>(acc_v, Ps, Gs, ty, tx);  // dv += p^T g
-    accumulate_rows<D>(acc_k, Ss, Qs, ty, tx);  // dk += ds^T q
-  }
-
-  // every row of the tile is written, zeros where no query reached it
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kp = k0 + ty * 4 + r;
-    if (kp >= lk) continue;
-    T* krow = dk + ((size_t)bh * lk + kp) * D;
-    T* vrow = dv + ((size_t)bh * lk + kp) * D;
-#pragma unroll
-    for (int c = 0; c < NV; ++c)
-#pragma unroll
-      for (int w = 0; w < VW; ++w) {
-        const int col = (c * 16 + tx) * VW + w;
-        krow[col] = from_f<T>(acc_k[r][c * VW + w]);
-        vrow[col] = from_f<T>(acc_v[r][c * VW + w]);
-      }
-  }
-}
 
 // ------------------------------------------------ bf16: wgmma fed by TMA
 
@@ -700,6 +436,397 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
   store_rows<D>(acc_v, dv + ((size_t)bh * lk + k0) * D, r0, lk - k0, lane);
 }
 
+// ------------------------------------------------ fp32: split-TF32 wgmma
+
+// Streamed rows per tile of the fp32 kernels (keys for flash_dq, queries
+// for flash_dkv) and their shared memory, byte offsets from a 1024-
+// aligned base.  flash_dq: q and g (resident), each as its hi (TMA-
+// landed, split in place) and lo; a ring of STAGES (k, v) pairs as TMA
+// lands them, each split in place; k's and v's lo; k^T's hi and lo; the
+// barriers (full[STAGES], empty[STAGES], resident).
+template <int D>
+struct Tf32Dq {
+  static constexpr int BN = D == 32 ? 32 : 16;
+  static constexpr int R = BQ * D * 4;   // bytes of one resident half
+  static constexpr int T = BN * D * 4;   // a streamed tile, a lo, a ^T half
+  static constexpr int QLO = R, GHI = 2 * R, GLO = 3 * R;
+  static constexpr int RING = 4 * R;
+  static constexpr int KLO = RING + STAGES * 2 * T;
+  static constexpr int VLO = KLO + T;
+  static constexpr int KTHI = VLO + T;
+  static constexpr int KTLO = KTHI + T;
+  static constexpr int BARS = KTLO + T;
+  static constexpr size_t bytes = BARS + (2 * STAGES + 1) * 8 + 1024;
+  // blocks an SM by shared memory (228 KB, 1 KB of it per block reserved)
+  static constexpr int BLOCKS = 233472 / (bytes + 1024);
+};
+
+// flash_dkv: k and v (resident), hi and lo; a ring of STAGES (q, g)
+// pairs, each split in place; q's and g's lo; q^T's and g^T's hi and lo;
+// each stage's lse and delta slices (64 floats apart); the barriers.
+template <int D>
+struct Tf32Dkv {
+  static constexpr int BN = D == 32 ? 32 : 16;
+  static constexpr int R = BQ * D * 4;
+  static constexpr int T = BN * D * 4;
+  static constexpr int KLO = R, VHI = 2 * R, VLO = 3 * R;
+  static constexpr int RING = 4 * R;
+  static constexpr int QLO = RING + STAGES * 2 * T;
+  static constexpr int GLO = QLO + T;
+  static constexpr int QTHI = GLO + T;
+  static constexpr int QTLO = QTHI + T;
+  static constexpr int GTHI = QTLO + T;
+  static constexpr int GTLO = GTHI + T;
+  static constexpr int ROWS = GTLO + T;
+  static constexpr int BARS = ROWS + STAGES * 2 * 256;
+  static constexpr size_t bytes = BARS + (2 * STAGES + 1) * 8 + 1024;
+  static constexpr int BLOCKS = 233472 / (bytes + 1024);
+};
+
+// The (64 x W) fp32 accumulator chunks of this thread's rows r0 and r0 +
+// 8 to rows of `out` (row stride D), rows at or past `valid` skipped.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(
+    const float (&acc)[Tile<D>::CHUNKS][Tile<D>::W / 2], float* out, int r0,
+    int valid, int lane) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= valid) continue;
+#pragma unroll
+    for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+      for (int j = 0; j < L::W / 8; ++j)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + c * L::W + 8 * j +
+                                   2 * (lane & 3)) =
+            make_float2(acc[c][4 * j + 2 * h], acc[c][4 * j + 2 * h + 1]);
+  }
+}
+
+// One block (one warpgroup) per (bh, query tile), as flash_dq_tc_kernel;
+// the thread owns query rows r0 = warp*16 + lane/4 and r0 + 8.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, Tf32Dq<D>::BLOCKS)
+flash_dq_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mg,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int bh_count, int lq, int lk, int causal, int window,
+                     float scale) {
+  using S = Tf32Dq<D>;
+  constexpr int BN = S::BN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // the same bytes for the threads' own loads and stores
+  float* const fbase = reinterpret_cast<float*>(smem_raw + (base - raw));
+  auto at = [&](int off) { return fbase + off / 4; };
+  const uint32_t bars = base + S::BARS;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t resident = bars + 8 * 2 * STAGES;
+  auto ring_k = [&](int s) { return S::RING + s * 2 * S::T; };
+
+  const int nq = (lq + BQ - 1) / BQ;
+  // the longest causal rows are scheduled first
+  const int iq = nq - 1 - blockIdx.x / bh_count;
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = iq * BQ;
+  // key tiles [kt0, kt1) hold every kept pair of this query tile
+  const int nk = (lk + BN - 1) / BN;
+  int kt0 = 0, kt1 = nk;
+  if (causal) {
+    kt1 = min(nk, (min(q0 + BQ, lq) - 1) / BN + 1);
+    if (window > 0) kt0 = max(0, q0 - window + 1) / BN;
+  }
+  const int n = kt1 - kt0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WARPS);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: q and g once, and each (k, v) pair into
+  // its ring stage once the stage is free
+  auto load = [&](int i) {
+    const int s = i % STAGES;
+    mbar_expect_tx(full(s), 2 * S::T);
+    tma_f32<D, BN>(base + ring_k(s), mk, (kt0 + i) * BN, bh, full(s));
+    tma_f32<D, BN>(base + ring_k(s) + S::T, mv, (kt0 + i) * BN, bh, full(s));
+  };
+  if (threadIdx.x == 0 && n > 0) {
+    mbar_expect_tx(resident, 2 * S::R);
+    tma_f32<D, BQ>(base, mq, q0, bh, resident);
+    tma_f32<D, BQ>(base + S::GHI, mg, q0, bh, resident);
+    for (int i = 0; i < min(n, STAGES); ++i) load(i);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;
+  float lse_r[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = q0 + r0 + 8 * h;
+    const bool in = qp < lq;  // padded rows: never read past Lq
+    lse_r[h] = in ? lse[(size_t)bh * lq + qp] : 0.f;
+    dl[h] = in ? delta[(size_t)bh * lq + qp] : 0.f;
+  }
+  float acc[Tile<D>::CHUNKS][Tile<D>::W / 2];
+#pragma unroll
+  for (int c = 0; c < Tile<D>::CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < Tile<D>::W / 2; ++i) acc[c][i] = 0.f;
+
+  if (n > 0) {
+    mbar_wait(resident, 0);
+    split_tile(at(0), at(S::QLO), S::R / 16);
+    split_tile(at(S::GHI), at(S::GLO), S::R / 16);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const int k0 = (kt0 + i) * BN;
+    // every warp is past the last tile's products, which read k lo, v lo
+    // and k^T; then split this tile's k (and transpose it) and v
+    __syncthreads();
+    mbar_wait(full(s), (i / STAGES) & 1);
+    transpose_split<D, BN, true>(at(ring_k(s)), at(S::KLO), at(S::KTHI),
+                                 at(S::KTLO));
+    split_tile(at(ring_k(s) + S::T), at(S::VLO), S::T / 16);
+    fence_async_smem();
+    __syncthreads();
+
+    float sc[BN / 2], dp[BN / 2];
+    wg_fence();
+    score_tf32<D, BN>(sc, base, base + S::QLO, base + ring_k(s),
+                      base + S::KLO);  // s = q k^T
+    wg_commit();
+    score_tf32<D, BN>(dp, base + S::GHI, base + S::GLO,
+                      base + ring_k(s) + S::T, base + S::VLO);  // dp = g v^T
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(sc);
+    const bool edge = !interior<BN>(q0, k0, lq, lk, causal, window);
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int h = (e >> 1) & 1;
+      float p = expf(fmaf(sc[e], scale, -lse_r[h]));
+      if (edge) {
+        const int qp = q0 + r0 + 8 * h;
+        const int kp = k0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        if (!kept(qp, kp, lq, lk, causal, window)) p = 0.f;
+      }
+      sc[e] = p;
+    }
+    wg_wait<0>();
+    reg_fence(dp);
+    // the stage's k and v are consumed: free it for tile i + STAGES
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (threadIdx.x == 0 && i + STAGES < n) {
+      mbar_wait(empty(s), (i / STAGES) & 1);
+      load(i + STAGES);
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e)
+      dp[e] = sc[e] * (dp[e] - dl[(e >> 1) & 1]) * scale;  // ds
+    uint32_t ahi[BN / 2], alo[BN / 2];
+    split_a(dp, ahi, alo);
+    wg_fence();
+    accumulate_tf32<D, BN>(acc, ahi, alo, base + S::KTHI,
+                           base + S::KTLO);  // dq += ds k
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < Tile<D>::CHUNKS; ++c) reg_fence(acc[c]);
+  }
+  store_rows_f32<D>(acc, dq + ((size_t)bh * lq + q0) * D, r0, lq - q0, lane);
+}
+
+// One block (one warpgroup) per (bh, key tile), as flash_dkv_tc_kernel;
+// the thread owns key rows r0 = warp*16 + lane/4 and r0 + 8 of the
+// transposed score tiles and of dk and dv.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, Tf32Dkv<D>::BLOCKS)
+flash_dkv_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mg,
+                      const __grid_constant__ CUtensorMap mlse,
+                      const __grid_constant__ CUtensorMap mdelta,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      int bh_count, int lq, int lk, int causal, int window,
+                      float scale) {
+  using S = Tf32Dkv<D>;
+  constexpr int BN = S::BN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* const fbase = reinterpret_cast<float*>(smem_raw + (base - raw));
+  auto at = [&](int off) { return fbase + off / 4; };
+  const uint32_t bars = base + S::BARS;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t resident = bars + 8 * 2 * STAGES;
+  auto ring_q = [&](int s) { return S::RING + s * 2 * S::T; };
+  // lse of stage s at ring_rows(s), delta 256 bytes on
+  auto ring_rows = [&](int s) { return S::ROWS + s * 2 * 256; };
+
+  // the first key tiles see the most query tiles: scheduled first
+  const int jk = blockIdx.x / bh_count;
+  const int bh = blockIdx.x % bh_count;
+  const int k0 = jk * BK;
+  // query tiles [it0, it1) hold every kept pair of this key tile: from
+  // the causal diagonal to the end of the window band
+  const int nq = (lq + BN - 1) / BN;
+  int it0 = 0, it1 = nq;
+  if (causal) {
+    it0 = min(nq, k0 / BN);
+    if (window > 0)
+      it1 = min(nq, (min(k0 + BK, lk) - 1 + window - 1) / BN + 1);
+  }
+  const int n = it1 - it0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WARPS);
+    }
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: k and v once, and each (q, g) pair with
+  // its lse and delta into its ring stage once the stage is free
+  auto load = [&](int i) {
+    const int s = i % STAGES;
+    const int q0 = (it0 + i) * BN;
+    mbar_expect_tx(full(s), 2 * S::T + 2 * BN * 4);
+    tma_f32<D, BN>(base + ring_q(s), mq, q0, bh, full(s));
+    tma_f32<D, BN>(base + ring_q(s) + S::T, mg, q0, bh, full(s));
+    // rows past Lq read the next head's values (or zeros past the end):
+    // their pairs are masked
+    tma_row(base + ring_rows(s), mlse, bh * lq + q0, full(s));
+    tma_row(base + ring_rows(s) + 256, mdelta, bh * lq + q0, full(s));
+  };
+  if (threadIdx.x == 0 && n > 0) {
+    mbar_expect_tx(resident, 2 * S::R);
+    tma_f32<D, BQ>(base, mk, k0, bh, resident);
+    tma_f32<D, BQ>(base + S::VHI, mv, k0, bh, resident);
+    for (int i = 0; i < min(n, STAGES); ++i) load(i);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;
+  float acc_k[Tile<D>::CHUNKS][Tile<D>::W / 2];
+  float acc_v[Tile<D>::CHUNKS][Tile<D>::W / 2];
+#pragma unroll
+  for (int c = 0; c < Tile<D>::CHUNKS; ++c)
+#pragma unroll
+    for (int i = 0; i < Tile<D>::W / 2; ++i) acc_k[c][i] = acc_v[c][i] = 0.f;
+
+  if (n > 0) {
+    mbar_wait(resident, 0);
+    split_tile(at(0), at(S::KLO), S::R / 16);
+    split_tile(at(S::VHI), at(S::VLO), S::R / 16);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const int q0 = (it0 + i) * BN;
+    // every warp is past the last tile's products, which read q lo, g lo,
+    // q^T and g^T; then split and transpose this tile's q and g
+    __syncthreads();
+    mbar_wait(full(s), (i / STAGES) & 1);
+    transpose_split<D, BN, true>(at(ring_q(s)), at(S::QLO), at(S::QTHI),
+                                 at(S::QTLO));
+    transpose_split<D, BN, true>(at(ring_q(s) + S::T), at(S::GLO),
+                                 at(S::GTHI), at(S::GTLO));
+    fence_async_smem();
+    __syncthreads();
+
+    float st[BN / 2], dpt[BN / 2];
+    wg_fence();
+    score_tf32<D, BN>(st, base, base + S::KLO, base + ring_q(s),
+                      base + S::QLO);  // s^T = k q^T
+    wg_commit();
+    score_tf32<D, BN>(dpt, base + S::VHI, base + S::VLO,
+                      base + ring_q(s) + S::T, base + S::GLO);  // dp^T = v g^T
+    wg_commit();
+    // lse and delta of this thread's query columns 8j + 2t (+1)
+    const float* rows = at(ring_rows(s));
+    float2 l2[BN / 8], d2[BN / 8];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      l2[j] = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * (lane & 3));
+      d2[j] = *reinterpret_cast<const float2*>(rows + 64 + 8 * j +
+                                               2 * (lane & 3));
+    }
+    wg_wait<1>();
+    reg_fence(st);
+    const bool edge = !interior<BK, BN>(q0, k0, lq, lk, causal, window);
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const float2 l = l2[e >> 2];
+      float p = expf(fmaf(st[e], scale, -(e & 1 ? l.y : l.x)));
+      if (edge) {
+        const int kp = k0 + r0 + 8 * ((e >> 1) & 1);
+        const int qp = q0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        if (!kept(qp, kp, lq, lk, causal, window)) p = 0.f;
+      }
+      st[e] = p;
+    }
+    wg_wait<0>();
+    reg_fence(dpt);
+    // the stage's q, g, lse and delta are consumed: free it
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (threadIdx.x == 0 && i + STAGES < n) {
+      mbar_wait(empty(s), (i / STAGES) & 1);
+      load(i + STAGES);
+    }
+    __syncwarp();
+
+    uint32_t phi[BN / 2], plo[BN / 2];
+    split_a(st, phi, plo);
+    wg_fence();
+    accumulate_tf32<D, BN>(acc_v, phi, plo, base + S::GTHI,
+                           base + S::GTLO);  // dv += p^T g
+    wg_commit();
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const float2 d = d2[e >> 2];
+      dpt[e] = st[e] * (dpt[e] - (e & 1 ? d.y : d.x)) * scale;  // ds^T
+    }
+    uint32_t shi[BN / 2], slo[BN / 2];
+    split_a(dpt, shi, slo);
+    wg_fence();
+    accumulate_tf32<D, BN>(acc_k, shi, slo, base + S::QTHI,
+                           base + S::QTLO);  // dk += ds^T q
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < Tile<D>::CHUNKS; ++c) {
+      reg_fence(acc_k[c]);
+      reg_fence(acc_v[c]);
+    }
+  }
+  // every row of the tile is written, zeros where no query reached it
+  store_rows_f32<D>(acc_k, dk + ((size_t)bh * lk + k0) * D, r0, lk - k0,
+                    lane);
+  store_rows_f32<D>(acc_v, dv + ((size_t)bh * lk + k0) * D, r0, lk - k0,
+                    lane);
+}
+
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta;
@@ -719,36 +846,6 @@ cudaError_t prepare(Kernel kernel, size_t smem, long long tiles, int bh,
   if (n > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   *blocks = (unsigned)n;
   return cudaSuccess;
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
-  const size_t smem = Smem<D>::dq_bytes;
-  unsigned blocks = 0;
-  cudaError_t err = prepare(flash_dq_kernel<T, D>, smem,
-                            (a.lq + BQ - 1) / BQ, a.bh, &blocks);
-  if (err != cudaSuccess) return err;
-  flash_dq_kernel<T, D><<<blocks, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.bh, a.lq, a.lk, a.causal, a.window,
-      a.scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a) {
-  const size_t smem = Smem<D>::dkv_bytes;
-  unsigned blocks = 0;
-  cudaError_t err = prepare(flash_dkv_kernel<T, D>, smem,
-                            (a.lk + BK - 1) / BK, a.bh, &blocks);
-  if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T, D><<<blocks, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.bh, a.lq,
-      a.lk, a.causal, a.window, a.scale);
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -796,13 +893,57 @@ int launch_dkv_tc(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+int launch_dq_tf32(const Args& a) {
+  using S = Tf32Dq<D>;
+  CUtensorMap mq, mk, mv, mg;
+  int rc;
+  if ((rc = f32_map(&mq, a.q, a.bh, a.lq, D, BQ)) ||
+      (rc = f32_map(&mk, a.k, a.bh, a.lk, D, S::BN)) ||
+      (rc = f32_map(&mv, a.v, a.bh, a.lk, D, S::BN)) ||
+      (rc = f32_map(&mg, a.g, a.bh, a.lq, D, BQ)))
+    return rc;
+  unsigned blocks = 0;
+  cudaError_t err = prepare(flash_dq_tf32_kernel<D>, S::bytes,
+                            (a.lq + BQ - 1) / BQ, a.bh, &blocks);
+  if (err != cudaSuccess) return err;
+  flash_dq_tf32_kernel<D><<<blocks, TC_THREADS, S::bytes, a.stream>>>(
+      mq, mk, mv, mg, a.lse, a.delta, static_cast<float*>(a.dq), a.bh, a.lq,
+      a.lk, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_tf32(const Args& a) {
+  using S = Tf32Dkv<D>;
+  CUtensorMap mq, mk, mv, mg, mlse, mdelta;
+  const long long rows = (long long)a.bh * a.lq;
+  if (rows > 0x7fffffffLL) return -3;  // TMA coordinates are 32-bit
+  int rc;
+  if ((rc = f32_map(&mq, a.q, a.bh, a.lq, D, S::BN)) ||
+      (rc = f32_map(&mk, a.k, a.bh, a.lk, D, BK)) ||
+      (rc = f32_map(&mv, a.v, a.bh, a.lk, D, BK)) ||
+      (rc = f32_map(&mg, a.g, a.bh, a.lq, D, S::BN)) ||
+      (rc = row_map(&mlse, a.lse, rows, S::BN)) ||
+      (rc = row_map(&mdelta, a.delta, rows, S::BN)))
+    return rc;
+  unsigned blocks = 0;
+  cudaError_t err = prepare(flash_dkv_tf32_kernel<D>, S::bytes,
+                            (a.lk + BK - 1) / BK, a.bh, &blocks);
+  if (err != cudaSuccess) return err;
+  flash_dkv_tf32_kernel<D><<<blocks, TC_THREADS, S::bytes, a.stream>>>(
+      mq, mk, mv, mg, mlse, mdelta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.bh, a.lq, a.lk, a.causal, a.window,
+      a.scale);
+  return cudaGetLastError();
+}
+
 // which = 0: flash_dq, 1: flash_dkv
 int dispatch_f32(int which, int d, const Args& a) {
   switch (d) {
-    case 32: return which ? launch_dkv<float, 32>(a) : launch_dq<float, 32>(a);
-    case 64: return which ? launch_dkv<float, 64>(a) : launch_dq<float, 64>(a);
-    case 128:
-      return which ? launch_dkv<float, 128>(a) : launch_dq<float, 128>(a);
+    case 32: return which ? launch_dkv_tf32<32>(a) : launch_dq_tf32<32>(a);
+    case 64: return which ? launch_dkv_tf32<64>(a) : launch_dq_tf32<64>(a);
+    case 128: return which ? launch_dkv_tf32<128>(a) : launch_dq_tf32<128>(a);
     default: return -2;
   }
 }
@@ -830,7 +971,7 @@ int dispatch(int which, int d, int dtype, const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16.  Each returns 0 on success, a
 // cudaError_t from the launch, or -1 (dtype) / -2 (head dim) / -3 (sizes)
 // for arguments the kernel does not take, -4 / -5 when the driver cannot
-// describe a bf16 operand to TMA.
+// describe an operand to TMA.
 extern "C" int mxt_flash_dq(const void* q, const void* k, const void* v,
                             const void* g, const void* lse,
                             const void* delta, void* dq, int bh, int lq,

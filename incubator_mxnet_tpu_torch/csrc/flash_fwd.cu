@@ -55,7 +55,8 @@
 //   along D).  For o += P . v the B operand v is (keys, D): MN-major.
 //   So after a (k, v) pair lands, the warpgroup writes v^T (D rows of
 //   BKT keys) into two buffers of its own, hi and lo, in the same pass
-//   (transpose_split); its loads and stores are free of bank conflicts.
+//   (transpose_split, csrc/hopper_tc.cuh); its loads and stores are free
+//   of bank conflicts.
 // - The split.  hi is stored with its low bits cleared, not left for the
 //   tensor core to ignore: PTX leaves the tf32 layout to the
 //   implementation (cvt.rna.tf32 clears the bits), so this holds however
@@ -311,97 +312,7 @@ struct Tf32Fwd {
   static constexpr size_t bytes = BARS + (2 * STAGES + 1) * 8 + 1024;
   // blocks an SM by shared memory (228 KB, 1 KB of it per block reserved)
   static constexpr int BLOCKS = 233472 / (bytes + 1024);
-  static constexpr int W = D < 64 ? D : 64;   // columns of one o product
-  static constexpr int CHUNKS = D / W;
 };
-
-// hi in place and lo = x - hi beside it, for `count` float4s of a tile
-// (both halves in the same swizzled layout, so no index arithmetic).
-__device__ __forceinline__ void split_tile(float* hi, float* lo, int count) {
-  for (int i = threadIdx.x; i < count; i += TC_THREADS) {
-    const float4 x = reinterpret_cast<const float4*>(hi)[i];
-    const float4 h = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z),
-                                 tf32_hi(x.w));
-    reinterpret_cast<float4*>(hi)[i] = h;
-    reinterpret_cast<float4*>(lo)[i] =
-        make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
-  }
-}
-
-// v (BKT keys x D, as TMA landed it) to v^T (D rows x BKT positions,
-// K-major for the P . v product) in hi and lo halves.  Positions are
-// keys permuted inside each group of 8: position 8j + t + 4e holds key
-// 8j + 2t + e (t < 4, e < 2), the order in which the score accumulator
-// holds P's columns (see the kernel).  A warp takes 32 consecutive rows
-// d of v^T for one group of 4 positions: its loads read one 128-byte row
-// of v, its 16-byte stores land in 8 distinct bank groups per phase
-// (the swizzle), so neither side has bank conflicts.
-template <int D, int BKT>
-__device__ __forceinline__ void transpose_split(const float* v, float* vhi,
-                                                float* vlo) {
-  for (int i = threadIdx.x; i < D * BKT / 4; i += TC_THREADS) {
-    const int d = i % D;
-    const int pos = 4 * (i / D);
-    const int key = (pos & ~7) + ((pos >> 2) & 1);  // keys key + 2t
-    float x[4], h[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      x[t] = v[f32_at(key + 2 * t, d, BKT)];
-      h[t] = tf32_hi(x[t]);
-    }
-    const int at = f32_at(d, pos, D);
-    *reinterpret_cast<float4*>(vhi + at) = make_float4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<float4*>(vlo + at) =
-        make_float4(x[0] - h[0], x[1] - h[1], x[2] - h[2], x[3] - h[3]);
-  }
-}
-
-// s = q . k^T over D in three tf32 products, lo.hi and hi.lo first (the
-// small terms), then hi.hi; q tiles have BQ rows, k tiles BKT.
-template <int D, int BKT>
-__device__ __forceinline__ void score_tf32(float (&s)[BKT / 2], uint32_t qhi,
-                                           uint32_t qlo, uint32_t khi,
-                                           uint32_t klo) {
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const uint32_t oq = (kk / 4) * BQ * 128 + (kk % 4) * 32;
-    const uint32_t ok = (kk / 4) * BKT * 128 + (kk % 4) * 32;
-    mma_ss_tf32<BKT>(s, desc_f32(qlo + oq), desc_f32(khi + ok), kk > 0);
-    mma_ss_tf32<BKT>(s, desc_f32(qhi + oq), desc_f32(klo + ok), 1);
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    mma_ss_tf32<BKT>(s, desc_f32(qhi + (kk / 4) * BQ * 128 + (kk % 4) * 32),
-                     desc_f32(khi + (kk / 4) * BKT * 128 + (kk % 4) * 32), 1);
-}
-
-// o += P . v in three tf32 products: P's hi and lo as register A
-// fragments (4 words per 8-key step), v^T's hi and lo tiles (D rows of
-// BKT positions) as B; o in CHUNKS products of W columns.
-template <int D, int BKT>
-__device__ __forceinline__ void accumulate_tf32(
-    float (&acc)[Tf32Fwd<D>::CHUNKS][Tf32Fwd<D>::W / 2],
-    const uint32_t (&ahi)[BKT / 2], const uint32_t (&alo)[BKT / 2],
-    uint32_t vhi, uint32_t vlo) {
-  constexpr int W = Tf32Fwd<D>::W;
-#pragma unroll
-  for (int c = 0; c < Tf32Fwd<D>::CHUNKS; ++c) {
-#pragma unroll
-    for (int kk = 0; kk < BKT / 8; ++kk) {
-      const uint32_t off = (kk / 4) * D * 128 + c * W * 128 + (kk % 4) * 32;
-      mma_rs_tf32<W>(acc[c], alo[4 * kk], alo[4 * kk + 1], alo[4 * kk + 2],
-                     alo[4 * kk + 3], desc_f32(vhi + off));
-      mma_rs_tf32<W>(acc[c], ahi[4 * kk], ahi[4 * kk + 1], ahi[4 * kk + 2],
-                     ahi[4 * kk + 3], desc_f32(vlo + off));
-    }
-#pragma unroll
-    for (int kk = 0; kk < BKT / 8; ++kk) {
-      const uint32_t off = (kk / 4) * D * 128 + c * W * 128 + (kk % 4) * 32;
-      mma_rs_tf32<W>(acc[c], ahi[4 * kk], ahi[4 * kk + 1], ahi[4 * kk + 2],
-                     ahi[4 * kk + 3], desc_f32(vhi + off));
-    }
-  }
-}
 
 // One block (one warpgroup) per (bh, query tile), as the bf16 kernel: the
 // thread owns query rows r0 = warp*16 + lane/4 and r0 + 8, their running
@@ -416,6 +327,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap mq,
                       int bh_count, int lq, int lk, int causal, int window,
                       float scale) {
   using S = Tf32Fwd<D>;
+  using L = Tile<D>;  // o's chunks of W columns
   constexpr int BKT = S::BKT;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -472,11 +384,11 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap mq,
   const int r0 = warp * 16 + lane / 4;
   const float sl2 = scale * LOG2E;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[S::CHUNKS][S::W / 2];
+  float acc[L::CHUNKS][L::W / 2];
 #pragma unroll
-  for (int c = 0; c < S::CHUNKS; ++c)
+  for (int c = 0; c < L::CHUNKS; ++c)
 #pragma unroll
-    for (int i = 0; i < S::W / 2; ++i) acc[c][i] = 0.f;
+    for (int i = 0; i < L::W / 2; ++i) acc[c][i] = 0.f;
 
   if (n > 0) {
     mbar_wait(resident, 0);
@@ -490,8 +402,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap mq,
     __syncthreads();
     mbar_wait(full(s), (i / STAGES) & 1);
     split_tile(at(ring_k(s)), at(S::KLO), S::KV / 16);
-    transpose_split<D, BKT>(at(ring_k(s) + S::KV), at(S::VTHI),
-                            at(S::VTLO));
+    transpose_split<D, BKT, false>(at(ring_k(s) + S::KV), nullptr,
+                                   at(S::VTHI), at(S::VTLO));
     fence_async_smem();
     __syncthreads();
 
@@ -537,33 +449,27 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap mq,
       m[h] = m_new;
       l[h] *= alpha[h];
     }
-    // P's A fragments: the accumulator holds columns 8kk + 2t (+1) of
-    // rows r0 (+8) in sc[4kk + 2h (+1)]; with v^T's positions permuted,
-    // A's column t is key 8kk + 2t and column t + 4 key 8kk + 2t + 1, so
-    // a0..a3 = (r0, 2t), (r0 + 8, 2t), (r0, 2t + 1), (r0 + 8, 2t + 1)
-    uint32_t ahi[BKT / 2], alo[BKT / 2];
+    // P, and its A fragments hi and lo (split_a: with v^T's positions
+    // permuted, the accumulator's registers are A's words as they stand)
 #pragma unroll
     for (int e = 0; e < BKT / 2; ++e) {
       const int h = (e >> 1) & 1;
-      const float p = exp2f(sc[e] - mu[h]);
-      l[h] += p;
-      const float ph = tf32_hi(p);
-      // e = 4kk + 2h + c goes to fragment word 4kk + h + 2c
-      const int r = (e & ~3) + h + 2 * (e & 1);
-      ahi[r] = __float_as_uint(ph);
-      alo[r] = __float_as_uint(p - ph);
+      sc[e] = exp2f(sc[e] - mu[h]);
+      l[h] += sc[e];
     }
+    uint32_t ahi[BKT / 2], alo[BKT / 2];
+    split_a(sc, ahi, alo);
 #pragma unroll
-    for (int c = 0; c < S::CHUNKS; ++c)
+    for (int c = 0; c < L::CHUNKS; ++c)
 #pragma unroll
-      for (int j = 0; j < S::W / 2; ++j) acc[c][j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < L::W / 2; ++j) acc[c][j] *= alpha[(j >> 1) & 1];
     wg_fence();
     accumulate_tf32<D, BKT>(acc, ahi, alo, base + S::VTHI,
                             base + S::VTLO);  // o += p v
     wg_commit();
     wg_wait<0>();
 #pragma unroll
-    for (int c = 0; c < S::CHUNKS; ++c) reg_fence(acc[c]);
+    for (int c = 0; c < L::CHUNKS; ++c) reg_fence(acc[c]);
   }
 
   // o = acc / l and lse = m + log(l), in natural units; a row no key
@@ -584,10 +490,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap mq,
     const int r = r0 + 8 * h;
     if (r >= lq - q0) continue;
 #pragma unroll
-    for (int c = 0; c < S::CHUNKS; ++c)
+    for (int c = 0; c < L::CHUNKS; ++c)
 #pragma unroll
-      for (int j = 0; j < S::W / 8; ++j)
-        *reinterpret_cast<float2*>(out + (size_t)r * D + c * S::W + 8 * j +
+      for (int j = 0; j < L::W / 8; ++j)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + c * L::W + 8 * j +
                                    2 * (lane & 3)) =
             make_float2(acc[c][4 * j + 2 * h] * inv[h],
                         acc[c][4 * j + 2 * h + 1] * inv[h]);

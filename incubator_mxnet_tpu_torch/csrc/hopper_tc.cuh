@@ -1,6 +1,7 @@
 // Shared pieces of the port's Hopper (sm_90a) tensor-core kernels:
 // flash_fwd_tc_kernel and flash_fwd_tf32_kernel (csrc/flash_fwd.cu),
-// flash_dq_tc_kernel and flash_dkv_tc_kernel (csrc/flash_bwd.cu).
+// flash_dq_tc_kernel, flash_dkv_tc_kernel, flash_dq_tf32_kernel and
+// flash_dkv_tf32_kernel (csrc/flash_bwd.cu).
 //
 // A block is one warpgroup (128 threads) that issues every product as
 // wgmma m64nNk16 (bf16 operands, fp32 accumulators in registers), or as
@@ -264,6 +265,16 @@ __device__ __forceinline__ void mma_ss_tf32<32>(float (&d)[16], uint64_t da,
       : MXT_D8(0), MXT_D8(8)
       : "l"(da), "l"(db), "r"(accumulate));
 }
+template <>
+__device__ __forceinline__ void mma_ss_tf32<16>(float (&d)[8], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : MXT_D8(0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // d (64 x N) += A (64 x 8, tf32 words in registers) . B (8 x N) from
 // shared memory, K-major.  Thread (warp, lane) holds A's rows warp*16 +
@@ -325,6 +336,158 @@ __device__ __forceinline__ int f32_at(int r, int c, int rows) {
          (c & 3);
 }
 
+// Float index of (row r, column c) in a transposed fp32 tile of `rows`
+// rows whose columns run in chunks of COLS: 32 (each row of a chunk one
+// 128-byte swizzle span, as f32_at) or 16 (one 64-byte span: the 16-byte
+// unit XOR bits 1-2 of the row, the 64-byte swizzle; the tile is
+// 512-byte aligned).
+template <int COLS>
+__device__ __forceinline__ int tr_at(int r, int c, int rows) {
+  static_assert(COLS == 16 || COLS == 32, "a 64- or 128-byte span");
+  const int sw = COLS == 32 ? (r & 7) : ((r >> 1) & 3);
+  return (c / COLS) * rows * COLS + r * COLS +
+         ((((c >> 2) % (COLS / 4)) ^ sw) << 2) + (c & 3);
+}
+
+// Columns per chunk of the transposed tile of a ROWS-row streamed tile.
+template <int ROWS>
+struct TrTile {
+  static constexpr int COLS = ROWS < 32 ? ROWS : 32;
+  static constexpr int ROW = COLS * 4;  // bytes
+};
+
+// wgmma descriptor of a transposed tile (TrTile<ROWS>) at `addr`: the
+// byte arithmetic of bf16's Tile<64> (128-byte rows) or Tile<32> (64-byte
+// rows, 64-byte swizzle); a k8 tf32 step is 32 bytes, as bf16's k16.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_tr(uint32_t addr) {
+  return desc<TrTile<ROWS>::COLS * 2>(addr);
+}
+
+// hi in place and lo = x - hi beside it, for `count` float4s of a tile
+// (both halves in the same swizzled layout, so no index arithmetic).
+__device__ __forceinline__ void split_tile(float* hi, float* lo, int count) {
+  for (int i = threadIdx.x; i < count; i += TC_THREADS) {
+    const float4 x = reinterpret_cast<const float4*>(hi)[i];
+    const float4 h = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z),
+                                 tf32_hi(x.w));
+    reinterpret_cast<float4*>(hi)[i] = h;
+    reinterpret_cast<float4*>(lo)[i] =
+        make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+  }
+}
+
+// x (ROWS rows x D, as TMA landed it) to x^T (D rows x ROWS positions,
+// K-major for a product that sums over x's rows) in hi and lo halves
+// (TrTile<ROWS> layout); with IN_PLACE, x's hi also goes back over x and
+// its lo to xlo (x's layout), as split_tile writes them.  Positions are
+// rows permuted inside each group of 8: position 8j + t + 4e holds row
+// 8j + 2t + e (t < 4, e < 2), the order in which a score accumulator
+// holds its columns, so that accumulator's registers are wgmma's A
+// fragment as they stand (see accumulate_tf32).  Every element is read
+// and written by one thread.  A warp takes 32 consecutive rows d of x^T
+// for one group of 4 positions: its loads read one 128-byte row of x,
+// its 16-byte stores land in distinct bank groups per phase (the
+// swizzle).
+template <int D, int ROWS, bool IN_PLACE>
+__device__ __forceinline__ void transpose_split(float* x, float* xlo,
+                                                float* thi, float* tlo) {
+  for (int i = threadIdx.x; i < D * ROWS / 4; i += TC_THREADS) {
+    const int d = i % D;
+    const int pos = 4 * (i / D);
+    const int row = (pos & ~7) + ((pos >> 2) & 1);  // rows row + 2t
+    float v[4], h[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int at = f32_at(row + 2 * t, d, ROWS);
+      v[t] = x[at];
+      h[t] = tf32_hi(v[t]);
+      if (IN_PLACE) {
+        x[at] = h[t];
+        xlo[at] = v[t] - h[t];
+      }
+    }
+    const int at = tr_at<TrTile<ROWS>::COLS>(d, pos, D);
+    *reinterpret_cast<float4*>(thi + at) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(tlo + at) =
+        make_float4(v[0] - h[0], v[1] - h[1], v[2] - h[2], v[3] - h[3]);
+  }
+}
+
+// s = A . B^T over D in three tf32 products, lo.hi and hi.lo first (the
+// small terms), then hi.hi: A a 64-row fp32 tile (hi and lo halves), B a
+// BN-row one, both as TMA lands them (D / 32 chunks of 128-byte rows).
+template <int D, int BN>
+__device__ __forceinline__ void score_tf32(float (&s)[BN / 2], uint32_t ahi,
+                                           uint32_t alo, uint32_t bhi,
+                                           uint32_t blo) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t oa = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+    const uint32_t ob = (kk / 4) * BN * 128 + (kk % 4) * 32;
+    mma_ss_tf32<BN>(s, desc_f32(alo + oa), desc_f32(bhi + ob), kk > 0);
+    mma_ss_tf32<BN>(s, desc_f32(ahi + oa), desc_f32(blo + ob), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    mma_ss_tf32<BN>(s, desc_f32(ahi + (kk / 4) * BQ * 128 + (kk % 4) * 32),
+                    desc_f32(bhi + (kk / 4) * BN * 128 + (kk % 4) * 32), 1);
+}
+
+// The A fragment word of score accumulator register e (see
+// transpose_split's permutation): the accumulator holds columns 8kk + 2t
+// (+1) of rows r0 (+8) in s[4kk + 2h (+1)]; with the B operand's rows
+// permuted, A's column t is 8kk + 2t and column t + 4 is 8kk + 2t + 1, so
+// a0..a3 = (r0, 2t), (r0 + 8, 2t), (r0, 2t + 1), (r0 + 8, 2t + 1):
+// e = 4kk + 2h + c goes to word 4kk + h + 2c.
+__device__ __forceinline__ int a_word(int e) {
+  return (e & ~3) + ((e >> 1) & 1) + 2 * (e & 1);
+}
+
+// x split into hi and lo tf32 words, at A fragment word a_word(e).
+template <int N>
+__device__ __forceinline__ void split_a(const float (&x)[N],
+                                        uint32_t (&hi)[N], uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float h = tf32_hi(x[e]);
+    hi[a_word(e)] = __float_as_uint(h);
+    lo[a_word(e)] = __float_as_uint(x[e] - h);
+  }
+}
+
+// acc (64 x D) += A . B in three tf32 products: A (64 x BN) as register
+// fragments, hi and lo (4 words per 8-column step); B^T's hi and lo (D
+// rows of BN positions, TrTile<BN> layout, as transpose_split writes
+// them); acc in Tile<D>::CHUNKS products of Tile<D>::W columns.
+template <int D, int BN>
+__device__ __forceinline__ void accumulate_tf32(
+    float (&acc)[Tile<D>::CHUNKS][Tile<D>::W / 2],
+    const uint32_t (&ahi)[BN / 2], const uint32_t (&alo)[BN / 2],
+    uint32_t thi, uint32_t tlo) {
+  constexpr int W = Tile<D>::W;
+  constexpr int COLS = TrTile<BN>::COLS, ROW = TrTile<BN>::ROW;
+#pragma unroll
+  for (int c = 0; c < Tile<D>::CHUNKS; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      const uint32_t off = (kk * 8 / COLS) * D * ROW + c * W * ROW +
+                           (kk * 8 % COLS) * 4;
+      mma_rs_tf32<W>(acc[c], alo[4 * kk], alo[4 * kk + 1], alo[4 * kk + 2],
+                     alo[4 * kk + 3], desc_tr<BN>(thi + off));
+      mma_rs_tf32<W>(acc[c], ahi[4 * kk], ahi[4 * kk + 1], ahi[4 * kk + 2],
+                     ahi[4 * kk + 3], desc_tr<BN>(tlo + off));
+    }
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      const uint32_t off = (kk * 8 / COLS) * D * ROW + c * W * ROW +
+                           (kk * 8 % COLS) * 4;
+      mma_rs_tf32<W>(acc[c], ahi[4 * kk], ahi[4 * kk + 1], ahi[4 * kk + 2],
+                     ahi[4 * kk + 3], desc_tr<BN>(thi + off));
+    }
+  }
+}
+
 // Generic-proxy writes to shared memory (st.shared) become visible to the
 // async proxy (wgmma's operand reads, TMA) after this fence and a barrier.
 __device__ __forceinline__ void fence_async_smem() {
@@ -381,15 +544,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Does every pair of the (query tile q0, key tile k0 of BKN keys) block
-// survive the mask?  Then the block skips it.
-template <int BKN = BK>
+// Does every pair of the (query tile q0 of BQN queries, key tile k0 of
+// BKN keys) block survive the mask?  Then the block skips it.
+template <int BKN = BK, int BQN = BQ>
 __device__ __forceinline__ bool interior(int q0, int k0, int lq, int lk,
                                          int causal, int window) {
-  bool all = q0 + BQ <= lq && k0 + BKN <= lk;
+  bool all = q0 + BQN <= lq && k0 + BKN <= lk;
   if (causal) {
     all = all && k0 + BKN - 1 <= q0;
-    if (window > 0) all = all && q0 + BQ - 1 - k0 < window;
+    if (window > 0) all = all && q0 + BQN - 1 - k0 < window;
   }
   return all;
 }
@@ -488,17 +651,17 @@ int f32_map(CUtensorMap* map, const void* base, int bh, int rows, int d,
   return r == CUDA_SUCCESS ? 0 : -4;
 }
 
-// n fp32 values at `base` as a 1-D map of 64-value boxes.
-int row_map(CUtensorMap* map, const float* base, long long n) {
+// n fp32 values at `base` as a 1-D map of `box`-value boxes.
+int row_map(CUtensorMap* map, const float* base, long long n, int box = BQ) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return -5;
   const cuuint64_t dims[1] = {(cuuint64_t)n};
   const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused at rank 1
-  const cuuint32_t box[1] = {BQ};
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
   const cuuint32_t unit[1] = {1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      dims, strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -4;

@@ -8,11 +8,11 @@ online-softmax loop over the key tiles of the band, fp32 sums), and
 ``flash_dkv`` in ``csrc/flash_bwd.cu`` (one block per 64-row query
 tile and per 64-row key tile, P rebuilt from the forward's ``lse``).
 Each runs bf16 on the tensor cores, ``wgmma`` fed by TMA (the shared
-pieces are ``csrc/hopper_tc.cuh``).  In fp32 the forward runs there
-too, as split-TF32 (each operand split into a tf32 high part and the
-rest, three tf32 products per fp32 product), and the backward on the
-CUDA cores; see the sources' headers.  ``_FlashAttention`` ties them
-together as the JAX op's ``custom_vjp`` does.
+pieces are ``csrc/hopper_tc.cuh``).  In fp32 all three run there too,
+as split-TF32 (each operand split into a tf32 high part and the rest,
+three tf32 products per fp32 product); see the sources' headers.
+``_FlashAttention`` ties them together as the JAX op's ``custom_vjp``
+does.
 
 The op is registered as ``_flash_attention`` (``nd._internal``), the JAX
 op's name, with its parameters less ``interpret``, which picks the
@@ -40,6 +40,10 @@ BK = 64
 # keys per tile of the fp32 forward, by head dim (Tf32Fwd<D>::BKT in
 # csrc/flash_fwd.cu)
 TF32_BK = {32: 64, 64: 32, 128: 32}
+# streamed rows per tile of the fp32 backward (keys for flash_dq, queries
+# for flash_dkv), by head dim (Tf32Dq<D>::BN, Tf32Dkv<D>::BN in
+# csrc/flash_bwd.cu)
+TF32_BWD_BN = {32: 32, 64: 16, 128: 16}
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

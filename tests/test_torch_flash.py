@@ -710,3 +710,196 @@ def test_pv_order_is_a_permutation_within_groups_of_8():
     assert all(k // 8 == p // 8 for p, k in enumerate(order))
     # the score accumulator's columns 2t, 2t + 1 land on A's t, t + 4
     assert order[:8] == [0, 2, 4, 6, 1, 3, 5, 7]
+
+
+# ------------------------------------- fp32 split-TF32 backward recipe
+
+def _split_tf32_recipe_bwd(q, k, v, o, lse, g, causal, scale, window=0,
+                           products=3):
+    """The arithmetic of flash_dq_tf32_kernel and flash_dkv_tf32_kernel
+    (csrc/flash_bwd.cu), fp32 in and out.  Tile by tile over the
+    streamed side at the kernels' rows a tile (``TF32_BWD_BN``): flash_dq
+    walks the key tiles of each 64-row query tile (``_k_tile_range``),
+    flash_dkv the query tiles of each 64-row key tile
+    (``_q_tile_range``).  Every product is ``_tf32_matmul``; p = exp(s *
+    scale - lse), zero where masked; ds = p (dp - delta) scale; the
+    gradient products sum over the streamed rows in the kernels' order
+    (``_pv_order``: a ragged last tile is zero-padded, as TMA loads it);
+    the sums stay fp32.  Returns (dq, dk, dv)."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    bn = tflash.TF32_BWD_BN[d]
+    bq, bk = tflash.BQ, tflash.BK
+    delta = tflash._delta(g, o)
+    keep = tflash._mask(lq, lk, causal, window, q.device)
+    if keep is None:
+        keep = torch.ones(lq, lk, dtype=torch.bool)
+
+    def mm(a, b):
+        return _tf32_matmul(a, b, products)
+
+    dq = torch.zeros(bh, lq, d)
+    for iq in range(math.ceil(lq / bq)):
+        rows = slice(iq * bq, (iq + 1) * bq)
+        qt, gt = q[:, rows], g[:, rows]
+        acc = torch.zeros(bh, qt.shape[1], d)
+        first, stop = tflash._k_tile_range(iq, lq, lk, causal, window, bq,
+                                           bn)
+        for jk in range(first, stop):
+            cols = slice(jk * bn, (jk + 1) * bn)
+            kt, vt = k[:, cols], v[:, cols]
+            p = torch.exp(mm(qt, kt.transpose(1, 2)) * scale
+                          - lse[:, rows, None])
+            p = p.masked_fill(~keep[rows, cols], 0.0)
+            ds = p * (mm(gt, vt.transpose(1, 2)) - delta[:, rows, None]) \
+                * scale
+            order = _pv_order(bn)[_pv_order(bn) < kt.shape[1]]
+            acc = acc + mm(ds[..., order], kt[:, order])
+        dq[:, rows] = acc
+    dk, dv = torch.zeros(bh, lk, d), torch.zeros(bh, lk, d)
+    for jk in range(math.ceil(lk / bk)):
+        cols = slice(jk * bk, (jk + 1) * bk)
+        kt, vt = k[:, cols], v[:, cols]
+        acc_k = torch.zeros(bh, kt.shape[1], d)
+        acc_v = torch.zeros(bh, kt.shape[1], d)
+        first, stop = tflash._q_tile_range(jk, lq, lk, causal, window, bn,
+                                           bk)
+        for iq in range(first, stop):
+            rows = slice(iq * bn, (iq + 1) * bn)
+            qt, gt = q[:, rows], g[:, rows]
+            pt = torch.exp(mm(kt, qt.transpose(1, 2)) * scale
+                           - lse[:, None, rows])
+            pt = pt.masked_fill(~keep[rows, cols].T, 0.0)
+            dst = pt * (mm(vt, gt.transpose(1, 2))
+                        - delta[:, None, rows]) * scale
+            order = _pv_order(bn)[_pv_order(bn) < qt.shape[1]]
+            acc_v = acc_v + mm(pt[..., order], gt[:, order])
+            acc_k = acc_k + mm(dst[..., order], qt[:, order])
+        dk[:, cols], dv[:, cols] = acc_k, acc_v
+    return dq, dk, dv
+
+
+def _float64_bwd(q, k, v, g, causal, scale, window=0):
+    """dq, dk, dv of attention in float64, the exact yardstick."""
+    q, k, v, g = (t.double() for t in (q, k, v, g))
+    s = (q @ k.transpose(1, 2)) * scale
+    keep = tflash._mask(q.shape[1], k.shape[1], causal, window, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep[None], -math.inf)
+    p = torch.softmax(s, -1)
+    dp = g @ v.transpose(1, 2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+    return ds @ k, ds.transpose(1, 2) @ q, p.transpose(1, 2) @ g
+
+
+def _bwd_case(causal, window, lq, lk, d, seed):
+    """numpy fp32 q, k, v, g (BH=2) and, as torch tensors, the same with
+    the plain forward's o and lse, which the kernels take as they take
+    the card's forward's: (arrays, (q, k, v, o, lse, g), scale)."""
+    arrs = _inputs(2, lq, d, lk=lk, seed=seed)
+    arrs.append(np.random.RandomState(seed + 1).normal(
+        0, 1, arrs[0].shape).astype(np.float32))
+    q, k, v, g = (torch.from_numpy(a) for a in arrs)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tflash._reference_fwd(q, k, v, causal, scale, window)
+    return arrs, (q, k, v, o, lse, g), scale
+
+
+SPLIT_BWD_CASES = [  # (causal, window, Lq, Lk, D)
+    (True, 0, 256, 256, 64), (False, 0, 256, 256, 64),
+    (True, 64, 256, 256, 32), (True, 0, 200, 200, 64),
+    (False, 0, 128, 256, 32), (True, 0, 128, 256, 32),
+    (True, 0, 256, 256, 32)]
+
+
+@pytest.mark.parametrize("causal,window,lq,lk,d", SPLIT_BWD_CASES)
+def test_split_tf32_recipe_bwd_stays_inside_the_card_tolerance(
+        causal, window, lq, lk, d):
+    # The recipe's dq, dk, dv against float64 and against the plain
+    # backward (the card's yardstick), at chip_smoke.py's fp32 BWD_TOL
+    # (1e-4 abs + rel).  Worst |error| / (tol * (1 + |ref|)) seen here:
+    # 0.008 to 0.019 against float64, 0.009 to 0.017 against the plain
+    # backward.
+    from chip_smoke import BWD_TOL
+    tol = BWD_TOL["float32"]
+    _, (q, k, v, o, lse, g), scale = _bwd_case(causal, window, lq, lk, d,
+                                               seed=30)
+    got = _split_tf32_recipe_bwd(q, k, v, o, lse, g, causal, scale, window)
+    assert _worst_over_tol(got, _float64_bwd(q, k, v, g, causal, scale,
+                                             window), tol) <= 1.0
+    assert _worst_over_tol(got, tflash._reference_bwd(
+        q, k, v, o, lse, g, causal, scale, window), tol) <= 1.0
+
+
+@pytest.mark.parametrize("causal,window,lq,lk,d", SPLIT_BWD_CASES)
+def test_split_tf32_recipe_bwd_matches_jax_kernel(causal, window, lq, lk,
+                                                  d):
+    # the recipe's gradients against the Pallas backward in interpret mode
+    # on the same fp32 inputs (its reference path under jax.vjp where the
+    # 128-tiling does not cover the shape), at the parity tests' GRAD_TOL
+    arrs, (q, k, v, o, lse, g), scale = _bwd_case(causal, window, lq, lk,
+                                                  d, seed=31)
+    got = _split_tf32_recipe_bwd(q, k, v, o, lse, g, causal, scale, window)
+    jarrs = [jnp.asarray(a) for a in arrs[:3]]
+    if jflash._supported(*jarrs[:2]):
+        ref = _grads_jax_kernel(arrs[:3], arrs[3], causal, scale, window)
+    else:
+        _, vjp = jax.vjp(lambda q, k, v: jflash.flash_attention(
+            q, k, v, causal=causal, scale=scale, window=window,
+            interpret=True), *jarrs)
+        ref = vjp(jnp.asarray(arrs[3]))
+    for name, a, b in zip("dq dk dv".split(), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **GRAD_TOL)
+
+
+def test_one_tf32_product_fails_the_card_bwd_tolerance():
+    # Why the backward kernels split: the same recipe with one tf32
+    # product per product lands far outside 1e-4 (worst ratio 29 here),
+    # three products far inside (0.020)
+    from chip_smoke import BWD_TOL
+    tol = BWD_TOL["float32"]
+    _, (q, k, v, o, lse, g), scale = _bwd_case(True, 0, 512, 512, 64,
+                                               seed=32)
+    ref = _float64_bwd(q, k, v, g, True, scale)
+    one = _split_tf32_recipe_bwd(q, k, v, o, lse, g, True, scale,
+                                 products=1)
+    three = _split_tf32_recipe_bwd(q, k, v, o, lse, g, True, scale)
+    assert _worst_over_tol(one, ref, tol) > 2.0
+    assert _worst_over_tol(three, ref, tol) < 0.2
+
+
+@pytest.mark.parametrize("d", sorted(tflash.TF32_BWD_BN))
+def test_tf32_bwd_tiles_cover_exactly_the_kept_pairs(d):
+    # the fp32 backward's loops at its streamed rows a tile: flash_dq's
+    # key tiles of each 64-row query tile and flash_dkv's query tiles of
+    # each 64-row key tile, ragged lengths, windows and Lq != Lk included
+    bq, bk, bn = tflash.BQ, tflash.BK, tflash.TF32_BWD_BN[d]
+    assert bn % 8 == 0 and sorted(_pv_order(bn).tolist()) == list(range(bn))
+    shapes = [(1, 1), (15, 15), (16, 16), (17, 17), (64, 64), (65, 65),
+              (200, 200), (257, 257)]
+    for causal, window in ((False, 0), (True, 0), (True, 1), (True, 40),
+                           (True, 100)):
+        for lq, lk in shapes + ([(64, 200), (200, 64), (1, 130)]
+                                if not window else []):
+            qp = np.arange(lq)[:, None]
+            kp = np.arange(lk)[None, :]
+            keep = np.ones((lq, lk), bool)
+            if causal:
+                keep = qp >= kp
+                if window:
+                    keep &= qp - kp < window
+            for iq in range(math.ceil(lq / bq)):
+                rows = keep[iq * bq:(iq + 1) * bq]
+                live = {jk for jk in range(math.ceil(lk / bn))
+                        if rows[:, jk * bn:(jk + 1) * bn].any()}
+                first, stop = tflash._k_tile_range(iq, lq, lk, causal,
+                                                   window, bq, bn)
+                assert set(range(first, stop)) == live, (lq, lk, iq)
+            for jk in range(math.ceil(lk / bk)):
+                cols = keep[:, jk * bk:(jk + 1) * bk]
+                live = {iq for iq in range(math.ceil(lq / bn))
+                        if cols[iq * bn:(iq + 1) * bn].any()}
+                first, stop = tflash._q_tile_range(jk, lq, lk, causal,
+                                                   window, bn, bk)
+                assert set(range(first, stop)) == live, (lq, lk, jk)
