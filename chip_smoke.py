@@ -38,7 +38,24 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                tokens, 2 of 512, greedy, 32 new tokens); each answer
                equals the teacher-forced argmax of ``forward``, and each
                prefill ran the kernel once per layer.
-6. train       (i) one fp32 loss and every parameter's gradient at B=1 x
+6. serve_engine  serving.ServingEngine (max_batch 8, block_size 16,
+               512 blocks, prefix cache on) on the forward phase's
+               model, with bench.py's serving traffic at that width: 16
+               requests submitted at once, the even ones sharing a
+               256-token system prompt, each with its own 64 to 448
+               tokens (numpy seed 7), 32 new tokens each.  Every request
+               finishes with no leaked block; the decode step is
+               captured once (trace_counts["decode"] == 1); each
+               request's tokens equal generate()'s but where generate's
+               top-two logits are within 1e-5 relative (printed, and
+               that request compared no further); one replay of the
+               captured step equals the step called eagerly on clones
+               of the pools and buffers, bit for bit; no flash kernel
+               runs.  Prints decode ms per iteration, tokens/s, TTFT
+               p50/p99, the busy share over profiled steps, the graph's
+               device ms, the step's byte bound and the prefix-cache
+               hits.
+7. train       (i) one fp32 loss and every parameter's gradient at B=1 x
                L=256 on the card equal the same weights' on the CPU's
                plain path; (ii) bench.py's training step (B=8 x L=1024,
                Adam lr 1e-4, bf16 compute over fp32 masters, its LM
@@ -54,12 +71,15 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                flash_dkv per layer; step ms, tokens/s, peak memory and a
                profiled step's device ms by class (flash_dq and
                flash_dkv apart).
-7. rtc         the user-kernel path (rtc_examples.py): builds the four
+8. rtc         the user-kernel path (rtc_examples.py): builds the four
                CUDA twins of the Pallas user kernels through
                rtc.compile_kernel (ptxas report), holds each against
                its plain version at the JAX test's shape and at fp32
                (8192, 4096), and times kernel, plain version, library
-               call and bound; drives each twin through nd and
+               call and bound; holds scale bit for bit at an odd offset,
+               an n not a multiple of 4 and n < 4 (scale_edges), and
+               times it against torch.mul in turns, beside the same
+               source on a resident grid (scale_turns); drives each twin through nd and
                autograd (rtc_ops); runs the example's eager loop grown
                to an SGD step at full width, x (8192, 1024) . w (1024,
                4096) through scale_shift_relu against t (8192, 4096),
@@ -730,6 +750,227 @@ def phase_serve(mt, torch, net):
     return counts
 
 
+# ------------------------------------------------------------ serve_engine
+# bench.py's serving traffic (bench.py:1013-1100) at the forward phase's
+# width, through serving.ServingEngine: every request submitted at once.
+ENGINE = dict(max_batch=8, block_size=16, num_blocks=512, prefix_cache=True)
+ENGINE_REQUESTS = 16
+ENGINE_SYSTEM = 256          # the even-numbered requests' shared prompt
+ENGINE_OWN = (64, 448)       # each request's own part, tokens
+ENGINE_SEED = 7              # numpy, as bench.py's
+ENGINE_PROFILED_STEPS = 4
+TIE_REL = 1e-5               # generate()'s top-two logits this close: a tie
+
+
+def engine_prompts(vocab):
+    """bench.py's prompt mix: a shared system prompt on the even
+    requests, then each request's own part, drawn in bench.py's order."""
+    import numpy as np
+    rs = np.random.RandomState(ENGINE_SEED)
+    system = [int(t) for t in rs.randint(0, vocab, ENGINE_SYSTEM)]
+    prompts = []
+    for i in range(ENGINE_REQUESTS):
+        n = int(rs.randint(ENGINE_OWN[0], ENGINE_OWN[1] + 1))
+        own = [int(t) for t in rs.randint(0, vocab, n)]
+        prompts.append(system + own if i % 2 == 0 else own)
+    return prompts
+
+
+def generate_logits(net, prompt, upto, torch):
+    """The logits greedy ``generate()`` picks its new tokens 0..upto
+    from, by the same calls (``_prefill``, then ``_step`` per token)."""
+    p = len(prompt)
+    with torch.inference_mode():
+        wts = net._decode_params()
+        caches, logits = net._prefill(
+            torch.tensor([prompt], device="cuda"), p + NEW_TOKENS)
+        out = [logits[0]]
+        for i in range(p, p + upto):
+            logits = net._step(wts, caches, out[-1].argmax()[None], i)
+            out.append(logits[0])
+    return out
+
+
+def tie_margin(logits):
+    """(top1 - top2) / |top1| of one row of logits."""
+    top = logits.topk(2).values.tolist()
+    return (top[0] - top[1]) / abs(top[0])
+
+
+def compare_with_generate(net, reqs, torch):
+    """Each request's tokens against ``generate()`` on its prompt.  A
+    difference passes only where generate's top-two logits are within
+    TIE_REL of each other; that request is compared no further."""
+    ties = []
+    for r in reqs:
+        with torch.inference_mode():
+            ref = net.generate(torch.tensor([r.prompt], device="cuda"),
+                               NEW_TOKENS)[0].tolist()
+        p = len(r.prompt)
+        diff = [j for j in range(NEW_TOKENS)
+                if r.generated[j] != ref[p + j]]
+        if not diff:
+            continue
+        j = diff[0]
+        logits = generate_logits(net, r.prompt, j, torch)
+        check(all(int(logits[k].argmax()) == ref[p + k]
+                  for k in range(j + 1)),
+              "generate_logits disagrees with generate()")
+        margin = tie_margin(logits[j])
+        ties.append({"request": r.id, "new_token": j,
+                     "engine": r.generated[j], "generate": ref[p + j],
+                     "top2_rel_margin": margin})
+        check(margin <= TIE_REL,
+              f"engine request {r.id} differs from generate() at new "
+              f"token {j} ({r.generated[j]} vs {ref[p + j]}), top-two "
+              f"margin {margin} > {TIE_REL}")
+    return ties
+
+
+def graph_matches_eager(eng, torch):
+    """One replay of the captured decode step against the step function
+    called eagerly on clones of the pools and of the static buffers: the
+    same kernels on the same inputs, so live slots' logits and tokens
+    must be equal bit for bit.  Inactive slots are not compared: they
+    all write block 0, offset 0 and read it back, and which of those
+    duplicate writes lands is not determined on the card.  The replay
+    writes each live slot's K/V at its position, the values the next
+    real step writes there again."""
+    eng._grow()                 # the next step's blocks, as step() does
+    eng._fill_decode_inputs()
+    for dev, host in zip(eng._static_in, eng._host_in):
+        dev.copy_(host)
+    pools = ([p.clone() for p in eng._kpools],
+             [p.clone() for p in eng._vpools])
+    ins = [t.clone() for t in eng._static_in]
+    with torch.no_grad():
+        nxt_e, logits_e = eng._step_fn(eng._wts, *pools, *ins)
+    eng._graph.replay()
+    nxt_g, logits_g = eng._graph_out
+    torch.cuda.synchronize()
+    live = [i for i, r in enumerate(eng._sched.slots) if r is not None]
+    ok = bool(torch.equal(logits_g[live], logits_e[live])
+              and torch.equal(nxt_g[live], nxt_e[live]))
+    return {"live_slots": len(live), "bitwise_equal": ok,
+            "max_abs_diff": (logits_g[live] - logits_e[live])
+            .abs().max().item()}
+
+
+def replay_ms(eng, torch, reps=10):
+    """Device time of one replay of the captured decode step on the
+    current inputs (CUDA events; it rewrites the live slots' K/V at
+    their positions with the same values)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng._graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def engine_bound(net, eng):
+    """Bytes one decode step must move: the weights once, and every
+    slot's gathered K and V rows (max_blocks x block_size positions per
+    layer), at the card's memory rate."""
+    weights = sum(p.numel() * p.element_size() for p in net.parameters())
+    pool = eng._kpools[0]
+    row = eng.max_blocks * eng.block_size * pool.shape[2] * pool.shape[3]
+    gathered = 2 * len(eng._kpools) * eng.max_batch * row \
+        * pool.element_size()
+    return {"weights_bytes": weights, "gathered_pool_bytes": gathered,
+            "bound_ms": (weights + gathered) / H100_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def phase_serve_engine(mt, torch, net):
+    """The serving engine at full width: bench.py's traffic, every
+    request finished with no leaked block, one decode capture, tokens
+    equal to generate() but at ties, the captured step equal to the
+    eager one, and its times against its byte bound."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.serving import FINISHED, ServingEngine
+
+    launches = mt.ops.LAUNCHES
+    prompts = engine_prompts(MODEL["vocab_size"])
+    eng = ServingEngine(net, **ENGINE)
+    mt.ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]   # the main path
+    decode_ms, eager_check = [], None
+    while eng.has_work():
+        t_step = time.perf_counter()
+        events = eng.step()
+        dt = (time.perf_counter() - t_step) * 1e3
+        if len(events) == len({r.id for r, _ in events}):
+            decode_ms.append((dt, len(events)))       # no admission
+        if eager_check is None and eng._graph is not None \
+                and eng._sched.n_running() == eng.max_batch:
+            t_check = time.perf_counter()
+            eager_check = graph_matches_eager(eng, torch)
+            t0 += time.perf_counter() - t_check       # not the traffic's
+    wall_s = time.perf_counter() - t0
+    path_launches = {k: v for k, v in launches.items() if v}
+    flash_launches = {k: launches.get(k, 0) for k in TRAIN_KERNELS}
+    check(all(r.state == FINISHED for r in reqs),
+          f"engine states {[r.state for r in reqs]}")
+    refs = eng.cache.block_refs()
+    check(eng.pool.live() == refs
+          and eng.pool.num_allocated == sum(refs.values()),
+          f"leaked blocks: {eng.pool.live()} against the cache's {refs}")
+    check(eng.trace_counts.get("decode") == 1,
+          f"decode captured {eng.trace_counts.get('decode')} times")
+    check(eager_check is not None and eager_check["bitwise_equal"],
+          f"captured decode step differs from the eager one: "
+          f"{eager_check}")
+    check(not any(k.startswith("flash") for k in path_launches),
+          f"the engine's path launched {path_launches}")
+    check(all(len(r.generated) == NEW_TOKENS for r in reqs),
+          "engine requests short of their tokens")
+    ties = compare_with_generate(net, reqs, torch)
+    ttft = [r.first_token_ts - r.submit_ts for r in reqs]
+    full = [ms for ms, n in decode_ms if n == eng.max_batch]
+    # a second wave, every prompt in the prefix cache: profile decode
+    # steps of a full batch
+    wave = [eng.submit(p, NEW_TOKENS) for p in prompts[:eng.max_batch]]
+    eng.step()
+    check(eng._sched.n_running() == eng.max_batch, "second wave admitted")
+    prof = profile(lambda: [eng.step()
+                            for _ in range(ENGINE_PROFILED_STEPS)], torch)
+    graph_ms = replay_ms(eng, torch)
+    eng.run()
+    check(all(r.state == FINISHED for r in wave), "second wave finished")
+    stats = eng.stats()
+    out = {"phase": "serve_engine", "config": ENGINE,
+           "requests": ENGINE_REQUESTS, "new_tokens": NEW_TOKENS,
+           "prompt_tokens": [len(p) for p in prompts],
+           "all_finished": True, "leaked_blocks": 0,
+           "cached_blocks": len(refs),
+           "trace_counts": dict(eng.trace_counts),
+           "wall_s": wall_s,
+           "generated_tokens_per_s": ENGINE_REQUESTS * NEW_TOKENS / wall_s,
+           "decode_ms_per_iteration": (float(np.median(full)) if full
+                                       else None),
+           "decode_iterations_full_batch": len(full),
+           "decode_ms_all": [round(ms, 3) for ms, _ in decode_ms],
+           "graph_replay_ms": graph_ms,
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_p99_s": float(np.percentile(ttft, 99)),
+           "prefix_hit_tokens": stats["prefix_hit_tokens"],
+           "captured_vs_eager": eager_check,
+           "generate_ties": ties, "tie_rel": TIE_REL,
+           "launches": path_launches,
+           "profile": prof, **engine_bound(net, eng)}
+    emit(out)
+    del eng
+    torch.cuda.empty_cache()
+    return flash_launches
+
+
 def lm_loss(outputs, labels):
     """bench.py's LM loss (bench.py:224-236): logsumexp minus the
     picked logit, in fp32, averaged over tokens."""
@@ -1035,8 +1276,61 @@ def rtc_kernel_checks(ex, torch):
             "tol": "bit-exact" if name in ("scale", "addone")
                    else "2 ulp of |x*alpha|+|beta|"}
         del x, got, ref
-    return {"build_seconds": build_s, "ptxas": ptxas, "cases": rows}, \
-        entries
+    edges = rtc_scale_edges(ex, torch, gen)
+    turns = rtc_scale_turns(ex, torch, gen)
+    entries["scale"]["library_turns"] = turns
+    return {"build_seconds": build_s, "ptxas": ptxas, "cases": rows,
+            "scale_edges": edges, "scale_turns": turns}, entries
+
+
+def rtc_scale_edges(ex, torch, gen):
+    """scale bit for bit against its plain version where its 16-byte
+    path cannot take the whole array: a flat view at an odd offset (x
+    misaligned: the scalar loop), n not a multiple of 4 (the scalar
+    tail), and n < 4."""
+    fn, plain = ex.kernel("scale"), ex.reference("scale")
+    flat = torch.randn(RTC_FULL, generator=gen, device="cuda").view(-1)
+    cases = {"odd_offset": flat[1:], "n_mod_4_is_3": flat[:1000003],
+             "n_below_4": flat[:3], "n_below_4_odd_offset": flat[1:3]}
+    rows = {}
+    for tag, x in cases.items():
+        got, ref = fn(x, alpha=1.7), plain(x, alpha=1.7)
+        torch.cuda.synchronize()
+        rows[tag] = {"n": x.numel(), "x_offset_bytes": x.data_ptr() % 16,
+                     "bitwise_equal": bool(torch.equal(got, ref))}
+        check(rows[tag]["bitwise_equal"],
+              f"scale disagrees with its plain version: {tag} {rows[tag]}")
+    return rows
+
+
+SCALE_TURNS = 3
+
+
+def rtc_scale_turns(ex, torch, gen):
+    """scale against torch.mul at full width, in turns (device ms, each
+    over 20 calls), beside the same source launched on a resident grid
+    that loops (132 SMs x 8 blocks of 256) in place of the one-pass
+    grid: the two grid shapes its design note compares."""
+    x = torch.randn(RTC_FULL, generator=gen, device="cuda")
+    spec = ex._SPECS["scale"]
+    resident = ex.rtc.compile_kernel(
+        (ex.SOURCES / "scale.cu").read_text(), "scale", spec["signature"],
+        out_shape=ex._like, block=(ex.BLOCK,), scalars=ex._numel,
+        grid=lambda a, **_: (min(ex._scale_grid(a)[0], ex.MAX_BLOCKS),))
+    check(bool(torch.equal(resident(x, alpha=1.7), x * 1.7)),
+          "scale on the resident grid disagrees with its plain version")
+    calls = {"scale": lambda: ex.kernel("scale")(x, alpha=1.7),
+             "scale_resident_grid": lambda: resident(x, alpha=1.7),
+             "torch_mul": lambda: torch.mul(x, 1.7)}
+    ms = {k: [] for k in calls}
+    for _ in range(SCALE_TURNS):
+        for name, fn in calls.items():
+            ms[name].append(device_ms(fn, torch, f"{name} (turns)"))
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    return {"ms": ms, "median_ms": med,
+            "scale_over_torch_mul": med["scale"] / med["torch_mul"],
+            "resident_over_one_pass": med["scale_resident_grid"]
+            / med["scale"]}
 
 
 def rtc_plain_grad(x, w, t, torch):
@@ -1269,6 +1563,8 @@ def main():
         bwd_entries = timed("kernels_bwd", phase_kernels_bwd, mt, torch)
         net, fwd_launches = timed("forward", phase_forward, mt, torch)
         serve_launches = timed("serve", phase_serve, mt, torch, net)
+        engine_launches = timed("serve_engine", phase_serve_engine, mt,
+                                torch, net)
         train_launches, fp32_launches = timed("train", phase_train, mt,
                                               torch, net, card)
         del net
@@ -1276,11 +1572,14 @@ def main():
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES})
         entry["launches_by_path"] = {"forward": fwd_launches,
                                      "serve": serve_launches,
+                                     "serve_engine":
+                                         engine_launches["flash_fwd"],
                                      "train": train_launches["flash_fwd"],
                                      "fp32_train": fp32_launches["flash_fwd"],
                                      "nd": nd_flash}
         for e in bwd_entries:
             e["launches_by_path"] = {
+                "serve_engine": engine_launches[e["name"]],
                 "train": train_launches[e["name"]],
                 "fp32_train": fp32_launches[e["name"]]}
             e["fp32_train"]["launches"] = sum(fp32_launches[e["name"]])

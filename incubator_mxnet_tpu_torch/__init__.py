@@ -11,7 +11,8 @@ the caller passes ``device="cpu"``, which runs the plain PyTorch path.
 The imperative surface rides on the op registry (``ops.registry``):
 ``nd`` (NDArray and one function per registered op), ``autograd`` on
 torch's own, ``engine``, and ``rtc``, which turns a CUDA kernel given as
-source text into an op.
+source text into an op.  ``serving`` serves ``TransformerLM`` traffic
+by continuous batching over a paged KV cache.
 
 This package imports neither JAX nor ``incubator_mxnet_tpu``.
 """
@@ -22,9 +23,10 @@ from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
 from . import rtc
+from . import resilience, serving
 from .context import cpu, gpu, default_device
 
 __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "initializer", "ops", "gluon", "convert", "parallel", "engine",
-           "autograd", "nd", "ndarray", "NDArray", "rtc", "cpu", "gpu",
-           "default_device"]
+           "autograd", "nd", "ndarray", "NDArray", "rtc", "resilience",
+           "serving", "cpu", "gpu", "default_device"]

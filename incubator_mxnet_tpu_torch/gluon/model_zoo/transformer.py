@@ -14,8 +14,14 @@ kernel ``csrc/flash_fwd.cu``, and its gradient the kernels
 decode step attends to the cache with plain matrix products, as the JAX
 package does outside any kernel.
 
-Not in this slice (each raises ``NotImplementedError``): MoE FFNs,
-sequence parallelism, int8 weights and the paged serving builders.
+The paged builders (``_build_paged_prefill``, ``_build_paged_step``)
+are the serving engine's (``serving/engine.py``): the same decode math
+over KV pools indexed by block tables, with no kernel of their own, as
+in the JAX package.  They read int8 ``{q, s}`` weights
+(``serving/quantize.py``) and dequantize at use.
+
+Not in this slice (each raises ``NotImplementedError``): MoE FFNs and
+sequence parallelism.
 """
 import math
 
@@ -38,6 +44,21 @@ def _not_ported(what, where):
         f"the {where} slice")
 
 
+def _q_mat(w):
+    """Dense matrix, dequantized if int8: ``q * s`` per out-channel."""
+    if isinstance(w, dict):
+        return w["q"].float() * w["s"][:, None]
+    return w
+
+
+def _q_rows(w, idx):
+    """Embedding-table gather; quantized tables dequantize only the
+    gathered rows, never the dense table."""
+    if isinstance(w, dict):
+        return w["q"][idx].float() * w["s"][idx][..., None]
+    return w[idx]
+
+
 def _jln(x, gb):
     """LayerNorm over the last axis (eps 1e-5), from a (gamma, beta)
     pair: the decode path's formula."""
@@ -47,9 +68,26 @@ def _jln(x, gb):
 
 
 def _ffn_rows(lw, x2d):
-    """Dense FFN on flattened (T, D) tokens."""
-    return torch.relu(x2d @ lw["up"][0].T + lw["up"][1]) \
-        @ lw["down"][0].T + lw["down"][1]
+    """Dense FFN on flattened (T, D) tokens (int8 weights dequantized)."""
+    return torch.relu(x2d @ _q_mat(lw["up"][0]).T + lw["up"][1]) \
+        @ _q_mat(lw["down"][0]).T + lw["down"][1]
+
+
+def _rope_rows(x, pos, base=10000.0):
+    """RoPE for one token per batch row: x (B, H, Dh), pos (B,)
+    absolute positions.  The per-row form of ``ops.matrix.rope_fn(...,
+    offset=i)``, with its angle formula, so paged decode rotates
+    exactly as ``generate()``'s step does."""
+    half = x.shape[-1] // 2
+    dev = x.device
+    inv = torch.pow(torch.tensor(float(base), device=dev),
+                    -torch.arange(half, dtype=torch.float32,
+                                  device=dev) / half)
+    ang = pos.to(torch.float32)[:, None] * inv[None, :]
+    cos = torch.cos(ang)[:, None, :]
+    sin = torch.sin(ang)[:, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
 def _heads(t, b, l, h, dh):
@@ -192,6 +230,7 @@ class TransformerLM(nn.Module):
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads or n_heads
         self.attn_window = int(attn_window)
+        self.moe_experts = int(moe_experts)
 
     @property
     def device(self):
@@ -366,6 +405,184 @@ class TransformerLM(nn.Module):
             x = x + o.reshape(b, d) @ lw["proj"][0].T + lw["proj"][1]
             x = x + _ffn_rows(lw, _jln(x, lw["ln2"]))
         return _jln(x, wts["ln_f"]) @ wts["head"].T
+
+    # ---------------------------------------------------- paged decode
+    # Block-table variants of prefill and step for the serving engine
+    # (serving/engine.py).  KV lives in fixed pools of shape
+    # (num_blocks, block_size, kv_heads, head_dim) per layer; a request's
+    # context is the ordered block-id row it owns.  Scatter and gather by
+    # block id happen inside the function, so admission and retirement
+    # never change its shapes: one captured decode graph per engine.
+    # Both update the pools IN PLACE (torch has no donation) and return
+    # (next_token(s), logits).
+
+    def _check_paged(self):
+        if self.attn_window:
+            raise NotImplementedError(
+                "paged serving over sliding-window attention is not "
+                "implemented — serve attn_window=0 models, or decode "
+                "via generate()")
+        if self.moe_experts:
+            # top-2 routing sets expert capacity from the BATCH of
+            # tokens in flight: concurrent slots contend for capacity a
+            # sequential generate() call never sees, so served logits
+            # would depend on batch occupancy
+            raise NotImplementedError(
+                "paged serving of MoE models is not implemented — "
+                "shared expert capacity makes logits depend on "
+                "batchmates; decode MoE models via generate()")
+
+    def _paged_dims(self):
+        d, h, kv = self._d, self.n_heads, self.n_kv_heads
+        return d, h, kv, d // h, h // kv, kv * (d // h)
+
+    def _build_paged_prefill(self, suffix_len, max_blocks, block_size):
+        """Suffix prefill over the block-table cache.
+
+        Embeds ``S = suffix_len`` tokens at absolute positions ``n_past
+        + i``, scatters their K/V into the request's blocks, and attends
+        over the whole block-table context: ``n_past = 0`` is a full
+        prefill, ``n_past > 0`` resumes after a prefix-cache hit without
+        recomputing the shared blocks.  Rows past ``true_len`` are
+        padding: they scatter to the scratch block (id 0), and their
+        outputs are discarded.
+
+        Returns ``prefill(wts, kpools, vpools, table, n_past, tokens,
+        true_len) -> (next_token, logits)``: ``table`` (max_blocks,) and
+        ``tokens`` (S,) are int64 tensors on the model's device,
+        ``n_past`` and ``true_len`` ints; ``next_token`` is the greedy
+        argmax after the last real suffix token.
+        """
+        self._check_paged()
+        d, h, kv, dh, rep, kvd = self._paged_dims()
+        scale = math.sqrt(d)
+        use_rope = self._pos_kind == "rope"
+        max_len = self._max_len
+        S, MB, bs = int(suffix_len), int(max_blocks), int(block_size)
+        C = MB * bs
+
+        def prefill(wts, kpools, vpools, table, n_past, tokens, true_len):
+            dev = tokens.device
+            rows = torch.arange(S, device=dev)
+            x = _q_rows(wts["embed"], tokens) * scale          # (S, D)
+            pos = n_past + rows
+            if not use_rope:
+                x = x + _q_rows(wts["pos"], pos.clamp(max=max_len - 1))
+            valid = rows < true_len
+            wpos = torch.where(valid, pos, 0)
+            blk = torch.where(valid, table[(wpos // bs).clamp(max=MB - 1)],
+                              0)
+            off = wpos % bs
+            keep = torch.arange(C, device=dev)[None, :] <= pos[:, None]
+            for li, lw in enumerate(wts["layers"]):
+                xa = _jln(x, lw["ln1"])
+                qkvm = xa @ _q_mat(lw["qkv"][0]).T + lw["qkv"][1]
+                q = qkvm[:, :d].reshape(S, h, dh)
+                k = qkvm[:, d:d + kvd].reshape(S, kv, dh)
+                v = qkvm[:, d + kvd:].reshape(S, kv, dh)
+                if use_rope:
+                    q = rope_fn(q[None], offset=n_past)[0]
+                    k = rope_fn(k[None], offset=n_past)[0]
+                kpools[li][blk, off] = k
+                vpools[li][blk, off] = v
+                # gather the whole context back through the table: lane
+                # c of the flattened (C,) axis IS absolute position c,
+                # because the row is ordered by logical block index
+                kc = kpools[li][table].reshape(C, kv, dh).transpose(0, 1)
+                vc = vpools[li][table].reshape(C, kv, dh).transpose(0, 1)
+                qg = q.transpose(0, 1).reshape(kv, rep, S, dh)
+                s = torch.einsum("krsd,kcd->krsc", qg, kc) / math.sqrt(dh)
+                att = torch.softmax(torch.where(keep[None, None], s, -1e9),
+                                    dim=-1)
+                o = torch.einsum("krsc,kcd->krsd", att, vc)
+                o = o.reshape(h, S, dh).transpose(0, 1).reshape(S, d)
+                x = x + o @ _q_mat(lw["proj"][0]).T + lw["proj"][1]
+                x = x + _ffn_rows(lw, _jln(x, lw["ln2"]))
+            logits = _jln(x[true_len - 1], wts["ln_f"]) \
+                @ _q_mat(wts["head"]).T
+            return logits.argmax().to(torch.int32), logits
+
+        return prefill
+
+    def _build_paged_step(self, max_batch, max_blocks, block_size):
+        """One continuous-batching decode step over the block pool.
+
+        Feeds every slot's newest token at its own position, scatters
+        the new K/V through each slot's block-table row, and attends
+        over the gathered context.  Inactive slots ride along with
+        ``n_past = 0`` and an all-scratch row: their writes land in
+        block 0 and the host ignores their outputs, so the step needs
+        NO liveness branch and one captured graph serves every
+        admission and retirement.
+
+        Returns ``step(wts, kpools, vpools, tables, n_past, tokens) ->
+        (next_tokens, logits)`` (greedy argmax per slot): ``tables``
+        (max_batch, max_blocks), ``n_past`` and ``tokens`` (max_batch,)
+        are int64 tensors on the model's device.  It makes no host
+        read, so it can be captured as a CUDA graph.
+        """
+        self._check_paged()
+        d, h, kv, dh, rep, kvd = self._paged_dims()
+        scale = math.sqrt(d)
+        use_rope = self._pos_kind == "rope"
+        max_len = self._max_len
+        B, MB, bs = int(max_batch), int(max_blocks), int(block_size)
+        C = MB * bs
+
+        def step(wts, kpools, vpools, tables, n_past, tokens):
+            x = _q_rows(wts["embed"], tokens) * scale          # (B, D)
+            if not use_rope:
+                x = x + _q_rows(wts["pos"], n_past.clamp(max=max_len - 1))
+            blk = tables.gather(
+                1, (n_past // bs).clamp(max=MB - 1)[:, None])[:, 0]
+            off = n_past % bs
+            keep = torch.arange(C, device=tokens.device)[None, :] \
+                <= n_past[:, None]
+            for li, lw in enumerate(wts["layers"]):
+                xa = _jln(x, lw["ln1"])
+                qkvm = xa @ _q_mat(lw["qkv"][0]).T + lw["qkv"][1]
+                q = qkvm[:, :d].reshape(B, h, dh)
+                k = qkvm[:, d:d + kvd].reshape(B, kv, dh)
+                v = qkvm[:, d + kvd:].reshape(B, kv, dh)
+                if use_rope:
+                    q = _rope_rows(q, n_past)
+                    k = _rope_rows(k, n_past)
+                # every inactive slot writes block 0, offset 0: duplicate
+                # indices, so which write lands there is not determined
+                # on the card.  Harmless only because block 0 is never
+                # unmasked for a live slot (the allocator never hands it
+                # out, and lanes past a slot's own blocks are masked)
+                kpools[li][blk, off] = k
+                vpools[li][blk, off] = v
+                kc = kpools[li][tables].reshape(B, C, kv, dh) \
+                    .transpose(1, 2)                    # (B, kv, C, dh)
+                vc = vpools[li][tables].reshape(B, C, kv, dh) \
+                    .transpose(1, 2)
+                qg = q.reshape(B, kv, rep, dh)
+                s = torch.einsum("bkrd,bkcd->bkrc", qg, kc) / math.sqrt(dh)
+                att = torch.softmax(
+                    torch.where(keep[:, None, None, :], s, -1e9), dim=-1)
+                o = torch.einsum("bkrc,bkcd->bkrd", att, vc).reshape(B, d)
+                x = x + o @ _q_mat(lw["proj"][0]).T + lw["proj"][1]
+                x = x + _ffn_rows(lw, _jln(x, lw["ln2"]))
+            logits = _jln(x, wts["ln_f"]) @ _q_mat(wts["head"]).T
+            return logits.argmax(-1).to(torch.int32), logits
+
+        return step
+
+    def decode_flops_per_token(self, context_len):
+        """Matmul FLOPs to decode ONE token against a KV cache of
+        ``context_len`` entries (forward only, no 3x rule)."""
+        d = self._d
+        mlp = 2 * 2 * d * self._mlp_ratio * d       # dense up + down
+        kvd = self.n_kv_heads * (d // self.n_heads)
+        span = min(context_len, self.attn_window) \
+            if self.attn_window else context_len
+        per_layer = (2 * d * (d + 2 * kvd)
+                     + 2 * d * d
+                     + 2 * 2 * span * d
+                     + mlp)
+        return self.n_layers * per_layer + 2 * d * self.head.weight.shape[0]
 
 
 def _restrict(logits, top_k, top_p):

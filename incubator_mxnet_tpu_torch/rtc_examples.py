@@ -39,6 +39,8 @@ NAMES = ("scale", "addone", "fused_scale_shift_relu", "scale_shift")
 BLOCK = 256
 MAX_BLOCKS = 132 * 8      # 8 resident blocks of 256 threads per H100 SM
 ROWS_PER_TILE = 8         # addone's tile, the Pallas BlockSpec's rows
+SCALE_VEC = 4             # float4s a thread of scale moves per pass
+GRID_X = 2 ** 31 - 1      # the card's limit on gridDim.x
 
 
 def _like(x, **_):
@@ -51,6 +53,13 @@ def _numel(x, **_):
 
 def _grid_stride(x, **_):
     return (max(1, min(math.ceil(x.numel() / BLOCK), MAX_BLOCKS)),)
+
+
+def _scale_grid(x, **_):
+    """scale's grid: enough blocks to cover the array in one pass, each
+    thread moving SCALE_VEC float4s (``csrc/rtc/scale.cu``)."""
+    per_block = BLOCK * SCALE_VEC * 4
+    return (max(1, min(math.ceil(x.numel() / per_block), GRID_X)),)
 
 
 def _rows_cols(x, **_):
@@ -92,7 +101,7 @@ def _scale_shift(x, alpha, beta):
 _SPECS = {
     "scale": dict(
         signature="const float* x, float* o, float alpha, long long n",
-        grid=_grid_stride, scalars=_numel, reference=_scale),
+        grid=_scale_grid, scalars=_numel, reference=_scale),
     "addone": dict(
         signature="const float* x, float* o, long long rows, "
                   "long long cols",

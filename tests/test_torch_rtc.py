@@ -480,3 +480,59 @@ def test_rtc_path_matches_jax_loop():
     np.testing.assert_allclose(wn.asnumpy(), jw, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(wn.grad.asnumpy(), jg, rtol=1e-5, atol=1e-7)
     assert losses[-1] < losses[0]
+
+
+# ------------------------------- scale's 16-byte design (csrc/rtc/scale.cu)
+
+def _scale_writes(n, blocks, aligned):
+    """How many times ``csrc/rtc/scale.cu`` writes each element of o, by
+    the kernel's own index arithmetic: chunks of SCALE_VEC * BLOCK
+    float4s a block a pass when x and o are 16-byte aligned, then the
+    scalar loop over what is left (the whole array when they are not)."""
+    hits = np.zeros(n, np.int32)
+    done = 0
+    if aligned:
+        n4, chunk = n >> 2, ex.BLOCK * ex.SCALE_VEC
+        for b in range(blocks):
+            for c in range(b * chunk, n4, blocks * chunk):
+                hits[4 * c:4 * min(c + chunk, n4)] += 1
+        done = n4 << 2
+    threads = blocks * ex.BLOCK
+    for t in range(min(threads, n - done)):
+        hits[done + t:n:threads] += 1
+    return hits
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 8192 * 4096])
+def test_scale_grid_covers_the_array_once_within_the_grid_limit(n):
+    (blocks,) = ex._scale_grid(torch.empty(n, device="meta"))
+    per_block = ex.BLOCK * ex.SCALE_VEC * 4
+    assert 1 <= blocks <= ex.GRID_X
+    assert blocks * per_block >= n > (blocks - 1) * per_block
+    assert ex.kernel("scale").grid is ex._scale_grid
+    aligned = [True] if n > 4096 else [True, False]
+    for a in aligned:
+        assert (_scale_writes(n, blocks, a) == 1).all(), (n, a)
+    # a smaller grid than one pass needs loops over the chunks
+    assert (_scale_writes(n, 3, True) == 1).all()
+
+
+def test_scale_on_odd_offsets_and_lengths_is_x_times_alpha():
+    rs = np.random.RandomState(9)
+    base = torch.from_numpy(rs.normal(0, 1, (33, 7)).astype(np.float32))
+    fn = ex.kernel("scale")
+    for x in (base.view(-1)[1:],          # a flat view at an odd offset
+              base.view(-1)[:229],        # n % 4 == 1
+              base.view(-1)[5:7],         # n < 4, odd offset
+              base.view(-1)[:3]):
+        assert x.is_contiguous()
+        got = fn(x, alpha=1.7)
+        assert got.shape == x.shape
+        assert torch.equal(got, x * 1.7)
+        assert torch.equal(got, ex.reference("scale")(x, alpha=1.7))
+
+
+def test_shifting_kernels_keep_the_grid_stride_loop():
+    for name in ("fused_scale_shift_relu", "scale_shift"):
+        assert ex.kernel(name).grid is ex._grid_stride
+    assert "float4" not in (ex.SOURCES / "scale_shift.cu").read_text()
