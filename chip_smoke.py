@@ -71,7 +71,29 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                flash_dkv per layer; step ms, tokens/s, peak memory and a
                profiled step's device ms by class (flash_dq and
                flash_dkv apart).
-8. rtc         the user-kernel path (rtc_examples.py): builds the four
+8. resnet      bench.py's headline workload on the port's Gluon path, no
+               hand kernel on it: (i) resnet50_v1() from seed 0 on the
+               card and on the CPU (load_gluon_params), fp32 with TF32
+               off, one ShardedTrainStep SGD step at B=2 x 3x224x224:
+               losses within 1e-4 rel, gradients within 1e-2 (median
+               3e-3; the CPU's own floor printed), BatchNorm moving
+               stats within 1e-4; (ii) bench.py's step: functionalize,
+               ShardedTrainStep(sgd, lr 0.1, momentum 0.9, wd 1e-4,
+               bf16 over fp32 masters) at B=32 on bench.py's batch, 3
+               warm-up and 20 timed steps, losses finite and falling;
+               img/s, step ms, peak memory, MFU against 989 TFLOP/s
+               from the port's own count of train FLOPs per image
+               (convolution and dense shapes, within 2% of bench.py's
+               3 x 7.826e9), one profiled step's device ms by class
+               (conv, batchnorm, pool, matmul, optimizer, other) and
+               busy share; (iii) the same step in fp32; (iv) 23 steps
+               of the imperative loop (autograd.record, SoftmaxCross
+               EntropyLoss, backward, gluon.Trainer.step(32)): losses
+               finite and falling, every parameter with a gradient.
+               (The loss rises for steps 3 to 7 at lr 0.1 before it
+               falls, so each run takes 23 steps.)  Each
+               kernel's launches on this path are counted ("resnet").
+9. rtc         the user-kernel path (rtc_examples.py): builds the four
                CUDA twins of the Pallas user kernels through
                rtc.compile_kernel (ptxas report), holds each against
                its plain version at the JAX test's shape and at fp32
@@ -1164,6 +1186,308 @@ def fp32_train(mt, torch, net, toks, labels):
             "profile": prof}, counts
 
 
+# --------------------------------------------------------------- resnet
+# bench.py's headline workload (bench.py:2563-2640): ResNet-50 v1 through
+# Gluon, functionalize and ShardedTrainStep (SGD lr 0.1, momentum 0.9,
+# wd 1e-4) at batch 32 on 3x224x224, bf16 over fp32 masters.  No hand
+# kernel is on this path: convolution, pooling and BatchNorm run through
+# cuDNN, the products through cuBLAS.
+RESNET_BATCH = 32
+RESNET_IMAGE = (3, 224, 224)
+RESNET_CHECK_BATCH = 2               # the card-vs-CPU step
+# bench.py:39-40.  At lr 0.1 and momentum 0.9 from fresh weights the
+# loss on the fixed batch rises for steps 3 to 7 (to ~15 in bf16, ~19 in
+# fp32, from 7.8) and then falls below its first value by step ~10, so
+# every run of this phase takes the 23 steps before it reads "falling".
+RESNET_WARMUP, RESNET_TIMED = 3, 20
+RESNET_LOOP_STEPS = RESNET_WARMUP + RESNET_TIMED   # the Trainer loop
+RESNET_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+RESNET_FLOPS_PER_IMG = 3 * 7.826e9   # bench.py:61, train = 3 x forward
+
+
+def resnet_class(name):
+    """The layer a device kernel of the ResNet step belongs to, from its
+    name: cuDNN's convolutions (and their layout transposes), batch
+    norm, pooling, cuBLAS's products (the dense layer), or the rest."""
+    n = name.lower()
+    if "implicit" in n or any(t in n for t in (
+            "conv", "fprop", "dgrad", "wgrad", "nchwtonhwc", "nhwctonchw")):
+        return "conv"
+    if "batch_norm" in n or "bn_" in n or "batchnorm" in n:
+        return "batchnorm"
+    if "pool" in n:
+        return "pool"
+    if any(t in n for t in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "matmul"
+    return "other"
+
+
+def resnet_net(mt, torch, device, seed=SEED):
+    """resnet50_v1() with Xavier weights from ``seed`` (drawn on the
+    CPU, so every device gets the same), its deferred shapes settled."""
+    net = mt.gluon.model_zoo.vision.resnet50_v1()
+    mt.random.seed(seed)
+    net.initialize(mt.init.Xavier(), ctx=device)
+    net.infer_shape(torch.zeros(1, 3, 32, 32, device=device))
+    return net
+
+
+def resnet_train_flops(mt, torch, net):
+    """Train FLOPs per image of ``net`` at 3x224x224: 3 x the forward's
+    multiply-adds x 2 in every convolution and dense layer, from their
+    weights and output shapes (bench.py's convention)."""
+    from incubator_mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+    dense = mt.gluon.nn.Dense
+    counts = []
+
+    def hook(mod, _, out):
+        out = out.handle if isinstance(out, mt.nd.NDArray) else out
+        per_out = mod.weight[0].numel() if isinstance(mod, _Conv) \
+            else mod.weight.shape[1]
+        counts.append(2 * per_out * out[0].numel())
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (_Conv, dense))]
+    try:
+        net.infer_shape(torch.zeros(1, *RESNET_IMAGE,
+                                    device=next(net.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3 * sum(counts)
+
+
+def resnet_grads(mt, torch, net, x, y):
+    """(loss, {name: gradient}) of one fp32 training forward, the names
+    without the net's own prefix."""
+    from incubator_mxnet_tpu_torch.parallel.data_parallel import \
+        _default_loss
+    pure = mt.parallel.functionalize(net)
+    params = pure.params()
+    outs, _ = pure.apply(params, pure.states(), [x], training=True)
+    loss = _default_loss(outs, y)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    names = [n[len(net.prefix):] for n in params]
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def resnet_check_cpu(mt, torch):
+    """(i) card against CPU, fp32, TF32 off: resnet50_v1() from seed 0
+    (drawn on the CPU), carried to the card by load_gluon_params; one
+    ShardedTrainStep SGD step at B=2 on each.  The losses within 1e-4
+    rel; every parameter's gradient (norm's rel err) within 1e-2 and
+    their median within 3e-3, or within 3x the CPU's own floor where
+    that is larger: the run measures how far the CPU's gradient moves
+    when its weights are nudged by 1e-7, as summation order on the card
+    moves them.  Fifty BatchNorms at 2 images make that floor large
+    (median 1.6e-2 on an H100), so the floor decides there.  The
+    moving mean and variance of every BatchNorm after the step within
+    1e-4 rel."""
+    import numpy as np
+    cpu_net = resnet_net(mt, torch, "cpu")
+    arrays = {k: p.data().asnumpy()
+              for k, p in cpu_net.collect_params().items()}
+    card_net = mt.gluon.model_zoo.vision.resnet50_v1()
+    mt.convert.load_gluon_params(card_net, arrays, ctx="cuda")
+    rs = np.random.RandomState(SEED + 5)
+    x = torch.from_numpy(rs.rand(RESNET_CHECK_BATCH, *RESNET_IMAGE)
+                         .astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, (RESNET_CHECK_BATCH,))
+                         .astype(np.int32))
+
+    def rel_errs(got, ref):
+        return {n: (got[n].cpu() - r).norm().item() / r.norm().item()
+                for n, r in ref.items() if r.norm().item() > 0}
+
+    def summary(errs):
+        vals = sorted(errs.values())
+        worst = max(errs, key=errs.get)
+        return {"median": vals[len(vals) // 2], "worst": errs[worst],
+                "worst_param": worst}
+
+    card_loss, card_grads = resnet_grads(mt, torch, card_net, x.cuda(),
+                                         y.cuda())
+    cpu_loss, cpu_grads = resnet_grads(mt, torch, cpu_net, x, y)
+    got = summary(rel_errs(card_grads, cpu_grads))
+    # the CPU's own floor: its gradient at weights nudged by 1e-7
+    gen = np.random.RandomState(SEED + 6)
+    floor_net = mt.gluon.model_zoo.vision.resnet50_v1()
+    mt.convert.load_gluon_params(floor_net, {
+        k: v * (1 + 1e-7 * gen.standard_normal(v.shape)).astype(np.float32)
+        if "running" not in k else v for k, v in arrays.items()}, ctx="cpu")
+    floor = summary(rel_errs(resnet_grads(mt, torch, floor_net, x, y)[1],
+                             cpu_grads))
+    del floor_net
+    stats = {}
+    for net, xb, yb in ((card_net, x.cuda(), y.cuda()), (cpu_net, x, y)):
+        step = mt.parallel.ShardedTrainStep(net, "sgd", RESNET_SGD)
+        stats[net is card_net] = (float(step(xb, yb)), {
+            k[len(net.prefix):]: v.cpu() for k, v in step.states.items()})
+        del step
+    (card_step, card_stats), (cpu_step, cpu_stats) = stats[True], stats[False]
+    stat_err = max((card_stats[k] - v).abs().max().item()
+                   / v.abs().max().item() for k, v in cpu_stats.items())
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    step_rel = abs(card_step - cpu_step) / abs(cpu_step)
+    check(loss_rel <= 1e-4 and step_rel <= 1e-4,
+          f"resnet card vs CPU loss rel err {loss_rel}, step {step_rel}")
+    tol = {"worst": max(1e-2, 3 * floor["worst"]),
+           "median": max(3e-3, 3 * floor["median"])}
+    check(got["worst"] <= tol["worst"] and got["median"] <= tol["median"],
+          f"resnet card vs CPU gradients {got} beyond {tol} (CPU's own "
+          f"floor {floor})")
+    check(stat_err <= 1e-4,
+          f"resnet card vs CPU moving stats rel err {stat_err} > 1e-4")
+    return {"batch": RESNET_CHECK_BATCH, "loss_card": card_loss,
+            "loss_cpu": cpu_loss, "loss_rel_err": loss_rel,
+            "step_loss_rel_err": step_rel, "loss_tol": 1e-4,
+            "grad_rel_err": got, "grad_tol": tol,
+            "cpu_floor_nudge_1e-7": floor, "params_checked": len(cpu_grads),
+            "moving_stats_rel_err": stat_err, "moving_stats_tol": 1e-4,
+            "moving_stats_checked": len(card_stats)}
+
+
+def resnet_batch(torch):
+    """bench.py's batch (bench.py:2577-2579), on the card."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    x = np.asarray(rs.rand(RESNET_BATCH, *RESNET_IMAGE), np.float32)
+    y = np.asarray(rs.randint(0, 1000, (RESNET_BATCH,)), np.int32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def resnet_timed_steps(torch, step, x, y, warmup, timed):
+    """Losses, warm-up ms, step ms and peak memory of ``warmup`` +
+    ``timed`` steps."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(x, y) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(timed)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return {"losses": losses, "warmup_ms": warm_ms, "step_ms": step_ms,
+            "images_per_s": RESNET_BATCH / step_ms * 1e3,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def resnet_step_profile(torch, step, x, y):
+    """One profiled step's device ms by class (conv, batchnorm, pool,
+    matmul, optimizer, other) and the busy share.  The optimizer's
+    elementwise kernels carry no telling name, so its update is timed
+    alone (on zero gradients: the same kernels) and moved out of
+    "other"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by, rows = {}, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            ms = e.self_device_time_total / 1e3
+            cls = resnet_class(e.key)
+            by[cls] = by.get(cls, 0.0) + ms
+            rows.append((ms, cls, e.key[:70]))
+    busy = sum(by.values())
+    zeros = {n: torch.zeros_like(p) for n, p in step.params.items()}
+    opt_ms = device_ms(lambda: step.opt.update(step.params, zeros,
+                                               step.opt_state),
+                       torch, "the SGD update", warmup=1, reps=3)
+    by["optimizer"] = opt_ms
+    by["other"] = by.get("other", 0.0) - opt_ms
+    return {"wall_ms": wall, "device_ms": busy,
+            "device_busy_share": busy / wall if busy else None,
+            "device_ms_by_class": by,
+            "top_ms": [[k, c, ms] for ms, c, k in sorted(rows)[::-1][:8]]}
+
+
+def resnet_loop(mt, torch, x, y):
+    """(iv) the imperative Gluon loop: record, SoftmaxCrossEntropyLoss,
+    backward, Trainer.step(32), from fresh seeded weights."""
+    net = resnet_net(mt, torch, "cuda")
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", RESNET_SGD)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    xs, ys = mt.nd.NDArray(x), mt.nd.NDArray(y)
+    losses, step_ms = [], []
+    for _ in range(RESNET_LOOP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mt.autograd.record():
+            loss = loss_fn(net(xs), ys)
+        loss.backward()
+        trainer.step(RESNET_BATCH)
+        losses.append(float(loss.mean().asscalar()))      # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(v) for v in losses), f"loop losses {losses}")
+    check(losses[-1] < losses[0], f"loop loss did not fall: {losses}")
+    no_grad = [p.name for p in net.collect_params().values()
+               if p.grad_req != "null"
+               and not bool((p.grad().handle != 0).any())]
+    check(not no_grad, f"loop left parameters without a gradient: "
+                       f"{no_grad[:5]}")
+    return {"steps": RESNET_LOOP_STEPS, "losses": losses,
+            "step_ms": step_ms, "step_ms_after_first":
+            sorted(step_ms[1:])[len(step_ms[1:]) // 2]}
+
+
+def phase_resnet(mt, torch, card):
+    launches = mt.ops.LAUNCHES
+    tf32 = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    cpu_check = resnet_check_cpu(mt, torch)
+    x, y = resnet_batch(torch)
+    net = resnet_net(mt, torch, "cuda")
+    flops_img = resnet_train_flops(mt, torch, net)
+    drift = abs(flops_img - RESNET_FLOPS_PER_IMG) / RESNET_FLOPS_PER_IMG
+    check(drift <= 0.02, f"train FLOPs per image {flops_img} is "
+                         f"{drift:.3%} from bench.py's 3 x 7.826e9")
+    pure = mt.parallel.functionalize(net)
+    step = mt.parallel.ShardedTrainStep(pure, "sgd", RESNET_SGD,
+                                        compute_dtype=torch.bfloat16)
+    mt.ops.reset_launches()
+    bf16 = resnet_timed_steps(torch, step, x, y, RESNET_WARMUP,
+                              RESNET_TIMED)           # the main path
+    n = dict(launches)
+    check(all(p.dtype == torch.float32 for p in step.params.values()),
+          "masters are not fp32")
+    bf16["profile"] = resnet_step_profile(torch, step, x, y)
+    bf16["host_profile"] = host_profile(lambda: step(x, y), torch,
+                                        calls=1, top=12)
+    bf16["mfu"] = flops_img * bf16["images_per_s"] / H100_BF16_FLOPS
+    del step, pure, net
+    torch.cuda.empty_cache()
+    net = resnet_net(mt, torch, "cuda")
+    step = mt.parallel.ShardedTrainStep(net, "sgd", RESNET_SGD)
+    fp32 = resnet_timed_steps(torch, step, x, y, RESNET_WARMUP,
+                              RESNET_TIMED)
+    del step, net
+    torch.cuda.empty_cache()
+    loop = resnet_loop(mt, torch, x, y)
+    emit({"phase": "resnet", "card": card, "model": "resnet50_v1",
+          "batch": RESNET_BATCH, "image": list(RESNET_IMAGE),
+          "optimizer": "sgd", **RESNET_SGD, "tf32": tf32,
+          "cpu_check": cpu_check, "train_flops_per_image": flops_img,
+          "flops_drift_vs_bench": drift, "mfu_peak":
+          "989 TFLOP/s bf16 dense", "warmup_steps": RESNET_WARMUP,
+          "timed_steps": RESNET_TIMED, "bf16_step": bf16,
+          "fp32_step": fp32, "gluon_loop": loop,
+          "kernel_launches": {k: v for k, v in n.items() if v}})
+    return n
+
+
 # ------------------------------------------------------------------ rtc
 # The user-kernel path: the four Pallas user kernels' CUDA twins
 # (incubator_mxnet_tpu_torch/rtc_examples.py, csrc/rtc/*.cu) built
@@ -1378,9 +1702,10 @@ def rtc_cpu_check(mt, ex, torch, data):
 
 def host_profile(fn, torch, calls=DISPATCH_CALLS, top=10):
     """Where a call's host time goes: cProfile over ``calls`` calls, the
-    functions with the most time of their own, in us per call.  The
-    profiler adds its own cost to every Python call it sees, so the
-    total is inflated; the shares are the measurement."""
+    functions with the most time of their own and with the most time
+    under them, in us per call.  The profiler adds its own cost to
+    every Python call it sees, so the total is inflated; the shares are
+    the measurement."""
     import cProfile
     import pstats
 
@@ -1394,11 +1719,15 @@ def host_profile(fn, torch, calls=DISPATCH_CALLS, top=10):
     prof.disable()
     stats = pstats.Stats(prof).stats
     total = sum(v[2] for v in stats.values())
-    rows = sorted(((v[2], f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
-                   for k, v in stats.items()), reverse=True)[:top]
+
+    def rank(i):        # 2: time of its own, 3: time under it
+        rows = sorted(((v[i], f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})")
+                       for k, v in stats.items()), reverse=True)[:top]
+        return [[name, t / calls * 1e6] for t, name in rows]
+
     return {"profiled_us_per_call": total / calls * 1e6,
-            "top_own_us_per_call": [[name, t / calls * 1e6]
-                                    for t, name in rows]}
+            "top_own_us_per_call": rank(2),
+            "top_cumulative_us_per_call": rank(3)}
 
 
 def rtc_dispatch(mt, ex, torch):
@@ -1568,6 +1897,7 @@ def main():
         train_launches, fp32_launches = timed("train", phase_train, mt,
                                               torch, net, card)
         del net
+        resnet_launches = timed("resnet", phase_resnet, mt, torch, card)
         rtc_entries, nd_flash = timed("rtc", phase_rtc, mt, torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES})
         entry["launches_by_path"] = {"forward": fwd_launches,
@@ -1584,6 +1914,8 @@ def main():
                 "fp32_train": fp32_launches[e["name"]]}
             e["fp32_train"]["launches"] = sum(fp32_launches[e["name"]])
         for e in [entry] + bwd_entries + rtc_entries:
+            e["launches_by_path"]["resnet"] = resnet_launches.get(
+                e["name"], 0)
             e["launches"] = sum(
                 n if isinstance(n, int) else sum(n)
                 for n in e["launches_by_path"].values())

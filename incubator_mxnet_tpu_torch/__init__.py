@@ -11,14 +11,18 @@ the caller passes ``device="cpu"``, which runs the plain PyTorch path.
 The imperative surface rides on the op registry (``ops.registry``):
 ``nd`` (NDArray and one function per registered op), ``autograd`` on
 torch's own, ``engine``, and ``rtc``, which turns a CUDA kernel given as
-source text into an op.  ``serving`` serves ``TransformerLM`` traffic
-by continuous batching over a paged KV cache.
+source text into an op.  ``gluon`` (Parameter, Block, layers, losses,
+the Trainer, the ResNet and transformer model zoo), ``optimizer`` and
+``lr_scheduler`` train through it; ``parallel`` holds the functional
+train step.  ``serving`` serves ``TransformerLM`` traffic by continuous
+batching over a paged KV cache.
 
 This package imports neither JAX nor ``incubator_mxnet_tpu``.
 """
 from .base import __version__, MXNetError
 from . import (base, context, random, initializer, ops, gluon, convert,
-               parallel, engine, autograd)
+               parallel, engine, autograd, optimizer, lr_scheduler)
+from . import initializer as init
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
@@ -27,6 +31,7 @@ from . import resilience, serving
 from .context import cpu, gpu, default_device
 
 __all__ = ["__version__", "MXNetError", "base", "context", "random",
-           "initializer", "ops", "gluon", "convert", "parallel", "engine",
-           "autograd", "nd", "ndarray", "NDArray", "rtc", "resilience",
-           "serving", "cpu", "gpu", "default_device"]
+           "initializer", "init", "ops", "gluon", "convert", "parallel",
+           "engine", "autograd", "optimizer", "lr_scheduler", "nd",
+           "ndarray", "NDArray", "rtc", "resilience", "serving", "cpu",
+           "gpu", "default_device"]

@@ -21,17 +21,23 @@ It rides on torch's own autograd instead of a tape of its own:
 - ``grad(..., create_graph=True)`` differentiates through torch, so
   the gradients it returns can be differentiated again.
 - ``Function`` runs as a ``torch.autograd.Function`` underneath.
+- ``torch_mode(training)`` is the scope of a Gluon block called on
+  torch tensors (by the train step's ``functional_call``, or by a plain
+  torch module that holds Gluon layers): inside it ``nd`` ops follow
+  torch's own grad mode, as any torch code does, and the training flag
+  is the one given (the module's ``training``), not ``record``'s.
 
 ``get_symbol`` needs the symbolic frontend (ROADMAP item 6) and raises
 until it is ported.
 """
+import contextlib
 import threading
 import weakref
 
 import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "set_recording", "set_training",
+           "is_training", "set_recording", "set_training", "torch_mode",
            "mark_variables", "backward", "grad", "get_symbol", "Function"]
 
 _state = threading.local()
@@ -41,6 +47,7 @@ def _st():
     if not hasattr(_state, "recording"):
         _state.recording = False
         _state.training = False
+        _state.torch_mode = False
     return _state
 
 
@@ -101,11 +108,40 @@ def predict_mode():
     return _RecordingStateScope(None, False)
 
 
+class torch_mode:
+    """Scope in which ``nd`` ops keep torch's grad mode and
+    ``is_training()`` is ``training``.  (A class, not a generator: a
+    Gluon layer called on torch tensors enters one per call.)"""
+
+    __slots__ = ("_training", "_prev")
+
+    def __init__(self, training):
+        self._training = bool(training)
+
+    def __enter__(self):
+        s = _st()
+        self._prev = s.torch_mode, s.training
+        s.torch_mode, s.training = True, self._training
+        return self
+
+    def __exit__(self, *exc):
+        s = _st()
+        s.torch_mode, s.training = self._prev
+
+
+def in_torch_mode():
+    return _st().torch_mode
+
+
 def grad_scope(tensors):
-    """torch's grad mode for an op on ``tensors``: enabled when
-    recording and one of them requires grad, else disabled."""
-    if is_recording() and any(isinstance(t, torch.Tensor)
-                              and t.requires_grad for t in tensors):
+    """torch's grad mode for an op on ``tensors``: in ``torch_mode``
+    the ambient one; else enabled when recording and one of them
+    requires grad, and disabled otherwise."""
+    s = _st()
+    if s.torch_mode:
+        return contextlib.nullcontext()
+    if s.recording and any(isinstance(t, torch.Tensor)
+                           and t.requires_grad for t in tensors):
         return torch.enable_grad()
     return torch.no_grad()
 

@@ -1,5 +1,14 @@
-"""Carry weights from the JAX package's TransformerLM into the port's.
+"""Carry weights from the JAX package's models into the port's.
 
+``load_gluon_params(block, arrays)`` fills a Gluon block (ResNet, any
+``gluon.Block``) from ``{name: array}``, e.g. the JAX net's
+``{k: p.data().asnumpy() for k, p in net.collect_params().items()}``,
+BatchNorm's running stats included.  Names match after each net's own
+prefix is stripped, so two nets built in one process (``resnetv10_``,
+``resnetv11_``) still match.  The ``.params`` file
+(``save_parameters`` / ``load_parameters``) is the other way across.
+
+For the TransformerLM:
 ``wts`` is the nested dict of numpy arrays that the JAX model's
 ``_decode_weights()`` returns (the tests take it with
 ``jax.tree_util.tree_map(np.asarray, net._decode_weights())``):
@@ -16,7 +25,49 @@ through DLPack (``nd.from_dlpack``), or as files, since ``nd.save`` and
 import numpy as np
 import torch
 
-__all__ = ["load_reference_weights"]
+__all__ = ["load_reference_weights", "load_gluon_params"]
+
+
+def _src_prefix(names):
+    """The source net's own prefix: the first name's text up to its
+    first "_" (a top-level block's prefix is ``<alias><count>_``), if
+    every name starts with it; else none."""
+    names = list(names)
+    head = names[0].split("_", 1)[0] + "_" if names else ""
+    if "_" in names[0] and all(n.startswith(head) for n in names):
+        return head
+    return ""
+
+
+def load_gluon_params(block, arrays, ctx=None):
+    """Copy ``arrays`` ({name: array-like}) into ``block``'s parameters;
+    returns the block.  A name is matched after stripping the source
+    net's prefix from it (``_src_prefix``) and ``block.prefix`` from the
+    block's own.  A parameter without storage is made on ``ctx`` (None:
+    the card); one with storage keeps its device unless ``ctx`` is
+    given.  Raises ``ValueError`` on a name the block has and ``arrays``
+    lacks, or a shape mismatch."""
+    src_prefix = _src_prefix(arrays)
+    src = {k[len(src_prefix):]: v for k, v in arrays.items()}
+    own = block.collect_params()
+    keys = {name: name[len(block.prefix):]
+            if name.startswith(block.prefix) else name for name in own}
+    missing = [name for name, key in keys.items() if key not in src]
+    if missing:
+        raise ValueError(f"arrays lack {len(missing)} parameters of the "
+                         f"block: {missing[:5]}")
+    for name, p in own.items():
+        arr = torch.from_numpy(np.array(src[keys[name]], copy=True))
+        shape = p.shape
+        if shape is not None and all(shape) \
+                and tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, the "
+                             f"block has {tuple(shape)}")
+        device = torch.device(ctx) if ctx is not None else p._target(None)
+        if p._allocated() and p._var.device != device:
+            p.reset_ctx(device)
+        p.set_data(arr.to(device=device, dtype=p._tdtype))
+    return block
 
 
 def load_reference_weights(model, wts):

@@ -105,11 +105,14 @@ class NDArray:
         return self
 
     def asnumpy(self):
-        """Copy to a numpy array (synchronizes)."""
+        """Copy to a numpy array (synchronizes).  Always a copy: a CPU
+        tensor's ``numpy()`` would share its memory, and a parameter's
+        array is written in place."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.cpu().numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
 
     def asscalar(self):
         if self.size != 1:
@@ -491,7 +494,7 @@ def imperative_invoke(op, args, kwargs, out=None):
         aux_new = outs_list[-op.num_aux:]
         outs_list = outs_list[:-op.num_aux]
         for a, new in zip(args[-op.num_aux:], aux_new):
-            if isinstance(a, NDArray):
+            if isinstance(a, NDArray) and new is not a._data:
                 autograd.rebind(a, new.detach())
 
     outs_list = [o if o.device == device else o.to(device)

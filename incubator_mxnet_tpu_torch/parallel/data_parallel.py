@@ -2,7 +2,12 @@
 ``incubator_mxnet_tpu/parallel/data_parallel.py``), on one card.
 
 ``ShardedTrainStep`` runs forward, backward and the optimizer update
-of a module for one batch.  PyTorch runs eagerly, so where the JAX step
+of a module for one batch: a plain torch module (``TransformerLM``),
+whose parameters it updates in place, or a Gluon block (a
+``HybridBlock`` or its ``PureBlock``), whose trainable parameters it
+updates in place and whose states (BatchNorm's moving stats) it threads
+from step to step as the JAX step does, until ``write_back()`` copies
+them into the live Parameters.  PyTorch runs eagerly, so where the JAX step
 compiles one executable, this one issues the same work op by op on the
 module's device: the forward (through the hand-written flash kernels
 for attention), ``torch.autograd.grad`` of the loss (the role of
@@ -16,7 +21,9 @@ import torch
 from torch.utils import checkpoint as _checkpoint
 
 from .. import random as _random
+from ..gluon.block import Block
 from . import optim as foptim
+from .functional import PureBlock, functionalize
 
 __all__ = ["ShardedTrainStep"]
 
@@ -63,7 +70,8 @@ class ShardedTrainStep:
 
     Parameters
     ----------
-    block : torch.nn.Module (e.g. ``TransformerLM``)
+    block : torch.nn.Module (e.g. ``TransformerLM``), or a Gluon block
+        or ``PureBlock`` (e.g. ``functionalize(resnet50_v1(), x)``)
     optimizer : str ('sgd', 'adam', 'nag') or a ``FunctionalOptimizer``
     optimizer_params : dict of the optimizer's hyper-parameters
     loss_fn : callable(outputs: list[Tensor], labels) -> 0-dim tensor;
@@ -72,10 +80,12 @@ class ShardedTrainStep:
     compute_dtype : if set (e.g. ``torch.bfloat16``), the forward and
         backward run in this dtype on casts of the fp32 parameters, and
         the fp32 masters receive fp32 gradients and the update (the
-        reference's multi_precision / mp_sgd path).
+        reference's multi_precision / mp_sgd path).  A Gluon block's
+        states are not cast.
     grad_accum : > 1 splits the batch into that many equal
         micro-batches; gradients and losses are summed and divided by
-        ``grad_accum``.
+        ``grad_accum``, and a Gluon block's states pass through the
+        micro-batches in order.
     remat : recompute the forward during the backward
         (``torch.utils.checkpoint``) instead of storing activations;
         the dropout masks are drawn again from the same generator
@@ -95,7 +105,10 @@ class ShardedTrainStep:
     def __init__(self, block, optimizer="sgd", optimizer_params=None,
                  loss_fn=None, compute_dtype=None, grad_accum=1,
                  remat=False, lr_schedule=None):
-        self.block = block
+        if isinstance(block, Block):
+            block = functionalize(block)
+        self.pure = block if isinstance(block, PureBlock) else None
+        self.block = block._block if self.pure is not None else block
         self.loss_fn = loss_fn or _default_loss
         if isinstance(optimizer, str):
             self.opt = foptim.create(optimizer,
@@ -107,8 +120,14 @@ class ShardedTrainStep:
         self.remat = bool(remat)
         self.lr_schedule = lr_schedule
         self.step_count = 0
-        self.params = {n: p for n, p in block.named_parameters()
-                       if p.requires_grad}
+        if self.pure is not None:
+            self.params = self.pure.params()
+            self.states = {n: s.clone()
+                           for n, s in self.pure.states().items()}
+        else:
+            self.params = {n: p for n, p in block.named_parameters()
+                           if p.requires_grad}
+            self.states = {}
         if not self.params:
             raise ValueError("the block has no trainable parameters")
         self.device = next(iter(self.params.values())).device
@@ -121,12 +140,17 @@ class ShardedTrainStep:
             a = torch.as_tensor(np.asarray(a))
         return a.to(self.device)
 
-    def _forward(self, params, x, gen):
+    def _forward(self, params, states, x, gen):
+        """(outputs, new states) of the forward."""
+        if self.pure is not None:
+            return self.pure.apply(params, states, [x], gen, training=True)
         with _random.key_provider(gen):
-            return torch.func.functional_call(self.block, params, (x,))
+            return torch.func.functional_call(self.block, params,
+                                              (x,)), states
 
-    def _grad_of(self, x, y, gen):
-        """(loss, {name: fp32 gradient}) of one (micro-)batch."""
+    def _grad_of(self, x, y, gen, states):
+        """(loss, {name: fp32 gradient}, new states) of one
+        (micro-)batch."""
         names = list(self.params)
         masters = list(self.params.values())
         params = self.params
@@ -136,18 +160,18 @@ class ShardedTrainStep:
                 x = x.to(self.compute_dtype)
         if self.remat:
             saved = {}
-            out = _checkpoint.checkpoint(
-                self._forward, params, x, gen, use_reentrant=False,
+            out, states = _checkpoint.checkpoint(
+                self._forward, params, states, x, gen, use_reentrant=False,
                 context_fn=lambda: (_record(gen, saved),
                                     _replay(gen, saved)))
         else:
-            out = self._forward(params, x, gen)
+            out, states = self._forward(params, states, x, gen)
         outs = list(out) if isinstance(out, (list, tuple)) else [out]
         loss = self.loss_fn(outs, y)
         grads = torch.autograd.grad(loss, masters, allow_unused=True)
         return loss.detach(), {
             n: torch.zeros_like(p) if g is None else g
-            for n, p, g in zip(names, masters, grads)}
+            for n, p, g in zip(names, masters, grads)}, states
 
     # -------------------------------------------------------------- run
     def __call__(self, x, y, generator=None):
@@ -164,13 +188,15 @@ class ShardedTrainStep:
                 f"grad_accum={accum}")
         gen = generator if generator is not None \
             else _random.default_generator(self.device)
-        self.block.train()
+        if self.pure is None:
+            self.block.train()
+        states = self.states
         if accum <= 1:
-            loss, grads = self._grad_of(x, y, gen)
+            loss, grads, states = self._grad_of(x, y, gen, states)
         else:
             grads, loss = None, None
             for xb, yb in zip(x.chunk(accum), y.chunk(accum)):
-                lb, gb = self._grad_of(xb, yb, gen)
+                lb, gb, states = self._grad_of(xb, yb, gen, states)
                 if grads is None:
                     grads, loss = gb, lb
                 else:
@@ -182,6 +208,7 @@ class ShardedTrainStep:
         lr = self.lr_schedule(self.step_count) \
             if self.lr_schedule is not None else None
         self.opt.update(self.params, grads, self.opt_state, lr=lr)
+        self.states = {n: s.detach() for n, s in states.items()}
         self.step_count += 1
         return loss
 
@@ -189,8 +216,12 @@ class ShardedTrainStep:
 
     @torch.no_grad()
     def evaluate(self, x):
-        """The block's forward on x in ``eval()`` mode (no dropout), as
-        a list of outputs."""
+        """The block's forward on x in ``eval()`` mode (no dropout; a
+        Gluon block with ``training=False`` on the step's states), as a
+        list of outputs."""
+        if self.pure is not None:
+            return self.pure.apply(self.params, self.states,
+                                   [self._batch(x)], training=False)[0]
         was_training = self.block.training
         self.block.eval()
         try:
@@ -200,7 +231,9 @@ class ShardedTrainStep:
         return list(out) if isinstance(out, (list, tuple)) else [out]
 
     def write_back(self):
-        """A no-op: the module's parameters are the masters the step
-        updates, so there is nothing to copy back.  Kept so that code
-        written for the JAX step (which copies its mesh values back
-        into the Gluon parameters) runs unchanged."""
+        """Copy the step's values into the live parameters.  The
+        trainable ones are the masters the step updates in place, so
+        this copies a Gluon block's states (BatchNorm's moving stats);
+        for a plain torch module it does nothing."""
+        if self.pure is not None:
+            self.pure.write_back(self.params, self.states)

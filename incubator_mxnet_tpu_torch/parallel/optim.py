@@ -13,6 +13,13 @@ form runs unchanged.
 
 The schedules (``warmup_cosine``, ``warmup_linear``) map an update
 count to a learning rate, as plain Python floats.
+
+``from_imperative(opt)`` maps an imperative ``optimizer.Optimizer`` onto
+its functional twin, for the Trainer's whole-tree update, which gives
+names by ``default_wd_mults`` the reference's wd_mult default (0 for a
+name ending in neither ``_weight`` nor ``_gamma``).  ``ShardedTrainStep``
+passes no wd_mults: it decays every trainable parameter, as the JAX
+step does.
 """
 import math
 
@@ -20,7 +27,28 @@ import numpy as np
 import torch
 
 __all__ = ["FunctionalOptimizer", "sgd", "adam", "nag", "create",
-           "warmup_cosine", "warmup_linear"]
+           "warmup_cosine", "warmup_linear", "default_wd_mults",
+           "scheduled_lr", "from_imperative"]
+
+
+def default_wd_mults(names, overrides=None):
+    """The reference's wd_mult default: 1 for names ending in
+    ``_weight`` or ``_gamma``, 0 for the rest; ``overrides`` (an
+    optimizer's ``wd_mult``) win."""
+    overrides = overrides or {}
+    return {n: overrides.get(
+        n, 1.0 if (n.endswith("_weight") or n.endswith("_gamma"))
+        else 0.0) for n in names}
+
+
+def scheduled_lr(opt):
+    """Advance ``opt.num_update`` and return the lr for this update, in
+    the order of the imperative path (count, then read the
+    scheduler)."""
+    opt.num_update += 1
+    if opt.lr_scheduler is not None:
+        return opt.lr_scheduler(opt.num_update)
+    return opt.lr
 
 
 def _warmup_then(peak_lr, warmup_steps, total_steps, decay_fn):
@@ -171,3 +199,22 @@ def create(name, **kwargs):
         raise ValueError(f"no functional optimizer '{name}'; available: "
                          f"{sorted(_REGISTRY)}")
     return _REGISTRY[key](**kwargs)
+
+
+def from_imperative(opt):
+    """The functional twin of an imperative ``optimizer.Optimizer``
+    (SGD, NAG, Adam), or None where there is none (multi_precision
+    included): the caller then runs the per-parameter updater."""
+    from .. import optimizer as opt_mod
+    common = dict(learning_rate=opt.lr, wd=opt.wd,
+                  clip_gradient=opt.clip_gradient)
+    if getattr(opt, "multi_precision", False):
+        return None
+    if isinstance(opt, opt_mod.NAG):
+        return create("nag", momentum=opt.momentum, **common)
+    if type(opt) is opt_mod.SGD:
+        return create("sgd", momentum=opt.momentum, **common)
+    if type(opt) is opt_mod.Adam:
+        return create("adam", beta1=opt.beta1, beta2=opt.beta2,
+                      epsilon=opt.epsilon, **common)
+    return None

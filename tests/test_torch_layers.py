@@ -190,8 +190,10 @@ def test_own_initializers_win_over_the_one_given():
                                   dense.weight.detach().numpy())
     np.testing.assert_array_equal(jd.bias.data().asnumpy(),
                                   dense.bias.detach().numpy())
+    assert isinstance(mt.initializer.create("orthogonal"),
+                      mt.initializer.Orthogonal)
     with pytest.raises(ValueError, match="initializer"):
-        mt.initializer.create("orthogonal")
+        mt.initializer.create("no_such_initializer")
 
 
 def test_embedding_dtype():

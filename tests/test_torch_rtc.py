@@ -2,8 +2,9 @@
 four user kernels (rtc_examples.py, csrc/rtc/*.cu) against the JAX
 package's ``rtc``.
 
-Twins of the eight tests of ``tests/test_rtc.py`` that need no ``sym``
-or Gluon: on the CPU a compiled kernel runs its plain version
+Twins of the nine tests of ``tests/test_rtc.py`` that need no ``sym``
+(Gluon's ``test_gluon_hybridize`` among them): on the CPU a compiled
+kernel runs its plain version
 (``reference``), the port's counterpart of Pallas interpret mode.  Then
 the signature parse and the generated launcher, which no CPU can build;
 a CUDA call with no card, which raises and never runs the plain version;
@@ -73,6 +74,17 @@ def test_eager_and_grad(scale_op):
     with autograd.record():
         y = nd.test_rtc_scale(x, alpha=3.0)
     assert type(y.handle.grad_fn).__name__ == "_CustomVJPBackward"
+
+
+def test_gluon_hybridize(scale_op):
+    class Net(mt.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.test_rtc_scale(x, alpha=2.0) + 1
+
+    net = Net()
+    net.hybridize()
+    out = net(_arr(np.ones((2, 2))))
+    np.testing.assert_allclose(out.asnumpy(), np.full((2, 2), 3.0))
 
 
 def test_register_plain_torch_fn_autodiff():
