@@ -1271,6 +1271,27 @@ def resnet_grads(mt, torch, net, x, y):
     return float(loss.detach()), dict(zip(names, grads))
 
 
+def rel_errs(got, ref):
+    """{name: |got - ref| / |ref|} (norms) over the nonzero refs."""
+    return {n: (got[n].cpu() - r).norm().item() / r.norm().item()
+            for n, r in ref.items() if r.norm().item() > 0}
+
+
+def summary(errs):
+    vals = sorted(errs.values())
+    worst = max(errs, key=errs.get)
+    return {"median": vals[len(vals) // 2], "worst": errs[worst],
+            "worst_param": worst}
+
+
+def grad_tolerance(floor):
+    """The card-vs-CPU gradient rule of the resnet phase (i): worst
+    within max(1e-2, 3x the CPU's own floor), median within max(3e-3,
+    3x its median)."""
+    return {"worst": max(1e-2, 3 * floor["worst"]),
+            "median": max(3e-3, 3 * floor["median"])}
+
+
 def resnet_check_cpu(mt, torch):
     """(i) card against CPU, fp32, TF32 off: resnet50_v1() from seed 0
     (drawn on the CPU), carried to the card by load_gluon_params; one
@@ -1294,16 +1315,6 @@ def resnet_check_cpu(mt, torch):
                          .astype(np.float32))
     y = torch.from_numpy(rs.randint(0, 1000, (RESNET_CHECK_BATCH,))
                          .astype(np.int32))
-
-    def rel_errs(got, ref):
-        return {n: (got[n].cpu() - r).norm().item() / r.norm().item()
-                for n, r in ref.items() if r.norm().item() > 0}
-
-    def summary(errs):
-        vals = sorted(errs.values())
-        worst = max(errs, key=errs.get)
-        return {"median": vals[len(vals) // 2], "worst": errs[worst],
-                "worst_param": worst}
 
     card_loss, card_grads = resnet_grads(mt, torch, card_net, x.cuda(),
                                          y.cuda())
@@ -1331,8 +1342,7 @@ def resnet_check_cpu(mt, torch):
     step_rel = abs(card_step - cpu_step) / abs(cpu_step)
     check(loss_rel <= 1e-4 and step_rel <= 1e-4,
           f"resnet card vs CPU loss rel err {loss_rel}, step {step_rel}")
-    tol = {"worst": max(1e-2, 3 * floor["worst"]),
-           "median": max(3e-3, 3 * floor["median"])}
+    tol = grad_tolerance(floor)
     check(got["worst"] <= tol["worst"] and got["median"] <= tol["median"],
           f"resnet card vs CPU gradients {got} beyond {tol} (CPU's own "
           f"floor {floor})")
@@ -1377,12 +1387,11 @@ def resnet_timed_steps(torch, step, x, y, warmup, timed):
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
-def resnet_step_profile(torch, step, x, y):
-    """One profiled step's device ms by class (conv, batchnorm, pool,
-    matmul, optimizer, other) and the busy share.  The optimizer's
-    elementwise kernels carry no telling name, so its update is timed
-    alone (on zero gradients: the same kernels) and moved out of
-    "other"."""
+def resnet_step_profile(torch, run, run_optimizer):
+    """One profiled step (``run()``)'s device ms by class (conv,
+    batchnorm, pool, matmul, optimizer, other) and the busy share.  The
+    optimizer's elementwise kernels carry no telling name, so its update
+    (``run_optimizer()``) is timed alone and moved out of "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -1391,7 +1400,7 @@ def resnet_step_profile(torch, step, x, y):
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(x, y)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by, rows = {}, []
@@ -1402,10 +1411,8 @@ def resnet_step_profile(torch, step, x, y):
             by[cls] = by.get(cls, 0.0) + ms
             rows.append((ms, cls, e.key[:70]))
     busy = sum(by.values())
-    zeros = {n: torch.zeros_like(p) for n, p in step.params.items()}
-    opt_ms = device_ms(lambda: step.opt.update(step.params, zeros,
-                                               step.opt_state),
-                       torch, "the SGD update", warmup=1, reps=3)
+    opt_ms = device_ms(run_optimizer, torch, "the SGD update", warmup=1,
+                       reps=3)
     by["optimizer"] = opt_ms
     by["other"] = by.get("other", 0.0) - opt_ms
     return {"wall_ms": wall, "device_ms": busy,
@@ -1463,7 +1470,11 @@ def phase_resnet(mt, torch, card):
     n = dict(launches)
     check(all(p.dtype == torch.float32 for p in step.params.values()),
           "masters are not fp32")
-    bf16["profile"] = resnet_step_profile(torch, step, x, y)
+    # the optimizer alone on zero gradients: the same kernels
+    zeros = {n: torch.zeros_like(p) for n, p in step.params.items()}
+    bf16["profile"] = resnet_step_profile(
+        torch, lambda: step(x, y),
+        lambda: step.opt.update(step.params, zeros, step.opt_state))
     bf16["host_profile"] = host_profile(lambda: step(x, y), torch,
                                         calls=1, top=12)
     bf16["mfu"] = flops_img * bf16["images_per_s"] / H100_BF16_FLOPS
@@ -1854,6 +1865,346 @@ def phase_rtc(mt, torch):
         entries[name]["launches_by_path"] = {"rtc_ops": c}
     return [entries[n] for n in ex.NAMES], nd_flash
 
+# ------------------------------------------------------------------ module
+# The symbolic frontend: Symbol, Executor and Module.fit, as the reference
+# trains (example/image-classification/common/fit.py).
+MLP_BATCH, MLP_EPOCHS = 64, 5          # examples/train_mnist.py --quick
+MLP_TRAIN, MLP_VAL = 2048, 512
+MLP_SGD = dict(learning_rate=0.1, momentum=0.9)
+MLP_GATE = 0.95                        # examples/train_mnist.py:128
+MODULE_FIT_BATCHES = 4                 # (ii)'s checkpointed epoch
+
+
+def synthetic_mnist(n, rs):
+    """examples/train_mnist.py's synthetic MNIST (its lines 44-58):
+    class-conditional 28x28 digits, a bright bar whose position and
+    orientation encode the class, plus noise; flat (n, 784)."""
+    import numpy as np
+    x = rs.rand(n, 1, 28, 28).astype(np.float32) * 0.3
+    y = rs.randint(0, 10, n)
+    for i in range(n):
+        c = y[i]
+        if c < 5:
+            x[i, 0, 4 + 4 * c:7 + 4 * c, 4:24] += 0.7   # h-bar rows
+        else:
+            x[i, 0, 4:24, 4 + 4 * (c - 5):7 + 4 * (c - 5)] += 0.7
+    return x.reshape(n, 784), y.astype(np.float32)
+
+
+def mnist_mlp(sym):
+    """The example's mlp: fc 784-128-64-10, relu, SoftmaxOutput."""
+    net = sym.FullyConnected(sym.Variable("data"), name="fc1",
+                             num_hidden=128)
+    net = sym.Activation(net, name="relu1", act_type="relu")
+    net = sym.FullyConnected(net, name="fc2", num_hidden=64)
+    net = sym.Activation(net, name="relu2", act_type="relu")
+    net = sym.FullyConnected(net, name="fc3", num_hidden=10)
+    return sym.SoftmaxOutput(net, name="softmax")
+
+
+def module_mlp(mt):
+    """(i) BASELINE config 1 through Module.fit: NDArrayIter, the acc
+    metric and Speedometer; validation accuracy above the example's
+    gate."""
+    import numpy as np
+    rs = np.random.RandomState(SEED)
+    xtr, ytr = synthetic_mnist(MLP_TRAIN, rs)
+    xva, yva = synthetic_mnist(MLP_VAL, rs)
+    train = mt.io.NDArrayIter(xtr, ytr, MLP_BATCH, shuffle=True, seed=SEED)
+    val = mt.io.NDArrayIter(xva, yva, MLP_BATCH)
+    mod = mt.mod.Module(mnist_mlp(mt.sym), context="cuda")
+    speed = mt.callback.Speedometer(MLP_BATCH, 8)
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, num_epoch=MLP_EPOCHS, optimizer="sgd",
+            optimizer_params=MLP_SGD, initializer=mt.init.Xavier(),
+            batch_end_callback=speed)
+    fit_s = time.perf_counter() - t0
+    acc = mod.score(val, "acc")[0][1]
+    check(acc > MLP_GATE, f"MNIST MLP validation accuracy {acc} <= "
+                          f"{MLP_GATE}")
+    on_card = {a._data.device.type for a in mod._exec.arg_dict.values()}
+    check(on_card == {"cuda"}, f"MLP arrays on {on_card}")
+    return {"layers": [784, 128, 64, 10], "batch": MLP_BATCH,
+            "epochs": MLP_EPOCHS, "train": MLP_TRAIN, "val": MLP_VAL,
+            **MLP_SGD, "val_acc": acc, "gate": MLP_GATE,
+            "fit_seconds": fit_s,
+            "speedometer_samples_per_s": speed.speed}
+
+
+def resnet_symbol(mt, net):
+    """``net`` traced to a Symbol under a SoftmaxOutput, as bench.py
+    traces it (bench.py:67)."""
+    return mt.sym.SoftmaxOutput(net._to_symbol(mt.sym.Variable("data")),
+                                name="softmax")
+
+
+def resnet_module(mt, sym, device, arrays, batch):
+    """A Module of ``sym`` bound for training at ``batch`` on ``device``
+    with ``arrays`` ({name: NDArray or array}) as its weights, SGD as
+    bench.py's."""
+    args = set(sym.list_arguments())
+    mod = mt.mod.Module(sym, context=device)
+    mod.bind(data_shapes=[("data", (batch,) + RESNET_IMAGE)],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(
+        arg_params={k: v for k, v in arrays.items() if k in args},
+        aux_params={k: v for k, v in arrays.items() if k not in args})
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params=RESNET_SGD)
+    return mod
+
+
+def module_loss(mod, y, torch):
+    """Softmax cross-entropy (the mean) from the Module's SoftmaxOutput,
+    which gives probabilities: a probability that underflows to 0
+    counts as the smallest normal float32 (a loss of 87.3 for that
+    image), so a diverging step reads large, not inf."""
+    p = mod.get_outputs()[0].handle.gather(1, y.long().view(-1, 1))
+    return -torch.log(p.clamp_min(torch.finfo(p.dtype).tiny)).mean()
+
+
+def module_step_values(mt, torch, mod, x, y):
+    """(loss, {param: gradient}, {aux: moving stat}) of one training
+    forward_backward."""
+    batch = mt.io.DataBatch([mt.nd.NDArray(x)], [mt.nd.NDArray(y)])
+    mod.forward_backward(batch)
+    ex = mod._exec
+    return (float(module_loss(mod, y, torch)),
+            {k: g.handle for k, g in ex.grad_dict.items()},
+            {k: a.handle for k, a in ex.aux_dict.items()})
+
+
+def module_check_cpu(mt, torch, sym, net):
+    """Card against CPU, fp32, TF32 off: one Module forward_backward at
+    B=2 from the same weights; the resnet phase (i) rule: losses within
+    1e-4 rel, gradients within grad_tolerance of the CPU's own floor
+    (its gradient at weights nudged by 1e-7), moving stats within 1e-4
+    rel."""
+    import numpy as np
+    arrays = {k: p.data().asnumpy()
+              for k, p in net.collect_params().items()}
+    rs = np.random.RandomState(SEED + 5)
+    x = torch.from_numpy(rs.rand(RESNET_CHECK_BATCH, *RESNET_IMAGE)
+                         .astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, (RESNET_CHECK_BATCH,))
+                         .astype(np.float32))
+    gen = np.random.RandomState(SEED + 6)
+    nudged = {k: v * (1 + 1e-7 * gen.standard_normal(v.shape))
+              .astype(np.float32) if "running" not in k else v
+              for k, v in arrays.items()}
+    out = {}
+    for tag, dev, vals in (("card", "cuda", arrays), ("cpu", "cpu", arrays),
+                           ("floor", "cpu", nudged)):
+        mod = resnet_module(mt, sym, dev, {k: mt.nd.array(v, ctx="cpu")
+                                           for k, v in vals.items()},
+                            RESNET_CHECK_BATCH)
+        out[tag] = module_step_values(mt, torch, mod, x.to(dev), y.to(dev))
+        del mod
+    (card_loss, card_g, card_s), (cpu_loss, cpu_g, cpu_s) = \
+        out["card"], out["cpu"]
+    got = summary(rel_errs(card_g, cpu_g))
+    floor = summary(rel_errs(out["floor"][1], cpu_g))
+    tol = grad_tolerance(floor)
+    stat_err = max((card_s[k].cpu() - v).abs().max().item()
+                   / v.abs().max().item() for k, v in cpu_s.items())
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(loss_rel <= 1e-4, f"module card vs CPU loss rel err {loss_rel}")
+    check(got["worst"] <= tol["worst"] and got["median"] <= tol["median"],
+          f"module card vs CPU gradients {got} beyond {tol} (CPU's own "
+          f"floor {floor})")
+    check(stat_err <= 1e-4,
+          f"module card vs CPU moving stats rel err {stat_err} > 1e-4")
+    return {"batch": RESNET_CHECK_BATCH, "loss_card": card_loss,
+            "loss_cpu": cpu_loss, "loss_rel_err": loss_rel,
+            "loss_tol": 1e-4, "grad_rel_err": got, "grad_tol": tol,
+            "cpu_floor_nudge_1e-7": floor, "params_checked": len(cpu_g),
+            "moving_stats_rel_err": stat_err, "moving_stats_tol": 1e-4,
+            "moving_stats_checked": len(cpu_s)}
+
+
+def module_checkpoint(mt, torch, mod, sym):
+    """fit one epoch of MODULE_FIT_BATCHES batches, save_checkpoint,
+    Module.load into a fresh Module: its forward equals the trained
+    one's bit for bit."""
+    import tempfile
+    import numpy as np
+    rs = np.random.RandomState(SEED + 7)
+    n = MODULE_FIT_BATCHES * RESNET_BATCH
+    xs = rs.rand(n, *RESNET_IMAGE).astype(np.float32)
+    ys = rs.randint(0, 1000, n).astype(np.float32)
+    it = mt.io.NDArrayIter(xs, ys, RESNET_BATCH)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1)
+    fit_s = time.perf_counter() - t0
+    batch = mt.io.DataBatch([mt.nd.array(xs[:RESNET_BATCH], ctx="cuda")],
+                            [])
+    with tempfile.TemporaryDirectory() as d:
+        prefix = f"{d}/resnet50"
+        t0 = time.perf_counter()
+        mod.save_checkpoint(prefix, 1)
+        save_s = time.perf_counter() - t0
+        files = sorted(p.rsplit("/", 1)[1] for p in
+                       __import__("glob").glob(f"{d}/*"))
+        loaded = mt.mod.Module.load(prefix, 1, context="cuda")
+    loaded.bind(data_shapes=[("data", (RESNET_BATCH,) + RESNET_IMAGE)],
+                label_shapes=[("softmax_label", (RESNET_BATCH,))],
+                for_training=False)
+    outs = []
+    for m in (mod, loaded):
+        m.forward(batch, is_train=False)
+        outs.append(m.get_outputs()[0].handle)
+    equal = bool(torch.equal(outs[0], outs[1]))
+    check(equal, "a reloaded ResNet-50 checkpoint's forward differs from "
+                 f"the trained Module's ({(outs[0] - outs[1]).abs().max()})")
+    return {"fit_batches": MODULE_FIT_BATCHES, "fit_seconds": fit_s,
+            "save_seconds": save_s, "files": files,
+            "reload_outputs_bitwise_equal": equal}
+
+
+def module_resnet(mt, torch, launches):
+    """(ii) ResNet-50 v1 as a Symbol, trained through Module at bench.py's
+    width; returns its record and its main path's launch counts."""
+    net = resnet_net(mt, torch, "cuda")
+    sym = resnet_symbol(mt, net)
+    cpu_check = module_check_cpu(mt, torch, sym, net)
+    x, y = resnet_batch(torch)
+    yf = y.float()
+    mod = resnet_module(mt, sym, "cuda", {
+        k: p.data() for k, p in net.collect_params().items()},
+        RESNET_BATCH)
+    batch = mt.io.DataBatch([mt.nd.NDArray(x)], [mt.nd.NDArray(yf)])
+    # the Module's first step against the Gluon fp32 step's, same weights
+    mod.forward_backward(batch)
+    first = float(module_loss(mod, yf, torch))
+    gstep = mt.parallel.ShardedTrainStep(net, "sgd", RESNET_SGD)
+    gluon = float(gstep(x, y))
+    del gstep, net
+    torch.cuda.empty_cache()
+    gluon_rel = abs(first - gluon) / abs(gluon)
+    check(gluon_rel <= 1e-5, f"Module first loss {first} vs the Gluon "
+                             f"fp32 step's {gluon}: rel {gluon_rel}")
+    # the gradients of that forward_backward are discarded: the timed
+    # run starts from the same weights as the resnet phase's fp32 step
+
+    def step(_x, _y):
+        mod.forward_backward(batch)
+        mod.update()
+        return module_loss(mod, yf, torch)
+
+    mt.ops.reset_launches()
+    timed = resnet_timed_steps(torch, step, x, y, RESNET_WARMUP,
+                               RESNET_TIMED)          # the main path
+    counts = dict(launches)
+    timed["profile"] = resnet_step_profile(
+        torch, lambda: step(x, y), mod.update)
+    timed["host_profile"] = host_profile(lambda: step(x, y), torch,
+                                         calls=1, top=12)
+    ckpt = module_checkpoint(mt, torch, mod, sym)
+    nodes = len(json.loads(sym.tojson())["nodes"])
+    return {"symbol_nodes": nodes, "arguments": len(sym.list_arguments()),
+            "aux_states": len(sym.list_auxiliary_states()),
+            "cpu_check": cpu_check, "first_loss": first,
+            "gluon_fp32_loss": gluon, "loss_rel_vs_gluon": gluon_rel,
+            "loss_tol_vs_gluon": 1e-5, "fp32_step": timed,
+            "checkpoint": ckpt}, counts
+
+
+def module_rtc(mt, torch, launches):
+    """(iii) The fused rtc kernel inside a bound Symbol at the rtc
+    phase's width: relu(alpha * (x . w) + beta) against t, loss the
+    mean square (MakeLoss), fp32.  ``sym.dot`` is the product, as
+    ``nd.dot`` is on the rtc path (rtc_train), so the executor runs the
+    very ops that path runs: its outputs and gradient must equal that
+    path's bit for bit.  Then 5 SGD steps through Module, one
+    fused_scale_shift_relu launch each."""
+    from incubator_mxnet_tpu_torch import rtc_examples as ex
+    if "scale_shift_relu" not in mt.ops.OPS:
+        ex.register_scale_shift_relu()
+    S = mt.sym
+    w_var = S.Variable("w", shape=(RTC_X[1], RTC_FULL[1]))
+    h = S.scale_shift_relu(S.dot(S.Variable("x"), w_var),
+                           alpha=RTC_ALPHA, beta=RTC_BETA)
+    loss = S.MakeLoss(S.mean(S.square(h - S.Variable("t"))), name="loss")
+    graph = S.Group([loss, S.BlockGrad(h, name="h")])
+    gen = torch.Generator().manual_seed(SEED)      # phase_rtc's data
+    x = torch.randn(RTC_X, generator=gen)
+    w0 = torch.randn(RTC_X[1], RTC_FULL[1], generator=gen) \
+        / math.sqrt(RTC_X[1])
+    t = torch.randn(RTC_FULL, generator=gen)
+    xn, tn = mt.nd.array(x, ctx="cuda"), mt.nd.array(t, ctx="cuda")
+    # the nd path: one step of rtc_train, and its forward
+    wn = mt.nd.array(w0, ctx="cuda")
+    h_nd = mt.nd.scale_shift_relu(mt.nd.dot(xn, wn), alpha=RTC_ALPHA,
+                                  beta=RTC_BETA)
+    wn.attach_grad()
+    loss_nd = ex.train_step(xn, wn, tn, RTC_LR, RTC_ALPHA, RTC_BETA)
+    grad = mt.nd.zeros(w0.shape, ctx="cuda")
+    exe = graph.bind("cuda", {"x": xn, "w": mt.nd.array(w0, ctx="cuda"),
+                              "t": tn}, args_grad={"w": grad},
+                     grad_req={"w": "write"})
+    mt.ops.reset_launches()
+    outs = exe.forward_backward()
+    torch.cuda.synchronize()
+    per_forward = launches["fused_scale_shift_relu"]
+    bitwise = {"loss": bool(torch.equal(outs[0].handle, loss_nd.handle)),
+               "h": bool(torch.equal(outs[1].handle, h_nd.handle)),
+               "grad_w": bool(torch.equal(grad.handle, wn.grad.handle))}
+    check(per_forward == 1, f"the bound Symbol launched "
+                            f"fused_scale_shift_relu {per_forward} times")
+    check(all(bitwise.values()), f"executor vs nd path: {bitwise}")
+    mod = mt.mod.Module(graph, data_names=("x", "t"), label_names=None,
+                        context="cuda")
+    mod.bind(data_shapes=[("x", RTC_X), ("t", RTC_FULL)])
+    mod.init_params(arg_params={"w": mt.nd.array(w0, ctx="cuda")})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        learning_rate=RTC_LR, rescale_grad=1.0))
+    batch = mt.io.DataBatch([xn, tn], [])
+    losses, step_ms = [], []
+    mt.ops.reset_launches()
+    for _ in range(RTC_STEPS):                           # the main path
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(float(mod.get_outputs()[0].asnumpy()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(launches)
+    n = counts["fused_scale_shift_relu"]
+    check(n == RTC_STEPS, f"Module launched fused_scale_shift_relu {n} "
+                          f"times in {RTC_STEPS} steps")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"module rtc loss did not fall: {losses}")
+    check(losses[0] == float(loss_nd.asnumpy()),
+          "the Module's first loss differs from the nd path's")
+    return {"x": list(RTC_X), "w": [RTC_X[1], RTC_FULL[1]],
+            "t": list(RTC_FULL), "lr": RTC_LR, "steps": RTC_STEPS,
+            "launches_per_forward": per_forward,
+            "bitwise_equal_to_nd_path": bitwise, "losses": losses,
+            "step_ms": step_ms}, counts
+
+
+def phase_module(mt, torch, card):
+    launches = mt.ops.LAUNCHES
+    tf32 = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    mt.ops.reset_launches()
+    mlp = module_mlp(mt)                                 # the main path
+    counts = {k: v for k, v in launches.items() if v}
+    resnet, resnet_counts = module_resnet(mt, torch, launches)
+    torch.cuda.empty_cache()
+    rtc, rtc_counts = module_rtc(mt, torch, launches)
+    for c in (resnet_counts, rtc_counts):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    emit({"phase": "module", "card": card, "tf32": tf32, "mlp": mlp,
+          "resnet50": {"model": "resnet50_v1", "batch": RESNET_BATCH,
+                       "image": list(RESNET_IMAGE), "optimizer": "sgd",
+                       **RESNET_SGD, "kvstore": "local", **resnet},
+          "rtc_symbol": rtc,
+          "kernel_launches": {k: v for k, v in counts.items() if v}})
+    return counts
+
 
 def card_line():
     out = subprocess.run(
@@ -1899,6 +2250,7 @@ def main():
         del net
         resnet_launches = timed("resnet", phase_resnet, mt, torch, card)
         rtc_entries, nd_flash = timed("rtc", phase_rtc, mt, torch)
+        module_launches = timed("module", phase_module, mt, torch, card)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES})
         entry["launches_by_path"] = {"forward": fwd_launches,
                                      "serve": serve_launches,
@@ -1915,6 +2267,8 @@ def main():
             e["fp32_train"]["launches"] = sum(fp32_launches[e["name"]])
         for e in [entry] + bwd_entries + rtc_entries:
             e["launches_by_path"]["resnet"] = resnet_launches.get(
+                e["name"], 0)
+            e["launches_by_path"]["module"] = module_launches.get(
                 e["name"], 0)
             e["launches"] = sum(
                 n if isinstance(n, int) else sum(n)

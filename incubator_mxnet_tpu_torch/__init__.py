@@ -14,8 +14,11 @@ torch's own, ``engine``, and ``rtc``, which turns a CUDA kernel given as
 source text into an op.  ``gluon`` (Parameter, Block, layers, losses,
 the Trainer, the ResNet and transformer model zoo), ``optimizer`` and
 ``lr_scheduler`` train through it; ``parallel`` holds the functional
-train step.  ``serving`` serves ``TransformerLM`` traffic by continuous
-batching over a paged KV cache.
+train step.  The symbolic surface rides on the same registry: ``sym``
+(Symbol, one function per op), ``Executor``, ``mod`` (``Module.fit``),
+``metric``, ``io``, ``callback``, ``model`` (checkpoints) and
+``monitor``.  ``serving`` serves ``TransformerLM`` traffic by
+continuous batching over a paged KV cache.
 
 This package imports neither JAX nor ``incubator_mxnet_tpu``.
 """
@@ -28,10 +31,27 @@ from . import ndarray as nd
 from .ndarray import NDArray
 from . import rtc
 from . import resilience, serving
+from . import name, attribute
+from .attribute import AttrScope
+from . import symbol
+from . import symbol as sym
+from .symbol import Symbol
+from .executor import Executor
+from . import metric, io, callback, model, monitor
+from .model import load_checkpoint, save_checkpoint
+from . import module
+from . import module as mod
+from .module import Module
+from .monitor import Monitor
+from .io import DataBatch, DataDesc, DataIter, NDArrayIter
 from .context import cpu, gpu, default_device
 
 __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "initializer", "init", "ops", "gluon", "convert", "parallel",
            "engine", "autograd", "optimizer", "lr_scheduler", "nd",
-           "ndarray", "NDArray", "rtc", "resilience", "serving", "cpu",
-           "gpu", "default_device"]
+           "ndarray", "NDArray", "rtc", "resilience", "serving", "name",
+           "attribute", "AttrScope", "symbol", "sym", "Symbol",
+           "Executor", "metric", "io", "callback", "model", "monitor",
+           "load_checkpoint", "save_checkpoint", "module", "mod",
+           "Module", "Monitor", "DataBatch", "DataDesc", "DataIter",
+           "NDArrayIter", "cpu", "gpu", "default_device"]

@@ -27,8 +27,10 @@ It rides on torch's own autograd instead of a tape of its own:
   torch's own grad mode, as any torch code does, and the training flag
   is the one given (the module's ``training``), not ``record``'s.
 
-``get_symbol`` needs the symbolic frontend (ROADMAP item 6) and raises
-until it is ported.
+- ``get_symbol`` re-traces an array's recorded history into a Symbol:
+  under ``record()`` each registry op's outputs keep the op, its
+  params and its input arrays (``_history``), which torch's graph does
+  not name.
 """
 import contextlib
 import threading
@@ -243,12 +245,117 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     return [NDArray(g) for g in got]
 
 
+class _Recorded:
+    """One recorded op call, for ``get_symbol``: the op (None for an
+    opaque ``Function``), its user params and its inputs, each the
+    ``(record, index)`` that made it, a weak reference to a leaf array,
+    None for an absent optional input or ``CONST_INPUT`` for an inlined
+    constant.  No array is held, so a record keeps no activation
+    alive."""
+
+    __slots__ = ("op", "inputs", "params", "name")
+
+    def __init__(self, op, inputs, params, name):
+        self.op, self.inputs, self.params, self.name = \
+            op, inputs, params, name
+
+
+class _ConstInput:
+    def __repr__(self):
+        return "CONST_INPUT"
+
+
+CONST_INPUT = _ConstInput()
+
+
+def _record(op, args, params, out_arrays, name=None):
+    """Keep ``op``'s call on the arrays it returned (``_history``)."""
+    from .ndarray.ndarray import NDArray
+
+    def ref(a):
+        if a is None:
+            return None
+        if not isinstance(a, NDArray):
+            return CONST_INPUT
+        h = getattr(a, "_history", None)
+        return h if h is not None else weakref.ref(a)
+
+    rec = _Recorded(op, [ref(a) for a in args], params, name or op.name)
+    for i, a in enumerate(out_arrays):
+        a._history = (rec, i)
+
+
+def _history_order(x):
+    """Recorded calls reachable from ``x``, dependencies first."""
+    order, seen = [], set()
+    stack = [(x._history[0], False)]
+    while stack:
+        rec, done = stack.pop()
+        if done:
+            order.append(rec)
+            continue
+        if id(rec) in seen:
+            continue
+        seen.add(id(rec))
+        stack.append((rec, True))
+        for inp in reversed(rec.inputs):
+            if isinstance(inp, tuple) and id(inp[0]) not in seen:
+                stack.append((inp[0], False))
+    return order
+
+
 def get_symbol(x):
-    """Re-trace the recorded history of ``x`` into a Symbol: needs the
-    symbolic frontend, which is not ported yet (ROADMAP item 6)."""
-    raise NotImplementedError(
-        "autograd.get_symbol needs the symbolic frontend (sym), which "
-        "the port does not have yet (ROADMAP item 6)")
+    """Re-trace the recorded history of ``x`` into a Symbol (ref:
+    python/mxnet/autograd.py get_symbol), by replaying the registry ops
+    each recorded call made.
+
+    Leaf arrays become Variables named var0, var1... in first-use
+    order.  Only registry-op history is traceable: a custom
+    ``Function``'s call is opaque and raises, as does an input that
+    was an inlined constant (numpy, list or scalar)."""
+    from .symbol import symbol as sym_mod
+
+    if getattr(x, "_history", None) is None:
+        return sym_mod.Variable("var0")
+    rec_syms = {}      # id(record) -> Symbol with all outputs
+    arr_syms = {}      # id(weak reference to a leaf) -> Variable
+    counter = [0]
+
+    def leaf(ref):
+        # CPython hands out one weak reference per referent, so its id
+        # names the leaf for as long as a record holds it
+        if id(ref) not in arr_syms:
+            arr_syms[id(ref)] = sym_mod.Variable(f"var{counter[0]}")
+            counter[0] += 1
+        return arr_syms[id(ref)]
+
+    for rec in _history_order(x):
+        if rec.op is None:
+            raise ValueError(
+                f"get_symbol: '{rec.name}' was recorded as an opaque "
+                "closure (custom Function); only registry-op history is "
+                "traceable")
+        sym_args = []
+        for inp in rec.inputs:
+            if inp is None:
+                sym_args.append(None)
+                continue
+            if inp is CONST_INPUT:
+                raise ValueError(
+                    f"get_symbol: an input of '{rec.name}' was an "
+                    "inlined constant (raw numpy/list/scalar), which a "
+                    "Symbol cannot re-bind — pass tensor inputs as "
+                    "NDArrays to make the history re-traceable")
+            if isinstance(inp, tuple):
+                s = rec_syms[id(inp[0])]
+                sym_args.append(s[inp[1]] if len(s) > 1 else s)
+            else:
+                sym_args.append(leaf(inp))
+        rec_syms[id(rec)] = sym_mod._invoke(rec.op, sym_args,
+                                            dict(rec.params))
+    rec, idx = x._history
+    s = rec_syms[id(rec)]
+    return s[idx] if len(s) > 1 else s
 
 
 # ---------------------------------------------------------------------------
@@ -319,4 +426,5 @@ class Function:
                 return self.forward(*inputs)
         outs = [NDArray(t) for t in
                 _FunctionBridge.apply(self, *[x._data for x in inputs])]
+        _record(None, inputs, {}, outs, type(self).__name__)
         return outs[0] if len(outs) == 1 else outs

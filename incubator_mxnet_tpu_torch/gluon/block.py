@@ -26,9 +26,13 @@ Deferred shapes settle at the first forward through
 ``shape_from_input`` and ``Parameter._finish_deferred_init``.
 ``hybridize()`` is accepted and runs the eager forward; the reference's
 CachedOp replay comes with the graph layer (ROADMAP item A7).
-``export``, ``SymbolBlock`` and the Symbol tracing (``_to_symbol``)
-need the symbolic frontend (ROADMAP item A6) and raise until it is
-ported.
+
+Called on Symbols, a HybridBlock traces itself into a graph
+(``_to_symbol``): its parameters become Variables named as the
+parameters are, and ``hybrid_forward`` runs with ``F`` the ``sym``
+module.  ``export`` writes that graph and the parameters in the JAX
+package's checkpoint layout, and ``SymbolBlock`` runs a Symbol (one
+written by either package) as a block.
 """
 import re
 import threading
@@ -38,17 +42,13 @@ from torch import nn
 
 from .. import autograd
 from .. import ndarray as _nd
+from .. import symbol as _sym
 from ..ndarray.ndarray import NDArray
+from ..symbol.symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, _InPlace)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} needs the symbolic frontend (sym), which the port does "
-        "not have yet (ROADMAP item A6)")
 
 
 class _BlockScope:
@@ -239,7 +239,10 @@ class HybridBlock(Block):
     def forward(self, *args, **kwargs):
         """``hybrid_forward`` on NDArrays (autograd's rules) or on torch
         tensors (torch's rules, training from ``self.training``);
-        returns the kind it was given."""
+        returns the kind it was given.  On Symbols it traces the block
+        into a graph (``_to_symbol``)."""
+        if args and isinstance(args[0], Symbol):
+            return self._to_symbol(*args)
         nd_args = [NDArray(a) if isinstance(a, torch.Tensor) else a
                    for a in args]
         if all(a is b for a, b in zip(nd_args, args)):
@@ -270,6 +273,7 @@ class HybridBlock(Block):
             for p in own:
                 p._finish_deferred_init()
         self._settled = all(p._allocated() for p in own)
+        self._in_arity = len(args)          # export's input count
         # (hybrid_forward's name for it, its torch attribute)
         self._plan = [(key, attr)
                       for key, (attr, _) in self._gluon_params.items()]
@@ -285,16 +289,106 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
 
-    def export(self, path, epoch=0):
-        raise _not_ported("HybridBlock.export")
-
     def _to_symbol(self, *sym_inputs):
-        raise _not_ported("HybridBlock._to_symbol")
+        """Trace this block into a Symbol graph: its parameters become
+        Variables of their names, and every layer's ``hybrid_forward``
+        builds graph nodes through ``F = sym``."""
+        params = {key: _sym.Variable(p.name)
+                  for key, (_, p) in self._gluon_params.items()}
+        return self.hybrid_forward(_sym, *sym_inputs, **params)
+
+    def export(self, path, epoch=0):
+        """Write the block as ``path-symbol.json`` and
+        ``path-%04d.params`` (``arg:``/``aux:`` keys, CRC32 sidecar),
+        the JAX package's layout, which ``symbol.load`` + Executor,
+        ``Module.load`` and ``SymbolBlock.imports`` of either package
+        read.  The block must have run a forward (shapes settled); its
+        inputs are ``data`` (or ``data0``, ``data1``, ...)."""
+        from ..model import save_checkpoint
+        n = getattr(self, "_in_arity", 1)
+        names = ["data"] if n == 1 else [f"data{i}" for i in range(n)]
+        out = self._to_symbol(*[_sym.Variable(nm) for nm in names])
+        if isinstance(out, (list, tuple)):
+            out = _sym.Group(list(out))
+        aux_names = set(out.list_auxiliary_states())
+        arg, aux = {}, {}
+        for name, p in self.collect_params().items():
+            (aux if name in aux_names else arg)[name] = p.data()
+        save_checkpoint(path, epoch, out, arg, aux)
+        return out
 
 
 class SymbolBlock(HybridBlock):
-    """A Symbol and its parameters as a Block: needs the symbolic
-    frontend (ROADMAP item A6)."""
+    """A Symbol and its parameters as a Block (ref: block.py
+    SymbolBlock): every input of ``outputs`` that is not one of
+    ``inputs`` becomes a parameter of that name (aux states with
+    grad_req 'null'), and the forward runs the graph as the executor
+    does, op by op, following autograd (or torch) like any block.  The
+    aux states are not updated by a training-mode forward, as in the
+    JAX package."""
 
     def __init__(self, outputs, inputs, params=None):
-        raise _not_ported("SymbolBlock")
+        super().__init__(prefix="", params=None)
+        if isinstance(outputs, (list, tuple)):
+            outputs = _sym.Group(list(outputs))
+        self._symbol = outputs
+        self._inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        input_names = {i.name for i in self._inputs}
+        aux = set(outputs.list_auxiliary_states())
+        for name in outputs.list_inputs():
+            if name not in input_names:
+                self._params.get(name, allow_deferred_init=True,
+                                 grad_req="null" if name in aux
+                                 else "write")
+        if params is not None:
+            for name, v in params.items():
+                if name in self._params.keys():
+                    self._params[name].set_data(v)
+        from ..executor import build_graph_fn
+        self._graph_fn = build_graph_fn(outputs)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock from ``symbol_file`` (JSON, of either package)
+        and, if given, ``param_file`` (``.params``, its ``arg:``/``aux:``
+        tags stripped) loaded onto ``ctx`` (None: the card)."""
+        from ..model import split_tagged_params
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(_sym.load(symbol_file),
+                            [_sym.Variable(n) for n in input_names])
+        if param_file is not None:
+            arg, aux = split_tagged_params(_nd.load(param_file, ctx=ctx))
+            for name, v in {**arg, **aux}.items():
+                if name in block._params.keys():
+                    block._params[name].set_data(v)
+        return block
+
+    def shape_from_input(self, *inputs):
+        shapes = {i.name: a.shape for i, a in zip(self._inputs, inputs)}
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape_partial(
+            **shapes)
+        known = dict(zip(self._symbol.list_arguments(), arg_shapes))
+        known.update(zip(self._symbol.list_auxiliary_states(),
+                         aux_shapes))
+        for name, p in self._params.items():
+            if known.get(name) is not None and not p._allocated():
+                p.shape = known[name]
+
+    def _forward_nd(self, args, kwargs):
+        if not self._settled:
+            self._finish_deferred(args)
+        from ..executor import _next_seed
+        tensors = self._parameters
+        vals = {i.name: a._data for i, a in zip(self._inputs, args)}
+        for key, attr in self._plan:
+            vals[key] = tensors[attr]
+        with autograd.grad_scope(list(vals.values())):
+            outs, _ = self._graph_fn(vals, {}, _next_seed(),
+                                     autograd.is_training())
+        outs = [NDArray(o) for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def hybrid_forward(self, F, *args, **kwargs):
+        raise NotImplementedError

@@ -325,11 +325,11 @@ class Parameter:
                 self._init_grad()
 
     def var(self):
-        """A Symbol variable for the parameter: needs the symbolic
-        frontend (ROADMAP item A6)."""
-        raise NotImplementedError(
-            "Parameter.var needs the symbolic frontend, which the port "
-            "does not have yet (ROADMAP item A6)")
+        """A Symbol variable for the parameter (ref: parameter.py var),
+        carrying its lr_mult and wd_mult."""
+        from ..symbol import Variable
+        return Variable(self.name, lr_mult=self.lr_mult,
+                        wd_mult=self.wd_mult)
 
 
 class ParameterDict:

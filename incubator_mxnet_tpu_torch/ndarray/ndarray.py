@@ -15,13 +15,12 @@
   int32, uint64 to uint32.
 - ``dtype`` is a numpy dtype, except for bfloat16, which numpy lacks:
   there it is ``torch.bfloat16`` (``asnumpy`` then gives float32).
-- ``save`` / ``load`` keep the JAX package's npz format, so each
-  package reads the other's files.
+- ``save`` / ``load`` keep the JAX package's npz format and its CRC32
+  sidecar, so each package reads, and checks, the other's files.
 - Methods whose ops are not ported yet (``softmax``, ``sort``, ``topk``
   and the like) are left out until their ops come.
 """
 import numbers
-import os
 
 import numpy as np
 import torch
@@ -507,6 +506,10 @@ def imperative_invoke(op, args, kwargs, out=None):
             autograd.rebind(t, o.to(t._data.dtype))
         return out
     out_arrays = [NDArray(o) for o in outs_list]
+    if nd_inputs and op.differentiable and autograd.is_recording():
+        autograd._record(op, args, {
+            k: v for k, v in params.items()
+            if k not in ("ctx", "_training", "_rng")}, out_arrays)
     return out_arrays[0] if len(out_arrays) == 1 else out_arrays
 
 
@@ -619,10 +622,10 @@ def _decode(k, arr, device):
 
 def save(fname, data):
     """Save NDArrays: list -> positional, dict -> named (npz, under the
-    exact file name).  The write goes to a temporary file that replaces
-    ``fname`` once complete; a stale CRC sidecar (``fname.crc32``,
-    written by the JAX package) is removed first, so the JAX package
-    never checks the new file against an old checksum."""
+    exact file name).  The write is atomic, with a CRC32 sidecar
+    (``resilience.atomic_save``): a reader racing the save, or a crash
+    mid-write, never sees a partial file at ``fname``."""
+    from ..resilience import atomic_save
     if isinstance(data, NDArray):
         data = [data]
     if isinstance(data, dict):
@@ -630,22 +633,32 @@ def save(fname, data):
     else:
         items = ((f"__pos_{i}", v) for i, v in enumerate(data))
     payload = dict(_encode(k, v._data) for k, v in items)
-    tmp = f"{fname}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **payload)
-    try:
-        os.unlink(fname + ".crc32")
-    except FileNotFoundError:
-        pass
-    os.replace(tmp, fname)
+    atomic_save(fname, lambda f: np.savez(f, **payload))
 
 
 def load(fname, ctx=None):
     """Load arrays saved by :func:`save` (of either package) onto
-    ``ctx`` (default: the card)."""
+    ``ctx`` (default: the card).
+
+    The file is checked against its CRC32 sidecar when there is one,
+    and an undecodable archive raises ``CheckpointCorruptError``, so
+    ``model.load_checkpoint`` can fall back to an older epoch."""
+    import zipfile
+    from ..resilience import CheckpointCorruptError, validate_or_raise
     device = resolve(ctx)
-    with np.load(fname, allow_pickle=False) as z:
-        items = dict(_decode(k, z[k], device) for k in z.keys())
+    validate_or_raise(fname)
+    try:
+        with np.load(fname, allow_pickle=False) as z:
+            raw = {k: z[k] for k in z.keys()}
+    except (zipfile.BadZipFile, ValueError, EOFError) as exc:
+        if isinstance(exc, ValueError) and "allow_pickle" in str(exc):
+            # a well-formed archive with object members: a format
+            # mismatch, not corruption (no fallback to an older epoch)
+            raise
+        raise CheckpointCorruptError(
+            f"checkpoint {fname} is not a readable archive "
+            f"({exc})") from exc
+    items = dict(_decode(k, v, device) for k, v in raw.items())
     if items and all(k.startswith("__pos_") for k in items):
         return [items[f"__pos_{i}"] for i in range(len(items))]
     return items

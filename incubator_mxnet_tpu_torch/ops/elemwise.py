@@ -120,11 +120,13 @@ class _MakeLoss(torch.autograd.Function):
         return grad, None, None, None
 
 
-@defop("make_loss")
+@defop("make_loss", aliases=["MakeLoss"])
 def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
-    """Mark an output as a loss head: identity forward, and a backward
-    that starts the gradient at ``grad_scale`` (the JAX package's
-    ``contrib_misc.py`` gives its ``make_loss`` the same rule)."""
+    """Mark an output as a loss head (``MakeLoss``, the symbolic loss
+    head of Module users): identity forward, and a backward that starts
+    the gradient at ``grad_scale`` (the JAX package's
+    ``ops/contrib_misc.py`` gives its ``make_loss``/``MakeLoss`` the
+    same rule)."""
     if torch.is_grad_enabled() and data.requires_grad:
         return _MakeLoss.apply(data, float(grad_scale),
                                float(valid_thresh), str(normalization))

@@ -64,10 +64,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01,
                  lr_scheduler=None, sym=None, begin_num_update=0,
                  param_dict=None):
-        if sym is not None:
-            raise NotImplementedError(
-                "Optimizer(sym=...) reads a Symbol's attributes: needs "
-                "the symbolic frontend (ROADMAP item A6)")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -82,6 +78,15 @@ class Optimizer:
         self.param_dict = param_dict or {}
         self.lr_mult = {}
         self.wd_mult = {}
+        if sym is not None:
+            # only the dunder spellings count (the reference's
+            # set_lr_mult reads '__lr_mult__'): AttrScope(__lr_mult__=)
+            # and Variable(lr_mult=), which Variable dunder-wraps
+            for name, a in sym.attr_dict().items():
+                if "__lr_mult__" in a:
+                    self.lr_mult[name] = float(a["__lr_mult__"])
+                if "__wd_mult__" in a:
+                    self.wd_mult[name] = float(a["__wd_mult__"])
 
     def create_state(self, index, weight):
         return None

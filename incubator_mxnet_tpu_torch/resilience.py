@@ -1,10 +1,12 @@
 """Atomic, checksummed files and the typed errors the serving engine
 raises (a part of ``incubator_mxnet_tpu/resilience.py``).
 
-Only what the serving engine's snapshots and deadlines need is here:
-``atomic_save`` writes a file through a same-directory temp file, fsync
-and rename, with a CRC32 sidecar (``path.crc32``: "crc32hex size");
-``read_validated_bytes`` reads it back against that sidecar, and
+Only what the serving engine's snapshots and deadlines and the
+checkpoints (``nd.save``/``nd.load``, ``model``, ``Module``) need is
+here: ``atomic_save`` writes a file through a same-directory temp file,
+fsync and rename, with a CRC32 sidecar (``path.crc32``: "crc32hex
+size"); ``read_validated_bytes`` reads it back against that sidecar,
+``validate_or_raise`` checks a file against it by a streamed pass, and
 ``decode_or_corrupt`` turns a failed decode into
 ``CheckpointCorruptError``.  The sidecar format is the JAX package's,
 so a file written by either package validates in the other.
@@ -18,7 +20,8 @@ import zlib
 
 __all__ = ["ResilienceError", "DeadlineExceededError",
            "CheckpointCorruptError", "checksum_path", "atomic_save",
-           "read_validated_bytes", "decode_or_corrupt"]
+           "read_validated_bytes", "validate_or_raise",
+           "decode_or_corrupt"]
 
 
 class ResilienceError(RuntimeError):
@@ -139,6 +142,27 @@ def atomic_save(path, writer):
     _fsync_dir(path)
     _replace_with_bytes(checksum_path(path),
                         f"{crc:08x} {size}\n".encode())
+
+
+def validate_or_raise(path):
+    """Raise ``CheckpointCorruptError`` when ``path`` does not match its
+    CRC32 sidecar (a missing sidecar passes).  The CRC is streamed, so a
+    large file is never held whole; a mismatch is checked once more, as
+    a concurrent ``atomic_save`` may have paired old bytes with its new
+    sidecar."""
+    side = checksum_path(path)
+    for _ in (0, 1):
+        if not os.path.exists(side):
+            return
+        try:
+            want = _read_sidecar(side)
+            if _file_crc(path) == want:
+                return
+        except (ValueError, OSError):
+            pass
+    raise CheckpointCorruptError(
+        f"checkpoint {path} failed CRC32 validation "
+        f"(truncated or corrupt; sidecar {side})")
 
 
 def read_validated_bytes(path):

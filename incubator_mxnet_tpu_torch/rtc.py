@@ -16,10 +16,13 @@ restores MXNet's shape:
 
 ``register``
     puts any function on torch tensors (a compiled kernel, or plain
-    PyTorch) into the op registry and onto ``nd``, optionally with a
-    custom VJP, which becomes a ``torch.autograd.Function``.  The
-    symbolic frontend does not exist in the port yet (ROADMAP item 6),
-    so ops attach to ``nd`` alone.
+    PyTorch) into the op registry and onto ``nd`` and ``sym``,
+    optionally with a custom VJP, which becomes a
+    ``torch.autograd.Function``.  A bound Symbol's executor calls the
+    op's function as any other op's, so the kernel launches once per
+    forward of the graph.  On ``meta`` tensors (the symbolic shape
+    inference) a kernel returns empty outputs of its ``out_shape`` and
+    launches nothing.
 
 Example (the kernels of ``rtc_examples.py`` are built this way)::
 
@@ -220,6 +223,8 @@ class Kernel:
                 "register it with vjp=(fwd, bwd) to differentiate it")
         if device.type == "cuda":
             return self._launch(device, arrays, params)
+        if device.type == "meta":
+            return self._meta(arrays, params)
         if device.type != "cpu":
             raise ValueError(f"kernel {self.name} runs on cuda or cpu, "
                              f"not {device}")
@@ -228,6 +233,14 @@ class Kernel:
                 f"kernel {self.name} got CPU tensors and has no plain "
                 "version: pass reference= to compile_kernel")
         return self.reference(*arrays, **params)
+
+    def _meta(self, arrays, params):
+        """Shape inference: outputs of ``out_shape`` on ``meta``."""
+        spec = self._resolve(self.out_shape, arrays, params)
+        specs = (spec,) if isinstance(spec, ShapeDtype) else tuple(spec)
+        outs = [torch.empty(tuple(s.shape), dtype=torch_dtype(s.dtype),
+                            device="meta") for s in specs]
+        return outs[0] if isinstance(spec, ShapeDtype) else tuple(outs)
 
     def _bind(self):
         """Build and load the library, and keep its launcher and error
@@ -354,7 +367,7 @@ class _CustomVJP(torch.autograd.Function):
 def register(name, fn, *, vjp=None, arg_names=None,
              differentiable=None, num_outputs=1, aliases=(),
              **opdef_kwargs):
-    """Register ``fn`` as operator ``name`` on ``nd``.
+    """Register ``fn`` as operator ``name`` on ``nd`` and ``sym``.
 
     Parameters
     ----------
@@ -435,16 +448,24 @@ def register(name, fn, *, vjp=None, arg_names=None,
     return ndf
 
 
-def _target(name):
+def _targets(name):
+    """The ``nd`` and ``sym`` namespaces an op named ``name`` lands
+    on."""
     from . import ndarray as nd_mod
-    return nd_mod._internal if name.startswith("_") else nd_mod
+    from . import symbol as sym_mod
+    return [mod._internal if name.startswith("_") else mod
+            for mod in (nd_mod, sym_mod)]
 
 
 def _attach(name, op):
-    """Bind the new op onto the already-populated ``nd`` namespace."""
+    """Bind the new op onto the already-populated ``nd`` and ``sym``
+    namespaces; returns the ``nd`` function."""
     from .ndarray.register import make_nd_func
+    from .symbol.register import make_sym_func
     ndf = make_nd_func(name, op)
-    setattr(_target(name), name, ndf)
+    nd_target, sym_target = _targets(name)
+    setattr(nd_target, name, ndf)
+    setattr(sym_target, name, make_sym_func(name, op))
     return ndf
 
 
@@ -453,9 +474,9 @@ _RTC_ALIASES = {}    # primary name -> aliases, for unregister
 
 def unregister(name):
     """Remove a custom op registered by :func:`register`, with its
-    aliases."""
+    aliases, from the registry, ``nd`` and ``sym``."""
     for n in (name,) + _RTC_ALIASES.pop(name, ()):
         OPS.pop(n, None)
-        target = _target(n)
-        if hasattr(target, n):
-            delattr(target, n)
+        for target in _targets(n):
+            if hasattr(target, n):
+                delattr(target, n)

@@ -14,6 +14,8 @@ differ in the last bits).  The rest are twins of ``tests/test_autograd.py``
 and ``tests/test_ndarray.py`` that need no ``sym`` or Gluon: the same
 program runs in both packages and their results are compared.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -44,10 +46,11 @@ CASES = {n: spec for n, spec in SWEEP.items() if n in TOPS}
 
 def test_registry_matches_jax():
     # make_loss is registered by elemwise.py; contrib_misc.py swaps in
-    # its loss-head gradient and adds the alias MakeLoss
+    # its loss-head gradient and adds the alias MakeLoss, which the port
+    # registers with it (the Module users' loss head)
     want = {n for n, op in JOPS.items()
             if op.fn.__module__.rsplit(".", 1)[-1] in PORTED_MODULES} \
-        - SPARSE_LATER | {"make_loss"}
+        - SPARSE_LATER | {"make_loss", "MakeLoss"}
     assert set(TOPS) == want
     for name, op in TOPS.items():
         jop = JOPS[name]
@@ -485,6 +488,53 @@ def test_save_load_across_packages(tmp_path):
     np.testing.assert_array_equal(mine[0].asnumpy(), w)
 
 
+def _flip_byte(path, offset):
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def test_load_checks_the_crc_sidecar(tmp_path):
+    """A .params file written by the JAX package with one byte flipped:
+    the port, like the JAX package, raises CheckpointCorruptError (its
+    sidecar no longer matches), never a raw zipfile error."""
+    w = np.arange(64, dtype="float32").reshape(8, 8)
+    f = str(tmp_path / "w.params")
+    mx.nd.save(f, {"w": mx.nd.array(w)})
+    assert os.path.exists(f + ".crc32")
+    _flip_byte(f, os.path.getsize(f) // 2)
+    with pytest.raises(mx.resilience.CheckpointCorruptError):
+        mx.nd.load(f)
+    with pytest.raises(mt.resilience.CheckpointCorruptError,
+                       match="CRC32"):
+        mt.nd.load(f, ctx=CPU)
+    # without a sidecar, an undecodable archive is corruption too
+    os.unlink(f + ".crc32")
+    with open(f, "r+b") as fh:
+        fh.truncate(40)
+    with pytest.raises(mt.resilience.CheckpointCorruptError,
+                       match="readable archive"):
+        mt.nd.load(f, ctx=CPU)
+
+
+def test_save_writes_the_crc_sidecar(tmp_path):
+    """The port's nd.save is atomic and writes the sidecar, which the
+    JAX package checks: a flipped byte in a port file is caught there."""
+    w = np.arange(64, dtype="float32").reshape(8, 8)
+    f = str(tmp_path / "w.params")
+    mt.nd.save(f, {"w": mt.nd.array(w, ctx=CPU)})
+    assert sorted(os.listdir(tmp_path)) == ["w.params", "w.params.crc32"]
+    assert mt.resilience.read_validated_bytes(f) == open(f, "rb").read()
+    np.testing.assert_array_equal(mx.nd.load(f)["w"].asnumpy(), w)
+    _flip_byte(f, os.path.getsize(f) // 2)
+    with pytest.raises(mx.resilience.CheckpointCorruptError):
+        mx.nd.load(f)
+    with pytest.raises(mt.resilience.CheckpointCorruptError):
+        mt.nd.load(f, ctx=CPU)
+
+
 def test_dlpack_across_packages():
     w = np.arange(6, dtype="float32").reshape(2, 3)
     t = mt.nd.from_dlpack(jnp.asarray(w))
@@ -518,7 +568,7 @@ def test_keyword_inputs_and_not_yet_ported_surfaces():
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
         x.tostype("csr")
     assert x.tostype("default") is x and x.stype == "default"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        mt.autograd.get_symbol(x)
+    # an array with no recorded history is a bare Variable
+    assert mt.autograd.get_symbol(x).list_arguments() == ["var0"]
     with pytest.raises(TypeError, match="differentiates floats only"):
         mt.nd.array([1, 2], ctx=CPU).attach_grad()

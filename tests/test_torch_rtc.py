@@ -2,10 +2,13 @@
 four user kernels (rtc_examples.py, csrc/rtc/*.cu) against the JAX
 package's ``rtc``.
 
-Twins of the nine tests of ``tests/test_rtc.py`` that need no ``sym``
-(Gluon's ``test_gluon_hybridize`` among them): on the CPU a compiled
-kernel runs its plain version
-(``reference``), the port's counterpart of Pallas interpret mode.  Then
+Twins of the ten tests of ``tests/test_rtc.py`` (the symbolic executor
+and Gluon's ``test_gluon_hybridize`` among them), and the three paths of
+``examples/custom_pallas_kernel.py`` (eager with its VJP, ``sym.eval``,
+a hybridized Gluon block), each against the JAX package's numbers: on
+the CPU a compiled kernel runs its plain version (``reference``), the
+port's counterpart of Pallas interpret mode, and a bound Symbol calls
+the kernel once per forward and differentiates through its VJP.  Then
 the signature parse and the generated launcher, which no CPU can build;
 a CUDA call with no card, which raises and never runs the plain version;
 the four kernels' plain versions and VJPs against the JAX kernels in
@@ -85,6 +88,55 @@ def test_gluon_hybridize(scale_op):
     net.hybridize()
     out = net(_arr(np.ones((2, 2))))
     np.testing.assert_allclose(out.asnumpy(), np.full((2, 2), 3.0))
+
+
+def test_symbolic_executor(scale_op):
+    s = mt.sym.test_rtc_scale(mt.sym.Variable("data"), alpha=4.0)
+    out = s.eval(CPU, data=_arr(np.ones((3, 2))))[0]
+    np.testing.assert_allclose(out.asnumpy(), np.full((3, 2), 4.0))
+    # through a bound executor the gradient is the registered VJP's
+    grad = nd.zeros((3, 2), ctx=CPU)
+    exe = s.bind(CPU, {"data": _arr(np.ones((3, 2)))},
+                 args_grad={"data": grad})
+    exe.forward_backward()
+    np.testing.assert_allclose(grad.asnumpy(), np.full((3, 2), 40.0))
+    assert s.infer_shape(data=(5, 7))[1] == [(5, 7)]
+
+
+def test_custom_pallas_kernel_example_three_paths():
+    """examples/custom_pallas_kernel.py's three paths on the fused
+    kernel's plain version: eager with its VJP, sym.eval and a
+    hybridized Gluon block agree, and equal relu(2x + 0.5), the JAX
+    example's values (its kernel is held against the plain version in
+    interpret mode by test_examples_match_jax_kernels_in_interpret_mode)."""
+    v = np.linspace(-2, 2, 12, dtype=np.float32).reshape(3, 4)
+    ex.register_scale_shift_relu("test_rtc_example_ssr")
+    try:
+        x = _arr(v)
+        x.attach_grad()
+        with autograd.record():
+            y = nd.test_rtc_example_ssr(x, alpha=2.0, beta=0.5)
+        y.backward()
+        s = mt.sym.test_rtc_example_ssr(mt.sym.Variable("data"), alpha=2.0,
+                                        beta=0.5)
+        sym_out = s.eval(CPU, data=x)[0]
+
+        class Net(mt.gluon.HybridBlock):
+            def hybrid_forward(self, F, u):
+                return F.test_rtc_example_ssr(u, alpha=2.0, beta=0.5)
+
+        net = Net()
+        net.hybridize()
+        gluon_out = net(x)
+        traced = net(mt.sym.Variable("data"))
+        assert traced.list_arguments() == ["data"]
+    finally:
+        rtc.unregister("test_rtc_example_ssr")
+    want = np.maximum(v * 2.0 + 0.5, 0.0)
+    np.testing.assert_allclose(y.asnumpy(), want, rtol=1e-6)
+    np.testing.assert_array_equal(sym_out.asnumpy(), y.asnumpy())
+    np.testing.assert_array_equal(gluon_out.asnumpy(), y.asnumpy())
+    np.testing.assert_allclose(x.grad.asnumpy(), (want > 0) * 2.0)
 
 
 def test_register_plain_torch_fn_autodiff():

@@ -176,7 +176,10 @@ _SLICE_MODULES = ("ops.flash", "gluon.model_zoo.transformer",
                   "ops.reduce", "ops.matrix", "ops.indexing", "ops.init_op",
                   "ops.optimizer_op", "engine", "autograd",
                   "ndarray.ndarray", "ndarray.register", "rtc",
-                  "rtc_examples")
+                  "rtc_examples", "name", "attribute", "utils.registry",
+                  "symbol.symbol", "symbol.register", "executor",
+                  "metric", "io.io", "callback", "model",
+                  "module.base_module", "module.module", "monitor")
 
 
 def test_port_imports_no_jax():
