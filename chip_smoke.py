@@ -59,18 +59,27 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                L=256 on the card equal the same weights' on the CPU's
                plain path; (ii) bench.py's training step (B=8 x L=1024,
                Adam lr 1e-4, bf16 compute over fp32 masters, its LM
-               loss and tokens) takes 2 warm-up and 8 timed steps: losses
-               finite and falling, masters fp32, and each step ran
-               flash_fwd, flash_dq and flash_dkv once per layer; (iii)
-               step ms, tokens/s, MFU, peak memory and a profile; (iv)
-               the default fp32 step (compute_dtype=None) at the same
-               width, batch, optimizer, loss and tokens, from the same
-               seeded weights, once (ii)'s step and its Adam state are
-               freed: 2 warm-up and 3 timed steps, losses finite and
-               falling, each step one launch of flash_fwd, flash_dq and
-               flash_dkv per layer; step ms, tokens/s, peak memory and a
-               profiled step's device ms by class (flash_dq and
-               flash_dkv apart).
+               loss and tokens), 2 warm-up and 8 timed steps, twice from
+               the seeded weights: through ``_eager_call`` (op by op)
+               and as users call it (the first call captures the step as
+               one CUDA graph, every call replays it): losses finite and
+               falling, the two ways' losses and parameters equal bit
+               for bit, one capture; each eager step launched flash_fwd,
+               flash_dq and flash_dkv once per layer, the captured step
+               at its first call only (warm-up and capture), and a
+               profiled replay ran each once per layer on the card;
+               each way's step ms (the timed steps back to back, one
+               synchronize at the end, over their count; the median of
+               the steps' spans between CUDA events beside it),
+               tokens/s, MFU, peak memory and profile (busy share); the
+               kernel table counts the captured steps' launches, the
+               eager ones stay in this record; (iii) the default fp32 step
+               (compute_dtype=None) the same way, 2 warm-up and 3 timed
+               steps; (iv) dropout in a captured step (a small model,
+               rate 0.1): replays draw fresh masks, a reseeded generator
+               repeats them, the eager step from the same seed gives the
+               same losses, and the Dropout op captured alone keeps 1 -
+               rate within 5 binomial standard deviations.
 8. resnet      bench.py's headline workload on the port's Gluon path, no
                hand kernel on it: (i) resnet50_v1() from seed 0 on the
                card and on the CPU (load_gluon_params), fp32 with TF32
@@ -80,14 +89,19 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                stats within 1e-4; (ii) bench.py's step: functionalize,
                ShardedTrainStep(sgd, lr 0.1, momentum 0.9, wd 1e-4,
                bf16 over fp32 masters) at B=32 on bench.py's batch, 3
-               warm-up and 20 timed steps, losses finite and falling;
-               img/s, step ms, peak memory, MFU against 989 TFLOP/s
-               from the port's own count of train FLOPs per image
-               (convolution and dense shapes, within 2% of bench.py's
-               3 x 7.826e9), one profiled step's device ms by class
-               (conv, batchnorm, pool, matmul, optimizer, other) and
-               busy share; (iii) the same step in fp32; (iv) 23 steps
-               of the imperative loop (autograd.record, SoftmaxCross
+               warm-up and 20 timed steps, eager and captured as in
+               train (ii) with cuDNN's deterministic algorithms (its
+               default fp32 ones differ from run to run even eagerly):
+               losses finite and falling, losses, parameters and moving
+               stats equal bit for bit, one capture; then captured with
+               cuDNN's defaults, the step as users run it; each way's
+               step ms (as in train (ii)), img/s, peak memory, MFU against
+               989 TFLOP/s from the port's own count of train FLOPs per
+               image (convolution and dense shapes, within 2% of
+               bench.py's 3 x 7.826e9), one profiled step's device ms by
+               class (conv, batchnorm, pool, matmul, optimizer, other),
+               busy share and cProfile; (iii) the same in fp32; (iv) 23
+               steps of the imperative loop (autograd.record, SoftmaxCross
                EntropyLoss, backward, gluon.Trainer.step(32)): losses
                finite and falling, every parameter with a gradient.
                (The loss rises for steps 3 to 7 at lr 0.1 before it
@@ -114,6 +128,22 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                kernel's calls, alone and through nd, with cProfile
                (host_profile).
 
+10. module     the symbolic frontend: (i) the MNIST MLP through
+               Module.fit to validation accuracy 0.95; (ii) ResNet-50 as
+               a Symbol (_to_symbol under SoftmaxOutput) through Module
+               at B=32, fp32: card vs CPU at B=2, the first loss vs the
+               Gluon fp32 step's, 23 timed steps, a checkpoint reloaded
+               bit for bit, and then the same with kvstore='tpu' (the
+               fused SymbolTrainStep, one CUDA graph replay a step):
+               under cuDNN's deterministic algorithms its first two
+               losses, its parameters' moves and moving stats after
+               them within 2e-4 of 'local''s; one capture,
+               step ms, peak memory and profile beside 'local''s; (iii)
+               sym.scale_shift_relu in a bound graph: bit-equal to the
+               nd path, one launch a forward, 5 Module SGD steps, and
+               the same steps with kvstore='tpu' (one run of the kernel
+               a replay, the first loss equal to the nd path's).
+
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
 runs, ``launches_by_path`` each run's own count) and, last,
@@ -125,10 +155,16 @@ library call's as ``library_ms``) is device time per call, from
 torch.profiler over back-to-back calls: the summed device time of the
 call's kernels over the count, so host time and gaps between launches
 drop out; a trace with no device event is taken again and counted
-(``device_ms_traces``, printed with ``phase_seconds``).  ``call_ms`` is
+(``device_ms_traces``, printed with ``phase_seconds``).  Every trace
+opens with throwaway launches that take the first device records a
+trace loses (``device_trace``); at the start and the end of the run,
+``trace_keeps`` counts how many of 10 launches after them a trace
+records (all, or the run fails), how many of them it lost, and how many
+of the 10 a trace without them records.  ``call_ms`` is
 the time of one call between two CUDA events, which also counts the
 host's work before the launch.
 """
+import contextlib
 import json
 import math
 import re
@@ -203,6 +239,78 @@ TRACES = {"taken": 0, "empty": 0}
 TRACE_ATTEMPTS = 3
 
 
+# the throwaway launches that open every device_trace: fills of int16,
+# a kernel the port does not run, which device_events leaves out
+TRACE_LEAD = 128
+LEAD_KERNEL = "FillFunctor<short>"
+
+
+@contextlib.contextmanager
+def device_trace(torch):
+    """torch.profiler over the host and the card.  Such a trace can
+    drop its first few device records, more the longer the process has
+    run and whether or not the card was idle before them (the count
+    ``trace_keeps`` prints), which hid the first kernels of a short CUDA
+    graph replay; so the trace opens with TRACE_LEAD throwaway
+    launches, which take the loss."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+    lead = torch.empty(64, dtype=torch.int16, device="cuda")
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_LEAD):
+            lead.fill_(1)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def device_events(prof):
+    """The card's rows of a ``device_trace`` (key_averages), its lead
+    launches left out."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and LEAD_KERNEL not in e.key]
+
+
+def trace_keeps(torch, n=10):
+    """How many of ``n`` kernel launches a ``device_trace`` records (all,
+    or the run fails), how many of its lead launches it lost, and how
+    many of the ``n`` a trace without the lead records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+    xs = [torch.empty(256 + i, device="cuda") for i in range(n)]
+
+    def fills():
+        for x in xs:
+            x.fill_(1.0)
+        torch.cuda.synchronize()
+
+    def counted(rows, kernel):
+        return sum(e.count for e in rows if kernel in e.key)
+
+    with device_trace(torch) as led:
+        fills()
+    rows = [e for e in led.key_averages() if e.device_type == DeviceType.CUDA]
+    kept, lead = counted(rows, "FillFunctor<float>"), counted(rows,
+                                                              LEAD_KERNEL)
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as bare:
+        fills()
+    check(lead > 0, f"no {LEAD_KERNEL} kernel in a trace's lead")
+    check(kept == n, f"a trace recorded {kept} of {n} kernels after "
+                     f"its lead")
+    return {"launched": n, "recorded": kept,
+            "lead_lost": TRACE_LEAD - lead,
+            "recorded_without_lead": counted(
+                [e for e in bare.key_averages()
+                 if e.device_type == DeviceType.CUDA],
+                "FillFunctor<float>")}
+
+
 def device_ms(fn, torch, what, warmup=3, reps=20):
     """Device time of one call of ``what``: the summed device time of
     the kernels (and copies) of ``reps`` back-to-back calls under
@@ -211,22 +319,14 @@ def device_ms(fn, torch, what, warmup=3, reps=20):
     on the card for calls that launched kernels) is taken again, up to
     TRACE_ATTEMPTS traces, and counted in TRACES["empty"], which the run
     prints; if none has device time the check fails."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
     for _ in range(warmup):
         fn()
     for _ in range(TRACE_ATTEMPTS):
-        torch.cuda.synchronize()
-        with trace(activities=[ProfilerActivity.CPU,
-                               ProfilerActivity.CUDA]) as prof:
+        with device_trace(torch) as prof:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
         TRACES["taken"] += 1
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+        us = sum(e.self_device_time_total for e in device_events(prof))
         if us > 0:
             return us / 1e3 / reps
         TRACES["empty"] += 1
@@ -255,37 +355,32 @@ def wall_ms(fn, torch, reps=3):
 def profile(fn, torch):
     """Device time by kernel over one call, from torch.profiler: the
     busy share is the kernels' summed device time over the call's wall
-    time (the profiler's own host cost makes it a lower bound)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
-    torch.cuda.synchronize()
+    time (the profiler's own host cost makes it a lower bound); and the
+    number of kernels each class ran."""
     try:
-        with trace(activities=[ProfilerActivity.CPU,
-                               ProfilerActivity.CUDA]) as prof:
+        with device_trace(torch) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         # device-side events only (kernels, copies): an operator's row
         # on the host repeats its kernels' time
-        rows = sorted(((e.key, e.self_device_time_total / 1e3)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0),
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in device_events(prof)
+                       if e.self_device_time_total > 0),
                       key=lambda r: -r[1])
     except RuntimeError as exc:   # a measurement, not a check
         return {"error": str(exc)}
-    busy = sum(ms for _, ms in rows)
-    by_class = {}
-    for key, ms in rows:
+    busy = sum(r[1] for r in rows)
+    by_class, n_class = {}, {}
+    for key, ms, n in rows:
         cls = kernel_class(key)
         by_class[cls] = by_class.get(cls, 0.0) + ms
+        n_class[cls] = n_class.get(cls, 0) + n
     return {"wall_ms": wall, "device_ms": busy,
             "device_busy_share": busy / wall if rows else None,
-            "device_ms_by_class": by_class,
-            "top_ms": [[k[:60], ms] for k, ms in rows[:6]]}
+            "device_ms_by_class": by_class, "kernels_by_class": n_class,
+            "top_ms": [[k[:60], ms] for k, ms, _ in rows[:6]]}
 
 
 def kernel_class(name):
@@ -1069,121 +1164,242 @@ def train_check_cpu(mt, torch, net):
             "params_zero_grad_skipped": len(cpu_grads) - len(errs)}
 
 
+def run_way(mt, torch, make_step, way, x, y, steps, timed, values, prof):
+    """``steps`` training steps of a fresh ``make_step()``, called through
+    ``_eager_call`` (way "eager": op by op, the yardstick) or as users
+    call it (way "captured": on the card the first call captures the
+    step as one CUDA graph, each call replays it).  Returns (record,
+    (losses, values(step) cloned), [launches of the port's kernels in
+    each call]).  The record: losses; the steps before the timed ones
+    each end in a synchronize (``warmup_ms_each``); the last ``timed``
+    run back to back with one synchronize at the end, as bench.py
+    times them: ``step_ms`` is that window over its steps, and
+    ``step_ms_median`` the median of the steps' spans between CUDA
+    events recorded between them; peak memory (over the run, and over
+    the calls after the first, which for the captured way holds the
+    warm-up steps, their snapshot and the capture; a replay allocates
+    nothing, its intermediates live in the graph's private pool, which
+    the reserved bytes at the end count), ``prof(step, call)`` of one
+    more step, and the captures."""
+    launches = mt.ops.LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_step()
+    call = step._eager_call if way == "eager" else step
+    losses, warm_ms, per_call = [], [], []
+
+    def one():
+        mt.ops.reset_launches()
+        losses.append(call(x, y))               # the main path
+        per_call.append({k: v for k, v in launches.items() if v})
+
+    for i in range(steps - timed):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            peak_first = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(timed + 1)]
+    t0 = time.perf_counter()
+    for ev in events[:-1]:
+        ev.record()
+        one()
+    events[-1].record()
+    torch.cuda.synchronize()
+    window = (time.perf_counter() - t0) * 1e3
+    spans = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    final = (torch.stack(losses), [t.detach().clone() for t in values(step)])
+    vals = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in vals), f"{way} losses {vals}")
+    check(vals[-1] < vals[0], f"{way} loss did not fall: {vals}")
+    rec = {"losses": vals, "warmup_ms_each": warm_ms,
+           "step_ms": window / timed,
+           "step_ms_median": spans[len(spans) // 2],
+           "step_ms_min_max": [spans[0], spans[-1]],
+           "peak_memory_bytes": max(peak, peak_first),
+           "peak_memory_after_first_call_bytes": peak,
+           "reserved_bytes": reserved,
+           "profile": prof(step, call),
+           "captures": dict(step.trace_counts)}
+    if way == "captured":
+        check(rec["captures"] == {"train_step": 1},
+              f"captures {rec['captures']}, not one")
+    return rec, final, per_call
+
+
+def captured_vs_eager(mt, torch, make_step, x, y, steps, timed, values,
+                      prof):
+    """``run_way`` eager, then captured, from the same seeded start; the
+    two ways' losses and ``values(step)`` (parameters, moving stats)
+    must be equal bit for bit.  Returns (record, {way: [launches of
+    each call]})."""
+    recs, finals, counts = {}, {}, {}
+    for way in ("eager", "captured"):
+        recs[way], finals[way], counts[way] = run_way(
+            mt, torch, make_step, way, x, y, steps, timed, values, prof)
+    (le, ve), (lc, vc) = finals["eager"], finals["captured"]
+    bitwise = {"losses": bool(torch.equal(le, lc)),
+               "values": sum(not torch.equal(a, b) for a, b in zip(ve, vc)),
+               "values_compared": len(ve)}
+    recs["bitwise_equal"] = bitwise
+    check(bitwise["losses"] and bitwise["values"] == 0,
+          f"captured step vs eager: losses {lc.tolist()} vs {le.tolist()}, "
+          f"{bitwise['values']} of {len(ve)} tensors differ")
+    return recs, counts
+
+
+def check_train_launches(mt, counts, ways, what):
+    """Each eager step launched flash_fwd, flash_dq and flash_dkv once per
+    layer; the captured step launched them at its first call only (the
+    warm-up steps and the capture), and one profiled step of each way
+    (a replay, for the captured one) ran each kernel once per layer on
+    the card."""
+    layers = MODEL["n_layers"]
+    first = (mt.parallel._graph.WARMUP_STEPS + 1) * layers
+    for k in TRAIN_KERNELS:
+        eager = [c.get(k, 0) for c in counts["eager"]]
+        capt = [c.get(k, 0) for c in counts["captured"]]
+        check(all(n == layers for n in eager),
+              f"{what} eager steps launched {k} {eager} times, not "
+              f"{layers} each")
+        check(capt[0] == first and not any(capt[1:]),
+              f"{what} captured steps launched {k} {capt} times, not "
+              f"{first} at the first call and none at replays")
+        for way in ("eager", "captured"):
+            n = ways[way]["profile"].get("kernels_by_class", {}).get(k)
+            check(n == layers, f"{what} {way}: one step ran {k} {n} times "
+                               f"on the card, not {layers}")
+
+
+def train_dropout(mt, torch):
+    """Dropout inside a captured step, on a small TransformerLM (2
+    layers, d 256, dropout 0.1, B=4 x L=256, Adam at lr 0 so that only
+    the masks move the loss): replays draw fresh masks (three replays,
+    three losses), reseeding the generator repeats them bit for bit,
+    and the eager step from the same seed gives the same losses.  And
+    the mask itself: the Dropout op captured alone on 2^22 ones, two
+    replays, each keeping 1 - rate of them within 5 binomial standard
+    deviations, the two masks different."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        TransformerLM
+    from incubator_mxnet_tpu_torch.ops.nn import dropout
+    from incubator_mxnet_tpu_torch.parallel._graph import StepGraph
+    rate = 0.1
+    net = TransformerLM(vocab_size=1000, d_model=256, n_layers=2,
+                        n_heads=4, max_len=256, dropout=rate, device="cuda")
+    mt.initializer.initialize(net, mt.initializer.Xavier(),
+                              mt.random.generator(SEED))
+    step = mt.parallel.ShardedTrainStep(
+        net, "adam", dict(learning_rate=0.0), loss_fn=lm_loss)
+    gen = mt.random.generator(SEED + 9, "cuda")
+    x = torch.randint(0, 1000, (4, 256),
+                      generator=torch.Generator().manual_seed(SEED)).cuda()
+    first = [float(step(x, x, generator=gen)) for _ in range(3)]
+    gen.manual_seed(SEED + 9)
+    again = [float(step(x, x, generator=gen)) for _ in range(3)]
+    gen.manual_seed(SEED + 9)
+    eager = [float(step._eager_call(x, x, generator=gen)) for _ in range(3)]
+    check(len(set(first)) == 3, f"replays drew the same masks: {first}")
+    check(again == first, f"reseeded replays {again} vs {first}")
+    check(eager == first, f"the eager step from the same seed {eager} "
+                          f"vs the replays' {first}")
+    n = 1 << 22
+    ones = torch.ones(n, device="cuda")
+    mgen = mt.random.generator(SEED + 10, "cuda")
+    graph = StepGraph(lambda z: dropout(z, p=rate, _rng=mgen,
+                                        _training=True) != 0,
+                      lambda: [], "dropout")
+    masks = [graph((ones,), (mgen,))[0] for _ in range(2)]
+    kept = [float(m.float().mean()) for m in masks]
+    bound = 5 * math.sqrt(rate * (1 - rate) / n)
+    check(all(abs(k - (1 - rate)) <= bound for k in kept),
+          f"kept shares {kept}, not {1 - rate} within {bound}")
+    check(not torch.equal(masks[0], masks[1]), "two replays, one mask")
+    return {"rate": rate, "losses_replays": first,
+            "losses_reseeded": again, "losses_eager_same_seed": eager,
+            "eager_equal": eager == first, "captures": step.trace_counts,
+            "mask_elements": n, "kept_shares": kept,
+            "kept_bound": bound}
+
+
 def phase_train(mt, torch, net, card):
     import numpy as np
 
-    launches = mt.ops.LAUNCHES
     cpu_check = train_check_cpu(mt, torch, net)
     b, l = TRAIN
     vocab = MODEL["vocab_size"]
-    step = mt.parallel.ShardedTrainStep(
-        net, optimizer="adam", optimizer_params=dict(learning_rate=1e-4),
-        loss_fn=lm_loss, compute_dtype=torch.bfloat16)
     rs = np.random.RandomState(0)       # bench.py's tokens and labels
     toks = torch.from_numpy(
         rs.randint(0, vocab, (b, l)).astype(np.int32)).cuda()
     labels = torch.from_numpy(
         rs.randint(0, vocab, (b, l)).astype(np.int32)).cuda()
-    counts = {k: [] for k in TRAIN_KERNELS}
 
-    def one_step():
-        mt.ops.reset_launches()
-        loss = step(toks, labels)               # the main path
-        for k in TRAIN_KERNELS:
-            counts[k].append(launches[k])
-        return loss
+    def make_step(dtype):
+        def make():
+            mt.initializer.initialize(net, mt.initializer.Xavier(),
+                                      mt.random.generator(SEED))
+            return mt.parallel.ShardedTrainStep(
+                net, optimizer="adam",
+                optimizer_params=dict(learning_rate=1e-4),
+                loss_fn=lm_loss, compute_dtype=dtype)
+        return make
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    losses = [one_step() for _ in range(WARMUP_STEPS)]
-    torch.cuda.synchronize()
-    warm_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    losses += [one_step() for _ in range(TIMED_STEPS)]
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
-    layers = MODEL["n_layers"]
-    for k, n in counts.items():
-        check(all(c == layers for c in n),
-              f"train steps launched {k} {n} times, not {layers} each")
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    def params(step):
+        return list(step.params.values())
+
+    ways, counts = captured_vs_eager(
+        mt, torch, make_step(torch.bfloat16), toks, labels,
+        WARMUP_STEPS + TIMED_STEPS, TIMED_STEPS, params,
+        lambda step, call: profile(lambda: call(toks, labels), torch))
+    check_train_launches(mt, counts, ways, "bf16 train")
     check(all(p.dtype == torch.float32 for p in net.parameters()),
           "masters are not fp32")
-    prof = profile(lambda: step(toks, labels), torch)
-    tok_s = b * l / step_ms * 1e3
     flops_tok = net.train_flops_per_token(l)
-    del step                    # and its Adam state, before step (iv)
+    for way in ("eager", "captured"):
+        r = ways[way]
+        r["tokens_per_s"] = b * l / r["step_ms"] * 1e3
+        r["mfu"] = flops_tok * r["tokens_per_s"] / H100_BF16_FLOPS
     torch.cuda.empty_cache()
-    fp32, fp32_counts = fp32_train(mt, torch, net, toks, labels)
+    fp32, fp32_counts = captured_vs_eager(
+        mt, torch, make_step(None), toks, labels,
+        FP32_WARMUP_STEPS + FP32_TIMED_STEPS, FP32_TIMED_STEPS, params,
+        lambda step, call: profile(lambda: call(toks, labels), torch))
+    check_train_launches(mt, fp32_counts, fp32, "fp32 train")
+    for way in ("eager", "captured"):
+        fp32[way]["tokens_per_s"] = b * l / fp32[way]["step_ms"] * 1e3
+    check(all(p.dtype == torch.float32 for p in net.parameters()),
+          "parameters are not fp32")
+    torch.cuda.empty_cache()
+    drop = train_dropout(mt, torch)
     emit({"phase": "train", "card": card, "cpu_check": cpu_check,
           "batch": b, "seq": l, "optimizer": "adam", "lr": 1e-4,
           "compute_dtype": "bfloat16", "warmup_steps": WARMUP_STEPS,
-          "timed_steps": TIMED_STEPS, "losses": losses,
-          "warmup_ms": warm_ms, "step_ms": step_ms,
-          "tokens_per_s": tok_s, "train_flops_per_token": flops_tok,
-          "mfu": flops_tok * tok_s / H100_BF16_FLOPS,
+          "timed_steps": TIMED_STEPS, "train_flops_per_token": flops_tok,
           "mfu_peak": "989 TFLOP/s bf16 dense",
-          "peak_memory_bytes": peak, "launches_per_step": counts,
-          "profile": prof, "fp32_step": fp32})
-    return counts, fp32_counts
-
-
-def fp32_train(mt, torch, net, toks, labels):
-    """(iv) the default ShardedTrainStep, fp32 (compute_dtype=None), at
-    bench.py's width and batch with step (ii)'s optimizer, loss and
-    tokens: the path that runs the fp32 flash_dq and flash_dkv once per
-    layer a step.  It starts where (ii) started, from the seeded weights
-    and a fresh Adam state (a fresh Adam on weights that (ii) has moved
-    first steps every parameter by lr and raises the loss).  Returns
-    its record and the launches of each step."""
-    launches = mt.ops.LAUNCHES
-    mt.initializer.initialize(net, mt.initializer.Xavier(),
-                              mt.random.generator(SEED))
-    step = mt.parallel.ShardedTrainStep(
-        net, optimizer="adam", optimizer_params=dict(learning_rate=1e-4),
-        loss_fn=lm_loss)
-    counts = {k: [] for k in TRAIN_KERNELS}
-
-    def one_step():
-        mt.ops.reset_launches()
-        loss = step(toks, labels)               # the main path
-        for k in TRAIN_KERNELS:
-            counts[k].append(launches[k])
-        return loss
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    losses = [one_step() for _ in range(FP32_WARMUP_STEPS)]
-    torch.cuda.synchronize()
-    warm_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    losses += [one_step() for _ in range(FP32_TIMED_STEPS)]
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / FP32_TIMED_STEPS
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
-    layers = MODEL["n_layers"]
-    for k, n in counts.items():
-        check(all(c == layers for c in n),
-              f"fp32 train steps launched {k} {n} times, not {layers} "
-              f"each")
-    check(all(math.isfinite(x) for x in losses), f"fp32 losses {losses}")
-    check(losses[-1] < losses[0], f"fp32 loss did not fall: {losses}")
-    check(all(p.dtype == torch.float32 for p in net.parameters()),
-          "parameters are not fp32")
-    prof = profile(lambda: step(toks, labels), torch)
-    b, l = toks.shape
-    return {"compute_dtype": "float32", "warmup_steps": FP32_WARMUP_STEPS,
-            "timed_steps": FP32_TIMED_STEPS, "losses": losses,
-            "warmup_ms": warm_ms, "step_ms": step_ms,
-            "tokens_per_s": b * l / step_ms * 1e3,
-            "peak_memory_bytes": peak, "launches_per_step": counts,
-            "profile": prof}, counts
+          "graph_warmup_steps": mt.parallel._graph.WARMUP_STEPS,
+          "bf16_step": ways, "launches_per_call": counts,
+          "fp32_step": {"compute_dtype": "float32",
+                        "warmup_steps": FP32_WARMUP_STEPS,
+                        "timed_steps": FP32_TIMED_STEPS, **fp32,
+                        "launches_per_call": fp32_counts},
+          "dropout": drop})
+    # the main path is the captured step; the eager yardstick's counts
+    # stay in this phase's record (launches_per_call)
+    return ({k: [c.get(k, 0) for c in counts["captured"]]
+             for k in TRAIN_KERNELS},
+            {k: [c.get(k, 0) for c in fp32_counts["captured"]]
+             for k in TRAIN_KERNELS},
+            {k: {"train": ways["captured"]["profile"]["kernels_by_class"]
+                 .get(k, 0),
+                 "fp32_train": fp32["captured"]["profile"]
+                 ["kernels_by_class"].get(k, 0)}
+             for k in TRAIN_KERNELS})
 
 
 # --------------------------------------------------------------- resnet
@@ -1387,25 +1603,30 @@ def resnet_timed_steps(torch, step, x, y, warmup, timed):
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
+def steady_peak(torch, fn, calls=2):
+    """Peak memory over ``calls`` more calls of ``fn`` (past any first
+    call's capture)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
 def resnet_step_profile(torch, run, run_optimizer):
     """One profiled step (``run()``)'s device ms by class (conv,
     batchnorm, pool, matmul, optimizer, other) and the busy share.  The
     optimizer's elementwise kernels carry no telling name, so its update
     (``run_optimizer()``) is timed alone and moved out of "other"."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
-    torch.cuda.synchronize()
-    with trace(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+    with device_trace(torch) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by, rows = {}, []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+    for e in device_events(prof):
+        if e.self_device_time_total:
             ms = e.self_device_time_total / 1e3
             cls = resnet_class(e.key)
             by[cls] = by.get(cls, 0.0) + ms
@@ -1450,51 +1671,84 @@ def resnet_loop(mt, torch, x, y):
             sorted(step_ms[1:])[len(step_ms[1:]) // 2]}
 
 
+def resnet_ways(mt, torch, x, y, dtype):
+    """bench.py's step (functionalize, ShardedTrainStep SGD, ``dtype``
+    compute over fp32 masters) from the seeded weights over the warm-up
+    and timed steps: eager and captured with cuDNN's deterministic
+    algorithms (``captured_vs_eager``: parameters and moving stats
+    compared bit for bit; cuDNN's default fp32 algorithms differ from
+    run to run even eagerly), then captured with cuDNN's defaults, the
+    step as users run it ("captured_default", the headline time)."""
+
+    def make():
+        net = resnet_net(mt, torch, "cuda")
+        return mt.parallel.ShardedTrainStep(
+            mt.parallel.functionalize(net), "sgd", RESNET_SGD,
+            compute_dtype=dtype)
+
+    def values(step):
+        return list(step.params.values()) + list(step.states.values())
+
+    def prof(step, call):
+        # the optimizer alone on zero gradients: the same kernels
+        zeros = {n: torch.zeros_like(p) for n, p in step.params.items()}
+        out = resnet_step_profile(
+            torch, lambda: call(x, y),
+            lambda: step.opt.update(step.params, zeros, step.opt_state))
+        out["host_profile"] = host_profile(lambda: call(x, y), torch,
+                                           calls=1, top=12)
+        return out
+
+    steps = RESNET_WARMUP + RESNET_TIMED
+    torch.backends.cudnn.deterministic = True
+    try:
+        ways, counts = captured_vs_eager(mt, torch, make, x, y, steps,
+                                         RESNET_TIMED, values, prof)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ways["cudnn_deterministic"] = True
+    ways["captured_default"], _, counts["captured_default"] = run_way(
+        mt, torch, make, "captured", x, y, steps, RESNET_TIMED, values,
+        prof)
+    for way in ("eager", "captured", "captured_default"):
+        ways[way]["images_per_s"] = RESNET_BATCH / ways[way]["step_ms"] \
+            * 1e3
+    return ways, counts
+
+
 def phase_resnet(mt, torch, card):
-    launches = mt.ops.LAUNCHES
     tf32 = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
             "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     cpu_check = resnet_check_cpu(mt, torch)
     x, y = resnet_batch(torch)
     net = resnet_net(mt, torch, "cuda")
     flops_img = resnet_train_flops(mt, torch, net)
+    del net
     drift = abs(flops_img - RESNET_FLOPS_PER_IMG) / RESNET_FLOPS_PER_IMG
     check(drift <= 0.02, f"train FLOPs per image {flops_img} is "
                          f"{drift:.3%} from bench.py's 3 x 7.826e9")
-    pure = mt.parallel.functionalize(net)
-    step = mt.parallel.ShardedTrainStep(pure, "sgd", RESNET_SGD,
-                                        compute_dtype=torch.bfloat16)
-    mt.ops.reset_launches()
-    bf16 = resnet_timed_steps(torch, step, x, y, RESNET_WARMUP,
-                              RESNET_TIMED)           # the main path
-    n = dict(launches)
-    check(all(p.dtype == torch.float32 for p in step.params.values()),
-          "masters are not fp32")
-    # the optimizer alone on zero gradients: the same kernels
-    zeros = {n: torch.zeros_like(p) for n, p in step.params.items()}
-    bf16["profile"] = resnet_step_profile(
-        torch, lambda: step(x, y),
-        lambda: step.opt.update(step.params, zeros, step.opt_state))
-    bf16["host_profile"] = host_profile(lambda: step(x, y), torch,
-                                        calls=1, top=12)
-    bf16["mfu"] = flops_img * bf16["images_per_s"] / H100_BF16_FLOPS
-    del step, pure, net
+    bf16, bf16_counts = resnet_ways(mt, torch, x, y, torch.bfloat16)
+    for way in ("eager", "captured", "captured_default"):
+        bf16[way]["mfu"] = flops_img * bf16[way]["images_per_s"] \
+            / H100_BF16_FLOPS
     torch.cuda.empty_cache()
-    net = resnet_net(mt, torch, "cuda")
-    step = mt.parallel.ShardedTrainStep(net, "sgd", RESNET_SGD)
-    fp32 = resnet_timed_steps(torch, step, x, y, RESNET_WARMUP,
-                              RESNET_TIMED)
-    del step, net
+    fp32, fp32_counts = resnet_ways(mt, torch, x, y, None)
     torch.cuda.empty_cache()
     loop = resnet_loop(mt, torch, x, y)
+    n = {}
+    for c in bf16_counts["captured_default"] \
+            + fp32_counts["captured_default"]:
+        for k, v in c.items():
+            n[k] = n.get(k, 0) + v
     emit({"phase": "resnet", "card": card, "model": "resnet50_v1",
           "batch": RESNET_BATCH, "image": list(RESNET_IMAGE),
           "optimizer": "sgd", **RESNET_SGD, "tf32": tf32,
           "cpu_check": cpu_check, "train_flops_per_image": flops_img,
           "flops_drift_vs_bench": drift, "mfu_peak":
           "989 TFLOP/s bf16 dense", "warmup_steps": RESNET_WARMUP,
-          "timed_steps": RESNET_TIMED, "bf16_step": bf16,
-          "fp32_step": fp32, "gluon_loop": loop,
+          "timed_steps": RESNET_TIMED,
+          "graph_warmup_steps": mt.parallel._graph.WARMUP_STEPS,
+          "bf16_step": bf16, "fp32_step": fp32, "gluon_loop": loop,
           "kernel_launches": {k: v for k, v in n.items() if v}})
     return n
 
@@ -1939,10 +2193,10 @@ def resnet_symbol(mt, net):
                                 name="softmax")
 
 
-def resnet_module(mt, sym, device, arrays, batch):
+def resnet_module(mt, sym, device, arrays, batch, kvstore="local"):
     """A Module of ``sym`` bound for training at ``batch`` on ``device``
     with ``arrays`` ({name: NDArray or array}) as its weights, SGD as
-    bench.py's."""
+    bench.py's, through ``kvstore``."""
     args = set(sym.list_arguments())
     mod = mt.mod.Module(sym, context=device)
     mod.bind(data_shapes=[("data", (batch,) + RESNET_IMAGE)],
@@ -1950,7 +2204,7 @@ def resnet_module(mt, sym, device, arrays, batch):
     mod.init_params(
         arg_params={k: v for k, v in arrays.items() if k in args},
         aux_params={k: v for k, v in arrays.items() if k not in args})
-    mod.init_optimizer(kvstore="local", optimizer="sgd",
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
                        optimizer_params=RESNET_SGD)
     return mod
 
@@ -2070,9 +2324,8 @@ def module_resnet(mt, torch, launches):
     cpu_check = module_check_cpu(mt, torch, sym, net)
     x, y = resnet_batch(torch)
     yf = y.float()
-    mod = resnet_module(mt, sym, "cuda", {
-        k: p.data() for k, p in net.collect_params().items()},
-        RESNET_BATCH)
+    weights = {k: p.data().copy() for k, p in net.collect_params().items()}
+    mod = resnet_module(mt, sym, "cuda", weights, RESNET_BATCH)
     batch = mt.io.DataBatch([mt.nd.NDArray(x)], [mt.nd.NDArray(yf)])
     # the Module's first step against the Gluon fp32 step's, same weights
     mod.forward_backward(batch)
@@ -2096,18 +2349,130 @@ def module_resnet(mt, torch, launches):
     timed = resnet_timed_steps(torch, step, x, y, RESNET_WARMUP,
                                RESNET_TIMED)          # the main path
     counts = dict(launches)
+    timed["peak_memory_steady_bytes"] = steady_peak(torch,
+                                                    lambda: step(x, y))
+    timed["reserved_bytes"] = torch.cuda.memory_reserved()
     timed["profile"] = resnet_step_profile(
         torch, lambda: step(x, y), mod.update)
     timed["host_profile"] = host_profile(lambda: step(x, y), torch,
                                          calls=1, top=12)
     ckpt = module_checkpoint(mt, torch, mod, sym)
+    del mod
+    torch.cuda.empty_cache()
+    tpu, tpu_counts = module_resnet_tpu(mt, torch, sym, weights, batch, x,
+                                        y, first)
     nodes = len(json.loads(sym.tojson())["nodes"])
     return {"symbol_nodes": nodes, "arguments": len(sym.list_arguments()),
             "aux_states": len(sym.list_auxiliary_states()),
             "cpu_check": cpu_check, "first_loss": first,
             "gluon_fp32_loss": gluon, "loss_rel_vs_gluon": gluon_rel,
             "loss_tol_vs_gluon": 1e-5, "fp32_step": timed,
-            "checkpoint": ckpt}, counts
+            "checkpoint": ckpt, "kvstore_tpu": tpu}, counts, tpu_counts
+
+
+# tests/test_torch_module.py's tolerance between the 'local' and 'tpu'
+# routes (test_module_fit_tpu_kvstore_matches_local: rtol 2e-4)
+MODULE_TPU_TOL = 2e-4
+MODULE_AGREE_STEPS = 2       # the second update is the first momentum's
+
+
+def module_routes_agree(mt, torch, sym, weights, batch, yf):
+    """The 'tpu' route's fused update against the 'local' route's
+    Updater: MODULE_AGREE_STEPS steps of each from the same weights,
+    under cuDNN's deterministic algorithms (its default fp32 ones differ
+    run to run, and at lr 0.1 the loss amplifies that past the third
+    step).  Each step's loss within MODULE_TPU_TOL rel; after the steps,
+    each parameter's move from the weights (lr, wd, rescale_grad and
+    momentum act on it) within MODULE_TPU_TOL of its largest entry, and
+    each moving stat within MODULE_TPU_TOL rel."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kv in ("local", "tpu"):
+            mod = resnet_module(mt, sym, "cuda", weights, RESNET_BATCH,
+                                kvstore=kv)
+            losses = []
+            for _ in range(MODULE_AGREE_STEPS):
+                mod.forward_backward(batch)
+                mod.update()
+                losses.append(float(module_loss(mod, yf, torch)))
+            arg, aux = mod.get_params()
+            out[kv] = (losses, {k: v.handle for k, v in arg.items()},
+                       {k: v.handle for k, v in aux.items()})
+            del mod
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (ll, lw, la), (tl, tw, ta) = out["local"], out["tpu"]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(ll, tl))
+    move_err = 0.0
+    for k, w in lw.items():
+        w0 = weights[k].handle.to(w.device)
+        moved = (w - w0).abs().max().item()
+        if moved:
+            move_err = max(move_err, ((tw[k] - w0) - (w - w0)).abs().max()
+                           .item() / moved)
+    stat_err = max((ta[k] - v).abs().max().item()
+                   / max(v.abs().max().item(), 1e-30) for k, v in la.items())
+    check(loss_rel <= MODULE_TPU_TOL,
+          f"kvstore='tpu' losses {tl} vs 'local' {ll}: rel {loss_rel}")
+    check(move_err <= MODULE_TPU_TOL,
+          f"kvstore='tpu' parameter moves vs 'local': {move_err}")
+    check(stat_err <= MODULE_TPU_TOL,
+          f"kvstore='tpu' moving stats vs 'local': rel {stat_err}")
+    return {"steps": MODULE_AGREE_STEPS, "cudnn_deterministic": True,
+            "losses_local": ll, "losses_tpu": tl, "loss_rel_err": loss_rel,
+            "param_move_err": move_err, "moving_stats_rel_err": stat_err,
+            "params_compared": len(lw), "moving_stats_compared": len(la),
+            "tol": MODULE_TPU_TOL}
+
+
+def module_resnet_tpu(mt, torch, sym, weights, batch, x, y, local_first):
+    """(ii) the same ResNet-50 Symbol and weights through Module with
+    kvstore='tpu': the fused SymbolTrainStep, one CUDA graph replay a
+    step.  Its first steps against the 'local' route's
+    (``module_routes_agree``); the warm-up and timed steps, the first
+    loss within MODULE_TPU_TOL of the 'local' route's; one capture; a
+    profiled replay; and fit of MODULE_FIT_BATCHES batches, a
+    checkpoint reloaded bit for bit.  Returns its record and its main
+    path's launches."""
+    yf = y.float()
+    agree = module_routes_agree(mt, torch, sym, weights, batch, yf)
+    mod = resnet_module(mt, sym, "cuda", weights, RESNET_BATCH,
+                        kvstore="tpu")
+
+    def step(_x, _y):
+        mod.forward_backward(batch)
+        mod.update()
+        return module_loss(mod, yf, torch)
+
+    launches = mt.ops.LAUNCHES
+    mt.ops.reset_launches()
+    timed = resnet_timed_steps(torch, step, x, y, RESNET_WARMUP,
+                               RESNET_TIMED)          # the main path
+    counts = dict(launches)
+    fused = mod._mesh_step
+    first = timed["losses"][0]
+    rel = abs(first - local_first) / abs(local_first)
+    check(rel <= MODULE_TPU_TOL, f"kvstore='tpu' first loss {first} vs "
+                                 f"'local' {local_first}: rel {rel}")
+    check(fused.trace_counts == {"symbol_train_step": 1},
+          f"kvstore='tpu' captures {fused.trace_counts}, not one")
+    timed["peak_memory_steady_bytes"] = steady_peak(torch,
+                                                    lambda: step(x, y))
+    timed["reserved_bytes"] = torch.cuda.memory_reserved()
+    zeros = {n: torch.zeros_like(p) for n, p in fused.params.items()}
+    timed["profile"] = resnet_step_profile(
+        torch, lambda: step(x, y),
+        lambda: fused.opt.update(fused.params, zeros, fused.opt_state,
+                                 scale=fused._scale, lr=fused._lr))
+    timed["host_profile"] = host_profile(lambda: step(x, y), torch,
+                                         calls=1, top=12)
+    timed["captures"] = dict(fused.trace_counts)
+    ckpt = module_checkpoint(mt, torch, mod, sym)
+    return {"first_loss": first, "first_loss_rel_vs_local": rel,
+            "tol_vs_local": MODULE_TPU_TOL, "vs_local": agree,
+            "fp32_step": timed, "checkpoint": ckpt}, counts
 
 
 def module_rtc(mt, torch, launches):
@@ -2177,11 +2542,78 @@ def module_rtc(mt, torch, launches):
           f"module rtc loss did not fall: {losses}")
     check(losses[0] == float(loss_nd.asnumpy()),
           "the Module's first loss differs from the nd path's")
+    del mod
+    tpu, tpu_counts = module_rtc_tpu(mt, torch, graph, w0, xn, tn, loss_nd,
+                                     losses)
     return {"x": list(RTC_X), "w": [RTC_X[1], RTC_FULL[1]],
             "t": list(RTC_FULL), "lr": RTC_LR, "steps": RTC_STEPS,
             "launches_per_forward": per_forward,
             "bitwise_equal_to_nd_path": bitwise, "losses": losses,
-            "step_ms": step_ms}, counts
+            "step_ms": step_ms, "kvstore_tpu": tpu}, counts, tpu_counts
+
+
+def kernel_runs(torch, fn, name):
+    """How many times the card ran a kernel whose name holds ``name`` in
+    one call of ``fn`` (torch.profiler), and the kernels the trace
+    held."""
+    with device_trace(torch) as prof:
+        fn()
+    kernels = [e for e in device_events(prof)
+               if not e.key.startswith(("Memcpy", "Memset"))]
+    return (sum(e.count for e in kernels if name in e.key),
+            sorted(f"{e.key[:48]} x{e.count}" for e in kernels))
+
+
+def module_rtc_tpu(mt, torch, graph, w0, xn, tn, loss_nd, local_losses):
+    """(iii) the rtc Symbol's SGD steps through Module with
+    kvstore='tpu' (the fused step, one CUDA graph replay a step): the
+    wrapper launches fused_scale_shift_relu at the first call only
+    (warm-up steps and capture), one replay runs it once on the card,
+    the first loss equals the nd path's bit for bit and the later ones
+    the 'local' route's within MODULE_TPU_TOL."""
+    launches = mt.ops.LAUNCHES
+    mod = mt.mod.Module(graph, data_names=("x", "t"), label_names=None,
+                        context="cuda")
+    mod.bind(data_shapes=[("x", RTC_X), ("t", RTC_FULL)])
+    mod.init_params(arg_params={"w": mt.nd.array(w0, ctx="cuda")})
+    mod.init_optimizer(kvstore="tpu", optimizer="sgd",
+                       optimizer_params=dict(learning_rate=RTC_LR,
+                                             rescale_grad=1.0))
+    batch = mt.io.DataBatch([xn, tn], [])
+    losses, step_ms, per_call = [], [], []
+    for _ in range(RTC_STEPS):                           # the main path
+        mt.ops.reset_launches()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(float(mod.get_outputs()[0].asnumpy()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_call.append(launches["fused_scale_shift_relu"])
+    first = (mt.parallel._graph.WARMUP_STEPS + 1)
+    check(per_call == [first] + [0] * (RTC_STEPS - 1),
+          f"kvstore='tpu' launched fused_scale_shift_relu {per_call}, not "
+          f"{first} at the first call and none at replays")
+
+    def one():
+        mod.forward_backward(batch)
+        mod.update()
+
+    runs, seen = kernel_runs(torch, one, "fused_scale_shift_relu")
+    check(runs == 1, f"one replay ran fused_scale_shift_relu {runs} times; "
+                     f"the trace held {seen}")
+    check(losses[0] == float(loss_nd.asnumpy()),
+          f"kvstore='tpu' first loss {losses[0]} vs the nd path's")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, local_losses))
+    check(rel <= MODULE_TPU_TOL, f"kvstore='tpu' losses {losses} vs "
+                                 f"'local' {local_losses}")
+    check(mod._mesh_step.trace_counts == {"symbol_train_step": 1},
+          f"captures {mod._mesh_step.trace_counts}")
+    return {"losses": losses, "step_ms": step_ms,
+            "launches_per_call": per_call, "runs_per_replay": runs,
+            "first_loss_equals_nd_path": True,
+            "max_rel_vs_local": rel,
+            "captures": dict(mod._mesh_step.trace_counts)}, {
+        "fused_scale_shift_relu": sum(per_call)}
 
 
 def phase_module(mt, torch, card):
@@ -2191,19 +2623,23 @@ def phase_module(mt, torch, card):
     mt.ops.reset_launches()
     mlp = module_mlp(mt)                                 # the main path
     counts = {k: v for k, v in launches.items() if v}
-    resnet, resnet_counts = module_resnet(mt, torch, launches)
+    resnet, resnet_counts, resnet_tpu = module_resnet(mt, torch, launches)
     torch.cuda.empty_cache()
-    rtc, rtc_counts = module_rtc(mt, torch, launches)
-    for c in (resnet_counts, rtc_counts):
+    rtc, rtc_counts, rtc_tpu = module_rtc(mt, torch, launches)
+    tpu = {}
+    for c, total in ((resnet_counts, counts), (rtc_counts, counts),
+                     (resnet_tpu, tpu), (rtc_tpu, tpu)):
         for k, v in c.items():
-            counts[k] = counts.get(k, 0) + v
+            total[k] = total.get(k, 0) + v
     emit({"phase": "module", "card": card, "tf32": tf32, "mlp": mlp,
           "resnet50": {"model": "resnet50_v1", "batch": RESNET_BATCH,
                        "image": list(RESNET_IMAGE), "optimizer": "sgd",
                        **RESNET_SGD, "kvstore": "local", **resnet},
           "rtc_symbol": rtc,
-          "kernel_launches": {k: v for k, v in counts.items() if v}})
-    return counts
+          "kernel_launches": {k: v for k, v in counts.items() if v},
+          "kernel_launches_kvstore_tpu": {k: v for k, v in tpu.items()
+                                          if v}})
+    return counts, tpu
 
 
 def card_line():
@@ -2230,6 +2666,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     try:
         card = card_line()
+        keeps = {"start": trace_keeps(torch)}
         seconds = {}
 
         def timed(name, fn, *args):
@@ -2245,13 +2682,16 @@ def main():
         serve_launches = timed("serve", phase_serve, mt, torch, net)
         engine_launches = timed("serve_engine", phase_serve_engine, mt,
                                 torch, net)
-        train_launches, fp32_launches = timed("train", phase_train, mt,
-                                              torch, net, card)
+        train_launches, fp32_launches, replay_runs = timed(
+            "train", phase_train, mt, torch, net, card)
         del net
         resnet_launches = timed("resnet", phase_resnet, mt, torch, card)
         rtc_entries, nd_flash = timed("rtc", phase_rtc, mt, torch)
-        module_launches = timed("module", phase_module, mt, torch, card)
-        emit({"phase_seconds": seconds, "device_ms_traces": TRACES})
+        module_launches, module_tpu = timed("module", phase_module, mt,
+                                            torch, card)
+        keeps["end"] = trace_keeps(torch)
+        emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
+              "trace_keeps": keeps})
         entry["launches_by_path"] = {"forward": fwd_launches,
                                      "serve": serve_launches,
                                      "serve_engine":
@@ -2259,16 +2699,20 @@ def main():
                                      "train": train_launches["flash_fwd"],
                                      "fp32_train": fp32_launches["flash_fwd"],
                                      "nd": nd_flash}
+        entry["runs_per_replay"] = replay_runs["flash_fwd"]
         for e in bwd_entries:
             e["launches_by_path"] = {
                 "serve_engine": engine_launches[e["name"]],
                 "train": train_launches[e["name"]],
                 "fp32_train": fp32_launches[e["name"]]}
+            e["runs_per_replay"] = replay_runs[e["name"]]
             e["fp32_train"]["launches"] = sum(fp32_launches[e["name"]])
         for e in [entry] + bwd_entries + rtc_entries:
             e["launches_by_path"]["resnet"] = resnet_launches.get(
                 e["name"], 0)
             e["launches_by_path"]["module"] = module_launches.get(
+                e["name"], 0)
+            e["launches_by_path"]["module_tpu"] = module_tpu.get(
                 e["name"], 0)
             e["launches"] = sum(
                 n if isinstance(n, int) else sum(n)

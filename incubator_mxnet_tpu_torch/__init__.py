@@ -14,7 +14,8 @@ torch's own, ``engine``, and ``rtc``, which turns a CUDA kernel given as
 source text into an op.  ``gluon`` (Parameter, Block, layers, losses,
 the Trainer, the ResNet and transformer model zoo), ``optimizer`` and
 ``lr_scheduler`` train through it; ``parallel`` holds the functional
-train step.  The symbolic surface rides on the same registry: ``sym``
+train steps (on a CUDA device each one captured CUDA graph replay) and
+the mesh, ``kvstore`` the parameter store.  The symbolic surface rides on the same registry: ``sym``
 (Symbol, one function per op), ``Executor``, ``mod`` (``Module.fit``),
 ``metric``, ``io``, ``callback``, ``model`` (checkpoints) and
 ``monitor``.  ``serving`` serves ``TransformerLM`` traffic by
@@ -37,14 +38,16 @@ from . import symbol
 from . import symbol as sym
 from .symbol import Symbol
 from .executor import Executor
-from . import metric, io, callback, model, monitor
+from . import metric, io, callback, kvstore, model, monitor
+from . import kvstore as kv
 from .model import load_checkpoint, save_checkpoint
 from . import module
 from . import module as mod
 from .module import Module
 from .monitor import Monitor
 from .io import DataBatch, DataDesc, DataIter, NDArrayIter
-from .context import cpu, gpu, default_device
+from .context import (Context, cpu, gpu, cpu_pinned, current_context,
+                      num_gpus, gpu_memory_info, default_device)
 
 __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "initializer", "init", "ops", "gluon", "convert", "parallel",
@@ -54,4 +57,6 @@ __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "Executor", "metric", "io", "callback", "model", "monitor",
            "load_checkpoint", "save_checkpoint", "module", "mod",
            "Module", "Monitor", "DataBatch", "DataDesc", "DataIter",
-           "NDArrayIter", "cpu", "gpu", "default_device"]
+           "NDArrayIter", "kvstore", "kv", "Context", "cpu", "gpu",
+           "cpu_pinned", "current_context", "num_gpus", "gpu_memory_info",
+           "default_device"]

@@ -25,6 +25,8 @@ through DLPack (``nd.from_dlpack``), or as files, since ``nd.save`` and
 import numpy as np
 import torch
 
+from .context import as_device
+
 __all__ = ["load_reference_weights", "load_gluon_params"]
 
 
@@ -63,7 +65,7 @@ def load_gluon_params(block, arrays, ctx=None):
                 and tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(arr.shape)}, the "
                              f"block has {tuple(shape)}")
-        device = torch.device(ctx) if ctx is not None else p._target(None)
+        device = as_device(ctx) if ctx is not None else p._target(None)
         if p._allocated() and p._var.device != device:
             p.reset_ctx(device)
         p.set_data(arr.to(device=device, dtype=p._tdtype))

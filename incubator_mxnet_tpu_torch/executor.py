@@ -42,7 +42,7 @@ import torch
 
 from . import random as _random
 from .base import MXNetError, torch_dtype
-from .context import resolve
+from .context import as_device, resolve
 from .ndarray.ndarray import NDArray
 from .symbol.symbol import _topo
 
@@ -70,7 +70,9 @@ def build_graph_fn(symbol, placements=None, default_device=None,
                    tap=None):
     """The evaluation function of a Symbol graph:
     ``run(arg_vals, aux_vals, seed, is_train) -> (outputs, aux_updates)``
-    on torch tensors, in whatever grad mode the caller set.
+    on torch tensors, in whatever grad mode the caller set.  ``seed`` is
+    the forward's seed, or a callable ``(fold, device) -> Generator``
+    giving the ``fold``-th random node its generator.
 
     ``placements`` (id(node) -> torch.device) moves each placed node's
     inputs to its device; ``default_device`` is where creation ops
@@ -79,12 +81,24 @@ def build_graph_fn(symbol, placements=None, default_device=None,
     tensors (the monitor hook)."""
     order = _topo(symbol._heads)
     heads = list(symbol._heads)
+    # each op output leaves the walk's table after its last reader, so
+    # only what autograd saved outlives it (as in an eager forward)
+    last = {}
+    for k, node in enumerate(order):
+        for n, i in node.inputs:
+            if not n.is_variable:
+                last[(id(n), i)] = k
+    keep = {(id(n), i) for n, i in heads}
+    drop = [[] for _ in order]
+    for key, k in last.items():
+        if key not in keep:
+            drop[k].append(key)
 
     def run(arg_vals, aux_vals, seed, is_train):
         env = {}
         aux_updates = {}
         fold = 0
-        for node in order:
+        for k, node in enumerate(order):
             if node.is_variable:
                 if node.name in arg_vals:
                     env[(id(node), 0)] = arg_vals[node.name]
@@ -107,7 +121,8 @@ def build_graph_fn(symbol, placements=None, default_device=None,
             if op.needs_mode:
                 params["_training"] = is_train
             if op.needs_rng:
-                params["_rng"] = _node_generator(seed, fold, dev)
+                params["_rng"] = seed(fold, dev) if callable(seed) \
+                    else _node_generator(seed, fold, dev)
                 fold += 1
             outs = op.fn(*ins, **params)
             outs_list = list(outs) if isinstance(outs, (tuple, list)) \
@@ -122,6 +137,8 @@ def build_graph_fn(symbol, placements=None, default_device=None,
                 tap(node.name, outs_list)
             for i, o in enumerate(outs_list):
                 env[(id(node), i)] = o
+            for key in drop[k]:
+                del env[key]
         return [env[(id(n), i)] for n, i in heads], aux_updates
 
     return run
@@ -133,7 +150,7 @@ def _scan_ctx_groups(symbol, group2ctx):
     devices = {}
     for g, c in group2ctx.items():
         try:
-            devices[g] = torch.device(c)
+            devices[g] = as_device(c)
         except (TypeError, RuntimeError):
             raise TypeError(f"group2ctx[{g!r}] must be a device, got "
                             f"{type(c).__name__}") from None

@@ -18,8 +18,7 @@ An input width given as 0 (``in_units=0``, ``in_channels=0``, the
 defaults) is deferred to the first forward, which sets it through the
 op's shape hook (``ops/shape_hooks.py``).
 """
-import torch
-
+from ...context import as_device
 from ...ops.shape_hooks import HOOKS
 from ..block import Block, HybridBlock
 
@@ -36,7 +35,7 @@ def _place(block, device):
     of known shape are made now."""
     if device is None:
         return
-    device = torch.device(device)
+    device = as_device(device)
     for _, p in block._gluon_params.values():
         p._device = device
         if p._shape_known():

@@ -203,7 +203,7 @@ class Parameter:
 
     def _target(self, ctx):
         if ctx is not None:
-            return torch.device(ctx)
+            return context.as_device(ctx)
         if self._allocated():
             return self._var.device
         return self._device if self._device is not None \
@@ -309,7 +309,7 @@ class Parameter:
         """Move the parameter (and its gradient buffer) to ``ctx``."""
         if isinstance(ctx, (list, tuple)):
             ctx = ctx[0]
-        device = torch.device(ctx)
+        device = context.as_device(ctx)
         if not self._allocated():
             self._device = device
             return

@@ -16,27 +16,28 @@ A parameter whose gradient buffer was never made (``_grad is None``) is
 stale: ``step`` raises unless ``ignore_stale_grad``, and then leaves its
 weight and optimizer state alone.
 
-On one card the kvstore types 'device', 'local' and None need no
-KVStore, the reference's single-device rule.  'tpu' and the 'dist_*'
-types need the multi-card half of ROADMAP item A4 (kvstore.py, dist.py,
-parallel/mesh.py over NCCL) and raise.  So do the environment settings
-that would turn on the step guard or loss scaling
-(``MXTPU_NONFINITE_POLICY``, ``MXTPU_LOSS_SCALE*``), which come with
-ROADMAP item A11, as do telemetry, tracing and ``arm_perf``.
+The kvstore (``_init_kvstore`` at the first step, ``model.
+_create_kvstore``): on one device 'device', 'local' and None need no
+store; a ``KVStore`` object, a 'dist_*' name or 'tpu' give one.
+``'tpu'`` takes the ambient mesh (``parallel.use_mesh``) when the
+Trainer is made, as the reference does; the gradients come reduced from
+the step that made them, so no store is needed.  The whole-tree update
+runs whatever the store, on one process; the per-parameter route pushes
+and pulls through the store where there is one.  A mesh or store over
+several devices or processes raises (ROADMAP item A9).  The environment
+settings that would turn on the step guard or loss scaling
+(``MXTPU_NONFINITE_POLICY``, ``MXTPU_LOSS_SCALE*``) raise; they come
+with ROADMAP item A11, as do telemetry, tracing and ``arm_perf``.
 """
 import os
 import pickle
 
-import numpy as np
-import torch
-
 from .. import optimizer as opt_mod
 from .. import resilience
+from ..model import _create_kvstore
 from ..parallel import optim as foptim
 
 __all__ = ["Trainer"]
-
-_ONE_CARD_KVSTORES = ("device", "local", None)
 
 
 def _check_env():
@@ -58,12 +59,6 @@ class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None):
         _check_env()
-        if kvstore not in _ONE_CARD_KVSTORES:
-            raise NotImplementedError(
-                f"kvstore={kvstore!r}: the multi-card kvstores need "
-                "kvstore.py, dist.py and parallel/mesh.py over NCCL, the "
-                "second half of ROADMAP item A4; on one card use "
-                "'device', 'local' or None")
         if hasattr(params, "values"):
             params = list(params.values())
         self._params = [p for p in params if p.grad_req != "null"]
@@ -83,9 +78,33 @@ class Trainer:
             self._optimizer.set_wd_mult({p.name: p.wd_mult})
         self._updater = opt_mod.get_updater(self._optimizer)
         self._kvstore_spec = kvstore
+        self._kvstore = None
+        self._update_on_kvstore = False
+        self._kv_initialized = False
         self._fopt = None          # functional optimizer (whole tree)
         self._fstate = None
         self._fused = None         # None: undecided, then True / False
+        self._mesh = None
+        if isinstance(kvstore, str) and kvstore == "tpu":
+            # the ambient mesh now: step() may run outside use_mesh()
+            from ..parallel import current_mesh, make_mesh
+            self._mesh = current_mesh() or make_mesh()
+            self._mesh.device        # one device, or A9 raises
+
+    def _init_kvstore(self):
+        """(ref: trainer.py:102) the store, at the first step."""
+        if self._kvstore_spec != "tpu":
+            kv, on_kv = _create_kvstore(
+                self._kvstore_spec, 1,
+                {p.name: p.data() for p in self._params if p._allocated()})
+            self._kvstore = kv
+            self._update_on_kvstore = on_kv and kv is not None
+            if kv is not None:
+                for i, p in enumerate(self._params):
+                    kv.init(i, p.data())
+                if self._update_on_kvstore:
+                    kv.set_optimizer(self._optimizer)
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -105,6 +124,8 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimizer step, gradients scaled by 1 / batch_size."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         if self._fused is None:
             self._init_fused()
         self._optimizer.rescale_grad = self._scale / batch_size
@@ -120,8 +141,18 @@ class Trainer:
         if self._fused:
             self._fused_step(live)
             return
+        kv = self._kvstore
         for i, p in enumerate(self._params):
-            if p._grad is not None:
+            if p._grad is None:
+                continue
+            if kv is not None and self._update_on_kvstore:
+                kv.push(i, p.grad(), priority=-i)
+                kv.pull(i, out=p.data(), priority=-i)
+            elif kv is not None:
+                kv.push(i, p.grad(), priority=-i)
+                kv.pull(i, out=p.grad(), priority=-i)
+                self._updater(i, p.grad(), p.data())
+            else:
                 self._updater(i, p.grad(), p.data())
 
     def _fused_step(self, live):
@@ -138,8 +169,10 @@ class Trainer:
             wd_mults=foptim.default_wd_mults(names, opt.wd_mult))
 
     def allreduce_grads(self):
-        """Gradient reduction without an update: on one card there is
+        """Gradient reduction without an update: on one device there is
         nothing to reduce."""
+        if not self._kv_initialized:
+            self._init_kvstore()
 
     def update(self, batch_size, ignore_stale_grad=False):
         self.step(batch_size, ignore_stale_grad)
@@ -147,7 +180,7 @@ class Trainer:
     def save_states(self, fname):
         """Write the optimizer state (either route) to ``fname``."""
         if self._fused and self._fstate is not None:
-            tree = _tree_to_numpy(self._fstate)
+            tree = foptim.state_to_numpy(self._fstate)
             resilience.atomic_save(
                 fname, lambda f: pickle.dump({"fused": tree}, f))
             return
@@ -164,24 +197,6 @@ class Trainer:
                 raise ValueError(
                     "states file was saved by the whole-tree update but "
                     "this Trainer's optimizer has no functional twin")
-            device = self._params[0]._var.device if self._params \
-                else torch.device("cpu")
-            self._fstate = _tree_to_torch(obj["fused"], device)
+            foptim.load_state(self._fstate, obj["fused"])
             return
         self._updater.set_states(obj)
-
-
-def _tree_to_numpy(tree):
-    if isinstance(tree, dict):
-        return {k: _tree_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    return tree
-
-
-def _tree_to_torch(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
-    if isinstance(tree, np.ndarray):
-        return torch.from_numpy(tree).to(device)
-    return tree

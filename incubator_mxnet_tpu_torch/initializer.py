@@ -29,32 +29,26 @@ import torch
 
 from .ndarray.ndarray import NDArray
 from .random import default_generator
+from .utils.registry import get_registry
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant",
            "Uniform", "Normal", "Orthogonal", "Xavier", "MSRAPrelu",
            "Bilinear", "LSTMBias", "Mixed", "Load", "create", "register",
            "initialize"]
 
-_REG = {}
-
-
-def register(name):
-    """Register an initializer class under ``name`` (any case)."""
-    def _reg(cls):
-        _REG[name.lower()] = cls
-        return cls
-    return _reg
+_REG = get_registry("initializer")
+register = _REG.register
 
 
 def create(init, **kwargs):
     """An initializer from an instance or from its registry name."""
     if isinstance(init, (Initializer, Mixed, Load)):
         return init
-    try:
-        return _REG[init.lower()](**kwargs)
-    except (AttributeError, KeyError):
+    cls = _REG.find(init) if isinstance(init, str) else None
+    if cls is None:
         raise ValueError(f"initializer {init!r}: the port has "
-                         f"{sorted(_REG)}") from None
+                         f"{_REG.keys()}")
+    return cls(**kwargs)
 
 
 class InitDesc(str):

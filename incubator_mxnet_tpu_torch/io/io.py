@@ -175,6 +175,13 @@ class DataIter:
             f"{type(self).__name__} does not support checkpointable "
             "iterator state (load_state_dict)")
 
+    def skip(self, num_batches):
+        """Advance past ``num_batches`` without delivering them (to
+        fast-forward to a resume point); an iterator with a cursor
+        skips without building the batches."""
+        for _ in range(num_batches):
+            self.next()
+
 
 
 def _init_data(data, allow_empty, default_name):
@@ -274,6 +281,12 @@ class NDArrayIter(DataIter):
         if state.get("rng") is not None:
             self._rng.set_state(state["rng"])
         self._resume_pending = True
+
+    def skip(self, num_batches):
+        """Move the cursor past ``num_batches`` without building them;
+        disarms the resume shield, as iterating does."""
+        self._resume_pending = False
+        self.cursor += num_batches * self.batch_size
 
     def iter_next(self):
         self._resume_pending = False

@@ -9,9 +9,10 @@ sidecar, so either package loads the other's.  ``load_checkpoint``
 falls back to the newest earlier epoch that validates when the one
 asked for is corrupt (``MXTPU_CKPT_FALLBACK``, on unless set to 0).
 
-On one card the kvstore is no store at all: None, ``'local'`` and
-``'device'`` all mean the updater runs in the process.  The multi-card
-stores come with ``kvstore.py`` (ROADMAP item A4) and raise.
+``_create_kvstore`` resolves a kvstore spec as the reference does: on
+one device None, ``'local'`` and ``'device'`` give no store (the updater
+runs in the process); ``'tpu'``, a ``'dist_*'`` name or a ``KVStore``
+give a store (``kvstore.py``), which runs the optimizer itself.
 """
 import collections
 import glob
@@ -19,6 +20,7 @@ import os
 import pickle
 import warnings
 
+from . import kvstore as kvs
 from . import ndarray as nd
 from . import resilience
 from . import symbol as sym
@@ -31,20 +33,29 @@ __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
 BatchEndParam = collections.namedtuple(
     "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
 
-_ONE_CARD_KVSTORES = (None, "local", "device")
-
-
-def _create_kvstore(kvstore, num_device):
-    """``(kvstore, update_on_kvstore)`` for a kvstore spec: on one card
-    None, 'local' and 'device' give no store (the updater runs here);
-    every other spec raises until the multi-card stores are ported."""
-    if num_device == 1 and (kvstore is None or (
-            isinstance(kvstore, str) and kvstore in _ONE_CARD_KVSTORES)):
+def _create_kvstore(kvstore, num_device, arg_params=None):
+    """(ref: model.py:57) a kvstore spec as ``(kv, update_on_kvstore)``:
+    None for None, and for a non-'dist' string other than 'tpu' on one
+    device (the updater then runs in the process); else the store, which
+    runs the optimizer itself unless a parameter has more than 16M
+    entries."""
+    if kvstore is None:
         return None, False
-    raise NotImplementedError(
-        f"kvstore={kvstore!r}: the multi-card kvstores need kvstore.py, "
-        "dist.py and parallel/mesh.py over NCCL, the second half of "
-        "ROADMAP item A4; on one card use 'device', 'local' or None")
+    if isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore and \
+                kvstore != "tpu":
+            return None, False
+        kv = kvs.create(kvstore)
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    update_on_kvstore = True
+    if arg_params:
+        max_size = max(int(a.size) for a in arg_params.values())
+        if max_size > 1024 * 1024 * 16:
+            update_on_kvstore = False
+    return kv, update_on_kvstore
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

@@ -4,18 +4,30 @@ python/mxnet/module/module.py — bind:355, init_params,
 init_optimizer:464, forward:560, backward:602, update:619,
 update_metric:726).
 
-One card, one executor: the reference's DataParallelExecutorGroup
-slices a batch over its GPUs; the multi-card path here is the fused
-``kvstore='tpu'`` step (``parallel/symbol_step.py``), which comes with
-``kvstore.py``/``parallel/mesh.py`` (ROADMAP item A4) and raises, as
-every kvstore but None, 'local' and 'device' does.  The optimizer runs
-in the process through ``optimizer.get_updater``, with
-``rescale_grad`` 1/batch by default and each parameter's
-``lr_mult``/``wd_mult`` read from the symbol's attributes.
+One device, one executor: the reference's DataParallelExecutorGroup
+slices a batch over its GPUs.  The optimizer has ``rescale_grad``
+1/batch by default and each parameter's ``lr_mult``/``wd_mult`` read
+from the symbol's attributes, and runs by the kvstore:
 
-Not in this slice (ROADMAP item A11): the step guard
+- None, 'local', 'device' (one device): ``optimizer.get_updater`` in
+  the process, one update per parameter;
+- a ``KVStore`` or a 'dist_*' name: push and pull through the store
+  (``model._create_kvstore``), which runs the optimizer unless a
+  parameter is larger than 16M entries;
+- 'tpu': the fused step (``parallel.SymbolTrainStep``) over the ambient
+  mesh: ``forward_backward`` runs forward, backward and the update in
+  one step, on a CUDA device one CUDA graph replay, and ``update``
+  returns at once.  The step owns the values; the executor's arrays
+  are refreshed from it when they are read (``get_params``, a
+  checkpoint, a forward outside the step).  A manual ``forward`` /
+  ``backward`` / ``update`` loop runs the executor and the eager
+  updater, and the next fused step takes the values up again.  Only an
+  optimizer with a functional twin (SGD, NAG, Adam) has a fused step.
+
+Not in this slice: the multi-device contexts and the sharded
+checkpoints (ROADMAP item A9); the step guard
 (``MXTPU_NONFINITE_POLICY`` raises), the bind-time memory preflight,
-the perf gauges and telemetry.
+the perf gauges and telemetry (A11).
 """
 import logging
 import os
@@ -27,6 +39,8 @@ from .. import resilience
 from ..context import cpu
 from ..initializer import InitDesc
 from ..io.io import DataDesc
+from ..ndarray.ndarray import NDArray
+from ..parallel.optim import load_state, state_to_numpy
 from ..model import (_create_kvstore, save_checkpoint, load_checkpoint,
                      checkpoint_companion_path, save_data_state,
                      load_data_state)
@@ -56,9 +70,9 @@ class Module(BaseModule):
         if isinstance(context, (list, tuple)):
             if len(context) != 1:
                 raise NotImplementedError(
-                    "Module over several devices: the data-parallel path "
-                    "needs kvstore.py and parallel/mesh.py (ROADMAP item "
-                    "A4); give one device")
+                    "Module over several devices: the multi-card modes "
+                    "are ROADMAP item A9; give one device (a mesh step "
+                    "takes kvstore='tpu')")
             context = context[0]
         self._symbol = symbol
         self._data_names = list(data_names or [])
@@ -73,6 +87,12 @@ class Module(BaseModule):
         self._exec = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
+        self._mesh_step = None      # kvstore='tpu': the fused step
+        self._mesh_dirty = False    # step values newer than the exec's
+        self._mesh_pending = False  # the fused step ran; update() owes none
+        self._mesh_stale = False    # exec values newer than the step's
         self._data_shapes = None
         self._label_shapes = None
         self._preloaded_params = None
@@ -169,10 +189,16 @@ class Module(BaseModule):
             _fill(name, self._exec.arg_dict[name], arg_params)
         for name in self._aux_names:
             _fill(name, self._exec.aux_dict[name], aux_params)
+        if self._mesh_step is not None:
+            # the executor's values are the truth now: the fused step
+            # takes them up before its next step
+            self._mesh_dirty = False
+            self._mesh_stale = True
         self.params_initialized = True
 
     def get_params(self):
         """Copies of (arg_params, aux_params)."""
+        self._sync_mesh_params()
         arg = {n: self._exec.arg_dict[n].copy() for n in self._param_names}
         aux = {n: self._exec.aux_dict[n].copy() for n in self._aux_names}
         return arg, aux
@@ -188,23 +214,34 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             return
         _check_guard_env()
-        if isinstance(kvstore, str) and kvstore == "tpu":
-            raise NotImplementedError(
-                "kvstore='tpu': the fused mesh step (parallel/"
-                "symbol_step.py) needs kvstore.py and parallel/mesh.py, "
-                "the second half of ROADMAP item A4; on one card use "
-                "'device', 'local' or None")
-        _create_kvstore(kvstore, 1)           # raises on multi-card stores
+        use_mesh_step = isinstance(kvstore, str) and kvstore == "tpu"
+        arg_params = {n: self._exec.arg_dict[n] for n in self._param_names}
+        kv, update_on_kvstore = (None, False) if use_mesh_step else \
+            _create_kvstore(kvstore, 1, arg_params)
         if isinstance(optimizer, str):
             params = dict(optimizer_params or ())
             if "rescale_grad" not in params and self._data_shapes:
-                params["rescale_grad"] = 1.0 / max(
-                    self._data_shapes[0].shape[0], 1)
+                batch = self._data_shapes[0].shape[0]
+                if kv is not None:
+                    batch *= kv.num_workers
+                params["rescale_grad"] = 1.0 / max(batch, 1)
             idx2name = dict(enumerate(self._param_names))
             optimizer = opt_mod.create(optimizer, sym=self._symbol,
                                        param_idx2name=idx2name, **params)
         self._optimizer = optimizer
-        self._updater = opt_mod.get_updater(optimizer)
+        self._kvstore = kv
+        self._update_on_kvstore = update_on_kvstore and kv is not None
+        self._updater = None
+        self._mesh_step = None
+        if use_mesh_step:
+            self._init_mesh_step()
+        if kv is not None:
+            for i, name in enumerate(self._param_names):
+                kv.init(i, self._exec.arg_dict[name])
+            if self._update_on_kvstore:
+                kv.set_optimizer(optimizer)
+        if not self._update_on_kvstore and not use_mesh_step:
+            self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
         states, self._preload_opt_states = self._preload_opt_states, None
         if states:
@@ -221,6 +258,66 @@ class Module(BaseModule):
                               "initialized optimizer state",
                               RuntimeWarning)
 
+    # ------------------------------------------------------------ mesh
+    def _init_mesh_step(self):
+        """kvstore='tpu': the fused step over the ambient mesh (default:
+        one over the executor's device) in place of the executor group
+        and the store's push and pull."""
+        from ..parallel import current_mesh, make_mesh
+        from ..parallel.optim import default_wd_mults, from_imperative
+        from ..parallel.symbol_step import SymbolTrainStep
+        opt = self._optimizer
+        fopt = from_imperative(opt)
+        if fopt is None:
+            raise ValueError(
+                f"kvstore='tpu' supports sgd/nag/adam-family "
+                f"optimizers in the fused step; got "
+                f"{type(opt).__name__}. Use kvstore='device' for the "
+                "eager update path.")
+        ex = self._exec
+        trainable = [n for n in self._param_names if n in ex.grad_dict]
+        pvals = {n: ex.arg_dict[n]._data for n in trainable}
+        # fixed parameters ride with the aux states
+        aux_vals = {n: ex.aux_dict[n]._data for n in self._aux_names}
+        aux_vals.update({n: ex.arg_dict[n]._data
+                         for n in self._param_names
+                         if n not in ex.grad_dict})
+        input_names = [d.name for d in self._data_shapes]
+        input_names += [d.name for d in (self._label_shapes or [])
+                        if d.name in ex.arg_dict]
+        mesh = current_mesh() or make_mesh(
+            devices=[ex.arg_dict[trainable[0]]._data.device])
+        self._mesh_step = SymbolTrainStep(
+            self._symbol, pvals, aux_vals, input_names, optimizer=fopt,
+            mesh=mesh, rescale_grad=getattr(opt, "rescale_grad", 1.0),
+            lr_mults={n: opt.lr_mult.get(n, 1.0) for n in trainable},
+            wd_mults=default_wd_mults(trainable, opt.wd_mult))
+        self._mesh_dirty = self._mesh_pending = self._mesh_stale = False
+
+    def _sync_mesh_params(self):
+        """Copy the fused step's values into the executor's arrays
+        (when they are read, not at every step)."""
+        if self._mesh_step is None or not self._mesh_dirty:
+            return
+        params, aux = self._mesh_step.owned_values()
+        ex = self._exec
+        for n, v in params.items():
+            ex.arg_dict[n]._data = v
+        for n, v in aux.items():
+            (ex.aux_dict if n in ex.aux_dict else ex.arg_dict)[n]._data = v
+        self._mesh_dirty = False
+
+    def _push_mesh_params(self):
+        """Hand the executor's values to the fused step (after an eager
+        update or ``set_params``)."""
+        ex = self._exec
+        step = self._mesh_step
+        step.set_values(
+            {n: ex.arg_dict[n]._data for n in step.params},
+            {n: (ex.aux_dict[n] if n in ex.aux_dict else ex.arg_dict[n])
+             ._data for n in step.aux})
+        self._mesh_stale = False
+
     # ------------------------------------------------------------ step
     def _batch_inputs(self, data_batch):
         inputs = {}
@@ -236,24 +333,66 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         if is_train is None:
             is_train = self.for_training
-        self._exec.forward(is_train=is_train,
-                           **self._batch_inputs(data_batch))
+        inputs = self._batch_inputs(data_batch)
+        step = self._mesh_step
+        if not is_train and step is not None and not self._mesh_stale \
+                and set(step.input_names) <= set(inputs):
+            # score / predict on the fused step's values
+            outs = step.evaluate({n: inputs[n] for n in step.input_names})
+            self._exec._outputs = [NDArray(o) for o in outs]
+            return
+        self._sync_mesh_params()
+        self._exec.forward(is_train=is_train, **inputs)
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized
         self._exec.backward(out_grads=out_grads)
 
     def forward_backward(self, data_batch):
-        """The training step's forward and backward."""
-        self._exec.forward_backward(**self._batch_inputs(data_batch))
+        """The training step's forward and backward; under
+        kvstore='tpu' the whole fused step, update included."""
+        if self._mesh_step is None:
+            self._exec.forward_backward(**self._batch_inputs(data_batch))
+            return
+        from ..parallel.optim import scheduled_lr
+        if self._mesh_stale:
+            self._push_mesh_params()
+        outs = self._mesh_step(self._batch_inputs(data_batch),
+                               lr=scheduled_lr(self._optimizer))
+        self._exec._outputs = [NDArray(o) for o in outs]
+        self._mesh_dirty = True
+        self._mesh_pending = True
 
     def update(self):
-        """Apply the optimizer to every parameter with a gradient."""
+        """Apply the optimizer to every parameter with a gradient (ref:
+        module.py update:619, model.py _update_params_on_kvstore:105).
+        After a fused kvstore='tpu' step there is nothing left to do; a
+        manual forward/backward loop under kvstore='tpu' runs the eager
+        updater."""
         assert self.optimizer_initialized
+        if self._mesh_step is not None:
+            if self._mesh_pending:
+                self._mesh_pending = False
+                return
+            if self._updater is None:
+                self._updater = opt_mod.get_updater(self._optimizer)
+            self._sync_mesh_params()
+            self._mesh_stale = True
+        kv = self._kvstore
         for i, name in enumerate(self._param_names):
             grad = self._exec.grad_dict.get(name)
-            if grad is not None:      # fixed / grad_req 'null': skipped
-                self._updater(i, grad, self._exec.arg_dict[name])
+            if grad is None:          # fixed / grad_req 'null': skipped
+                continue
+            weight = self._exec.arg_dict[name]
+            if kv is not None and self._update_on_kvstore:
+                kv.push(i, grad, priority=-i)
+                kv.pull(i, out=weight, priority=-i)
+            elif kv is not None:
+                kv.push(i, grad, priority=-i)
+                kv.pull(i, out=grad, priority=-i)
+                self._updater(i, grad, weight)
+            else:
+                self._updater(i, grad, weight)
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec.outputs
@@ -287,16 +426,30 @@ class Module(BaseModule):
         return load_data_state(prefix, epoch, data_iter, strict=strict)
 
     def save_optimizer_states(self, fname):
+        """The optimizer state: the fused step's tree (numpy, as the JAX
+        Module writes it), the store's, or the updater's."""
         assert self.optimizer_initialized
-        states = self._updater.get_states()
-        resilience.atomic_save(fname, lambda f: f.write(states))
+        if self._mesh_step is not None:
+            tree = state_to_numpy(self._mesh_step.opt_state)
+            resilience.atomic_save(fname, lambda f: pickle.dump(tree, f))
+        elif self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+        else:
+            states = self._updater.get_states()
+            resilience.atomic_save(fname, lambda f: f.write(states))
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore and self._mesh_step is None:
+            self._kvstore.load_optimizer_states(fname)
+            return
         raw = resilience.read_validated_bytes(fname)
         # decode under the corruption guard, apply outside it
         obj = resilience.decode_or_corrupt(fname, lambda: pickle.loads(raw))
-        self._updater.set_states(obj)
+        if self._mesh_step is not None:
+            load_state(self._mesh_step.opt_state, obj)
+        else:
+            self._updater.set_states(obj)
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):

@@ -2,18 +2,21 @@
 ``incubator_mxnet_tpu/monitor.py``; ref: python/mxnet/monitor.py
 Monitor:33, the executor callback of graph_executor.cc:121).
 
-``Monitor.install(executor)`` (or ``Module.install_monitor``) sets the
-executor's monitor callback, so every op node's outputs go through the
-stat function in each armed batch (``tic`` .. ``toc``).  The JAX
-package also taps the imperative dispatch and marks armed batches as
-telemetry spans; the port's monitor covers executors only, and the
-telemetry comes with ROADMAP item A11.
+``Monitor.install()`` arms a global hook that the imperative dispatch
+(``nd``'s ``imperative_invoke``) calls with every op's outputs, so eager
+``nd`` ops and non-hybridized Gluon are observed; ``install(executor)``
+(or ``Module.install_monitor``) also sets the executor's monitor
+callback, so every op node of its graph goes through the stat function
+in each armed batch (``tic`` .. ``toc``).  The JAX package also marks
+armed batches as telemetry spans, which come with ROADMAP item A11.
 """
 import re
 
 import numpy as np
 
-__all__ = ["Monitor", "nonfinite_count"]
+__all__ = ["Monitor", "nonfinite_count", "observe_op", "active"]
+
+_active_monitor = None
 
 
 def _default_stat(x):
@@ -51,14 +54,21 @@ class Monitor:
         self.queue = []
         self._exes = []
 
-    def install(self, target):
-        """Tap ``target``'s every op (an Executor)."""
-        target.set_monitor_callback(self._observe)
-        if target not in self._exes:
-            self._exes.append(target)
+    def install(self, target=None):
+        """Arm the global dispatch hook; an Executor ``target`` also gets
+        the per-op monitor callback."""
+        global _active_monitor
+        _active_monitor = self
+        if target is not None:
+            target.set_monitor_callback(self._observe)
+            if target not in self._exes:
+                self._exes.append(target)
         return self
 
     def uninstall(self):
+        global _active_monitor
+        if _active_monitor is self:
+            _active_monitor = None
         for exe in self._exes:
             exe.set_monitor_callback(None)
         self._exes = []
@@ -88,3 +98,14 @@ class Monitor:
             label = name if len(out_arrays) == 1 else f"{name}_out{i}"
             self.queue.append((self.step, label,
                                self.stat_func(arr.asnumpy())))
+
+
+def observe_op(name, out_arrays):
+    """The dispatch hook (called by ``imperative_invoke``)."""
+    if _active_monitor is not None:
+        _active_monitor._observe(name, out_arrays)
+
+
+def active():
+    """Whether an installed monitor is armed (between tic and toc)."""
+    return _active_monitor is not None and _active_monitor.activated

@@ -17,8 +17,8 @@
   there it is ``torch.bfloat16`` (``asnumpy`` then gives float32).
 - ``save`` / ``load`` keep the JAX package's npz format and its CRC32
   sidecar, so each package reads, and checks, the other's files.
-- Methods whose ops are not ported yet (``softmax``, ``sort``, ``topk``
-  and the like) are left out until their ops come.
+- Methods whose ops are not ported yet (``sort``, ``argsort``,
+  ``topk``) are left out until their ops come.
 """
 import numbers
 
@@ -26,9 +26,9 @@ import numpy as np
 import torch
 import torch.utils.dlpack
 
-from .. import autograd, engine, random as _random
+from .. import autograd, engine, monitor as _monitor, random as _random
 from ..base import torch_dtype
-from ..context import resolve
+from ..context import Context, as_device, current_scope, resolve
 from ..ops.registry import get_op
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
@@ -50,11 +50,17 @@ class NDArray:
     """Multi-dimensional array with asynchronous execution."""
 
     # set by autograd.mark_variables: _grad (NDArray), _grad_req (str)
+    _ctx = None       # the Context it was made in, where one was given
 
-    def __init__(self, data):
+    def __init__(self, data, ctx=None):
         if isinstance(data, NDArray):
             data = data._data
+        if not isinstance(data, torch.Tensor):
+            data = _as_tensor(data, resolve(ctx))
+        elif ctx is not None:
+            data = data.to(resolve(ctx))
         self._data = data
+        self._ctx = ctx if isinstance(ctx, Context) else None
 
     # ------------------------------------------------------------ properties
     @property
@@ -75,8 +81,12 @@ class NDArray:
 
     @property
     def context(self):
-        """The ``torch.device`` the array lives on."""
-        return self._data.device
+        """The ``Context`` the array lives in: the one it was made in
+        (``ctx=``, ``as_in_context``), else its tensor's device's."""
+        dev = self._data.device
+        if self._ctx is not None and self._ctx.device == dev:
+            return self._ctx
+        return Context.from_device(dev)
 
     ctx = context
 
@@ -142,10 +152,11 @@ class NDArray:
         return self.as_in_context(other)
 
     def as_in_context(self, ctx):
-        dev = torch.device(ctx)
-        if dev == self._data.device:
+        if self.context == ctx:
             return self
-        return self._unary(lambda t: t.to(dev))
+        dev = as_device(ctx)
+        out = self._unary(lambda t: t.to(dev))
+        return _placed(out, ctx)
 
     def detach(self):
         return NDArray(self._data.detach())
@@ -286,6 +297,12 @@ class NDArray:
 
     def relu(self):
         return self._op("relu")
+
+    def softmax(self, axis=-1):
+        return self._op("softmax", axis=axis)
+
+    def log_softmax(self, axis=-1):
+        return self._op("log_softmax", axis=axis)
 
     # ------------------------------------------------------------ arithmetic
     def _binary(self, opname, scalar_opname, other, reverse=False):
@@ -451,7 +468,7 @@ def _narrow(dtype):
 
 def _as_tensor(a, device):
     arr = np.asarray(a)
-    if not arr.flags.c_contiguous:
+    if not arr.flags.c_contiguous or not arr.flags.writeable:
         arr = arr.copy(order="C")
     t = torch.from_numpy(arr)
     return t.to(device=device, dtype=_narrow(t.dtype))
@@ -499,6 +516,8 @@ def imperative_invoke(op, args, kwargs, out=None):
     outs_list = [o if o.device == device else o.to(device)
                  for o in outs_list]
     engine.maybe_block(outs_list)
+    if _monitor.active():
+        _monitor.observe_op(op.name, [NDArray(o) for o in outs_list])
     if out is not None:
         targets = out if isinstance(out, (tuple, list)) else [out]
         for t, o in zip(targets, outs_list):
@@ -518,6 +537,15 @@ def imperative_invoke(op, args, kwargs, out=None):
 # ---------------------------------------------------------------------------
 
 
+def _placed(arr, ctx):
+    """``arr`` remembering the Context it was made in: ``ctx``, else
+    the innermost ``with ctx:`` scope."""
+    ctx = ctx if ctx is not None else current_scope()
+    if isinstance(ctx, Context):
+        arr._ctx = ctx
+    return arr
+
+
 def array(source, ctx=None, dtype=None):
     """An NDArray from array-like data, on ``ctx`` (default: the card)."""
     device = resolve(ctx)
@@ -527,7 +555,7 @@ def array(source, ctx=None, dtype=None):
         t = _as_tensor(source, device)
     if dtype is not None:
         t = t.to(_narrow(torch_dtype(dtype)))
-    return NDArray(t)
+    return _placed(NDArray(t), ctx)
 
 
 def _shape(shape):
@@ -535,18 +563,19 @@ def _shape(shape):
 
 
 def zeros(shape, ctx=None, dtype="float32", stype=None):
-    return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
-                               device=resolve(ctx)))
+    return _placed(NDArray(torch.zeros(
+        _shape(shape), dtype=torch_dtype(dtype), device=resolve(ctx))), ctx)
 
 
 def ones(shape, ctx=None, dtype="float32"):
-    return NDArray(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
-                              device=resolve(ctx)))
+    return _placed(NDArray(torch.ones(
+        _shape(shape), dtype=torch_dtype(dtype), device=resolve(ctx))), ctx)
 
 
 def full(shape, val, ctx=None, dtype="float32"):
-    return NDArray(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
-                              device=resolve(ctx)))
+    return _placed(NDArray(torch.full(
+        _shape(shape), val, dtype=torch_dtype(dtype),
+        device=resolve(ctx))), ctx)
 
 
 def empty(shape, ctx=None, dtype="float32"):

@@ -25,30 +25,21 @@ import torch
 from . import ndarray as nd
 from . import random as _random
 from .ndarray.ndarray import NDArray
+from .utils.registry import get_registry
 
 __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad",
            "RMSProp", "AdaDelta", "Ftrl", "Adamax", "Nadam", "Signum",
            "Test", "Updater", "get_updater", "create", "register"]
 
-_REG = {}
-
-
-def register(name):
-    """Register an optimizer class under ``name`` (any case)."""
-    def _reg(cls):
-        _REG[name.lower()] = cls
-        return cls
-    return _reg
+_REG = get_registry("optimizer")
+# register(name=None, obj=None, aliases=()): a bare @register takes the
+# class's own name
+register = _REG.register
 
 
 def create(name, **kwargs):
     """Instantiate a registered optimizer by name."""
-    try:
-        cls = _REG[name.lower()]
-    except KeyError:
-        raise KeyError(f"unknown optimizer '{name}'; known: "
-                       f"{sorted(_REG)}") from None
-    return cls(**kwargs)
+    return _REG.get(name)(**kwargs)
 
 
 def _zeros_like(weight, dtype=None):
@@ -208,9 +199,10 @@ class SGLD(Optimizer):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         grad = self._prepared(grad)
-        gen = _random.default_generator(weight.context)
+        dev = weight._data.device
+        gen = _random.default_generator(dev)
         noise = NDArray(torch.randn(weight.shape, generator=gen,
-                                    device=weight.context)
+                                    device=dev)
                         * math.sqrt(lr))
         weight -= lr / 2 * (grad + wd * weight)
         weight += noise

@@ -6,13 +6,18 @@ of a module for one batch: a plain torch module (``TransformerLM``),
 whose parameters it updates in place, or a Gluon block (a
 ``HybridBlock`` or its ``PureBlock``), whose trainable parameters it
 updates in place and whose states (BatchNorm's moving stats) it threads
-from step to step as the JAX step does, until ``write_back()`` copies
-them into the live Parameters.  PyTorch runs eagerly, so where the JAX step
-compiles one executable, this one issues the same work op by op on the
-module's device: the forward (through the hand-written flash kernels
-for attention), ``torch.autograd.grad`` of the loss (the role of
-``jax.value_and_grad``; attention's gradient runs the backward kernels
-``flash_dq`` and ``flash_dkv``), and an in-place optimizer update.
+from step to step in its own tensors as the JAX step does, until
+``write_back()`` copies them into the live Parameters.  The step is the
+forward (through the hand-written flash kernels for attention),
+``torch.autograd.grad`` of the loss (the role of ``jax.value_and_grad``;
+attention's gradient runs the backward kernels ``flash_dq`` and
+``flash_dkv``), any ``grad_accum`` loop, and the multi-tensor optimizer
+update.  Where the JAX step compiles one executable, this one, on a
+CUDA device, is one CUDA graph replay (``_graph.StepGraph``), captured
+once per batch signature: the parameters, optimizer state and states
+are the graph's buffers, updated in place, and the learning rate is a
+device tensor written before each replay.  On the CPU the same step runs
+op by op.
 """
 import contextlib
 
@@ -22,6 +27,7 @@ from torch.utils import checkpoint as _checkpoint
 
 from .. import random as _random
 from ..gluon.block import Block
+from . import _graph
 from . import optim as foptim
 from .functional import PureBlock, functionalize
 
@@ -44,24 +50,25 @@ def _cast_floats(tree, dtype):
             for n, v in tree.items()}
 
 
-@contextlib.contextmanager
-def _record(gen, saved):
-    """Around the first forward under remat: note the generator state
-    its random masks start from."""
-    saved["state"] = gen.get_state()
-    yield
+def _twin(gen):
+    """A generator on ``gen``'s device in ``gen``'s state: remat's
+    recomputed forward draws from it, so it draws the masks the first
+    forward drew from ``gen``."""
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    return twin
 
 
 @contextlib.contextmanager
-def _replay(gen, saved):
-    """Around the recomputed forward: draw the same masks again, then
-    put the generator back where the step left it."""
-    now = gen.get_state()
-    gen.set_state(saved["state"])
+def _drawing_from(holder, gen):
+    """Around remat's recomputed forward: its masks come from ``gen``
+    (the twin), not from the step's generator."""
+    was = holder[0]
+    holder[0] = gen
     try:
         yield
     finally:
-        gen.set_state(now)
+        holder[0] = was
 
 
 class ShardedTrainStep:
@@ -88,13 +95,17 @@ class ShardedTrainStep:
         micro-batches in order.
     remat : recompute the forward during the backward
         (``torch.utils.checkpoint``) instead of storing activations;
-        the dropout masks are drawn again from the same generator
-        state.
-    lr_schedule : callable(step_count) -> lr, passed to the update
-        (``optim.warmup_cosine`` / ``warmup_linear``).
+        the recomputed forward draws its dropout masks from a twin of
+        the step's generator, set to the state the first forward drew
+        from.
+    lr_schedule : callable(step_count) -> lr, written into the step's
+        learning-rate tensor before each step (``optim.warmup_cosine``
+        / ``warmup_linear``).
 
     The parameters are the module's own fp32 ``nn.Parameter``s (the
-    masters), updated in place.  Not in this slice (the JAX step's
+    masters), updated in place.  ``trace_counts["train_step"]`` counts
+    the CUDA graph captures (one per batch signature and generator).
+    Not in this slice (the JAX step's
     ``mesh``, ``rules``, ``batch_axis`` / ``seq_axis``, ``zero``,
     ``donate``, ``example_args``, the memory preflight and OOM ladder,
     ``arm_perf`` / ``cost_analysis`` / ``memory_analysis`` and
@@ -132,6 +143,15 @@ class ShardedTrainStep:
             raise ValueError("the block has no trainable parameters")
         self.device = next(iter(self.params.values())).device
         self.opt_state = self.opt.init(self.params)
+        # the learning rate every update reads: written before each
+        # step, so a captured graph follows the schedule
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._twins = {}     # remat: id(generator) -> (generator, twin)
+        self.trace_counts = {}     # captures (the card), by name
+        self._capture_gen = None   # the generator a capture draws from
+        self._graph = _graph.StepGraph(
+            lambda x, y: self._step(x, y, self._capture_gen),
+            self._mutable, "train_step", self.trace_counts)
 
     # ------------------------------------------------------------ build
     def _batch(self, a):
@@ -140,11 +160,13 @@ class ShardedTrainStep:
             a = torch.as_tensor(np.asarray(a))
         return a.to(self.device)
 
-    def _forward(self, params, states, x, gen):
-        """(outputs, new states) of the forward."""
+    def _forward(self, params, states, x, gens):
+        """(outputs, new states) of the forward; its random masks come
+        from ``gens[0]``."""
         if self.pure is not None:
-            return self.pure.apply(params, states, [x], gen, training=True)
-        with _random.key_provider(gen):
+            return self.pure.apply(params, states, [x], gens[0],
+                                   training=True)
+        with _random.key_provider(gens[0]):
             return torch.func.functional_call(self.block, params,
                                               (x,)), states
 
@@ -158,14 +180,16 @@ class ShardedTrainStep:
             params = _cast_floats(params, self.compute_dtype)
             if x.is_floating_point():
                 x = x.to(self.compute_dtype)
+        gens = [gen]
         if self.remat:
-            saved = {}
+            twin = self._twins[id(gen)][1]
             out, states = _checkpoint.checkpoint(
-                self._forward, params, states, x, gen, use_reentrant=False,
-                context_fn=lambda: (_record(gen, saved),
-                                    _replay(gen, saved)))
+                self._forward, params, states, x, gens,
+                use_reentrant=False, preserve_rng_state=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    _drawing_from(gens, twin)))
         else:
-            out, states = self._forward(params, states, x, gen)
+            out, states = self._forward(params, states, x, gens)
         outs = list(out) if isinstance(out, (list, tuple)) else [out]
         loss = self.loss_fn(outs, y)
         grads = torch.autograd.grad(loss, masters, allow_unused=True)
@@ -173,28 +197,15 @@ class ShardedTrainStep:
             n: torch.zeros_like(p) if g is None else g
             for n, p, g in zip(names, masters, grads)}, states
 
-    # -------------------------------------------------------------- run
-    def __call__(self, x, y, generator=None):
-        """One training step on the batch (x, y); returns the loss as a
-        0-dim tensor on the device, without synchronizing (``float()``
-        of it is the sync point).  ``generator`` (on the parameters'
-        device) is the source of this step's dropout masks; default:
-        the package's default generator for the device."""
-        x, y = self._batch(x), self._batch(y)
+    def _step(self, x, y, gen):
+        """The whole step on (x, y), in place: forward, backward, the
+        ``grad_accum`` loop and the update; the states are written back
+        into ``self.states``'s tensors.  Returns the loss."""
         accum = self.grad_accum
-        if accum > 1 and x.shape[0] % accum != 0:
-            raise ValueError(
-                f"global batch {x.shape[0]} is not divisible by "
-                f"grad_accum={accum}")
-        gen = generator if generator is not None \
-            else _random.default_generator(self.device)
-        if self.pure is None:
-            self.block.train()
-        states = self.states
         if accum <= 1:
-            loss, grads, states = self._grad_of(x, y, gen, states)
+            loss, grads, states = self._grad_of(x, y, gen, self.states)
         else:
-            grads, loss = None, None
+            grads, loss, states = None, None, self.states
             for xb, yb in zip(x.chunk(accum), y.chunk(accum)):
                 lb, gb, states = self._grad_of(xb, yb, gen, states)
                 if grads is None:
@@ -205,14 +216,74 @@ class ShardedTrainStep:
                     loss = loss + lb
             grads = {n: g / accum for n, g in grads.items()}
             loss = loss / accum
-        lr = self.lr_schedule(self.step_count) \
-            if self.lr_schedule is not None else None
-        self.opt.update(self.params, grads, self.opt_state, lr=lr)
-        self.states = {n: s.detach() for n, s in states.items()}
+        self.opt.update(self.params, grads, self.opt_state, lr=self._lr)
+        with torch.no_grad():
+            for n, s in states.items():
+                if s is not self.states[n]:
+                    self.states[n].copy_(s)
+        return loss
+
+    def _mutable(self):
+        """The tensors a step changes in place (a torch module's buffers
+        too: a BatchNorm's running stats)."""
+        buffers = list(self.block.buffers()) if self.pure is None else []
+        return (list(self.params.values())
+                + _graph.tensors_of(self.opt_state)
+                + list(self.states.values()) + buffers)
+
+    def _prepare(self, x, y, generator):
+        """(x, y, generator, the generators the step draws from) for one
+        step; writes this step's learning rate and syncs remat's twin."""
+        x, y = self._batch(x), self._batch(y)
+        accum = self.grad_accum
+        if accum > 1 and x.shape[0] % accum != 0:
+            raise ValueError(
+                f"global batch {x.shape[0]} is not divisible by "
+                f"grad_accum={accum}")
+        gen = generator if generator is not None \
+            else _random.default_generator(self.device)
+        gens = [gen]
+        if self.remat:
+            if id(gen) not in self._twins:      # held: its id stays its
+                self._twins[id(gen)] = (gen, _twin(gen))
+            twin = self._twins[id(gen)][1]
+            twin.set_state(gen.get_state())
+            gens.append(twin)
+        self._lr.fill_(self.lr_schedule(self.step_count)
+                       if self.lr_schedule is not None
+                       else self.opt.hyper["lr"])
+        if self.pure is None:
+            self.block.train()
+        return x, y, gen, gens
+
+    # -------------------------------------------------------------- run
+    def __call__(self, x, y, generator=None):
+        """One training step on the batch (x, y); returns the loss as a
+        0-dim tensor on the device, without synchronizing (``float()``
+        of it is the sync point).  ``generator`` (on the parameters'
+        device) is the source of this step's dropout masks; default:
+        the package's default generator for the device.
+
+        On a CUDA device the step is one CUDA graph replay, captured at
+        the first call with a new signature (``trace_counts``); on the
+        CPU it runs eagerly."""
+        if self.device.type != "cuda":
+            return self._eager_call(x, y, generator)
+        x, y, gen, gens = self._prepare(x, y, generator)
+        self._capture_gen = gen     # read at a capture (one per generator)
+        (loss,) = self._graph((x, y), gens)
         self.step_count += 1
         return loss
 
     step = __call__
+
+    def _eager_call(self, x, y, generator=None):
+        """The same step, op by op (no graph): the CPU's path, and on
+        the card the yardstick a captured step is held against."""
+        x, y, gen, _ = self._prepare(x, y, generator)
+        loss = self._step(x, y, gen)
+        self.step_count += 1
+        return loss
 
     @torch.no_grad()
     def evaluate(self, x):

@@ -5,14 +5,21 @@ An optimizer is ``init(params) -> state`` and ``update(params, grads,
 state, scale=1.0, lr=None, lr_mults=None, wd_mults=None)``, over flat
 ``{name: tensor}`` dicts, with the JAX package's arithmetic term for
 term.  Where the JAX update returns new pytrees, the port updates the
-parameters and the state in place, under ``torch.no_grad()``: no second
-copy of the weights or the moments is made, which at the full model
-saves a parameter-sized buffer per tensor of state.  ``update`` returns
-the same (params, state) objects, so code written for the functional
-form runs unchanged.
+parameters and the state in place, under ``torch.no_grad()``, with
+multi-tensor ops (``torch._foreach_*``): a handful of launches for the
+whole tree (per group of equal lr/wd multipliers) instead of several a
+tensor.  ``update`` returns the same (params, state) objects, so code
+written for the functional form runs unchanged.
+
+Nothing the update reads per step is a Python number baked into a
+launch: the learning rate is a 0-dim fp32 device tensor (a number given
+as ``lr`` becomes one), and Adam's step count and bias correction live
+on the device, so a captured CUDA graph of the update stays right from
+replay to replay (``parallel/_graph.py``).
 
 The schedules (``warmup_cosine``, ``warmup_linear``) map an update
-count to a learning rate, as plain Python floats.
+count to a learning rate, as plain Python floats; a captured step writes
+the value into its learning-rate tensor before each replay.
 
 ``from_imperative(opt)`` maps an imperative ``optimizer.Optimizer`` onto
 its functional twin, for the Trainer's whole-tree update, which gives
@@ -23,12 +30,12 @@ step does.
 """
 import math
 
-import numpy as np
 import torch
 
 __all__ = ["FunctionalOptimizer", "sgd", "adam", "nag", "create",
            "warmup_cosine", "warmup_linear", "default_wd_mults",
-           "scheduled_lr", "from_imperative"]
+           "scheduled_lr", "from_imperative", "state_to_numpy",
+           "load_state"]
 
 
 def default_wd_mults(names, overrides=None):
@@ -95,11 +102,13 @@ class FunctionalOptimizer:
     def update(self, params, grads, state, scale=1.0, lr=None,
                lr_mults=None, wd_mults=None):
         """One update of every parameter, in place.  ``lr`` overrides
-        the constructed learning rate (a schedule's value);
+        the constructed learning rate (a schedule's value): a number, or
+        a 0-dim fp32 tensor on the parameters' device, which a captured
+        step passes so that each replay reads the value written for its
+        step.  ``scale`` is a number or such a tensor too.
         ``lr_mults`` / ``wd_mults`` are per-name multipliers (default
         1), the reference's lr_mult / wd_mult."""
-        return self._update(params, grads, state, float(scale),
-                            None if lr is None else float(lr),
+        return self._update(params, grads, state, scale, lr,
                             lr_mults or {}, wd_mults or {})
 
 
@@ -107,15 +116,35 @@ def _zeros(params):
     return {n: torch.zeros_like(p) for n, p in params.items()}
 
 
-def _prepared_grad(g, w, scale, clip, wd):
-    """scale * g, clipped, plus wd * w: the gradient both updates
-    start from (a new tensor; the caller's g is left as it is)."""
-    g = g * scale
+def _lr_tensor(lr, default, like):
+    """The learning rate as a 0-dim fp32 tensor on ``like``'s device
+    (a tensor passes through)."""
+    if isinstance(lr, torch.Tensor):
+        return lr
+    return torch.full((), default if lr is None else float(lr),
+                      dtype=torch.float32, device=like.device)
+
+
+def _groups(names, lr_mults, wd_mults):
+    """Names grouped by their (lr_mult, wd_mult), in order."""
+    out = {}
+    for n in names:
+        key = (float(lr_mults.get(n, 1.0)), float(wd_mults.get(n, 1.0)))
+        out.setdefault(key, []).append(n)
+    return out.items()
+
+
+def _prepared_grads(gs, ws, scale, clip, wd):
+    """scale * g, clipped, plus wd * w, for every tensor of a group: the
+    gradients both updates start from (new tensors; the caller's are
+    left as they are)."""
+    gs = torch._foreach_mul(gs, scale)
     if clip is not None:
-        g = g.clamp(-clip, clip)
+        torch._foreach_clamp_min_(gs, -clip)
+        torch._foreach_clamp_max_(gs, clip)
     if wd:
-        g = g + wd * w
-    return g
+        torch._foreach_add_(gs, torch._foreach_mul(ws, wd))
+    return gs
 
 
 def sgd(learning_rate=0.01, momentum=0.0, wd=0.0, clip_gradient=None,
@@ -123,26 +152,34 @@ def sgd(learning_rate=0.01, momentum=0.0, wd=0.0, clip_gradient=None,
     """SGD(+momentum, +wd), the reference's sgd_update / sgd_mom_update:
     grad = scale*grad [clipped] + wd*weight; mom = m*mom - lr*grad;
     weight += mom.  With ``nesterov=True``, NAG: mom = m*mom + grad;
-    weight -= lr*(grad + m*mom)."""
+    weight -= lr*(grad + m*mom).  Multi-tensor (``torch._foreach_*``),
+    one set of launches per (lr_mult, wd_mult) group."""
     mom = momentum
 
     def init_fn(params):
         return {"mom": _zeros(params)} if mom != 0.0 else {}
 
     def update_fn(params, grads, state, scale, lr, lr_mults, wd_mults):
-        base_lr = learning_rate if lr is None else lr
-        for n, w in params.items():
-            g = _prepared_grad(grads[n], w, scale, clip_gradient,
-                               wd * wd_mults.get(n, 1.0))
-            lr_e = base_lr * lr_mults.get(n, 1.0)
+        lr_t = _lr_tensor(lr, learning_rate, next(iter(params.values())))
+        for (lm, wm), names in _groups(params, lr_mults, wd_mults):
+            ws = [params[n] for n in names]
+            g = _prepared_grads([grads[n] for n in names], ws, scale,
+                                clip_gradient, wd * wm)
+            lr_e = lr_t if lm == 1.0 else lr_t * lm
             if mom == 0.0:
-                w.sub_(lr_e * g)
-            elif nesterov:
-                m = state["mom"][n].mul_(mom).add_(g)
-                w.sub_(lr_e * (g + mom * m))
+                torch._foreach_sub_(ws, torch._foreach_mul(g, lr_e))
+                continue
+            ms = [state["mom"][n] for n in names]
+            torch._foreach_mul_(ms, mom)
+            if nesterov:
+                torch._foreach_add_(ms, g)
+                step = torch._foreach_mul(ms, mom)
+                torch._foreach_add_(step, g)
+                torch._foreach_mul_(step, lr_e)
+                torch._foreach_sub_(ws, step)
             else:
-                m = state["mom"][n].mul_(mom).sub_(lr_e * g)
-                w.add_(m)
+                torch._foreach_sub_(ms, torch._foreach_mul(g, lr_e))
+                torch._foreach_add_(ws, ms)
         return params, state
 
     return FunctionalOptimizer(init_fn, update_fn,
@@ -153,28 +190,42 @@ def sgd(learning_rate=0.01, momentum=0.0, wd=0.0, clip_gradient=None,
 def adam(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
          wd=0.0, clip_gradient=None):
     """Adam, the reference's adam_update: bias correction folded into
-    the step size, lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t) (in
-    fp32, as the JAX package computes it), and epsilon outside the
-    square root: w -= lr_t * m / (sqrt(v) + epsilon)."""
+    the step size, lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t), and
+    epsilon outside the square root: w -= lr_t * m / (sqrt(v) +
+    epsilon).  The step count ``t`` is a 0-dim fp32 tensor on the
+    parameters' device and the bias correction is computed there in
+    fp32, as the JAX step computes them in-jit."""
 
     def init_fn(params):
-        return {"mean": _zeros(params), "var": _zeros(params), "t": 0}
+        like = next(iter(params.values()))
+        return {"mean": _zeros(params), "var": _zeros(params),
+                "t": torch.zeros((), dtype=torch.float32,
+                                 device=like.device)}
 
     def update_fn(params, grads, state, scale, lr, lr_mults, wd_mults):
-        t = state["t"] + 1
-        one = np.float32(1.0)
-        coef1 = one - np.float32(beta1) ** np.float32(t)
-        coef2 = one - np.float32(beta2) ** np.float32(t)
-        base_lr = learning_rate if lr is None else lr
-        lr_t = float(np.float32(base_lr) * np.sqrt(coef2) / coef1)
-        for n, w in params.items():
-            g = _prepared_grad(grads[n], w, scale, clip_gradient,
-                               wd * wd_mults.get(n, 1.0))
-            m = state["mean"][n].mul_(beta1).add_((1 - beta1) * g)
-            v = state["var"][n].mul_(beta2).add_((1 - beta2) * g * g)
-            w.sub_((lr_t * lr_mults.get(n, 1.0)) * m
-                   / (v.sqrt() + epsilon))
-        state["t"] = t
+        t = state["t"]
+        t.add_(1)
+        tf = t.to(torch.float32)
+        coef1 = 1.0 - torch.pow(beta1, tf)
+        coef2 = 1.0 - torch.pow(beta2, tf)
+        lr_t = _lr_tensor(lr, learning_rate, t) * torch.sqrt(coef2) / coef1
+        for (lm, wm), names in _groups(params, lr_mults, wd_mults):
+            ws = [params[n] for n in names]
+            g = _prepared_grads([grads[n] for n in names], ws, scale,
+                                clip_gradient, wd * wm)
+            ms = [state["mean"][n] for n in names]
+            vs = [state["var"][n] for n in names]
+            torch._foreach_mul_(ms, beta1)
+            torch._foreach_add_(ms, torch._foreach_mul(g, 1 - beta1))
+            g2 = torch._foreach_mul(g, 1 - beta2)
+            torch._foreach_mul_(g2, g)
+            torch._foreach_mul_(vs, beta2)
+            torch._foreach_add_(vs, g2)
+            denom = torch._foreach_sqrt(vs)
+            torch._foreach_add_(denom, epsilon)
+            step = torch._foreach_mul(ms, lr_t if lm == 1.0 else lr_t * lm)
+            torch._foreach_div_(step, denom)
+            torch._foreach_sub_(ws, step)
         return params, state
 
     return FunctionalOptimizer(init_fn, update_fn,
@@ -218,3 +269,25 @@ def from_imperative(opt):
         return create("adam", beta1=opt.beta1, beta2=opt.beta2,
                       epsilon=opt.epsilon, **common)
     return None
+
+
+def state_to_numpy(tree):
+    """An optimizer state as numpy arrays (the picklable tree both
+    packages write)."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+@torch.no_grad()
+def load_state(state, tree):
+    """Copy ``tree`` (from ``state_to_numpy`` of either package) into
+    ``state``'s tensors, in place: a captured step keeps reading
+    them."""
+    for k, v in tree.items():
+        if isinstance(state[k], dict):
+            load_state(state[k], v)
+        else:
+            state[k].copy_(torch.as_tensor(v))

@@ -16,6 +16,8 @@ import threading
 
 import torch
 
+from .context import as_device
+
 __all__ = ["seed", "generator", "default_generator", "key_provider",
            "current_generator"]
 
@@ -35,7 +37,7 @@ def seed(seed_state):
 def default_generator(device="cpu"):
     """The package's default generator on ``device``; a device's is
     made at first use, seeded like the CPU's."""
-    device = torch.device(device)
+    device = as_device(device)
     if device.type == "cpu":
         return _DEFAULT
     if device.type == "cuda" and device.index is None:
@@ -50,7 +52,7 @@ def default_generator(device="cpu"):
 
 def generator(seed_state, device="cpu"):
     """A new generator on ``device``, seeded with ``seed_state``."""
-    g = torch.Generator(device=device)
+    g = torch.Generator(device=as_device(device))
     g.manual_seed(int(seed_state))
     return g
 

@@ -23,6 +23,8 @@ CPU with the same numpy inputs.
   steps, multi_precision SGD and the wd_mult default included (fp32:
   rtol 1e-5, atol 1e-6; bf16 weights: exactly the fp32 master rounded).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -571,3 +573,144 @@ def test_sgld_noise_and_updater_states_roundtrip():
     w0 = mt.nd.array(np.ones((4, 3), np.float32), ctx=CPU)
     fresh(0, mt.nd.array(np.ones((4, 3), np.float32), ctx=CPU), w0)
     assert isinstance(fresh.states[0][0], mt.nd.NDArray)
+
+
+def test_register_takes_bare_classes_and_aliases():
+    """C2: optimizer.register and initializer.register are the
+    registry's register(name=None, obj=None, aliases=()), as the JAX
+    package's: a bare decorator registers a class under its own name."""
+    for M in (mx, mt):
+        @M.optimizer.register
+        class PortTwinSGD(M.optimizer.SGD):
+            pass
+
+        assert type(M.optimizer.create("porttwinsgd",
+                                       learning_rate=0.1)) is PortTwinSGD
+        M.optimizer.register("porttwin_alias", PortTwinSGD,
+                             aliases=("ptalias",))
+        assert type(M.optimizer.create("PTALIAS")) is PortTwinSGD
+
+        @M.initializer.register
+        class PortTwinInit(M.initializer.Constant):
+            def __init__(self):
+                super().__init__(0.25)
+
+        got = M.initializer.create("porttwininit")
+        assert type(got) is PortTwinInit
+        with pytest.raises(KeyError, match="unknown optimizer"):
+            M.optimizer.create("no_such_optimizer")
+
+
+# ------------------------------------------------ Trainer and kvstores
+# (twins of tests/test_mesh_frontend.py's one-device Trainer cases)
+@functools.lru_cache(maxsize=None)
+def _gluon_weights():
+    """test_mesh_frontend.py's net (Dense 32 relu, Dense 5) with the
+    weights its JAX Trainer starts from (random.seed(0), Xavier)."""
+    mx.random.seed(0)
+    jnet = mx.gluon.nn.HybridSequential()
+    with jnet.name_scope():
+        jnet.add(mx.gluon.nn.Dense(32, activation="relu"),
+                 mx.gluon.nn.Dense(5))
+    jnet.initialize(mx.initializer.Xavier())
+    jnet(mx.nd.array(np.zeros((2, 12), np.float32)))
+    return tuple(p.data().asnumpy()
+                 for _, p in sorted(jnet.collect_params().items(),
+                                    key=lambda kv: kv[0][len(jnet.prefix):]))
+
+
+def _train_gluon(M, force_eager=False, steps=15, kvstore="device",
+                 weights=None):
+    """(losses, params, trainer) of test_mesh_frontend.py's
+    _train_gluon, from ``weights``."""
+    rs = np.random.RandomState(0)
+    X = rs.rand(64, 12).astype(np.float32)
+    Y = rs.randint(0, 5, (64,)).astype(np.float32)
+    kw = {} if M is mx else {"ctx": CPU}
+    net = M.gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(M.gluon.nn.Dense(32, activation="relu", in_units=12),
+                M.gluon.nn.Dense(5, in_units=32))
+    net.initialize(M.init.Zero(), **kw)
+    params = sorted(net.collect_params().items(),
+                    key=lambda kv: kv[0][len(net.prefix):])
+    for (_, p), w in zip(params, weights):
+        p.set_data(M.nd.array(w, **kw))
+    tr = M.gluon.Trainer(net.collect_params(), "sgd",
+                         dict(learning_rate=0.2, momentum=0.9, wd=1e-3),
+                         kvstore=kvstore)
+    if force_eager:
+        if M is mx:
+            tr._init_kvstore()
+            tr._fused_update = False
+        else:
+            tr._fused = False
+    loss_fn = M.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for _ in range(steps):
+        xb, yb = M.nd.array(X, **kw), M.nd.array(Y, **kw)
+        with M.autograd.record():
+            loss = loss_fn(net(xb), yb)
+        loss.backward()
+        tr.step(X.shape[0])
+        losses.append(float(loss.mean().asnumpy()))
+    return losses, [p.data().asnumpy() for _, p in params], tr
+
+
+def test_trainer_fused_matches_eager_updater():
+    w = _gluon_weights()
+    l_e, p_e, _ = _train_gluon(mt, force_eager=True, weights=w)
+    l_f, p_f, tr_f = _train_gluon(mt, weights=w)
+    l_j, p_j, _ = _train_gluon(mx, weights=w)
+    assert tr_f._fused is True and tr_f._fstate is not None
+    assert l_f[-1] < l_f[0]
+    np.testing.assert_allclose(l_e[-1], l_f[-1], rtol=1e-5)
+    np.testing.assert_allclose(l_j[-1], l_f[-1], rtol=1e-5)
+    for a, b, c in zip(p_e, p_f, p_j):
+        np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)
+        np.testing.assert_allclose(c, b, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("kvstore", ["tpu", "local", "store"])
+def test_trainer_kvstores_match_device(kvstore):
+    """Trainer(kvstore='tpu') takes the ambient mesh at construction;
+    'local' (no store on one device) and a KVStore object (whose store
+    runs the optimizer on the per-parameter route) give the 'device'
+    result."""
+    w = _gluon_weights()
+    l_d, p_d, _ = _train_gluon(mt, weights=w, steps=4)
+    mesh = mt.parallel.make_mesh(devices=["cpu"])
+    spec = mt.kv.create("local") if kvstore == "store" else kvstore
+    with mt.parallel.use_mesh(mesh):
+        l_k, p_k, tr = _train_gluon(mt, weights=w, steps=4, kvstore=spec,
+                                    force_eager=kvstore == "store")
+    assert (tr._mesh is mesh) == (kvstore == "tpu")
+    assert (tr._kvstore is spec) == (kvstore == "store")
+    assert (tr._kvstore is None) == (kvstore != "store")
+    np.testing.assert_allclose(l_k, l_d, rtol=1e-5)
+    for a, b in zip(p_k, p_d):
+        np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)
+
+
+def test_trainer_fused_lr_schedule_no_recompile():
+    """The learning rate is a device tensor the whole-tree update reads:
+    a new rate needs nothing rebuilt, and the step moves the params."""
+    w = _gluon_weights()
+    _, _, tr = _train_gluon(mt, steps=2, weights=w)
+    fstate = tr._fstate
+    tr.set_learning_rate(0.01)
+    before = [p.data().asnumpy().copy() for p in tr._params]
+    rs = np.random.RandomState(1)
+    X = mt.nd.array(rs.rand(64, 12).astype(np.float32), ctx=CPU)
+    Y = mt.nd.array(rs.randint(0, 5, (64,)).astype(np.float32), ctx=CPU)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    ps = tr._params
+    with mt.autograd.record():
+        h = mt.nd.relu(mt.nd.dot(X, ps[0].data().T) + ps[1].data())
+        out = mt.nd.dot(h, ps[2].data().T) + ps[3].data()
+        loss = loss_fn(out, Y)
+    loss.backward()
+    tr.step(64)
+    after = [p.data().asnumpy() for p in tr._params]
+    assert any(not np.allclose(a, b) for a, b in zip(before, after))
+    assert tr._fstate is fstate and tr.learning_rate == 0.01

@@ -31,6 +31,7 @@ against the JAX package's, on the CPU with the same numpy inputs.
 - ``Optimizer(sym=)`` reads ``lr_mult``/``wd_mult``; ``fixed_param_names``
   freezes a parameter; what is not ported raises.
 """
+import functools
 import gzip
 import logging
 import os
@@ -506,11 +507,12 @@ def test_not_ported_paths_raise(monkeypatch):
     mod.bind(data_shapes=[("data", (4, 20))],
              label_shapes=[("softmax_label", (4,))])
     mod.init_params()
-    for kv, item in (("tpu", "A4"), ("dist_sync", "A4")):
-        with pytest.raises(NotImplementedError, match=item):
-            mod.init_optimizer(kvstore=kv)
-    for kv in (None, "local", "device"):
+    for kv in (None, "local", "device", "tpu", "dist_sync"):
         mod.init_optimizer(kvstore=kv, force_init=True)
+    with monkeypatch.context() as mp:     # a store over two processes
+        mp.setenv("MXTPU_NUM_WORKERS", "2")
+        with pytest.raises(NotImplementedError, match="A9"):
+            mod.init_optimizer(kvstore="dist_sync", force_init=True)
     monkeypatch.setenv("MXTPU_NONFINITE_POLICY", "skip")
     with pytest.raises(NotImplementedError, match="A11"):
         mod.init_optimizer(force_init=True)
@@ -518,7 +520,7 @@ def test_not_ported_paths_raise(monkeypatch):
         mod.fit(mt.io.NDArrayIter(np.zeros((4, 20), "f4"),
                                   np.zeros(4, "f4"), batch_size=4),
                 num_epoch=1, checkpoint_prefix="x")
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="A9"):
         mt.mod.Module(_mlp(mt.sym), context=[CPU, CPU])
     for make, item in ((mt.io.LibSVMIter, "A8"),
                        (mt.io.ImageRecordIter, "A10"),
@@ -703,3 +705,200 @@ def test_mnist_iter_reads_idx_files(tmp_path):
                                   imgs[0].astype(np.float32) / 255)
     with pytest.raises(ValueError, match="magic"):
         mt.io.MNISTIter(image=lpath, label=lpath)
+
+
+# ------------------------------------------------ kvstore='tpu' (twins of
+# tests/test_mesh_frontend.py's one-device cases)
+def _mesh_data(n=512, d=20, k=10, seed=0):
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, d).astype(np.float32)
+    w = rs.rand(d, k).astype(np.float32)
+    return x, (x @ w).argmax(1).astype(np.float32)
+
+
+def _mesh_mlp(S):
+    net = S.FullyConnected(S.Variable("data"), name="fc1", num_hidden=64)
+    net = S.Activation(net, act_type="relu")
+    net = S.FullyConnected(net, name="fc2", num_hidden=10)
+    return S.SoftmaxOutput(net, name="softmax")
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_weights(dim):
+    """The initial weights of test_mesh_frontend.py's JAX Module
+    (random.seed(0), Xavier uniform, avg, magnitude 3), as numpy."""
+    mx.random.seed(0)
+    mod = mx.mod.Module(_mesh_mlp(mx.sym), context=mx.cpu())
+    mod.bind(data_shapes=[("data", (64, dim))],
+             label_shapes=[("softmax_label", (64,))])
+    mod.init_params(mx.initializer.Xavier(rnd_type="uniform",
+                                          factor_type="avg", magnitude=3))
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def _mesh_fit(M, kvstore, x, y, optimizer="sgd", optimizer_params=None,
+              num_epoch=3):
+    """test_mesh_frontend.py's _fit, both packages from the weights its
+    JAX Module draws (the packages' initializers draw differently):
+    (accuracy, params, module).  The JAX Module's 'tpu' step runs on a
+    one-device mesh."""
+    it = M.io.NDArrayIter(x, y, batch_size=64, shuffle=False,
+                          label_name="softmax_label")
+    sym = _mesh_mlp(M.sym)
+    weights = _mesh_weights(x.shape[1])
+    mod = M.mod.Module(sym, context=_ctx(M))
+    fit = dict(num_epoch=num_epoch, kvstore=kvstore, optimizer=optimizer,
+               optimizer_params=optimizer_params
+               or dict(learning_rate=0.5, momentum=0.9, wd=1e-4),
+               arg_params={k: _arr(M, v) for k, v in weights.items()})
+    if M is mx:
+        with jpar.use_mesh(jpar.make_mesh(devices=jax.devices("cpu")[:1])):
+            mod.fit(it, **fit)
+    else:
+        mod.fit(it, **fit)
+    acc = dict(mod.score(it, "acc"))["accuracy"]
+    arg, _ = mod.get_params()
+    return acc, {n: v.asnumpy() for n, v in arg.items()}, mod
+
+
+def test_module_fit_tpu_kvstore_matches_local():
+    x, y = _mesh_data()
+    acc_l, p_l, _ = _mesh_fit(mt, "local", x, y)
+    acc_t, p_t, mod = _mesh_fit(mt, "tpu", x, y)
+    acc_j, p_j, jmod = _mesh_fit(mx, "tpu", x, y)
+    assert mod._mesh_step is not None and jmod._mesh_step is not None
+    assert acc_t > 0.8
+    assert abs(acc_l - acc_t) < 1e-6 and abs(acc_j - acc_t) < 1e-6
+    for n in p_l:
+        np.testing.assert_allclose(p_t[n], p_l[n], rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(p_t[n], p_j[n], rtol=2e-4, atol=2e-5)
+    # on the CPU the step runs op by op: nothing is captured
+    assert mod._mesh_step.trace_counts == {}
+
+
+def test_module_tpu_kvstore_adam_and_checkpoint(tmp_path):
+    x, y = _mesh_data()
+    opt = dict(optimizer="adam", optimizer_params=dict(learning_rate=0.01))
+    acc, _, mod = _mesh_fit(mt, "tpu", x, y, **opt)
+    assert acc > 0.8
+    mod.save_checkpoint(str(tmp_path / "m"), 0, save_optimizer_states=True)
+    it = mt.io.NDArrayIter(x, y, batch_size=64, label_name="softmax_label")
+    mod2 = mt.mod.Module.load(str(tmp_path / "m"), 0, context=CPU)
+    mod2.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    acc2 = dict(mod2.score(it, "acc"))["accuracy"]
+    assert abs(acc - acc2) < 1e-6
+    # the JAX Module's fused-step checkpoint (params and Adam state)
+    # resumes in the port's fused step: one more step agrees
+    _, _, jmod = _mesh_fit(mx, "tpu", x, y, **opt)
+    jmod.save_checkpoint(str(tmp_path / "j"), 0, save_optimizer_states=True)
+    batch = (x[:64], y[:64])
+    after = {}
+    for M, prefix in ((mx, "j"), (mt, "j")):
+        m = M.mod.Module.load(str(tmp_path / prefix), 0,
+                              load_optimizer_states=True, context=_ctx(M))
+        m.bind(data_shapes=[("data", (64, 20))],
+               label_shapes=[("softmax_label", (64,))])
+        if M is mx:
+            with jpar.use_mesh(jpar.make_mesh(
+                    devices=jax.devices("cpu")[:1])):
+                m.init_optimizer(kvstore="tpu", **opt)
+        else:
+            m.init_optimizer(kvstore="tpu", **opt)
+        m.forward_backward(M.io.DataBatch([_arr(M, batch[0])],
+                                          [_arr(M, batch[1])]))
+        m.update()
+        after[M] = {n: v.asnumpy() for n, v in m.get_params()[0].items()}
+    for n in after[mx]:
+        _close(after[mt][n], after[mx][n], 1e-5)
+
+
+def test_module_tpu_kvstore_rejects_exotic_optimizer():
+    x, y = _mesh_data(n=64)
+    for M in (mx, mt):
+        with pytest.raises(ValueError, match="sgd/nag/adam"):
+            _mesh_fit(M, "tpu", x, y, optimizer="rmsprop",
+                      optimizer_params=dict(learning_rate=0.01))
+
+
+def test_module_manual_loop_tpu_kvstore_updates_params():
+    """forward/backward/update by hand under kvstore='tpu' updates
+    (through the eager updater), and the fused step takes the values up
+    afterwards."""
+    x, y = _mesh_data(n=64)
+    it = mt.io.NDArrayIter(x, y, batch_size=64, label_name="softmax_label")
+    mod = mt.mod.Module(_mesh_mlp(mt.sym), context=CPU)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mt.initializer.Xavier())
+    mod.init_optimizer(kvstore="tpu", optimizer="sgd",
+                       optimizer_params=dict(learning_rate=0.5))
+    before = {n: v.asnumpy().copy() for n, v in mod.get_params()[0].items()}
+    batch = next(iter(it))
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+    after = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    assert any(not np.allclose(before[n], after[n]) for n in before)
+    mod.forward_backward(batch)
+    mod.update()
+    after2 = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    assert any(not np.allclose(after[n], after2[n]) for n in after)
+    # the fused step started from the manual update's values
+    step = mod._mesh_step
+    assert not mod._mesh_stale and mod._mesh_pending is False
+    np.testing.assert_array_equal(step.params["fc1_weight"].numpy(),
+                                  after2["fc1_weight"])
+
+
+def test_narrow_resnet_module_tpu_kvstore_matches_jax(resnet):
+    """The port's kvstore='tpu' step (SymbolTrainStep) on the narrow
+    ResNet against the JAX Module's kvstore='tpu' step, at
+    test_narrow_resnet_module_steps_match_jax's tolerances."""
+    sym, arrays, x, y, (rout, rvals) = resnet
+    args = set(sym.list_arguments())
+    mod = mt.mod.Module(sym, context=CPU)
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mod.init_params(
+        arg_params={k: _arr(mt, v) for k, v in arrays.items() if k in args},
+        aux_params={k: _arr(mt, v) for k, v in arrays.items()
+                    if k not in args})
+    mod.init_optimizer(kvstore="tpu", optimizer="sgd",
+                       optimizer_params=RESNET_SGD)
+    batch = mt.io.DataBatch([_arr(mt, x)], [_arr(mt, y)])
+    for r in rout:
+        mod.forward_backward(batch)
+        _close(mod.get_outputs()[0].asnumpy(), r)
+        mod.update()
+    arg, aux = mod.get_params()
+    got = {k: v.asnumpy() for k, v in {**arg, **aux}.items()}
+    for k in rvals:
+        _close(got[k], rvals[k])
+
+
+# ------------------------------------------------ Queue C: C5
+def test_iterator_skip_matches_jax():
+    """C5: NDArrayIter.skip moves the cursor without building batches
+    and disarms the resume shield; DataIter.skip pulls and drops."""
+    data = np.arange(40, dtype="float32").reshape(20, 2)
+    got = {}
+    for M in (mx, mt):
+        it = M.io.NDArrayIter(data, np.arange(20, dtype="float32"),
+                              batch_size=4)
+        it.skip(2)
+        first = it.next()
+        state = it.state_dict()
+        it.next()
+        it.load_state_dict(state)
+        it.skip(1)                    # disarms the resume shield
+        it.reset()                    # so this reset rewinds
+        rewound = it.next()
+        resized = M.io.ResizeIter(M.io.NDArrayIter(data, batch_size=4), 3)
+        resized.skip(2)
+        last = resized.next()
+        got[M] = [first.data[0].asnumpy(), first.label[0].asnumpy(),
+                  rewound.data[0].asnumpy(), last.data[0].asnumpy()]
+        with pytest.raises(StopIteration):
+            resized.skip(1)
+    for a, b in zip(got[mt], got[mx]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[mt][0][0], [16, 17])

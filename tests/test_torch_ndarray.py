@@ -572,3 +572,83 @@ def test_keyword_inputs_and_not_yet_ported_surfaces():
     assert mt.autograd.get_symbol(x).list_arguments() == ["var0"]
     with pytest.raises(TypeError, match="differentiates floats only"):
         mt.nd.array([1, 2], ctx=CPU).attach_grad()
+
+
+# ------------------------------------------------ Queue C: C1, C3, C4
+def test_context_placement():
+    """C1: twin of tests/test_ndarray.py::test_context_placement (on
+    the port every CPU context is the host, remembered by the array),
+    and the reference's Context surface."""
+    got = []
+    for M, kw in ((mx, {}), (mt, {})):
+        ctx = M.cpu(1)
+        a = M.nd.ones((2, 2), ctx=ctx)
+        assert a.context == M.cpu(1)
+        b = a.as_in_context(M.cpu(0))
+        assert b.context == M.cpu(0)
+        c = b + a.as_in_context(M.cpu(0))
+        got.append(c.asnumpy())
+    np.testing.assert_array_equal(got[0], got[1])
+    ctx = mt.context.Context("cpu", 2)
+    assert (ctx.device_type, ctx.device_id, str(ctx)) == ("cpu", 2, "cpu(2)")
+    assert ctx.device == torch.device("cpu") and ctx == mt.cpu(2)
+    assert mt.cpu(0) != mt.cpu(1) and hash(mt.cpu(1)) == hash(mt.cpu(1))
+    assert mt.gpu(1).device == torch.device("cuda", 1)
+    assert mt.context.tpu(0) == mt.gpu(0)
+    assert mt.cpu_pinned(0).device_type == "cpu_pinned"
+    assert mt.context.resolve(mt.cpu(1)) == torch.device("cpu")
+    with mt.cpu(3):
+        assert mt.current_context() == mt.cpu(3)
+        z = mt.nd.zeros((2,))
+        assert z.context == mt.cpu(3) and z.handle.device.type == "cpu"
+    assert mt.num_gpus() == torch.cuda.device_count()
+    free, total = mt.gpu_memory_info(0)
+    assert 0 < free <= total
+    arr = mt.NDArray(np.ones(3, "float32"), ctx=mt.cpu())
+    assert arr.context == mt.cpu(0)
+    with pytest.raises(ValueError, match="unknown device type"):
+        mt.context.Context("fpga")
+
+
+def test_eval_symbol_on_cpu_context():
+    """C1: examples/custom_pallas_kernel.py:65's ``s.eval(mx.cpu(0),
+    ...)`` on the port."""
+    x = mt.nd.array(np.linspace(-1, 1, 8, dtype="float32"), ctx=CPU)
+    s = mt.sym.relu(mt.sym.Variable("data"))
+    out = s.eval(mt.cpu(0), data=x)[0]
+    np.testing.assert_array_equal(out.asnumpy(),
+                                  np.maximum(x.asnumpy(), 0))
+
+
+def test_monitor_observes_ops():
+    """C3: twin of tests/test_aux.py::test_monitor_observes_ops."""
+    rows_of = {}
+    for M, kw in ((mx, {}), (mt, {"ctx": CPU})):
+        mon = M.Monitor(interval=1, pattern=".*").install()
+        try:
+            mon.tic()
+            x = M.nd.ones((4, 4), **kw)
+            y = x * 3
+            y.wait_to_read()
+            rows = mon.toc()
+            assert rows, "monitor saw no ops"
+            assert any(abs(stat - 3.0) < 1e-6 for _, _, stat in rows)
+            rows_of[M] = rows
+        finally:
+            mon.uninstall()
+    assert [r[1] for r in rows_of[mt]] == [r[1] for r in rows_of[mx]]
+    mon = mt.Monitor(interval=1)
+    mon.tic()
+    mt.nd.ones((2,), ctx=CPU) * 2       # not installed: nothing seen
+    assert mon.toc() == []
+
+
+def test_ndarray_softmax_methods():
+    """C4: NDArray.softmax and NDArray.log_softmax, as the JAX
+    package's methods."""
+    a = np.random.RandomState(0).normal(0, 1, (3, 5)).astype(np.float32)
+    for axis in (-1, 0):
+        for meth in ("softmax", "log_softmax"):
+            ref = getattr(mx.nd.array(a), meth)(axis=axis).asnumpy()
+            got = getattr(mt.nd.array(a, ctx=CPU), meth)(axis=axis)
+            np.testing.assert_allclose(got.asnumpy(), ref, **TOL)

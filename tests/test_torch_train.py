@@ -99,6 +99,59 @@ def test_schedules_match_jax(sched):
                                    err_msg=str(t))
 
 
+@pytest.mark.parametrize("name,kw", _OPTIMIZERS,
+                         ids=[f"{n}{i}" for i, (n, _) in
+                              enumerate(_OPTIMIZERS)])
+def test_device_lr_follows_schedule_like_jax(name, kw):
+    """The multi-tensor update reading its learning rate from a 0-dim
+    fp32 tensor, rewritten each step from a schedule (as a captured step
+    does), against the JAX update given the schedule's traced value;
+    two (lr_mult, wd_mult) groups.  Adam's step count is a device fp32
+    tensor."""
+    params = _tree(0, 1)[0]
+    grads = _tree(1, 5)
+    jf = joptim.warmup_cosine(0.1, 2, 5, end_lr=0.01)
+    tf = toptim.warmup_cosine(0.1, 2, 5, end_lr=0.01)
+    mults = dict(lr_mults={"a_weight": 2.0}, wd_mults={"b_bias": 0.0})
+    jopt, topt = joptim.create(name, **kw), toptim.create(name, **kw)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = jopt.init(jp)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = topt.init(tp)
+    lr = torch.zeros((), dtype=torch.float32)
+    jm = {k: {n: v.get(n, 1.0) for n in params} for k, v in mults.items()}
+    for t, g in enumerate(grads):
+        jp, jstate = jopt.update(
+            jp, {k: jnp.asarray(v) for k, v in g.items()}, jstate,
+            lr=jf(t), **jm)
+        lr.fill_(tf(t))
+        topt.update(tp, {k: torch.from_numpy(v) for k, v in g.items()},
+                    tstate, lr=lr, **mults)
+    for k in params:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+    if name == "adam":
+        assert tstate["t"].dtype == torch.float32 and \
+            tstate["t"].dim() == 0 and float(tstate["t"]) == len(grads)
+
+
+def test_step_writes_the_schedule_into_its_lr_tensor():
+    """ShardedTrainStep's learning rate is one device tensor, written
+    from the schedule before each step (what a captured graph reads)."""
+    net = _port_model()
+    step = ShardedTrainStep(net, "adam", dict(learning_rate=0.1),
+                            loss_fn=_port_loss,
+                            lr_schedule=toptim.warmup_linear(0.1, 2, 4))
+    lr = step._lr
+    toks, labels = _batch()
+    for t in range(3):
+        step(toks, labels)
+        assert step._lr is lr and float(lr) == pytest.approx(
+            toptim.warmup_linear(0.1, 2, 4)(t), rel=1e-6)
+    assert lr.dtype == torch.float32 and lr.dim() == 0
+    assert step.trace_counts == {}           # the CPU runs op by op
+
+
 def test_create_rejects_unknown_optimizer():
     with pytest.raises(ValueError, match="no functional optimizer"):
         toptim.create("lamb")
@@ -318,3 +371,139 @@ def test_dropout_eval_is_identity_and_global_rng_untouched():
     assert torch.equal(torch.get_rng_state(), state)
     with pytest.raises(ValueError, match="rate"):
         Dropout(1.0)
+
+
+# ------------------------------------------------ the captured step
+def _recorded_replays(monkeypatch):
+    """Stand-ins for the CUDA graph API, so StepGraph's capture path
+    runs on the CPU: the capture call's effects are undone (a real
+    capture runs nothing) and a replay re-runs the captured step on the
+    static inputs, writing its outputs into the static outputs."""
+    import contextlib
+    from incubator_mxnet_tpu_torch.parallel import _graph
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def register_generator_state(self, gen):
+            self.generators = getattr(self, "generators", []) + [gen]
+
+    for name, value in (("device", lambda d: contextlib.nullcontext()),
+                        ("current_stream", lambda *a: Stream()),
+                        ("Stream", Stream),
+                        ("stream", lambda s: contextlib.nullcontext()),
+                        ("CUDAGraph", Graph),
+                        ("graph", lambda g, **k: contextlib.nullcontext()),
+                        ("default_generators", (None,))):
+        monkeypatch.setattr(torch.cuda, name, value, raising=False)
+    capture = _graph.StepGraph._capture
+
+    def recorded(self, inputs, generators):
+        snap = [t.detach().clone() for t in self.mutable()]
+        states = [g.get_state() for g in generators]
+        cap = capture(self, inputs, generators)
+        with torch.no_grad():
+            for t, s in zip(self.mutable(), snap):
+                t.copy_(s)
+        for g, s in zip(generators, states):
+            g.set_state(s)
+
+        def replay():
+            out = self.fn(*cap.static_in)
+            out = out if isinstance(out, tuple) else (out,)
+            with torch.no_grad():
+                for s, o in zip(cap.static_out, out):
+                    s.copy_(o)
+        cap.graph.replay = replay
+        assert cap.graph.generators == list(generators)
+        return cap
+
+    monkeypatch.setattr(_graph.StepGraph, "_capture", recorded)
+
+
+@pytest.mark.parametrize("opt,kw", [
+    ("adam", dict(lr_schedule=toptim.warmup_cosine(1e-2, 2, 5),
+                  remat=True)),
+    ("sgd", dict(grad_accum=2))],
+    ids=["adam-schedule-remat", "sgd-accum"])
+def test_captured_step_plumbing_matches_eager(monkeypatch, opt, kw):
+    """The capture path of ShardedTrainStep (StepGraph: static inputs,
+    warm-up steps undone from a snapshot, the generators registered,
+    outputs copied out), run on the CPU with recorded replays, gives
+    the eager step's losses and weights bit for bit over three steps:
+    the schedule reaches the replays through the lr tensor, the
+    dropout masks through the registered generators (remat's twin
+    included), and one signature is captured once."""
+    _recorded_replays(monkeypatch)
+    toks, labels = _batch()
+    got = {}
+    for way in ("eager", "captured"):
+        net = _port_model(dropout=0.2)
+        step = ShardedTrainStep(net, opt, dict(learning_rate=1e-2),
+                                loss_fn=_port_loss, **kw)
+        gen = mt.random.generator(3)
+
+        def call():
+            if way == "eager":
+                return step._eager_call(toks, labels, gen)
+            x, y, g, gens = step._prepare(toks, labels, gen)
+            step._capture_gen = g
+            (loss,) = step._graph((x, y), gens)
+            step.step_count += 1
+            return loss
+
+        losses = torch.stack([call() for _ in range(3)])
+        got[way] = (losses, [p.detach().clone()
+                             for p in step.params.values()])
+    assert step.trace_counts == {"train_step": 1}
+    assert torch.equal(got["eager"][0], got["captured"][0])
+    assert all(torch.equal(a, b) for a, b in zip(*(got[w][1] for w in got)))
+    assert len(set(got["eager"][0].tolist())) == 3
+
+
+def test_captured_step_holds_each_generator(monkeypatch):
+    """A step called with one generator, then another, then the first
+    again (remat on, so each has a twin): each generator gets a capture
+    of its own that registers and holds it (so no later generator can
+    take its id), the second capture of the same inputs warns, and the
+    losses and weights are the eager step's with the same generators,
+    bit for bit."""
+    import warnings
+    _recorded_replays(monkeypatch)
+    toks, labels = _batch()
+    got = {}
+    for way in ("eager", "captured"):
+        net = _port_model(dropout=0.2)
+        step = ShardedTrainStep(net, "sgd", dict(learning_rate=1e-2),
+                                loss_fn=_port_loss, remat=True)
+        gens = [mt.random.generator(3), mt.random.generator(4)]
+
+        def call(gen):
+            if way == "eager":
+                return step._eager_call(toks, labels, gen)
+            x, y, g, drawn = step._prepare(toks, labels, gen)
+            step._capture_gen = g
+            (loss,) = step._graph((x, y), drawn)
+            step.step_count += 1
+            return loss
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            losses = torch.stack([call(gens[i]) for i in (0, 0, 1, 1, 0)])
+        got[way] = (losses, [p.detach().clone()
+                             for p in step.params.values()])
+    warned = [str(w.message) for w in caught
+              if "new generator" in str(w.message)]
+    assert len(warned) == 1 and "capture 2 of the same inputs" in warned[0]
+    assert step.trace_counts == {"train_step": 2}
+    caps = list(step._graph._captured.values())
+    for gen, cap in zip(gens, caps):
+        assert cap.generators[0] is gen
+        assert cap.graph.generators[0] is gen
+        assert cap.generators[1] is step._twins[id(gen)][1]
+        assert step._twins[id(gen)][0] is gen
+    assert torch.equal(got["eager"][0], got["captured"][0])
+    assert all(torch.equal(a, b) for a, b in zip(*(got[w][1] for w in got)))
+    assert len(set(got["eager"][0].tolist())) == 5

@@ -179,7 +179,9 @@ _SLICE_MODULES = ("ops.flash", "gluon.model_zoo.transformer",
                   "rtc_examples", "name", "attribute", "utils.registry",
                   "symbol.symbol", "symbol.register", "executor",
                   "metric", "io.io", "callback", "model",
-                  "module.base_module", "module.module", "monitor")
+                  "module.base_module", "module.module", "monitor",
+                  "kvstore", "context", "parallel._graph", "parallel.mesh",
+                  "parallel.symbol_step", "parallel.optim")
 
 
 def test_port_imports_no_jax():

@@ -308,8 +308,11 @@ def test_trainer_updater_route_and_states(data, tmp_path, monkeypatch):
     path = str(tmp_path / "trainer.states")
     trainer.save_states(path)
     trainer.load_states(path)
-    with pytest.raises(NotImplementedError, match="A4"):
-        mt.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    monkeypatch.setenv("MXTPU_NUM_WORKERS", "2")   # two processes
+    with pytest.raises(NotImplementedError, match="A9"):
+        mt.gluon.Trainer(net.collect_params(), "sgd",
+                         kvstore="dist_sync").step(B)
+    monkeypatch.delenv("MXTPU_NUM_WORKERS")
     monkeypatch.setenv("MXTPU_LOSS_SCALE_DYNAMIC", "1")
     with pytest.raises(NotImplementedError, match="A11"):
         mt.gluon.Trainer(net.collect_params(), "sgd")
