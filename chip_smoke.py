@@ -143,6 +143,41 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                nd path, one launch a forward, 5 Module SGD steps, and
                the same steps with kvstore='tpu' (one run of the kernel
                a replay, the first loss equal to the nd path's).
+11. hybridize  HybridBlock.hybridize() through graph.CachedOp: (i)
+               bench.py's CachedOp bench (24 x Dense(64, relu) +
+               Dense(10), B=32): eager ms per call beside replay ms per
+               call, one trace (capture) after 201 same-shape calls and
+               two after a second shape, replays equal to eager bit for
+               bit; (ii) resnet50_v1() inference at B=32 on bench.py's
+               batch, eager and hybridized, bit-equal under
+               deterministic cuDNN; (iii) phase resnet (iv)'s Trainer
+               loop hybridized for 23 steps: its first 3 losses,
+               parameters and moving stats bit-equal to the loop not
+               hybridized (deterministic cuDNN), one capture, step ms
+               beside eager; (iv) examples/custom_pallas_kernel.py's
+               hybridized block at the rtc width: output and gradient
+               bit-equal to the nd path's, one fused_scale_shift_relu
+               run per replay (profiler), recorded or not; (v)
+               bench.py's three graph-bench graphs bound on the card at
+               MXTPU_GRAPH_OPT 0, 1 and 2: outputs bit-equal, node
+               counts printed; (vi) one hybridized Dense applied 3
+               times in a chain under one record(), twice, in graph
+               and in jit mode: gradients bit-equal to the chain not
+               hybridized, one captured pair per call that waits for
+               the backward (3 captures).
+12. moe        TransformerLM at bench.py's width with moe_experts=8
+               (capacity factor 1.25; 922.9M parameters): forward at
+               B=8 x L=1024 (logits and aux finite, flash_fwd once per
+               layer, the card within rel 1e-3 of the CPU at B=1 x
+               L=256); generate for 4 prompts of 128 tokens, 32 new:
+               the first new token equals the forward's argmax and
+               every token the CPU's generate() (expert capacity is set
+               by a call's tokens, so a teacher-forced forward routes
+               with other capacities; its agreement is printed); the
+               bf16 ShardedTrainStep (Adam lr 1e-4, CE + 0.01 aux) at
+               the first of B=8, 4, 2 (x L=1024) whose peak stays under
+               60 GB, eager and captured, bit-equal, one capture, each
+               flash kernel once per layer per replay, peak memory.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -165,6 +200,7 @@ the time of one call between two CUDA events, which also counts the
 host's work before the launch.
 """
 import contextlib
+import gc
 import json
 import math
 import re
@@ -1183,6 +1219,7 @@ def run_way(mt, torch, make_step, way, x, y, steps, timed, values, prof):
     more step, and the captures."""
     launches = mt.ops.LAUNCHES
     torch.cuda.synchronize()
+    gc.collect()        # a step and its StepGraph refer to each other
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step = make_step()
@@ -1868,8 +1905,11 @@ def rtc_kernel_checks(ex, torch):
     edges = rtc_scale_edges(ex, torch, gen)
     turns = rtc_scale_turns(ex, torch, gen)
     entries["scale"]["library_turns"] = turns
+    addone_turns = rtc_addone_turns(ex, torch, gen)
+    entries["addone"]["library_turns"] = addone_turns
     return {"build_seconds": build_s, "ptxas": ptxas, "cases": rows,
-            "scale_edges": edges, "scale_turns": turns}, entries
+            "scale_edges": edges, "scale_turns": turns,
+            "addone_turns": addone_turns}, entries
 
 
 def rtc_scale_edges(ex, torch, gen):
@@ -1920,6 +1960,30 @@ def rtc_scale_turns(ex, torch, gen):
             "scale_over_torch_mul": med["scale"] / med["torch_mul"],
             "resident_over_one_pass": med["scale_resident_grid"]
             / med["scale"]}
+
+
+ADDONE_TURNS = 5
+
+
+def rtc_addone_turns(ex, torch, gen):
+    """addone against torch.add(x, 1) at full width, in ADDONE_TURNS
+    interleaved traces (device ms, each over 20 calls; the method of
+    tools/scale_variants.py): the medians, and each turn's ratio, whose
+    spread says whether a gap between them is real."""
+    x = torch.randn(RTC_FULL, generator=gen, device="cuda")
+    fn = ex.kernel("addone")
+    check(bool(torch.equal(fn(x), torch.add(x, 1.0))),
+          "addone disagrees with x + 1")
+    calls = {"addone": lambda: fn(x), "torch_add": lambda: torch.add(x, 1.0)}
+    ms = {k: [] for k in calls}
+    for _ in range(ADDONE_TURNS):
+        for name, f in calls.items():
+            ms[name].append(device_ms(f, torch, f"{name} (turns)"))
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    ratios = sorted(a / b for a, b in zip(ms["addone"], ms["torch_add"]))
+    return {"ms": ms, "median_ms": med,
+            "addone_over_torch_add": med["addone"] / med["torch_add"],
+            "turn_ratios_min_max": [ratios[0], ratios[-1]]}
 
 
 def rtc_plain_grad(x, w, t, torch):
@@ -2642,6 +2706,712 @@ def phase_module(mt, torch, card):
     return counts, tpu
 
 
+# ------------------------------------------------------------ hybridize
+# bench.py's graph bench (bench.py:886-996) on the port: its three
+# graphs bound at every level, and its CachedOp replay bench.
+GRAPH_LEVELS = (0, 1, 2)
+CACHEDOP_NET = (24, 64, 32)      # depth x width, batch (bench.py:957)
+CACHEDOP_CALLS = 200             # replays timed after the first call
+
+
+def graph_mlp(S, depth=4, width=256, classes=10, batch=32):
+    """bench.py's ``_graph_mlp``: an MLP and a softmax-CE loss written
+    out in primitives."""
+    x = S.Variable("data")
+    label = S.Variable("label")
+    h = x
+    for i in range(depth):
+        h = S.Activation(
+            S.FullyConnected(h, num_hidden=width, name=f"fc{i}"),
+            act_type="relu", name=f"act{i}")
+    logits = S.FullyConnected(h, num_hidden=classes, name="mlphead")
+    m = S.max(logits, axis=-1, keepdims=True)
+    z = logits - m
+    lse = S.log(S.sum(S.exp(z), axis=-1, keepdims=True))
+    logp = z - lse
+    onehot = S.one_hot(label, depth=classes)
+    loss = 0.0 - S.mean(S.sum(logp * onehot, axis=-1))
+    shapes = {"data": (batch, width), "label": (batch,)}
+    return S.Group([logits, loss]), shapes
+
+
+def graph_resnet_block(mt, channels=64, hw=16, batch=2):
+    """bench.py's ``_graph_resnet_block``: BasicBlockV1 traced through
+    the Gluon symbol frontend (its shapes settled on the CPU)."""
+    import torch
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision.resnet import \
+        BasicBlockV1
+    with mt.name.Prefix("rb_"):
+        blk = BasicBlockV1(channels, 1, in_channels=channels)
+    blk.initialize(mt.init.Xavier(), ctx=mt.cpu())
+    blk(mt.nd.NDArray(torch.zeros(batch, channels, hw, hw)))
+    with mt.name.Prefix("rb_"):
+        out = blk._to_symbol(mt.sym.Variable("data"))
+    return out, {"data": (batch, channels, hw, hw)}
+
+
+def graph_transformer_step(S, B=4, L=64, D=128, H=4, n_layers=2, V=1000):
+    """bench.py's ``_graph_transformer_step``: a decoder-LM training
+    graph with layernorm, GELU and the causal mask written out."""
+    dh = D // H
+
+    def layer_norm(t, tag):
+        g, b = S.Variable(f"{tag}_gamma"), S.Variable(f"{tag}_beta")
+        mu = S.mean(t, axis=-1, keepdims=True)
+        xc = t - mu
+        var = S.mean(xc * xc, axis=-1, keepdims=True)
+        return (xc / S.sqrt(var + 1e-5)) * g + b
+
+    def split_heads(t):
+        t = S.Reshape(t, shape=(B, L, H, dh))
+        t = S.transpose(t, axes=(0, 2, 1, 3))
+        return S.Reshape(t, shape=(B * H, L, dh))
+
+    def attention(y, tag):
+        q = S.FullyConnected(y, num_hidden=D, flatten=False,
+                             no_bias=True, name=f"{tag}_q")
+        k = S.FullyConnected(y, num_hidden=D, flatten=False,
+                             no_bias=True, name=f"{tag}_k")
+        v = S.FullyConnected(y, num_hidden=D, flatten=False,
+                             no_bias=True, name=f"{tag}_v")
+        scale = S.full((1,), float(dh)) ** -0.5     # folds to a constant
+        scores = S.batch_dot(split_heads(q), split_heads(k),
+                             transpose_b=True) * scale
+        rows = S.Reshape(S.arange(0, L), shape=(L, 1))
+        cols = S.Reshape(S.arange(0, L), shape=(1, L))
+        neg = (S.broadcast_greater_equal(rows, cols) - 1.0) * 1e9
+        attn = S.softmax(S.broadcast_add(scores, neg), axis=-1)
+        ctx = S.Reshape(
+            S.transpose(S.Reshape(S.batch_dot(attn, split_heads(v)),
+                                  shape=(B, H, L, dh)),
+                        axes=(0, 2, 1, 3)), shape=(B, L, D))
+        return S.FullyConnected(ctx, num_hidden=D, flatten=False,
+                                no_bias=True, name=f"{tag}_o")
+
+    def gelu(t):
+        return 0.5 * t * (1.0 + S.erf(t / 1.4142135623730951))
+
+    tokens = S.Variable("tokens")
+    labels = S.Variable("labels")
+    h = S.Embedding(tokens, S.Variable("embed_weight"), input_dim=V,
+                    output_dim=D, name="embed")
+    for i in range(n_layers):
+        h = h + attention(layer_norm(h, f"l{i}_ln1"), f"l{i}")
+        u = S.FullyConnected(layer_norm(h, f"l{i}_ln2"),
+                             num_hidden=4 * D, flatten=False,
+                             name=f"l{i}_ff1")
+        h = h + S.FullyConnected(gelu(u), num_hidden=D, flatten=False,
+                                 name=f"l{i}_ff2")
+    logits = S.FullyConnected(layer_norm(h, "lnf"), num_hidden=V,
+                              flatten=False, name="lmhead")
+    m = S.max(logits, axis=-1, keepdims=True)
+    z = logits - m
+    lse = S.log(S.sum(S.exp(z), axis=-1, keepdims=True))
+    loss = 0.0 - S.mean(
+        S.sum((z - lse) * S.one_hot(labels, depth=V), axis=-1))
+    shapes = {"tokens": (B, L), "labels": (B, L),
+              "embed_weight": (V, D),
+              "lmhead_weight": (V, D), "lmhead_bias": (V,),
+              "lnf_gamma": (D,), "lnf_beta": (D,)}
+    for i in range(n_layers):
+        for ln in (f"l{i}_ln1", f"l{i}_ln2"):
+            shapes[f"{ln}_gamma"] = (D,)
+            shapes[f"{ln}_beta"] = (D,)
+        for w in "qkvo":
+            shapes[f"l{i}_{w}_weight"] = (D, D)
+        shapes[f"l{i}_ff1_weight"] = (4 * D, D)
+        shapes[f"l{i}_ff1_bias"] = (4 * D,)
+        shapes[f"l{i}_ff2_weight"] = (D, 4 * D)
+        shapes[f"l{i}_ff2_bias"] = (D,)
+    return S.Group([logits, loss]), shapes
+
+
+def bench_graphs(mt):
+    """The three graphs of bench.py's graph bench: name -> (symbol,
+    input shapes)."""
+    return {"mlp": graph_mlp(mt.sym),
+            "resnet_block": graph_resnet_block(mt),
+            "transformer_lm_step": graph_transformer_step(mt.sym)}
+
+
+def graph_values(shapes_by_name):
+    """bench.py's values for a bound graph (numpy seed 42, by sorted
+    name): integer labels and tokens in [0, 10), the rest uniform in
+    [-0.05, 0.05)."""
+    import numpy as np
+    rl = np.random.RandomState(42)
+    vals = {}
+    for name in sorted(shapes_by_name):
+        shape = shapes_by_name[name]
+        if name in ("label", "labels", "tokens"):
+            vals[name] = rl.randint(0, 10, shape).astype("float32")
+        else:
+            vals[name] = (rl.rand(*shape) * 0.1 - 0.05).astype("float32")
+    return vals
+
+
+def bind_at_level(mt, symbol, shapes, level, ctx):
+    """(outputs as tensors, graph_report) of ``symbol`` bound on ``ctx``
+    at ``MXTPU_GRAPH_OPT=level`` with ``graph_values``."""
+    import os
+    old = os.environ.get("MXTPU_GRAPH_OPT")
+    os.environ["MXTPU_GRAPH_OPT"] = str(level)
+    try:
+        exe = symbol.simple_bind(ctx, grad_req="null", **shapes)
+    finally:
+        if old is None:
+            del os.environ["MXTPU_GRAPH_OPT"]
+        else:
+            os.environ["MXTPU_GRAPH_OPT"] = old
+    vals = graph_values({k: v.shape for k, v in exe.arg_dict.items()})
+    exe.copy_params_from({k: mt.nd.array(v, ctx=ctx)
+                          for k, v in vals.items()})
+    return [o.handle for o in exe.forward()], exe.graph_report
+
+
+def cachedop_net(mt, ctx):
+    """bench.py's CachedOp bench net: 24 x Dense(64, relu) + Dense(10),
+    Xavier weights from seed 0."""
+    depth, width, _ = CACHEDOP_NET
+    with mt.name.Prefix("gbench_"):
+        net = mt.gluon.nn.HybridSequential()
+        for _ in range(depth):
+            net.add(mt.gluon.nn.Dense(width, activation="relu"))
+        net.add(mt.gluon.nn.Dense(10))
+    mt.random.seed(SEED)
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    return net
+
+
+def per_call_ms(fn, torch, calls):
+    """Host ms per call of ``calls`` calls that each end in a device
+    synchronize (bench.py's ``net(x).asnumpy()`` loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def hybridize_cachedop(mt, torch):
+    """(i) bench.py's CachedOp bench on the card: eager ms per call, then
+    hybridized: the first call captures, 200 more replay (ms per call);
+    one trace (capture) after 201 same-shape calls, two after a second
+    shape; replays equal the eager output bit for bit."""
+    import numpy as np
+    depth, width, batch = CACHEDOP_NET
+    net = cachedop_net(mt, "cuda")
+    rs = np.random.RandomState(0)
+    x = mt.nd.array(rs.rand(batch, width).astype("float32"), ctx="cuda")
+    x2 = mt.nd.array(rs.rand(batch // 2, width).astype("float32"),
+                     ctx="cuda")
+    per_call_ms(lambda: net(x), torch, 3)                  # warm-up
+    eager_ms = per_call_ms(lambda: net(x), torch, 30)
+    eager = net(x).handle.clone()
+    eager2 = net(x2).handle.clone()
+    net.hybridize()
+    first = net(x).handle.clone()                          # the capture
+    replay_ms = per_call_ms(lambda: net(x), torch, CACHEDOP_CALLS)
+    same_shape = dict(net._cached_op.stats())
+    second = net(x2).handle.clone()
+    stats = net._cached_op.stats()
+    bitwise = {"first": bool(torch.equal(first, eager)),
+               "replay": bool(torch.equal(net(x).handle, eager)),
+               "second_shape": bool(torch.equal(second, eager2))}
+    check(same_shape["traces"] == 1,
+          f"{same_shape} after {CACHEDOP_CALLS + 1} same-shape calls")
+    check(stats["traces"] == 2, f"{stats} after a second shape")
+    check(all(bitwise.values()), f"CachedOp replay vs eager: {bitwise}")
+    return {"depth": depth, "width": width, "batch": batch,
+            "eager_ms_per_call": eager_ms, "replay_ms_per_call": replay_ms,
+            "replay_speedup": eager_ms / replay_ms,
+            "stats_after_201_same_shape_calls": same_shape,
+            "stats_after_second_shape": stats,
+            "bitwise_equal_to_eager": bitwise}
+
+
+def hybridize_resnet_inference(mt, torch):
+    """(ii) resnet50_v1() inference at B=32 on bench.py's batch, eager
+    and hybridized (graph mode, one capture), under deterministic cuDNN:
+    outputs bit-equal; ms per call each."""
+    x, _ = resnet_batch(torch)
+    xs = mt.nd.NDArray(x)
+    net = resnet_net(mt, torch, "cuda")
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = net(xs).handle.clone()
+        eager_ms = wall_ms(lambda: net(xs), torch, reps=5)
+        net.hybridize()
+        out = net(xs).handle.clone()                       # the capture
+        replay_ms = wall_ms(lambda: net(xs), torch, reps=5)
+        again = net(xs).handle
+        stats = net._cached_op.stats()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    equal = bool(torch.equal(out, eager)) and bool(torch.equal(again, eager))
+    check(equal, "hybridized resnet50 inference differs from eager: max "
+                 f"{(out - eager).abs().max().item()}")
+    check(stats["traces"] == 1 and stats["modes"] == ["graph"],
+          f"resnet50 CachedOp {stats}")
+    return {"batch": RESNET_BATCH, "eager_ms": eager_ms,
+            "hybridized_ms": replay_ms, "bitwise_equal": equal,
+            "stats": stats, "cudnn_deterministic": True}
+
+
+HYBRID_COMPARE_STEPS = 3       # steps held bit for bit against eager
+
+
+def hybridize_trainer_loop(mt, torch):
+    """(iii) phase resnet (iv)'s imperative loop (autograd.record,
+    SoftmaxCrossEntropyLoss, backward, Trainer.step(32)) hybridized, 23
+    steps from the seeded weights, beside the same loop not hybridized
+    for HYBRID_COMPARE_STEPS + 2 steps, under deterministic cuDNN: the
+    first HYBRID_COMPARE_STEPS losses, the parameters and the moving
+    stats after them equal bit for bit; one capture (the recorded
+    forward and its backward) for the one key."""
+    x, y = resnet_batch(torch)
+    xs, ys = mt.nd.NDArray(x), mt.nd.NDArray(y)
+
+    def loop(hybrid, steps):
+        net = resnet_net(mt, torch, "cuda")
+        if hybrid:
+            net.hybridize()
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd", RESNET_SGD)
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        losses, ms, snap = [], [], None
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mt.autograd.record():
+                loss = loss_fn(net(xs), ys)
+            loss.backward()
+            trainer.step(RESNET_BATCH)
+            losses.append(float(loss.mean().asscalar()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i + 1 == HYBRID_COMPARE_STEPS:
+                snap = [p.data().handle.clone()
+                        for p in net.collect_params().values()]
+        return net, losses, ms, snap
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, e_losses, e_ms, e_snap = loop(False, HYBRID_COMPARE_STEPS + 2)
+        release(torch)
+        net, h_losses, h_ms, h_snap = loop(True, RESNET_LOOP_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    n = HYBRID_COMPARE_STEPS
+    differ = sum(not torch.equal(a, b) for a, b in zip(e_snap, h_snap))
+    stats = net._cached_op.stats()
+    check(h_losses[:n] == e_losses[:n],
+          f"hybridized loop losses {h_losses[:n]} vs eager {e_losses[:n]}")
+    check(differ == 0, f"{differ} of {len(e_snap)} parameters and moving "
+                       f"stats differ after {n} hybridized steps")
+    check(stats["traces"] == 1 and stats["entries"] == 1,
+          f"hybridized loop CachedOp {stats}")
+    check(all(math.isfinite(v) for v in h_losses), f"losses {h_losses}")
+    check(h_losses[-1] < h_losses[0], f"loop loss did not fall: {h_losses}")
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+    return {"steps": RESNET_LOOP_STEPS, "losses": h_losses,
+            "eager_losses": e_losses, "step_ms": h_ms,
+            "step_ms_after_first": median(h_ms[1:]),
+            "eager_step_ms_after_first": median(e_ms[1:]),
+            "bitwise_equal_first_steps": n, "tensors_compared": len(e_snap),
+            "stats": stats, "cudnn_deterministic": True}
+
+
+CHAIN_CALLS = 3                # one block applied in a chain, an unrolled cell
+
+
+def hybridize_chained(mt, torch):
+    """(vi) one hybridized block applied CHAIN_CALLS times in a chain
+    under one autograd.record() (an unrolled cell: every call after the
+    first has the same key while the earlier ones wait for the
+    backward), two iterations, in graph mode and in jit mode
+    (MXTPU_GRAPH_OPT=0): the input's and every parameter's gradient
+    equal the same chain's not hybridized, bit for bit; each call
+    waiting for the backward holds a captured pair of its own
+    (CHAIN_CALLS captures, none more at the second iteration)."""
+    import os
+    import numpy as np
+    _, width, batch = CACHEDOP_NET
+    x0 = np.random.RandomState(1).rand(batch, width).astype("float32")
+    out = {}
+    for mode, level in (("graph", None), ("jit", "0")):
+        with mt.name.Prefix(f"chain{mode}_"):
+            net = mt.gluon.nn.HybridSequential()
+            net.add(mt.gluon.nn.Dense(width, in_units=width,
+                                      activation="tanh"))
+        mt.random.seed(SEED)
+        net.initialize(mt.init.Xavier(), ctx="cuda")
+
+        def chain():
+            x = mt.nd.array(x0, ctx="cuda")
+            x.attach_grad()
+            with mt.autograd.record():
+                h = x
+                for _ in range(CHAIN_CALLS):
+                    h = net(h)
+                y = h.sum()
+            y.backward()
+            return [x.grad.handle.clone()] + [
+                p.grad().handle.clone()
+                for p in net.collect_params().values()]
+
+        eager = chain()
+        net.hybridize()
+        old = os.environ.get("MXTPU_GRAPH_OPT")
+        if level is not None:
+            os.environ["MXTPU_GRAPH_OPT"] = level
+        try:
+            runs = [chain() for _ in range(2)]
+        finally:
+            if old is None:
+                os.environ.pop("MXTPU_GRAPH_OPT", None)
+            else:
+                os.environ["MXTPU_GRAPH_OPT"] = old
+        stats = net._cached_op.stats()
+        equal = [all(torch.equal(a, b) for a, b in zip(run, eager))
+                 for run in runs]
+        check(all(equal),
+              f"chained hybridized gradients ({mode}) vs eager: {equal}")
+        check(stats["traces"] == CHAIN_CALLS and stats["entries"] == 1
+              and stats["modes"] == [mode],
+              f"chained CachedOp {stats}: not one {mode} pair per "
+              f"waiting call")
+        out[mode] = {"bitwise_equal_to_eager": equal, "stats": stats}
+    return {"calls": CHAIN_CALLS, "width": width, "batch": batch, **out}
+
+
+def hybridize_rtc(mt, torch):
+    """(iv) examples/custom_pallas_kernel.py's hybridized block (its
+    hybrid_forward calls F.scale_shift_relu) at the rtc phase's width,
+    fp32 (8192, 4096): under autograd.record the replayed forward and
+    its backward give the nd path's output and gradient bit for bit;
+    one replay runs fused_scale_shift_relu once on the card.  Returns
+    (record, launches of the kernel on this path)."""
+    from incubator_mxnet_tpu_torch import rtc_examples as ex
+    if "scale_shift_relu" not in mt.ops.OPS:
+        ex.register_scale_shift_relu()
+    launches = mt.ops.LAUNCHES
+
+    class Net(mt.gluon.HybridBlock):
+        def hybrid_forward(self, F, v):
+            return F.scale_shift_relu(v, alpha=RTC_ALPHA, beta=RTC_BETA)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31)
+    data = torch.randn(RTC_FULL, generator=gen, device="cuda")
+    x = mt.nd.NDArray(data.clone())
+    x.attach_grad()
+    with mt.autograd.record():
+        y_nd = mt.nd.scale_shift_relu(x, alpha=RTC_ALPHA, beta=RTC_BETA)
+    y_nd.backward()
+    net = Net()
+    net.hybridize()
+    xh = mt.nd.NDArray(data.clone())
+    xh.attach_grad()
+    per_call = []
+
+    def one():
+        mt.ops.reset_launches()
+        with mt.autograd.record():
+            out = net(xh)                                # the main path
+        out.backward()
+        per_call.append(launches["fused_scale_shift_relu"])
+        return out
+
+    y = one()
+    bitwise = {"out": bool(torch.equal(y.handle, y_nd.handle)),
+               "grad": bool(torch.equal(xh.grad.handle, x.grad.handle))}
+    for _ in range(2):
+        one()
+    runs, seen = kernel_runs(torch, one, "fused_scale_shift_relu")
+    # a call outside record() replays a capture of its own
+    mt.ops.reset_launches()
+    again = bool(torch.equal(net(xh).handle, y_nd.handle))
+    torch.cuda.synchronize()
+    infer_launches = launches["fused_scale_shift_relu"]
+    infer_runs, _ = kernel_runs(torch, lambda: net(xh),
+                                "fused_scale_shift_relu")
+    stats = net._cached_op.stats()
+    first = mt.parallel._graph.WARMUP_STEPS + 1
+    check(all(bitwise.values()) and again,
+          f"hybridized rtc block vs nd path: {bitwise}, no-record {again}")
+    check(runs == 1, f"one recorded replay ran fused_scale_shift_relu "
+                     f"{runs} times; the trace held {seen}")
+    check(infer_runs == 1, f"one replay ran fused_scale_shift_relu "
+                           f"{infer_runs} times")
+    check(per_call[0] == first and not any(per_call[1:]),
+          f"hybridized rtc launches per call {per_call}, not {first} at the "
+          f"first call and none at replays")
+    check(infer_launches == first, f"the capture outside record() launched "
+                                   f"{infer_launches} times, not {first}")
+    check(stats["modes"] == ["graph"] and stats["traces"] == 2,
+          f"rtc CachedOp {stats}: not one capture per route")
+    return {"shape": list(RTC_FULL), "bitwise_equal_to_nd": bitwise,
+            "runs_per_recorded_replay": runs, "runs_per_replay": infer_runs,
+            "launches_per_recorded_call": per_call,
+            "launches_first_unrecorded_call": infer_launches,
+            "stats": stats}, sum(per_call) + infer_launches
+
+
+def hybridize_graphs(mt, torch):
+    """(v) bench.py's three graphs bound on the card at levels 0, 1 and
+    2: outputs bit-equal across levels; the node counts."""
+    out = {}
+    for name, (symbol, shapes) in bench_graphs(mt).items():
+        outs, nodes = {}, {}
+        for level in GRAPH_LEVELS:
+            got, rep = bind_at_level(mt, symbol, shapes, level, "cuda")
+            outs[level] = [t.clone() for t in got]
+            nodes[level] = [rep["nodes_before"], rep["nodes_after"]] \
+                if level else None
+        equal = {lv: all(torch.equal(a, b)
+                         for a, b in zip(outs[0], outs[lv]))
+                 for lv in GRAPH_LEVELS[1:]}
+        check(all(equal.values()),
+              f"{name}: outputs differ across levels {equal}")
+        check(all(bool(torch.isfinite(t).all()) for t in outs[0]),
+              f"{name}: non-finite outputs")
+        out[name] = {"nodes_before_after": nodes, "bitwise_equal": equal}
+    return out
+
+
+def release(torch):
+    """Free what the last part held: a hybridized block and its CachedOp
+    refer to each other, so their captured graphs' pools go at a
+    collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_hybridize(mt, torch, card):
+    launches = mt.ops.LAUNCHES
+    mt.ops.reset_launches()
+    cachedop = hybridize_cachedop(mt, torch)
+    resnet = hybridize_resnet_inference(mt, torch)
+    release(torch)
+    loop = hybridize_trainer_loop(mt, torch)
+    release(torch)
+    rtc, rtc_launches = hybridize_rtc(mt, torch)
+    graphs = hybridize_graphs(mt, torch)
+    chained = hybridize_chained(mt, torch)
+    release(torch)
+    check(not any(v for k, v in launches.items()
+                  if k != "fused_scale_shift_relu"),
+          f"the hybridize phase launched {dict(launches)}")
+    emit({"phase": "hybridize", "card": card, "cachedop_bench": cachedop,
+          "resnet50_inference": resnet, "trainer_loop": loop,
+          "rtc_block": rtc, "graphs": graphs, "chained": chained})
+    return {"fused_scale_shift_relu": rtc_launches}, {
+        "fused_scale_shift_relu": rtc["runs_per_replay"]}
+
+
+# ------------------------------------------------------------------ moe
+# bench.py's MoE configuration (MXTPU_BENCH_MOE=8, bench.py:181-235): the
+# transformer width with top-2 routing over 8 experts.
+MOE_EXPERTS = 8
+MOE_CF = 1.25
+MOE_TRAIN_BATCHES = (8, 4, 2)     # B x L=1024: the first whose peak fits
+MOE_PEAK_LIMIT = 60e9
+MOE_SERVE = (4, 128)
+MOE_WARMUP, MOE_TIMED = 1, 3
+
+
+def moe_loss(outputs, labels):
+    """bench.py's MoE loss: its LM loss plus 0.01 x the router aux."""
+    return lm_loss(outputs, labels) + 0.01 * outputs[1]
+
+
+def moe_model(mt, device):
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        TransformerLM
+    return TransformerLM(**MODEL, moe_experts=MOE_EXPERTS,
+                         moe_capacity_factor=MOE_CF, device=device)
+
+
+def moe_forward(mt, torch, net):
+    """forward at B=8 x L=1024: logits and aux finite, flash_fwd once per
+    layer; the card against the CPU's plain path at B=1 x L=256 (the
+    same T on both, so the same expert capacities), rel 1e-3."""
+    launches = mt.ops.LAUNCHES
+    b, l = FORWARD
+    layers = MODEL["n_layers"]
+    gen = torch.Generator().manual_seed(SEED + 41)
+    toks = torch.randint(0, MODEL["vocab_size"], (b, l), generator=gen)
+    toks = toks.cuda()
+    with torch.inference_mode():
+        mt.ops.reset_launches()
+        logits, aux = net(toks)                          # the main path
+        torch.cuda.synchronize()
+        n = launches["flash_fwd"]
+        check(n == layers, f"moe forward launched flash_fwd {n} times")
+        check(tuple(logits.shape) == (b, l, MODEL["vocab_size"]),
+              "moe logits shape")
+        check(bool(torch.isfinite(logits).all()) and
+              math.isfinite(float(aux)), "non-finite moe logits or aux")
+        del logits
+        ms = wall_ms(lambda: net(toks), torch)
+        prof = profile(lambda: net(toks), torch)
+        cpu_net = moe_model(mt, "cpu")
+        cpu_net.load_state_dict({k: v.cpu() for k, v in
+                                 net.state_dict().items()})
+        short = toks[:1, :256]
+        got, got_aux = net(short)
+        ref, ref_aux = cpu_net(short.cpu())
+        rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+        aux_rel = abs(float(got_aux) - float(ref_aux)) / abs(float(ref_aux))
+    check(rel <= 1e-3, f"moe card vs CPU logits rel err {rel} > 1e-3")
+    check(aux_rel <= 1e-3, f"moe card vs CPU aux rel err {aux_rel}")
+    return {"batch": b, "seq": l, "flash_launches": n, "ms_per_forward": ms,
+            "tokens_per_s": b * l / ms * 1e3, "aux": float(aux),
+            "cpu_rel_err": rel, "cpu_aux_rel_err": aux_rel,
+            "cpu_tol": 1e-3, "profile": prof}, n, cpu_net
+
+
+def moe_generate(mt, torch, net, cpu_net):
+    """generate for 4 prompts of 128 tokens, 32 new each, greedy.  Expert
+    capacity is set by the tokens of one call (the prefill's B x P, a
+    decode step's B), so a teacher-forced forward over the finished
+    sequences routes with other capacities from the first decoded token
+    on: its argmax must give the first new token (the prefill's T), and
+    every token must equal the CPU's generate() on the same weights,
+    both but where the top-two logits tie (TIE_REL, printed).  The
+    teacher-forced agreement over all tokens is printed."""
+    launches = mt.ops.LAUNCHES
+    b, p = MOE_SERVE
+    gen = torch.Generator().manual_seed(SEED + 42)
+    prompts = torch.randint(0, MODEL["vocab_size"], (b, p), generator=gen)
+    mt.ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = net.generate(prompts.cuda(), max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    n = launches["flash_fwd"]
+    check(n == MODEL["n_layers"], f"moe prefill launched flash_fwd {n}")
+    check(tuple(out.shape) == (b, p + NEW_TOKENS), "moe generate shape")
+    with torch.inference_mode():
+        logits, _ = net(prompts.cuda())
+        first_margin = [tie_margin(logits[i, -1].float())
+                        for i in range(b)]
+        tf_logits, _ = net(out[:, :-1].long())
+    first = logits[:, -1].argmax(-1).to(out.dtype)
+    ties = [i for i in range(b) if first_margin[i] <= TIE_REL]
+    first_ok = all(int(first[i]) == int(out[i, p]) for i in range(b)
+                   if i not in ties)
+    check(first_ok, f"first new tokens {out[:, p].tolist()} vs the "
+                    f"forward's argmax {first.tolist()}")
+    agree_tf = (tf_logits.argmax(-1)[:, p - 1:] == out[:, p:]).float() \
+        .mean().item()
+    ref = cpu_net.generate(prompts, max_new_tokens=NEW_TOKENS)
+    differ = []
+    for i in range(b):
+        bad = (ref[i, p:] != out[i, p:].cpu()).nonzero()
+        if len(bad):
+            differ.append([i, int(bad[0])])
+    margins = []
+    for i, j in differ:           # a tie at the first difference only
+        with torch.inference_mode():
+            lg, _ = net(out[i:i + 1, :p + j].long())
+        margins.append(tie_margin(lg[0, -1].float()))
+    check(all(m <= TIE_REL for m in margins),
+          f"moe generate differs from the CPU's at {differ} with top-two "
+          f"margins {margins}")
+    ms = wall_ms(lambda: net.generate(prompts.cuda(), NEW_TOKENS), torch)
+    return {"requests": b, "prompt": p, "new_tokens": NEW_TOKENS,
+            "flash_launches": n, "first_call_ms": gen_ms, "generate_ms": ms,
+            "tokens_per_s": b * NEW_TOKENS / ms * 1e3,
+            "first_token_ties": ties,
+            "differs_from_cpu_at": differ, "tie_margins": margins,
+            "teacher_forced_agree": agree_tf}, n
+
+
+def moe_train(mt, torch, net):
+    """The bf16 ShardedTrainStep (Adam lr 1e-4, loss CE + 0.01 aux) at
+    the first batch of MOE_TRAIN_BATCHES whose peak stays under 60 GB:
+    eager and captured from the same weights, losses finite and falling
+    and equal bit for bit, parameters too, one capture, each flash kernel
+    once per layer per step."""
+    import numpy as np
+    # the start of each way, on the host: 3.7 GB the card need not hold
+    snapshot = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    vocab = MODEL["vocab_size"]
+    l = TRAIN[1]
+    tried = {}
+    for b in MOE_TRAIN_BATCHES:
+        rs = np.random.RandomState(0)
+        toks = torch.from_numpy(
+            rs.randint(0, vocab, (b, l)).astype(np.int32)).cuda()
+        labels = torch.from_numpy(
+            rs.randint(0, vocab, (b, l)).astype(np.int32)).cuda()
+
+        def make():
+            net.load_state_dict(snapshot)
+            return mt.parallel.ShardedTrainStep(
+                net, optimizer="adam",
+                optimizer_params=dict(learning_rate=1e-4),
+                loss_fn=moe_loss, compute_dtype=torch.bfloat16)
+
+        try:
+            ways, counts = captured_vs_eager(
+                mt, torch, make, toks, labels, MOE_WARMUP + MOE_TIMED,
+                MOE_TIMED, lambda step: list(step.params.values()),
+                lambda step, call: profile(lambda: call(toks, labels),
+                                           torch))
+        except torch.cuda.OutOfMemoryError as exc:
+            tried[b] = f"out of memory: {str(exc)[:120]}"
+            release(torch)        # the failed steps' graphs hold memory
+            continue
+        peak = max(ways[w]["peak_memory_bytes"] for w in ("eager",
+                                                          "captured"))
+        tried[b] = peak
+        if peak < MOE_PEAK_LIMIT:
+            break
+        release(torch)
+    else:
+        check(False, f"no MoE train batch fits under 60 GB: {tried}")
+    check_train_launches(mt, counts, ways, "moe train")
+    flops_tok = net.train_flops_per_token(l)
+    for way in ("eager", "captured"):
+        r = ways[way]
+        r["tokens_per_s"] = b * l / r["step_ms"] * 1e3
+        r["mfu_bf16_peak"] = flops_tok * r["tokens_per_s"] / H100_BF16_FLOPS
+    del snapshot
+    return {"batch": b, "seq": l, "batches_tried": tried,
+            "optimizer": "adam", "lr": 1e-4, "compute_dtype": "bfloat16",
+            "loss": "CE + 0.01 aux", "train_flops_per_token": flops_tok,
+            "steps": ways, "launches_per_call": counts}, \
+        {k: [c.get(k, 0) for c in counts["captured"]]
+         for k in TRAIN_KERNELS}, \
+        {k: ways["captured"]["profile"]["kernels_by_class"].get(k, 0)
+         for k in TRAIN_KERNELS}
+
+
+def phase_moe(mt, torch, card):
+    release(torch)
+    net = moe_model(mt, None)                # None: the CUDA card
+    mt.initializer.initialize(net, mt.initializer.Xavier(),
+                              mt.random.generator(SEED))
+    n_params = sum(p.numel() for p in net.parameters())
+    fwd, fwd_n, cpu_net = moe_forward(mt, torch, net)
+    serve, serve_n = moe_generate(mt, torch, net, cpu_net)
+    del cpu_net
+    torch.cuda.empty_cache()
+    train, train_launches, replay_runs = moe_train(mt, torch, net)
+    emit({"phase": "moe", "card": card, "params": n_params,
+          "experts": MOE_EXPERTS, "capacity_factor": MOE_CF,
+          "forward": fwd, "generate": serve, "train": train})
+    del net
+    torch.cuda.empty_cache()
+    return {"forward": fwd_n, "generate": serve_n,
+            "train": train_launches}, replay_runs
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2689,6 +3459,9 @@ def main():
         rtc_entries, nd_flash = timed("rtc", phase_rtc, mt, torch)
         module_launches, module_tpu = timed("module", phase_module, mt,
                                             torch, card)
+        hyb_launches, hyb_runs = timed("hybridize", phase_hybridize, mt,
+                                       torch, card)
+        moe_launches, moe_runs = timed("moe", phase_moe, mt, torch, card)
         keeps["end"] = trace_keeps(torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
               "trace_keeps": keeps})
@@ -2699,13 +3472,20 @@ def main():
                                      "train": train_launches["flash_fwd"],
                                      "fp32_train": fp32_launches["flash_fwd"],
                                      "nd": nd_flash}
-        entry["runs_per_replay"] = replay_runs["flash_fwd"]
+        entry["launches_by_path"].update(
+            moe_forward=moe_launches["forward"],
+            moe_generate=moe_launches["generate"],
+            moe_train=moe_launches["train"]["flash_fwd"])
+        entry["runs_per_replay"] = dict(replay_runs["flash_fwd"],
+                                        moe_train=moe_runs["flash_fwd"])
         for e in bwd_entries:
             e["launches_by_path"] = {
                 "serve_engine": engine_launches[e["name"]],
                 "train": train_launches[e["name"]],
-                "fp32_train": fp32_launches[e["name"]]}
-            e["runs_per_replay"] = replay_runs[e["name"]]
+                "fp32_train": fp32_launches[e["name"]],
+                "moe_train": moe_launches["train"][e["name"]]}
+            e["runs_per_replay"] = dict(replay_runs[e["name"]],
+                                        moe_train=moe_runs[e["name"]])
             e["fp32_train"]["launches"] = sum(fp32_launches[e["name"]])
         for e in [entry] + bwd_entries + rtc_entries:
             e["launches_by_path"]["resnet"] = resnet_launches.get(
@@ -2714,6 +3494,10 @@ def main():
                 e["name"], 0)
             e["launches_by_path"]["module_tpu"] = module_tpu.get(
                 e["name"], 0)
+            e["launches_by_path"]["hybridize"] = hyb_launches.get(
+                e["name"], 0)
+            if e["name"] in hyb_runs:
+                e["runs_per_replay"] = {"hybridize": hyb_runs[e["name"]]}
             e["launches"] = sum(
                 n if isinstance(n, int) else sum(n)
                 for n in e["launches_by_path"].values())

@@ -18,7 +18,8 @@ train steps (on a CUDA device each one captured CUDA graph replay) and
 the mesh, ``kvstore`` the parameter store.  The symbolic surface rides on the same registry: ``sym``
 (Symbol, one function per op), ``Executor``, ``mod`` (``Module.fit``),
 ``metric``, ``io``, ``callback``, ``model`` (checkpoints) and
-``monitor``.  ``serving`` serves ``TransformerLM`` traffic by
+``monitor``; ``graph`` holds the pass pipeline every bind runs and the
+``CachedOp`` behind ``HybridBlock.hybridize()``.  ``serving`` serves ``TransformerLM`` traffic by
 continuous batching over a paged KV cache.
 
 This package imports neither JAX nor ``incubator_mxnet_tpu``.
@@ -38,6 +39,7 @@ from . import symbol
 from . import symbol as sym
 from .symbol import Symbol
 from .executor import Executor
+from . import graph
 from . import metric, io, callback, kvstore, model, monitor
 from . import kvstore as kv
 from .model import load_checkpoint, save_checkpoint
@@ -54,7 +56,7 @@ __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "engine", "autograd", "optimizer", "lr_scheduler", "nd",
            "ndarray", "NDArray", "rtc", "resilience", "serving", "name",
            "attribute", "AttrScope", "symbol", "sym", "Symbol",
-           "Executor", "metric", "io", "callback", "model", "monitor",
+           "Executor", "graph", "metric", "io", "callback", "model", "monitor",
            "load_checkpoint", "save_checkpoint", "module", "mod",
            "Module", "Monitor", "DataBatch", "DataDesc", "DataIter",
            "NDArrayIter", "kvstore", "kv", "Context", "cpu", "gpu",

@@ -12,9 +12,11 @@ For the TransformerLM:
 ``wts`` is the nested dict of numpy arrays that the JAX model's
 ``_decode_weights()`` returns (the tests take it with
 ``jax.tree_util.tree_map(np.asarray, net._decode_weights())``):
-``embed``, ``pos``, ``layers[i].{ln1,qkv,proj,ln2,up,down}``, ``ln_f``,
-``head``.  Both packages keep the same layouts (Dense weights are
-(out, in)), so each array is copied as it is.  This module imports
+``embed``, ``pos``, ``layers[i].{ln1,qkv,proj,ln2}`` with
+``{up,down}`` or, for an MoE layer, ``moe`` (router weight, stacked
+expert up weight and bias, down weight and bias), ``ln_f``, ``head``.
+Both packages keep the same layouts (Dense weights are (out, in)), so
+each array is copied as it is.  This module imports
 neither JAX nor the JAX package: it reads plain arrays.
 
 Arrays of the ``nd`` surface need no function here: they cross between
@@ -74,9 +76,9 @@ def load_gluon_params(block, arrays, ctx=None):
 
 def load_reference_weights(model, wts):
     """Copy ``wts`` into ``model``'s parameters; returns the model.
-    Raises ``ValueError`` on a missing key or a shape mismatch, and
-    ``NotImplementedError`` on MoE layers or int8 ``{q, s}`` leaves,
-    which this slice does not carry."""
+    Raises ``ValueError`` on a missing key or a shape mismatch (a dense
+    layer against an MoE one among them), and ``NotImplementedError`` on
+    int8 ``{q, s}`` leaves, which the port does not carry."""
     with torch.no_grad():
         _copy(model._decode_params(), wts, "wts")
     return model
@@ -87,9 +89,6 @@ def _copy(dst, src, path):
         if not isinstance(src, dict):
             raise ValueError(f"{path}: expected a dict, got "
                              f"{type(src).__name__}")
-        if "moe" in src:
-            raise NotImplementedError(
-                f"{path}: MoE layers are not ported yet")
         missing = sorted(set(dst) - set(src))
         if missing:
             raise ValueError(f"{path}: missing {missing}")

@@ -19,6 +19,10 @@ order (``build_graph_fn``), and torch's autograd keeps the backward:
   updates them a second time on the split route: its defect, recorded
   in ROADMAP.
 - ``forward(is_train=False)`` runs under ``torch.no_grad()``.
+- A bind that is not placed first runs the graph-pass pipeline
+  (``graph.passes.optimize_symbol`` at ``MXTPU_GRAPH_OPT``, default 1:
+  output-preserving bit for bit) and keeps its ``graph_report``; the
+  walk runs the optimized graph.
 - Ops marked ``needs_rng`` draw from a ``torch.Generator`` made for the
   node and seeded from the forward's seed, which comes from the
   package's default CPU generator (``random.seed``), so a seeded run
@@ -72,15 +76,22 @@ def build_graph_fn(symbol, placements=None, default_device=None,
     ``run(arg_vals, aux_vals, seed, is_train) -> (outputs, aux_updates)``
     on torch tensors, in whatever grad mode the caller set.  ``seed`` is
     the forward's seed, or a callable ``(fold, device) -> Generator``
-    giving the ``fold``-th random node its generator.
+    giving the ``fold``-th random node its generator (a node's
+    ``__rng_index__``, stamped before optimization, is its ``fold``
+    when present).
 
     ``placements`` (id(node) -> torch.device) moves each placed node's
     inputs to its device; ``default_device`` is where creation ops
     (``_zeros``, ...) put their result when the node has no placement.
     ``tap(name, outputs)`` is called after every op node with its output
     tensors (the monitor hook)."""
+    from .graph.passes import CONST_OP
     order = _topo(symbol._heads)
     heads = list(symbol._heads)
+    # folded constants become tensors once, here, never in a forward
+    consts = {id(node): torch.as_tensor(node.params["value"],
+                                        device=default_device)
+              for node in order if node.op is CONST_OP}
     # each op output leaves the walk's table after its last reader, so
     # only what autograd saved outlives it (as in an eager forward)
     last = {}
@@ -108,6 +119,9 @@ def build_graph_fn(symbol, placements=None, default_device=None,
                     raise KeyError(f"unbound variable '{node.name}'")
                 continue
             op = node.op
+            if op is CONST_OP:
+                env[(id(node), 0)] = consts[id(node)]
+                continue
             ins = [env[(id(n), i)] for n, i in node.inputs]
             dev = default_device
             if placements is not None and id(node) in placements:
@@ -121,8 +135,11 @@ def build_graph_fn(symbol, placements=None, default_device=None,
             if op.needs_mode:
                 params["_training"] = is_train
             if op.needs_rng:
-                params["_rng"] = seed(fold, dev) if callable(seed) \
-                    else _node_generator(seed, fold, dev)
+                # the index stamped before optimization, if any: an
+                # optimized graph draws what the unoptimized one draws
+                k_rng = int(node.attrs.get("__rng_index__", fold))
+                params["_rng"] = seed(k_rng, dev) if callable(seed) \
+                    else _node_generator(seed, k_rng, dev)
                 fold += 1
             outs = op.fn(*ins, **params)
             outs_list = list(outs) if isinstance(outs, (tuple, list)) \
@@ -210,7 +227,17 @@ class Executor:
             placements, _ = _ctx_group_scan or \
                 _scan_ctx_groups(symbol, group2ctx)
         self._placements = placements
-        self._run = build_graph_fn(symbol, placements=placements,
+        # the pass pipeline (graph/, MXTPU_GRAPH_OPT) on every bind that
+        # is not placed (placements are keyed on node identity);
+        # self._symbol stays the user's graph: listings, shape
+        # inference, reshape and the monitor tap all see it
+        self.graph_report = None
+        run_symbol = symbol
+        if placements is None:
+            from .graph.passes import optimize_symbol
+            run_symbol, self.graph_report = optimize_symbol(
+                symbol, device=self._ctx)
+        self._run = build_graph_fn(run_symbol, placements=placements,
                                    default_device=self._ctx)
         self._monitor_cb = None
         self._run_tapped = None

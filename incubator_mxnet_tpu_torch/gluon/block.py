@@ -24,8 +24,14 @@ takes NDArrays or torch tensors and returns the kind it was given:
 
 Deferred shapes settle at the first forward through
 ``shape_from_input`` and ``Parameter._finish_deferred_init``.
-``hybridize()`` is accepted and runs the eager forward; the reference's
-CachedOp replay comes with the graph layer (ROADMAP item A7).
+``hybridize()`` routes ``__call__`` on NDArrays through a
+``graph.CachedOp``: one entry per signature (input shapes, dtypes,
+devices, static arguments, train flag), run through the graph-pass
+pipeline when the block traces into a Symbol, and on a CUDA device
+captured once as a CUDA graph and replayed after (see
+``graph/cached_op.py``).  A hybridized block called on torch tensors,
+in ``autograd.torch_mode`` or inside an outer CachedOp or capture runs
+its forward directly.
 
 Called on Symbols, a HybridBlock traces itself into a graph
 (``_to_symbol``): its parameters become Variables named as the
@@ -34,6 +40,7 @@ module.  ``export`` writes that graph and the parameters in the JAX
 package's checkpoint layout, and ``SymbolBlock`` runs a Symbol (one
 written by either package) as a block.
 """
+import logging
 import re
 import threading
 
@@ -49,6 +56,8 @@ from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, _InPlace)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
+
+_LOG = logging.getLogger(__name__)
 
 
 class _BlockScope:
@@ -226,15 +235,88 @@ def _to_torch(out):
 class HybridBlock(Block):
     """A block whose computation is ``hybrid_forward(F, x, **params)``.
 
-    ``hybridize()`` is accepted for the reference's API and changes
-    nothing: the forward runs eagerly, op by op.  The reference replays
-    a CachedOp there; the port's comes with the graph layer (ROADMAP
-    item A7).
+    ``hybridize()`` swaps ``__call__`` onto a ``graph.CachedOp``: the
+    forward is traced once per signature (through the pass pipeline
+    when the block traces into a Symbol, else the eager forward) and,
+    on a CUDA device, captured once as a CUDA graph and replayed on
+    every later call with that signature.
     """
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix, params)
         self._settled = False
+        self._active = False
+        self._cached_op = None
+        self._cache_fallback = False
+
+    def hybridize(self, active=True):
+        self._active = active
+        self._cached_op = None
+        self._cache_fallback = False
+        super().hybridize(active)
+
+    def cast(self, dtype):
+        self._cached_op = None
+        super().cast(dtype)
+
+    def __call__(self, *args, **kwargs):
+        if not self._active or kwargs or not args \
+                or not self._cacheable(args):
+            return super().__call__(*args, **kwargs)
+        return self._call_cached(*args)
+
+    @staticmethod
+    def _cacheable(args):
+        """False for Symbols, torch tensors, torch_mode, and calls inside
+        an outer CachedOp trace or a CUDA graph capture: those run the
+        forward directly."""
+        from ..graph.cached_op import in_trace
+        if in_trace() or autograd.in_torch_mode():
+            return False
+        if any(isinstance(a, (Symbol, torch.Tensor)) for a in args):
+            return False
+        return not (torch.cuda.is_initialized()
+                    and torch.cuda.is_current_stream_capturing())
+
+    def _trace_symbol(self, template):
+        """Trace this block into a Symbol graph for CachedOp's graph
+        mode; returns ``(symbol, input_names)``.  Tensor argument slots
+        become Variables ``data0``, ``data1``, ...; static arguments
+        pass to ``hybrid_forward`` as their canonical values."""
+        names = []
+
+        def make_tensor(i):
+            nm = f"data{i}"
+            names.append(nm)
+            return _sym.Variable(nm)
+
+        out = self._to_symbol(*template.flat_args(make_tensor))
+        if isinstance(out, (list, tuple)):
+            out = _sym.Group(list(out))
+        return out, names
+
+    def _call_cached(self, *args):
+        if self._cached_op is None:
+            # settle deferred shapes: one eager forward lets each layer
+            # infer its parameter shapes from its actual input
+            from ..graph.cached_op import CachedOp, Inside
+            if any(not p._allocated()
+                   for p in self.collect_params().values()):
+                with autograd.pause(), Inside():
+                    super().__call__(*args)
+            self._cached_op = CachedOp(self)
+        from ..graph.cached_op import UnsupportedSignatureError
+        try:
+            return self._cached_op(*args)
+        except UnsupportedSignatureError as exc:
+            # this call cannot key the cache; later keyable calls still
+            # hit it (warned once)
+            if not self._cache_fallback:
+                self._cache_fallback = True
+                _LOG.warning("%s: arguments cannot key a replay cache "
+                             "(%s); this call runs eagerly", self.name,
+                             exc)
+            return super().__call__(*args)
 
     def forward(self, *args, **kwargs):
         """``hybrid_forward`` on NDArrays (autograd's rules) or on torch
@@ -364,6 +446,15 @@ class SymbolBlock(HybridBlock):
                 if name in block._params.keys():
                     block._params[name].set_data(v)
         return block
+
+    def _trace_symbol(self, template):
+        """CachedOp's graph mode: the wrapped Symbol is the trace."""
+        if not template.is_flat or len(template.tensor_nds) != \
+                len(self._inputs):
+            raise TypeError(
+                f"{self.name}: expected {len(self._inputs)} tensor "
+                "arguments for the wrapped symbol")
+        return self._symbol, [i.name for i in self._inputs]
 
     def shape_from_input(self, *inputs):
         shapes = {i.name: a.shape for i, a in zip(self._inputs, inputs)}

@@ -20,8 +20,15 @@ over KV pools indexed by block tables, with no kernel of their own, as
 in the JAX package.  They read int8 ``{q, s}`` weights
 (``serving/quantize.py``) and dequantize at use.
 
-Not in this slice (each raises ``NotImplementedError``): MoE FFNs and
-sequence parallelism.
+``moe_experts > 0`` swaps each block's dense FFN for a top-2-routed
+Mixture-of-Experts FFN (``MoEFFN``, over ``ops.moe``); ``forward`` then
+returns ``[logits, aux]``, aux the summed router load-balance loss, and
+``generate``'s decode routes through the same code with the tokens of
+one step (the batch) as T.  Paged serving of MoE models stays refused,
+as in the JAX package.
+
+Not in this slice (raises ``NotImplementedError``): sequence
+parallelism.
 """
 import math
 
@@ -32,10 +39,11 @@ from torch import nn
 from ... import context
 from ...ops.flash import flash_attention
 from ...ops.matrix import rope_fn
+from ...ops.moe import moe_ffn_fn
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 
 __all__ = ["TransformerLM", "TransformerBlock", "CausalSelfAttention",
-           "transformer_lm"]
+           "MoEFFN", "transformer_lm"]
 
 
 def _not_ported(what, where):
@@ -67,8 +75,12 @@ def _jln(x, gb):
     return (x - mu) / torch.sqrt(var + 1e-5) * gb[0] + gb[1]
 
 
-def _ffn_rows(lw, x2d):
-    """Dense FFN on flattened (T, D) tokens (int8 weights dequantized)."""
+def _ffn_rows(lw, cf, x2d):
+    """Dense or MoE FFN on flattened (T, D) tokens (int8 dense weights
+    dequantized); ``cf`` is an MoE layer's capacity factor.  The same
+    routing code as training."""
+    if "moe" in lw:
+        return moe_ffn_fn(x2d, *lw["moe"], capacity_factor=cf)[0]
     return torch.relu(x2d @ _q_mat(lw["up"][0]).T + lw["up"][1]) \
         @ _q_mat(lw["down"][0]).T + lw["down"][1]
 
@@ -157,31 +169,85 @@ class CausalSelfAttention(nn.Module):
         return self.proj(out)
 
 
+class MoEFFN(nn.Module):
+    """Mixture-of-Experts FFN (GShard top-2; see ``ops/moe.py``).
+
+    Expert weights are stacked over a leading expert dimension, (E, H,
+    D) and (E, D, H), under the reference's names (``router_weight``,
+    ``expert_up_weight``, ``expert_up_bias``, ``expert_down_weight``,
+    ``expert_down_bias``), so the expert compute is one batched product.
+    ``forward`` returns the output and keeps the load-balance aux loss
+    as ``self.last_aux`` (read it in the same forward; add ~1e-2 of it
+    to the loss).  Parameters are float32 and uninitialized until
+    ``initializer.initialize`` (biases: zeros) or
+    ``convert.load_reference_weights``."""
+
+    def __init__(self, d_model, num_experts, hidden, capacity_factor=1.25,
+                 *, device=None):
+        super().__init__()
+        self._cf = float(capacity_factor)
+        self.num_experts = num_experts
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, device=device))
+
+        self.router_weight = param(num_experts, d_model)
+        self.expert_up_weight = param(num_experts, hidden, d_model)
+        self.expert_up_bias = param(num_experts, hidden)
+        self.expert_down_weight = param(num_experts, d_model, hidden)
+        self.expert_down_bias = param(num_experts, d_model)
+        self.last_aux = None
+
+    def weights(self):
+        """The five tensors in ``moe_ffn_fn``'s order."""
+        return (self.router_weight, self.expert_up_weight,
+                self.expert_up_bias, self.expert_down_weight,
+                self.expert_down_bias)
+
+    def forward(self, x):                      # (B, L, D)
+        b, l, d = x.shape
+        y, aux = moe_ffn_fn(x.reshape(b * l, d), *self.weights(),
+                            capacity_factor=self._cf)
+        self.last_aux = aux
+        return y.reshape(b, l, d)
+
+
 class TransformerBlock(nn.Module):
     """Pre-norm attention + MLP with residuals (GPT-2 layout).
-    ``moe_capacity_factor`` is the reference's MoE FFN capacity; the
-    MoE FFN itself (``moe_experts > 0``) is not ported yet."""
+
+    ``moe_experts > 0`` swaps the dense MLP for a top-2-routed
+    Mixture-of-Experts FFN (``MoEFFN``); the block then keeps the
+    router's load-balance loss as ``self.last_aux``."""
 
     def __init__(self, d_model, n_heads, mlp_ratio=4, dropout=0.0,
                  seq_parallel=False, moe_experts=0,
                  moe_capacity_factor=1.25, rope=False, n_kv_heads=None,
                  attn_window=0, *, device=None):
         super().__init__()
-        if moe_experts > 0:
-            raise _not_ported("moe_experts > 0 (ops/moe.py)", "MoE")
+        self.moe_experts = int(moe_experts)
         self.ln1 = LayerNorm(in_channels=d_model, device=device)
         self.attn = CausalSelfAttention(
             d_model, n_heads, seq_parallel=seq_parallel, rope=rope,
             n_kv_heads=n_kv_heads, attn_window=attn_window, device=device)
         self.ln2 = LayerNorm(in_channels=d_model, device=device)
-        self.up = Dense(mlp_ratio * d_model, flatten=False,
-                        activation="relu", in_units=d_model, device=device)
-        self.down = Dense(d_model, flatten=False,
-                          in_units=mlp_ratio * d_model, device=device)
+        if moe_experts:
+            self.moe = MoEFFN(d_model, moe_experts, mlp_ratio * d_model,
+                              capacity_factor=moe_capacity_factor,
+                              device=device)
+        else:
+            self.up = Dense(mlp_ratio * d_model, flatten=False,
+                            activation="relu", in_units=d_model,
+                            device=device)
+            self.down = Dense(d_model, flatten=False,
+                              in_units=mlp_ratio * d_model, device=device)
         self.drop = Dropout(dropout)
 
     def forward(self, x, kv_out=None):
         x = x + self.drop(self.attn(self.ln1(x), kv_out))
+        if self.moe_experts:
+            y = self.moe(self.ln2(x))
+            self.last_aux = self.moe.last_aux
+            return x + self.drop(y)
         return x + self.drop(self.down(self.up(self.ln2(x))))
 
 
@@ -243,12 +309,26 @@ class TransformerLM(nn.Module):
                                device=self.device)
 
     def forward(self, tokens):
-        """Logits (B, L, V) for int tokens (B, L)."""
-        return self.head(self.ln_f(self._hidden(self._tokens(tokens))))
+        """Logits (B, L, V) for int tokens (B, L); with ``moe_experts``
+        the return is ``[logits, aux]``, aux the summed router
+        load-balance loss (add ~1e-2 of it to the training loss)."""
+        x = self._hidden(self._tokens(tokens))
+        logits = self.head(self.ln_f(x))
+        if not self.moe_experts:
+            return logits
+        aux = None
+        for blk in self.blocks:
+            aux = blk.last_aux if aux is None else aux + blk.last_aux
+            # a tensor left on a block would keep this forward's autograd
+            # graph alive past the step (and a CUDA graph capture after
+            # it would sync with the stream that graph was made on)
+            blk.last_aux = blk.moe.last_aux = None
+        return [logits, aux]
 
     def _hidden(self, tokens, kv_out=None):
         """The last block's output (B, L, d); ``kv_out`` collects each
-        layer's K/V (see ``CausalSelfAttention.forward``)."""
+        layer's K/V (see ``CausalSelfAttention.forward``).  MoE blocks
+        keep their aux loss as ``last_aux``."""
         l = tokens.shape[1]
         if l > self._max_len:
             raise ValueError(
@@ -260,11 +340,20 @@ class TransformerLM(nn.Module):
             x = blk(x, kv_out)
         return x
 
+    def _mlp_flops(self):
+        """Matmul FLOPs per token of one layer's FFN: top-2 MoE runs two
+        experts' up + down and the router."""
+        d = self._d
+        hid = self._mlp_ratio * d
+        if self.moe_experts:
+            return 2 * (2 * 2 * d * hid) + 2 * d * self.moe_experts
+        return 2 * 2 * d * hid                      # dense up + down
+
     def train_flops_per_token(self, seq_len):
         """Matmul FLOPs per token of one forward + backward step (the
         3x-forward rule), for MFU; the JAX model's count."""
         d = self._d
-        mlp = 2 * 2 * d * self._mlp_ratio * d       # dense up + down
+        mlp = self._mlp_flops()
         kvd = self.n_kv_heads * (d // self.n_heads)
         att_span = min(seq_len, self.attn_window) \
             if self.attn_window else seq_len
@@ -278,16 +367,23 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------ decode
     def _decode_params(self):
         """The parameters in the JAX package's ``_decode_weights()``
-        layout: embed, pos, layers[i].{ln1,qkv,proj,ln2,up,down},
-        ln_f, head."""
+        layout: embed, pos, layers[i].{ln1,qkv,proj,ln2} and either
+        {up,down} or moe (router, up weight and bias, down weight and
+        bias), ln_f, head."""
         def pair(m, a="weight", b="bias"):
             return (getattr(m, a), getattr(m, b))
 
-        layers = [dict(ln1=pair(blk.ln1, "gamma", "beta"),
-                       qkv=pair(blk.attn.qkv), proj=pair(blk.attn.proj),
-                       ln2=pair(blk.ln2, "gamma", "beta"),
-                       up=pair(blk.up), down=pair(blk.down))
-                  for blk in self.blocks]
+        layers = []
+        for blk in self.blocks:
+            lw = dict(ln1=pair(blk.ln1, "gamma", "beta"),
+                      qkv=pair(blk.attn.qkv), proj=pair(blk.attn.proj),
+                      ln2=pair(blk.ln2, "gamma", "beta"))
+            if blk.moe_experts:
+                lw["moe"] = blk.moe.weights()
+            else:
+                lw["up"] = pair(blk.up)
+                lw["down"] = pair(blk.down)
+            layers.append(lw)
         wts = dict(embed=self.embed.weight,
                    ln_f=pair(self.ln_f, "gamma", "beta"),
                    head=self.head.weight, layers=layers)
@@ -387,7 +483,7 @@ class TransformerLM(nn.Module):
         x = wts["embed"][tok] * math.sqrt(d)
         if self._pos_kind == "learned":
             x = x + wts["pos"][i]
-        for lw, (kc, vc) in zip(wts["layers"], caches):
+        for lw, cf, (kc, vc) in zip(wts["layers"], self._cfs(), caches):
             xa = _jln(x, lw["ln1"])
             qkv = xa @ lw["qkv"][0].T + lw["qkv"][1]
             q = qkv[:, :d].reshape(b, 1, h, dh)
@@ -403,8 +499,13 @@ class TransformerLM(nn.Module):
             att = torch.softmax(s, dim=-1)
             o = torch.einsum("bkrc,bkcd->bkrd", att, vc[:, :, lo:i + 1])
             x = x + o.reshape(b, d) @ lw["proj"][0].T + lw["proj"][1]
-            x = x + _ffn_rows(lw, _jln(x, lw["ln2"]))
+            x = x + _ffn_rows(lw, cf, _jln(x, lw["ln2"]))
         return _jln(x, wts["ln_f"]) @ wts["head"].T
+
+    def _cfs(self):
+        """Each layer's MoE capacity factor (None for a dense layer)."""
+        return [blk.moe._cf if blk.moe_experts else None
+                for blk in self.blocks]
 
     # ---------------------------------------------------- paged decode
     # Block-table variants of prefill and step for the serving engine
@@ -497,7 +598,7 @@ class TransformerLM(nn.Module):
                 o = torch.einsum("krsc,kcd->krsd", att, vc)
                 o = o.reshape(h, S, dh).transpose(0, 1).reshape(S, d)
                 x = x + o @ _q_mat(lw["proj"][0]).T + lw["proj"][1]
-                x = x + _ffn_rows(lw, _jln(x, lw["ln2"]))
+                x = x + _ffn_rows(lw, None, _jln(x, lw["ln2"]))
             logits = _jln(x[true_len - 1], wts["ln_f"]) \
                 @ _q_mat(wts["head"]).T
             return logits.argmax().to(torch.int32), logits
@@ -564,7 +665,7 @@ class TransformerLM(nn.Module):
                     torch.where(keep[:, None, None, :], s, -1e9), dim=-1)
                 o = torch.einsum("bkrc,bkcd->bkrd", att, vc).reshape(B, d)
                 x = x + o @ _q_mat(lw["proj"][0]).T + lw["proj"][1]
-                x = x + _ffn_rows(lw, _jln(x, lw["ln2"]))
+                x = x + _ffn_rows(lw, None, _jln(x, lw["ln2"]))
             logits = _jln(x, wts["ln_f"]) @ _q_mat(wts["head"]).T
             return logits.argmax(-1).to(torch.int32), logits
 
@@ -574,7 +675,7 @@ class TransformerLM(nn.Module):
         """Matmul FLOPs to decode ONE token against a KV cache of
         ``context_len`` entries (forward only, no 3x rule)."""
         d = self._d
-        mlp = 2 * 2 * d * self._mlp_ratio * d       # dense up + down
+        mlp = self._mlp_flops()
         kvd = self.n_kv_heads * (d // self.n_heads)
         span = min(context_len, self.attn_window) \
             if self.attn_window else context_len

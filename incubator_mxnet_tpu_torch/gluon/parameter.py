@@ -46,6 +46,17 @@ __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
 
 _GRAD_REQS = ("write", "add", "null")
 
+# bumped whenever a parameter's tensor gets new storage (made, moved,
+# cast): a captured CUDA graph reads parameters by address, so a
+# hybridized block's CachedOp drops its captures when this moves and
+# the addresses it captured changed (set_data and initialize write in
+# place and keep them)
+_STORAGE_EPOCH = [0]
+
+
+def storage_epoch():
+    return _STORAGE_EPOCH[0]
+
 
 class DeferredInitializationError(RuntimeError):
     """Parameter accessed before its shape was known."""
@@ -174,6 +185,7 @@ class Parameter:
     def _materialize(self, device):
         self._var.materialize(self._shape, device=device,
                               dtype=self._tdtype)
+        _STORAGE_EPOCH[0] += 1
 
     def _init_grad(self):
         """The gradient buffer (zeros) and the hook that fills it."""
@@ -314,6 +326,7 @@ class Parameter:
             self._device = device
             return
         self._var.data = self._var.data.to(device)
+        _STORAGE_EPOCH[0] += 1
         if self._grad is not None:
             self._grad._data = self._grad._data.to(device)
 
@@ -321,6 +334,7 @@ class Parameter:
         self._tdtype = torch_dtype(dtype)
         if self._allocated():
             self._var.data = self._var.data.to(self._tdtype)
+            _STORAGE_EPOCH[0] += 1
             if self._grad is not None:
                 self._init_grad()
 

@@ -123,6 +123,12 @@ class Module(BaseModule):
     def output_shapes(self):
         return list(zip(self.output_names, self._exec.output_shapes))
 
+    @property
+    def graph_opt_report(self):
+        """Pass-pipeline report of the bound executor (per-pass node
+        deltas).  None before bind."""
+        return getattr(self, "_graph_opt_report", None)
+
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False,
              shared_module=None, grad_req="write"):
@@ -147,6 +153,9 @@ class Module(BaseModule):
             req = grad_req
         self._exec = self._symbol.simple_bind(self._context, grad_req=req,
                                               **shapes)
+        # the pass pipeline's report of this bind (None when
+        # MXTPU_GRAPH_OPT=0 or placed)
+        self._graph_opt_report = self._exec.graph_report
         if shared_module is not None and shared_module._exec is not None:
             self._exec.copy_params_from(
                 shared_module._exec.arg_dict, shared_module._exec.aux_dict,

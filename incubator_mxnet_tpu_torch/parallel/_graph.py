@@ -38,7 +38,8 @@ import warnings
 
 import torch
 
-__all__ = ["StepGraph", "WARMUP_STEPS", "tensors_of"]
+__all__ = ["StepGraph", "WARMUP_STEPS", "tensors_of", "warm_up",
+           "new_graph"]
 
 WARMUP_STEPS = 2
 
@@ -52,6 +53,43 @@ def tensors_of(tree):
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in tensors_of(v)]
     return []
+
+
+def warm_up(run, mutable, generators, steps=WARMUP_STEPS):
+    """Run ``run()`` ``steps`` times on a side stream (lazy
+    initialisation, library workspaces, autograd's streams) and undo
+    what they changed: the tensors of ``mutable()`` and each generator's
+    state are put back, so a capture after it starts where the caller
+    found the state."""
+    state = mutable()
+    snapshot = [t.detach().clone() for t in state]
+    gen_states = [g.get_state() for g in generators]
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    try:
+        with torch.cuda.stream(side):
+            for _ in range(steps):
+                run()
+    finally:            # a failed warm-up leaves no trace either
+        main.wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(state, snapshot):
+                t.copy_(s)
+        del snapshot
+        for g, s in zip(generators, gen_states):
+            g.set_state(s)
+
+
+def new_graph(device, generators):
+    """A ``torch.cuda.CUDAGraph`` with ``generators`` registered (torch's
+    default generator of ``device`` registers itself at capture)."""
+    graph = torch.cuda.CUDAGraph()
+    default = torch.cuda.default_generators[device.index or 0]
+    for g in generators:
+        if g is not default:
+            graph.register_generator_state(g)
+    return graph
 
 
 def _signature(inputs, generators):
@@ -112,29 +150,8 @@ class StepGraph:
             static_in = [torch.empty_like(x) for x in inputs]
             for s, x in zip(static_in, inputs):
                 s.copy_(x)
-            state = self.mutable()
-            snapshot = [t.detach().clone() for t in state]
-            gen_states = [g.get_state() for g in generators]
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            try:
-                with torch.cuda.stream(side):
-                    for _ in range(WARMUP_STEPS):
-                        self.fn(*static_in)
-            finally:            # a failed warm-up leaves no trace either
-                main.wait_stream(side)
-                with torch.no_grad():
-                    for t, s in zip(state, snapshot):
-                        t.copy_(s)
-                del snapshot
-                for g, s in zip(generators, gen_states):
-                    g.set_state(s)
-            graph = torch.cuda.CUDAGraph()
-            default = torch.cuda.default_generators[device.index or 0]
-            for g in generators:
-                if g is not default:
-                    graph.register_generator_state(g)
+            warm_up(lambda: self.fn(*static_in), self.mutable, generators)
+            graph = new_graph(device, generators)
             with torch.cuda.graph(graph):
                 out = self.fn(*static_in)
         out = out if isinstance(out, tuple) else (out,)

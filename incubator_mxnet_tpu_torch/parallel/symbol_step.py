@@ -73,7 +73,11 @@ class SymbolTrainStep:
         self.mesh = mesh if mesh is not None \
             else make_mesh(devices=[first.device])
         self.device = self.mesh.device
-        self.graph_report = None
+        # the optimized graph the single-device Executor binds
+        # (MXTPU_GRAPH_OPT; random nodes keep their stamped indices)
+        from ..graph.passes import optimize_symbol
+        symbol, self.graph_report = optimize_symbol(symbol,
+                                                    device=self.device)
         self._symbol = symbol
         self._run = build_graph_fn(symbol, default_device=self.device)
         self._param_names = tuple(sorted(param_vals))

@@ -69,11 +69,16 @@ def _rows_cols(x, **_):
 
 
 def _tiles(x, **_):
+    """addone's grid: (blocks a tile, tiles); each tile of 8 rows is
+    covered in one pass of blocks whose threads move one float4 each
+    (``csrc/rtc/addone.cu``)."""
     tiles = math.ceil(x.shape[0] / ROWS_PER_TILE)
     if tiles > 65535:
         raise ValueError(f"addone: {x.shape[0]} rows is past the grid's "
                          f"{65535 * ROWS_PER_TILE}-row limit")
-    return (max(1, math.ceil(x.shape[1] / BLOCK)), max(1, tiles))
+    per_block = BLOCK * 4
+    return (max(1, math.ceil(ROWS_PER_TILE * x.shape[1] / per_block)),
+            max(1, tiles))
 
 
 def _scale(x, alpha):

@@ -48,12 +48,17 @@ def quantize_weights(wts, include_embeddings=True):
             out["pos"] = wts["pos"]
     out["head"] = _q2d(wts["head"])
     for lw in wts["layers"]:
-        out["layers"].append(dict(
-            ln1=lw["ln1"], ln2=lw["ln2"],
-            qkv=(_q2d(lw["qkv"][0]), lw["qkv"][1]),
-            proj=(_q2d(lw["proj"][0]), lw["proj"][1]),
-            up=(_q2d(lw["up"][0]), lw["up"][1]),
-            down=(_q2d(lw["down"][0]), lw["down"][1])))
+        nl = dict(ln1=lw["ln1"], ln2=lw["ln2"],
+                  qkv=(_q2d(lw["qkv"][0]), lw["qkv"][1]),
+                  proj=(_q2d(lw["proj"][0]), lw["proj"][1]))
+        if "moe" in lw:
+            # stacked (E, H, D) expert weights stay fp32, as in the JAX
+            # package: per-expert scales would need a 3-D scale plan
+            nl["moe"] = lw["moe"]
+        else:
+            nl["up"] = (_q2d(lw["up"][0]), lw["up"][1])
+            nl["down"] = (_q2d(lw["down"][0]), lw["down"][1])
+        out["layers"].append(nl)
     return out
 
 

@@ -384,15 +384,11 @@ class Symbol:
 
     # -------------------------------------------------------------- opt
     def optimize(self, level=None, pass_names=None):
-        """The graph-pass pipeline (``graph/``) is not ported yet
-        (ROADMAP item A7), so this raises.  Binding is unaffected: the
-        JAX package's level-1 passes preserve every output bit for bit
-        (its ``graph/passes.py``), so the port's executor, which runs
-        the graph as written, gives the outputs an optimized graph
-        would."""
-        raise NotImplementedError(
-            "Symbol.optimize needs the graph-pass pipeline (graph/), "
-            "which the port does not have yet (ROADMAP item A7)")
+        """Run the graph-optimization pipeline (``graph/``); returns
+        ``(optimized_symbol, report)``.  ``level`` defaults to
+        ``MXTPU_GRAPH_OPT``; this Symbol is not modified."""
+        from ..graph.passes import optimize_symbol
+        return optimize_symbol(self, level=level, pass_names=pass_names)
 
     # -------------------------------------------------------------- bind
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,

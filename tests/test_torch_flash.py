@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from incubator_mxnet_tpu.ops import flash as jflash  # noqa: E402
 from incubator_mxnet_tpu_torch.ops import flash as tflash  # noqa: E402
+from torch_port_threads import one_intra_op_thread  # noqa: E402,F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -40,6 +40,7 @@ import incubator_mxnet_tpu_torch as mt  # noqa: E402
 from incubator_mxnet_tpu_torch.gluon import nn as tnn  # noqa: E402
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres  # noqa: E402
 from incubator_mxnet_tpu_torch.ops.registry import get_op as tget  # noqa: E402
+from torch_port_threads import one_intra_op_thread  # noqa: E402,F401
 
 CPU = mt.cpu()
 

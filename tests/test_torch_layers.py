@@ -208,6 +208,6 @@ def test_moe_capacity_factor_is_accepted():
                             device="cpu")
     assert len(net.blocks) == 1
     ttr.TransformerBlock(32, 4, moe_capacity_factor=2.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        ttr.TransformerLM(37, **cfg, moe_experts=2,
-                          moe_capacity_factor=1.25, device="cpu")
+    moe = ttr.TransformerLM(37, **cfg, moe_experts=2,
+                            moe_capacity_factor=1.5, device="cpu")
+    assert moe.blocks[0].moe._cf == 1.5

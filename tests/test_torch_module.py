@@ -48,6 +48,7 @@ import incubator_mxnet_tpu as mx  # noqa: E402
 from incubator_mxnet_tpu import parallel as jpar  # noqa: E402
 import incubator_mxnet_tpu_torch as mt  # noqa: E402
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres  # noqa: E402
+from torch_port_threads import one_intra_op_thread  # noqa: E402,F401
 
 CPU = mt.cpu()
 PKGS = [pytest.param(mx, id="jax"), pytest.param(mt, id="port")]

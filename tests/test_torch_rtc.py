@@ -165,9 +165,10 @@ def test_tiled_kernel_with_grid():
     fn = ex.kernel("addone")
     x = torch.zeros((32, 16), dtype=torch.float32)
     np.testing.assert_array_equal(fn(x).numpy(), np.ones((32, 16)))
-    # one block per 8-row tile, the columns in 256-wide strips
+    # 8-row tiles, each covered by blocks of 256 threads that move one
+    # float4 each (1024 elements a block)
     assert ex._tiles(x) == (1, 4)
-    assert ex._tiles(torch.zeros(8192, 4096)) == (16, 1024)
+    assert ex._tiles(torch.zeros(8192, 4096)) == (32, 1024)
 
 
 def test_alias_conflict_leaves_registry_clean():

@@ -40,6 +40,7 @@ from incubator_mxnet_tpu_torch.serving import (  # noqa: E402
     CANCELLED, EXPIRED, FINISHED, BlockPool, BlockPoolExhausted,
     PrefixCache, RequestTooLargeError, ServeRejectedError, ServingEngine,
     ServingError, quantization_error, quantize_weights, weights_nbytes)
+from torch_port_threads import one_intra_op_thread  # noqa: E402,F401
 
 VOCAB = 37
 CFG = dict(d_model=32, n_layers=2, n_heads=4, max_len=64)
@@ -288,7 +289,7 @@ def test_engine_rejects_unsupported_models_and_unported_options():
     with pytest.raises(TypeError, match="TransformerLM"):
         ServingEngine(object(), max_batch=1)
     moe = TransformerLM(VOCAB, **CFG, device="cpu")
-    moe.moe_experts = 2   # the port builds no MoE layer yet: the guard
+    moe.moe_experts = 2   # the guard reads the flag before any weight
     with pytest.raises(NotImplementedError, match="MoE"):
         _engine(moe)
     with pytest.raises(NotImplementedError, match="auto"):

@@ -33,6 +33,7 @@ from incubator_mxnet_tpu_torch.gluon.model_zoo.transformer import \
 from incubator_mxnet_tpu_torch.gluon.nn import Dropout  # noqa: E402
 from incubator_mxnet_tpu_torch.parallel import ShardedTrainStep  # noqa: E402
 from incubator_mxnet_tpu_torch.parallel import optim as toptim  # noqa: E402
+from torch_port_threads import one_intra_op_thread  # noqa: E402,F401
 
 VOCAB = 37
 CFG = dict(d_model=32, n_layers=2, n_heads=4, max_len=32)

@@ -41,6 +41,7 @@ from incubator_mxnet_tpu.gluon.model_zoo.vision import resnet as jres  # noqa: E
 import incubator_mxnet_tpu_torch as mt  # noqa: E402
 from incubator_mxnet_tpu_torch.convert import load_gluon_params  # noqa: E402
 from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tres  # noqa: E402
+from torch_port_threads import one_intra_op_thread  # noqa: E402,F401
 
 CPU = mt.cpu()
 SHAPE = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
