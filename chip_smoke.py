@@ -178,6 +178,47 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                the first of B=8, 4, 2 (x L=1024) whose peak stays under
                60 GB, eager and captured, bit-equal, one capture, each
                flash kernel once per layer per replay, peak memory.
+13. ops        the samplers, ordering and linear algebra (no hand
+               kernel on them): each of the 15 sampler ops (26 names
+               with their aliases) draws 10^6 values on the card whose
+               mean and variance lie within 5 standard errors of the
+               analytic values (printed in standard errors), a seed
+               repeats its draws and another does not, and torch's own
+               CUDA generator is never drawn from; sort, argsort and
+               topk (every ret_typ, both orders, several axes) on
+               small integers (ties everywhere) bit-equal to the CPU;
+               each _linalg_ op and khatri_rao in float64 within 1e-10
+               (max error over max) of the CPU, eigenvector and Q rows
+               sign-normalised.
+14. rnn        the recurrent stack (cuDNN's RNN, no hand kernel): (i)
+               the fused RNN op for each mode, one way and
+               bidirectional, at the word LM's width (2 layers of 1500,
+               T=35, N=20): outputs within 1e-4 and gradients within
+               1e-3 (max error over max) of the CPU on the same
+               weights; (ii) the Gluon word LM (examples/
+               word_language_model.py's RNNModel, untied, with dropout)
+               at the "large" PTB LSTM's width (Zaremba et al. 2014:
+               2 x 1500, embedding 1500, vocabulary 10000, bptt 35,
+               batch 20): one step at dropout 0 whose loss (rel 1e-5)
+               and gradients (1e-3) equal the CPU's, then 12 steps at
+               dropout 0.65 of the example's loop (record, backward,
+               clip_global_norm 0.25, Trainer SGD lr 5) on the
+               example's corpus: losses finite, the last below the
+               first; ms per step, tokens/s, peak memory over what
+               the phase found allocated, one step's device ms by
+               class (cudnn_rnn, matmul, other) and busy share;
+               (iii) config 3, examples/lstm_bucketing.py's sym_gen
+               through BucketingModule at its defaults (200 / 200, 2
+               layers, batch 32, Adam lr 0.01, Mixed init) with
+               PTB's vocabulary (10000) and the reference example's
+               buckets (10 to 60) on the script's Markov corpus: epochs
+               until the last one's perplexity is below 60% of the
+               first's and below 10000 (at most 15), each bucket bound
+               once; ms per batch by bucket, tokens/s, peak memory
+               over what the phase found allocated;
+               (iv) a HybridBlock holding rnn.LSTM hybridized: one
+               capture with cuDNN's RNN inside, replays bit-equal to
+               the eager call.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -3412,6 +3453,689 @@ def phase_moe(mt, torch, card):
             "train": train_launches}, replay_runs
 
 
+# ------------------------------------------------------------------ ops
+# The samplers (ops/random_op.py), the ordering ops (ops/order.py) and
+# the linear-algebra ops (ops/la.py) on the card.
+OPS_DRAWS = 1_000_000
+OPS_SE = 5.0            # a moment within 5 of its standard errors
+# op -> (parameters, mean, variance); the tensor-parameter ops draw for
+# one parameter set, given as the op's tensor inputs
+SAMPLERS = {
+    "_random_uniform": (dict(low=-1.0, high=3.0), 1.0, 16 / 12),
+    "_random_normal": (dict(loc=1.0, scale=2.0), 1.0, 4.0),
+    "_random_gamma": (dict(alpha=2.5, beta=1.5), 3.75, 5.625),
+    "_random_exponential": (dict(lam=2.0), 0.5, 0.25),
+    "_random_poisson": (dict(lam=4.0), 4.0, 4.0),
+    "_random_negative_binomial": (dict(k=3, p=0.4), 4.5, 11.25),
+    "_random_generalized_negative_binomial": (dict(mu=2.0, alpha=0.5),
+                                              2.0, 4.0),
+    "_random_randint": (dict(low=-3, high=7, dtype="int32"), 1.5, 8.25),
+}
+TENSOR_SAMPLERS = {
+    "_sample_uniform": ([[-1.0], [3.0]], 1.0, 16 / 12),
+    "_sample_normal": ([[1.0], [2.0]], 1.0, 4.0),
+    "_sample_gamma": ([[2.5], [1.5]], 3.75, 5.625),
+    "_sample_exponential": ([[2.0]], 0.5, 0.25),
+    "_sample_poisson": ([[4.0]], 4.0, 4.0),
+    "_sample_multinomial": ([[[0.1, 0.2, 0.3, 0.4]]], 2.0, 1.0),
+}
+LA_TOL = 1e-10          # float64, card against the CPU (max err / max)
+
+
+def ops_draw(mt, torch, name, ctx):
+    nd = mt.nd
+    if name in SAMPLERS:
+        return getattr(nd._internal, name)(
+            shape=(OPS_DRAWS,), ctx=ctx, **SAMPLERS[name][0])
+    if name == "_shuffle":
+        return nd._internal._shuffle(nd.arange(OPS_DRAWS, ctx=ctx))
+    arrays = [nd.array(a, ctx=ctx) for a in TENSOR_SAMPLERS[name][0]]
+    return getattr(nd._internal, name)(*arrays, shape=(OPS_DRAWS,))
+
+
+def ops_samplers(mt, torch):
+    """Each sampler's moments over 10^6 draws on the card, in standard
+    errors (the variance's from the fourth moment of the draws); a seed
+    repeats its draws and another does not; torch's own CUDA generator
+    is never drawn from."""
+    ctx = mt.gpu(0)
+    z = {}
+    cuda_state = torch.cuda.get_rng_state()
+    t_start = time.perf_counter()
+    for name in list(SAMPLERS) + list(TENSOR_SAMPLERS) + ["_shuffle"]:
+        mt.random.seed(SEED)
+        a = ops_draw(mt, torch, name, ctx)
+        mt.random.seed(SEED)
+        b = ops_draw(mt, torch, name, ctx)
+        mt.random.seed(SEED + 1)
+        c = ops_draw(mt, torch, name, ctx)
+        check(a.handle.device.type == "cuda", f"{name} drew off the card")
+        check(torch.equal(a.handle, b.handle), f"{name}: a seed did not "
+                                               "repeat its draws")
+        check(not torch.equal(a.handle, c.handle),
+              f"{name}: another seed drew the same")
+        t = a.handle.double().reshape(-1)
+        if name == "_shuffle":
+            check(torch.equal(t.sort().values, torch.arange(
+                OPS_DRAWS, device=t.device, dtype=t.dtype)),
+                "_shuffle is not a permutation")
+            mean, var = (OPS_DRAWS - 1) / 2, (OPS_DRAWS ** 2 - 1) / 12
+        else:
+            _, mean, var = SAMPLERS.get(name) or TENSOR_SAMPLERS[name]
+        m, v = t.mean().item(), t.var(unbiased=False).item()
+        m4 = ((t - m) ** 4).mean().item()
+        zm = (m - mean) / math.sqrt(var / OPS_DRAWS)
+        zv = (v - var) / math.sqrt(max(m4 - v * v, 1e-30) / OPS_DRAWS)
+        z[name] = [zm, zv]
+        check(abs(zm) < OPS_SE and abs(zv) < OPS_SE,
+              f"{name}: mean {m} (want {mean}), variance {v} (want "
+              f"{var}): {zm:.2f} and {zv:.2f} standard errors")
+    # the user-facing samplers (random.* is nd.random.*) on the card
+    r = mt.random
+    probs = mt.nd.array([[0.25, 0.75]], ctx=ctx)
+    surface = [r.uniform(shape=(8,), ctx=ctx), r.normal(shape=(8,), ctx=ctx),
+               r.gamma(shape=(8,), ctx=ctx), r.exponential(shape=(8,), ctx=ctx),
+               r.poisson(shape=(8,), ctx=ctx),
+               r.negative_binomial(shape=(8,), ctx=ctx),
+               r.generalized_negative_binomial(shape=(8,), ctx=ctx),
+               r.randint(0, 5, shape=(8,), ctx=ctx),
+               r.shuffle(mt.nd.arange(8, ctx=ctx)),
+               *r.multinomial(probs, shape=(8,), get_prob=True)]
+    check(all(a.handle.device.type == "cuda" and
+              bool(torch.isfinite(a.handle.float()).all()) for a in surface),
+          "a random.* sampler drew off the card or gave a non-finite "
+          "value")
+    check(torch.equal(cuda_state, torch.cuda.get_rng_state()),
+          "a sampler drew from torch's own CUDA generator")
+    return {"draws": OPS_DRAWS, "z_mean_var": z,
+            "seconds": time.perf_counter() - t_start}
+
+
+def ops_order(mt, torch):
+    """sort, argsort and topk on the card bit-equal to the CPU on small
+    integers (ties everywhere)."""
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randint(0, 10, (256, 1000), generator=gen).float()
+    card, cpu = mt.nd.NDArray(x.cuda()), mt.nd.NDArray(x)
+    cases = 0
+    for asc in (True, False):
+        for axis in (-1, 0, None):
+            for op in ("sort", "argsort"):
+                a = getattr(mt.nd, op)(card, axis=axis, is_ascend=asc)
+                b = getattr(mt.nd, op)(cpu, axis=axis, is_ascend=asc)
+                check(torch.equal(a.handle.cpu(), b.handle),
+                      f"{op}(axis={axis}, is_ascend={asc}) differs")
+                cases += 1
+        for axis in (-1, 0):
+            for rt in ("indices", "value", "mask", "both"):
+                kw = dict(axis=axis, k=5, ret_typ=rt, is_ascend=asc)
+                a, b = mt.nd.topk(card, **kw), mt.nd.topk(cpu, **kw)
+                a = a if isinstance(a, list) else [a]
+                b = b if isinstance(b, list) else [b]
+                check(all(torch.equal(p.handle.cpu(), q.handle)
+                          for p, q in zip(a, b)),
+                      f"topk({kw}) differs from the CPU")
+                cases += 1
+    big = mt.nd.NDArray(torch.randn(4096, 4096, device="cuda"))
+    return {"cases": cases, "bit_equal": True,
+            "topk_ms_4096x4096_k5": wall_ms(
+                lambda: mt.nd.topk(big, k=5, ret_typ="both"), torch),
+            "sort_ms_4096x4096": wall_ms(lambda: mt.nd.sort(big), torch)}
+
+
+def _rows_signed(t):
+    idx = t.abs().argmax(-1, keepdim=True)
+    return t * t.gather(-1, idx).sign()
+
+
+def ops_linalg(mt, torch):
+    """Each _linalg_ op and khatri_rao in float64 on the card against
+    the CPU (cuSOLVER and cuBLAS against LAPACK); syevd's eigenvector
+    rows and gelqf's Q rows sign-normalised, gelqf's L by magnitude."""
+    gen = torch.Generator().manual_seed(SEED)
+    n, b = 64, 4
+
+    def r(*s):
+        return torch.rand(*s, generator=gen, dtype=torch.float64)
+
+    a = r(b, n, n)
+    spd = a @ a.transpose(-1, -2) + n * torch.eye(n, dtype=torch.float64)
+    low = torch.linalg.cholesky(spd)
+    B, Bt, C = r(b, n, 32), r(b, 32, n), r(b, n, 32)
+    cases = [("gemm", [a, B, C], dict(alpha=0.5, beta=2.0)),
+             ("gemm2", [a, B], dict(transpose_a=True)),
+             ("potrf", [spd], {}), ("potri", [low], {}),
+             ("trmm", [low, B], {}), ("trsm", [low, B], {}),
+             ("trsm", [low, Bt], dict(rightside=True, transpose=True)),
+             ("sumlogdiag", [low], {}), ("syrk", [B], {}),
+             ("syevd", [spd], {}), ("gelqf", [r(b, 32, n)], {})]
+    worst = {}
+    for name, ins, kw in cases:
+        outs = []
+        for dev in ("cuda", "cpu"):
+            y = getattr(mt.nd.linalg, name)(
+                *[mt.nd.NDArray(t.to(dev)) for t in ins], **kw)
+            outs.append([o.handle.cpu() for o in
+                         (y if isinstance(y, list) else [y])])
+        got, ref = outs
+        if name == "syevd":
+            got[0], ref[0] = _rows_signed(got[0]), _rows_signed(ref[0])
+        if name == "gelqf":
+            got = [got[0].abs(), _rows_signed(got[1])]
+            ref = [ref[0].abs(), _rows_signed(ref[1])]
+        err = max(((g - e).abs().max() / e.abs().max()).item()
+                  for g, e in zip(got, ref))
+        key = name if name not in worst else name + "_" + str(len(worst))
+        worst[key] = err
+        check(err < LA_TOL, f"linalg.{name}{kw}: card vs CPU {err}")
+    kr = [r(8, 16), r(32, 16), r(4, 16)]
+    got = mt.nd.khatri_rao(*[mt.nd.NDArray(t.cuda()) for t in kr])
+    ref = mt.nd.khatri_rao(*[mt.nd.NDArray(t) for t in kr])
+    err = ((got.handle.cpu() - ref.handle).abs().max()
+           / ref.handle.abs().max()).item()
+    check(err < LA_TOL, f"khatri_rao: card vs CPU {err}")
+    worst["khatri_rao"] = err
+    return {"dtype": "float64", "tol": LA_TOL, "max_rel_err": worst}
+
+
+def phase_ops(mt, torch, card):
+    launches = mt.ops.LAUNCHES
+    mt.ops.reset_launches()
+    samplers = ops_samplers(mt, torch)
+    order = ops_order(mt, torch)
+    linalg = ops_linalg(mt, torch)
+    counts = {k: v for k, v in launches.items() if v}
+    emit({"phase": "ops", "card": card, "samplers": samplers,
+          "order": order, "linalg": linalg, "kernel_launches": counts})
+    return counts
+
+
+# ------------------------------------------------------------------ rnn
+# (i) the fused RNN op at the word LM's width; (ii) the Gluon word LM
+# (examples/word_language_model.py's RNNModel, untied) at the width of
+# the "large" PTB LSTM of Zaremba, Sutskever & Vinyals (2014); (iii)
+# config 3, examples/lstm_bucketing.py's bucketed LSTM LM through
+# BucketingModule at that script's defaults, PTB's vocabulary and the
+# reference example's buckets.
+WORD_LM = dict(vocab=10000, emsize=1500, nhid=1500, nlayers=2, bptt=35,
+               batch=20, dropout=0.65, lr=5.0, clip=0.25)
+WORD_LM_STEPS = 12
+RNN_OP_TOL = {"out": 1e-4, "grad": 1e-3}     # max err / max |CPU|
+LSTM_BUCKETING = dict(num_hidden=200, num_embed=200, num_layers=2,
+                      batch=32, lr=0.01, vocab=10000, sentences=2000,
+                      buckets=(10, 20, 30, 40, 50, 60))
+LSTM_BUCKETING_MAX_EPOCHS = 15
+# examples/word_language_model.py's corpus: a small template grammar
+WORD_LM_SENTS = ["the cat sat on the mat", "the dog ran in the park",
+                 "a bird flew over the tree", "the cat ran after the bird",
+                 "a dog sat under the tree"]
+
+
+def rnn_class(name):
+    """cuDNN's recurrent kernels, matrix products (cuBLAS, and cuDNN's
+    own GEMMs), or the rest."""
+    low = name.lower()
+    if any(t in low for t in ("rnn", "lstm", "gru", "persist")):
+        return "cudnn_rnn"
+    return "matmul" if kernel_class(name) == "matmul" else "other"
+
+
+def rnn_op_case(mt, torch, mode, bidir, device):
+    """Outputs and gradients of the RNN op at the word LM's width on
+    ``device`` (weights and inputs from one seeded CPU generator)."""
+    wl = WORD_LM
+    T, N, C, H, L = wl["bptt"], wl["batch"], wl["emsize"], wl["nhid"], \
+        wl["nlayers"]
+    D = 2 if bidir else 1
+    gen = torch.Generator().manual_seed(SEED)
+    n = mt.ops.rnn.rnn_param_size(mode, L, C, H, bidir)
+    bound = 1 / math.sqrt(H)
+    ins = [torch.randn(T, N, C, generator=gen),
+           (torch.rand(n, generator=gen) * 2 - 1) * bound,
+           torch.randn(L * D, N, H, generator=gen) * 0.5]
+    if mode == "lstm":
+        ins.append(torch.randn(L * D, N, H, generator=gen) * 0.5)
+    xs = [mt.nd.NDArray(t.to(device)) for t in ins]
+    for x in xs:
+        x.attach_grad()
+    with mt.autograd.record():
+        outs = mt.nd.RNN(*xs, state_size=H, num_layers=L, mode=mode,
+                         bidirectional=bidir, state_outputs=True)
+        ws = [torch.rand(o.shape, generator=gen) for o in outs]
+        loss = None
+        for o, w in zip(outs, ws):
+            t = (o * mt.nd.NDArray(w.to(device))).sum()
+            loss = t if loss is None else loss + t
+    loss.backward()
+    return [o.handle.cpu() for o in outs], [x.grad.handle.cpu()
+                                            for x in xs]
+
+
+def rnn_op_checks(mt, torch):
+    """(i) every mode, one way and bidirectional, card against CPU."""
+    res = {}
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        for bidir in (False, True):
+            card = rnn_op_case(mt, torch, mode, bidir, "cuda")
+            cpu = rnn_op_case(mt, torch, mode, bidir, "cpu")
+            errs = [max(((g - e).abs().max() / e.abs().max()).item()
+                        for g, e in zip(card[k], cpu[k]))
+                    for k in (0, 1)]
+            check(all(math.isfinite(e) for e in errs)
+                  and errs[0] < RNN_OP_TOL["out"]
+                  and errs[1] < RNN_OP_TOL["grad"],
+                  f"RNN {mode} bidirectional={bidir}: card vs CPU "
+                  f"outputs {errs[0]}, gradients {errs[1]}")
+            res[f"{mode}{'_bi' if bidir else ''}"] = errs
+    return {"tol": RNN_OP_TOL, "max_rel_err_out_grad": res}
+
+
+def word_lm_model(mt, device, dropout):
+    """examples/word_language_model.py's RNNModel, untied, with
+    dropout on the embedding, between the LSTM layers and on its output
+    (the reference Gluon example's and Zaremba et al.'s placement)."""
+    wl = WORD_LM
+
+    class RNNModel(mt.gluon.Block):
+        def __init__(self, vocab, emsize, nhid, nlayers, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.encoder = mt.gluon.nn.Embedding(vocab, emsize)
+                self.drop = mt.gluon.nn.Dropout(dropout)
+                self.rnn = mt.gluon.rnn.LSTM(
+                    nhid, num_layers=nlayers, layout="TNC",
+                    input_size=emsize, dropout=dropout)
+                self.decoder = mt.gluon.nn.Dense(vocab, flatten=False,
+                                                 in_units=nhid)
+
+        def forward(self, x, state):
+            emb = self.drop(self.encoder(x))
+            out, state = self.rnn(emb, state)
+            return self.decoder(self.drop(out)), state
+
+    net = RNNModel(wl["vocab"], wl["emsize"], wl["nhid"], wl["nlayers"])
+    mt.random.seed(SEED)
+    net.initialize(mt.initializer.Xavier(), ctx=device)
+    return net
+
+
+def word_lm_data(torch):
+    """The example's corpus as (rows, batch) token ids (bptt rows a
+    step), the ids inside PTB's vocabulary."""
+    import numpy as np
+    rs = np.random.RandomState(SEED)
+    wl = WORD_LM
+    need = (WORD_LM_STEPS + 2) * wl["bptt"] * wl["batch"] + wl["batch"]
+    toks = []
+    while len(toks) < need:
+        toks += WORD_LM_SENTS[rs.randint(len(WORD_LM_SENTS))].split() + \
+            ["<eos>"]
+    vocab = sorted(set(toks))
+    ids = np.array([vocab.index(t) for t in toks[:need]], np.float32)
+    nb = len(ids) // wl["batch"]
+    return torch.from_numpy(ids[:nb * wl["batch"]].reshape(
+        wl["batch"], nb).T.copy())
+
+
+def word_lm_step(mt, net, trainer, loss_fn, x, y, state):
+    """The example's step: record, loss, backward, clip_global_norm,
+    Trainer.step(1); returns (loss NDArray, new detached state)."""
+    V = WORD_LM["vocab"]
+    state = [s.detach() for s in state]
+    with mt.autograd.record():
+        out, state = net(x, state)
+        loss = loss_fn(out.reshape(-1, V), y.reshape(-1)).mean()
+    loss.backward()
+    grads = [p.grad() for p in net.collect_params().values()
+             if p.grad_req != "null"]
+    mt.gluon.utils.clip_global_norm(grads, WORD_LM["clip"])
+    trainer.step(1)
+    return loss, state
+
+
+def word_lm_check_cpu(mt, torch, data):
+    """(ii) one step at dropout 0: the card's loss and gradients against
+    the CPU's from the same weights."""
+    wl = WORD_LM
+    nets = {"cpu": word_lm_model(mt, mt.cpu(), 0.0)}
+    arrays = {k: p.data().asnumpy()
+              for k, p in nets["cpu"].collect_params().items()}
+    nets["cuda"] = word_lm_model(mt, mt.gpu(0), 0.0)
+    mt.convert.load_gluon_params(nets["cuda"], arrays, ctx=mt.gpu(0))
+    res = {}
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    for dev, net in nets.items():
+        ctx = mt.gpu(0) if dev == "cuda" else mt.cpu()
+        x = mt.nd.NDArray(data[:wl["bptt"]].to(ctx.device))
+        y = mt.nd.NDArray(data[1:wl["bptt"] + 1].to(ctx.device))
+        state = net.rnn.begin_state(wl["batch"], ctx=ctx)
+        with mt.autograd.record():
+            out, _ = net(x, state)
+            loss = loss_fn(out.reshape(-1, wl["vocab"]),
+                           y.reshape(-1)).mean()
+        loss.backward()
+        res[dev] = (float(loss.asscalar()),
+                    {k[len(net.prefix):]: p.grad().handle.cpu()
+                     for k, p in net.collect_params().items()})
+    (lc, gc_), (lg, gg) = res["cpu"], res["cuda"]
+    errs = {k: ((gg[k] - g).abs().max() / g.abs().max()).item()
+            for k, g in gc_.items() if g.abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    check(abs(lg - lc) <= 1e-5 * abs(lc),
+          f"word LM loss: card {lg}, CPU {lc}")
+    check(errs[worst] < RNN_OP_TOL["grad"],
+          f"word LM gradient {worst}: card vs CPU {errs[worst]}")
+    del nets
+    return {"loss_card": lg, "loss_cpu": lc, "grad_max_rel_err": errs}
+
+
+def word_lm_train(mt, torch, data):
+    """(ii) the timed steps at dropout 0.65 from the seeded weights."""
+    wl = WORD_LM
+    ctx = mt.gpu(0)
+    base = torch.cuda.memory_allocated()     # what earlier phases hold
+    net = word_lm_model(mt, ctx, wl["dropout"])
+    n_params = sum(p.numel() for p in net.parameters())
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": wl["lr"]})
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    d = data.cuda()
+    state = net.rnn.begin_state(wl["batch"], ctx=ctx)
+
+    def xy(i):
+        r = i * wl["bptt"]
+        return (mt.nd.NDArray(d[r:r + wl["bptt"]]),
+                mt.nd.NDArray(d[r + 1:r + 1 + wl["bptt"]]))
+
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(WORD_LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, state = word_lm_step(mt, net, trainer, loss_fn, *xy(i),
+                                   state)
+        losses.append(float(loss.asscalar()))       # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(math.isfinite(v) for v in losses), f"word LM {losses}")
+    check(losses[-1] < losses[0], f"word LM loss did not fall: {losses}")
+    box = {"state": state}
+
+    def one_step():
+        loss, box["state"] = word_lm_step(mt, net, trainer, loss_fn,
+                                          *xy(0), box["state"])
+
+    with device_trace(torch) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by, rows = {}, []
+    for e in device_events(prof):
+        if e.self_device_time_total:
+            ms = e.self_device_time_total / 1e3
+            by[rnn_class(e.key)] = by.get(rnn_class(e.key), 0.0) + ms
+            rows.append((ms, e.key[:60]))
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tokens = wl["bptt"] * wl["batch"]
+    del net, trainer
+    return {"params": n_params, **wl, "losses": losses,
+            "step_ms": step_ms, "step_ms_median_after_first": med,
+            "tokens_per_s": tokens / med * 1e3,
+            "peak_bytes_over_start": peak,
+            "device_ms_by_class": by, "profiled_wall_ms": wall,
+            "device_busy_share": sum(by.values()) / wall,
+            "top_ms": [[k, ms] for ms, k in sorted(rows)[::-1][:6]]}
+
+
+def make_corpus(rs, vocab, n_sentences):
+    """examples/lstm_bucketing.py's corpus: Markov-chain sentences, token
+    t -> (2t+1) mod vocab with prob .8, random otherwise (ids 1..vocab;
+    0 is the pad label)."""
+    sents = []
+    for _ in range(n_sentences):
+        length = rs.randint(5, 41)
+        tok = rs.randint(1, vocab + 1)
+        sent = [tok]
+        for _ in range(length - 1):
+            if rs.rand() < 0.8:
+                tok = (2 * tok + 1) % vocab + 1
+            else:
+                tok = rs.randint(1, vocab + 1)
+            sent.append(tok)
+        sents.append(sent)
+    return sents
+
+
+def lstm_bucketing(mt, torch):
+    """(iii) config 3: examples/lstm_bucketing.py's sym_gen and loop
+    through BucketingModule on the card, epochs until the last one's
+    perplexity is below 60% of the first's and below the vocabulary."""
+    import numpy as np
+    cfg = LSTM_BUCKETING
+    nh, ne, nl, batch = cfg["num_hidden"], cfg["num_embed"], \
+        cfg["num_layers"], cfg["batch"]
+    import random as pyrandom
+    vocab_ids = cfg["vocab"] + 1        # + the pad id 0
+    rs = np.random.RandomState(SEED)
+    sents = make_corpus(rs, cfg["vocab"], cfg["sentences"])
+    # the iterator shuffles with Python's and numpy's global generators
+    pyrandom.seed(SEED)
+    np.random.seed(SEED)
+    it = mt.rnn.BucketSentenceIter(sents, batch_size=batch,
+                                   buckets=list(cfg["buckets"]),
+                                   invalid_label=0)
+    S = mt.sym
+
+    def sym_gen(seq_len):
+        data = S.Variable("data")
+        label = S.Variable("softmax_label")
+        embed = S.Embedding(data, input_dim=vocab_ids, output_dim=ne,
+                            name="embed")
+        tnc = S.swapaxes(embed, dim1=0, dim2=1)
+        params = S.Variable("rnn_parameters")
+        init_h = S.zeros((nl, batch, nh))
+        init_c = S.zeros((nl, batch, nh))
+        out = S.RNN(tnc, params, init_h, init_c, state_size=nh,
+                    num_layers=nl, mode="lstm", name="rnn")
+        ntc = S.swapaxes(out, dim1=0, dim2=1)
+        pred = S.Reshape(ntc, shape=(-1, nh))
+        pred = S.FullyConnected(pred, num_hidden=vocab_ids, name="pred")
+        lab = S.Reshape(label, shape=(-1,))
+        pred = S.SoftmaxOutput(pred, lab, name="softmax", use_ignore=True,
+                               ignore_label=0, normalization="valid")
+        return pred, ("data",), ("softmax_label",)
+
+    psize = mt.ops.rnn.rnn_param_size("lstm", nl, ne, nh)
+
+    def shapes_for(bkey):
+        return ([mt.io.DataDesc("data", (batch, bkey)),
+                 mt.io.DataDesc("rnn_parameters", (psize,))],
+                [mt.io.DataDesc("softmax_label", (batch, bkey))])
+
+    base = torch.cuda.memory_allocated()     # what earlier phases hold
+    binds = {}
+    bind = mt.module.Module.bind
+
+    def counted_bind(self, data_shapes, *a, **kw):
+        key = dict((d[0], d[1]) if not hasattr(d, "name")
+                   else (d.name, d.shape) for d in data_shapes)["data"][1]
+        binds[key] = binds.get(key, 0) + 1
+        return bind(self, data_shapes, *a, **kw)
+
+    mt.module.Module.bind = counted_bind
+    try:
+        mod = mt.mod.BucketingModule(
+            sym_gen, default_bucket_key=it.default_bucket_key,
+            context=mt.gpu(0))
+        dsh, lsh = shapes_for(it.default_bucket_key)
+        mod.bind(data_shapes=dsh, label_shapes=lsh)
+        mt.random.seed(SEED)
+        mod.init_params(mt.initializer.Mixed(
+            [".*rnn_parameters", ".*"],
+            [mt.initializer.Uniform(0.1), mt.initializer.Xavier()]))
+        mod.init_optimizer(kvstore=None, optimizer="adam",
+                           optimizer_params=(("learning_rate", cfg["lr"]),))
+        metric = mt.metric.Perplexity(ignore_label=0)
+        ppls, by_bucket, tokens, seconds = [], {}, 0, 0.0
+        torch.cuda.reset_peak_memory_stats()
+        for epoch in range(LSTM_BUCKETING_MAX_EPOCHS):
+            metric.reset()
+            it.reset()
+            for b in it:
+                b.provide_data, b.provide_label = shapes_for(b.bucket_key)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mod.forward(b, is_train=True)
+                mod.backward()
+                mod.update()
+                mod.update_metric(metric, b.label)    # synchronizes
+                dt = time.perf_counter() - t0
+                by_bucket.setdefault(b.bucket_key, []).append(dt * 1e3)
+                seconds += dt
+                tokens += int((b.label[0].asnumpy() != 0).sum())
+            ppls.append(metric.get()[1])
+            if epoch >= 1 and ppls[-1] < 0.6 * ppls[0] \
+                    and ppls[-1] < cfg["vocab"]:
+                break
+    finally:
+        mt.module.Module.bind = bind
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(math.isfinite(p) for p in ppls), f"perplexities {ppls}")
+    check(ppls[-1] < 0.6 * ppls[0] and ppls[-1] < cfg["vocab"],
+          f"config 3 perplexity gate: {ppls} after "
+          f"{LSTM_BUCKETING_MAX_EPOCHS} epochs")
+    check(all(v == 1 for v in binds.values()),
+          f"a bucket bound more than once: {binds}")
+    return {**{k: list(v) if isinstance(v, tuple) else v
+               for k, v in cfg.items()}, "epochs": len(ppls),
+            "perplexity": ppls, "binds_per_bucket": binds,
+            "batch_ms_median_by_bucket": {
+                k: sorted(v)[len(v) // 2] for k, v in sorted(
+                    by_bucket.items())},
+            "batches_by_bucket": {k: len(v) for k, v in
+                                  sorted(by_bucket.items())},
+            "tokens_per_s": tokens / seconds,
+            "peak_bytes_over_start": peak}
+
+
+def rnn_cells(mt, torch):
+    """The Gluon cells (gluon.rnn, gluon.contrib.rnn) unrolled on the
+    card against the CPU from the same weights, outside training (the
+    modifier cells' masks then do nothing), max error over max."""
+    R, CR = mt.gluon.rnn, mt.gluon.contrib.rnn
+    makers = {
+        "lstm_cell": lambda: R.LSTMCell(64, input_size=32),
+        "gru_cell": lambda: R.GRUCell(64, input_size=32),
+        "rnn_cell": lambda: R.RNNCell(64, activation="relu", input_size=32),
+        "zoneout_residual": lambda: R.ZoneoutCell(R.ResidualCell(
+            R.GRUCell(32, input_size=32)), 0.3, 0.2),
+        "variational_dropout": lambda: CR.VariationalDropoutCell(
+            R.LSTMCell(64, input_size=32), 0.3, 0.3, 0.3),
+        "conv2d_lstm_cell": lambda: CR.Conv2DLSTMCell(
+            (32, 8, 8), 16, i2h_kernel=3, h2h_kernel=3, i2h_pad=1),
+    }
+    gen = torch.Generator().manual_seed(SEED)
+    errs = {}
+    for name, make in makers.items():
+        shape = (8, 12, 32, 8, 8) if name.startswith("conv") \
+            else (8, 12, 32)
+        x = torch.rand(*shape, generator=gen)
+        vl = torch.tensor([12, 3, 7, 12, 1, 9, 5, 12]).float()
+        outs = []
+        for ctx in (mt.gpu(0), mt.cpu()):
+            cell = make()
+            mt.random.seed(SEED)
+            cell.initialize(mt.initializer.Xavier(), ctx=ctx)
+            out, states = cell.unroll(
+                12, mt.nd.NDArray(x.to(ctx.device)), layout="NTC",
+                valid_length=None if name.startswith("conv")
+                else mt.nd.NDArray(vl.to(ctx.device)))
+            outs.append([out.handle.cpu()] + [s.handle.cpu()
+                                              for s in states])
+        errs[name] = max(((g - e).abs().max() / e.abs().max()).item()
+                         for g, e in zip(*outs))
+        check(errs[name] < RNN_OP_TOL["out"],
+              f"{name}: card vs CPU {errs[name]}")
+    return {"max_rel_err": errs}
+
+
+def rnn_hybridized(mt, torch):
+    """(iv) a HybridBlock holding rnn.LSTM, hybridized: its CachedOp entry
+    (jit mode: the RNN op draws from a generator) is captured as a CUDA
+    graph pair with cuDNN's RNN inside, and each replay's output and
+    gradient equal the block's eager call bit for bit."""
+
+    class Model(mt.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.rnn = mt.gluon.rnn.LSTM(256, num_layers=2,
+                                             input_size=128, layout="NTC")
+                self.out = mt.gluon.nn.Dense(10, flatten=False,
+                                             in_units=256)
+
+        def hybrid_forward(self, F, x):
+            return self.out(self.rnn(x))
+
+    net = Model()
+    mt.random.seed(SEED)
+    net.initialize(mt.initializer.Xavier(), ctx=mt.gpu(0))
+    gen = torch.Generator().manual_seed(SEED)
+    x = mt.nd.NDArray(torch.randn(16, 35, 128, generator=gen).cuda())
+    w = net.rnn._param("l0_h2h_weight")
+
+    def step():
+        with mt.autograd.record():
+            y = net(x)
+            (y * y).sum().backward()
+        return y.handle.clone(), w.grad().handle.clone()
+
+    eager = [step() for _ in range(2)]
+    net.hybridize()
+    replays = [step() for _ in range(3)]
+    equal = all(torch.equal(a, b) for r in replays
+                for a, b in zip(r, eager[0]))
+    stats = net._cached_op.stats()
+    captures = net._cached_op.trace_count
+    check(equal, "the hybridized LSTM block's replay differs from its "
+                 "eager call")
+    check(stats["modes"] == ["jit"] and captures == 1,
+          f"hybridized LSTM block: {stats}, {captures} captures")
+    replay_ms = wall_ms(step, torch, reps=5)
+    net.hybridize(False)
+    eager_ms = wall_ms(step, torch, reps=5)
+    return {"bit_equal": equal, "captures": captures,
+            "modes": stats["modes"], "step_ms_replay": replay_ms,
+            "step_ms_eager": eager_ms}
+
+
+def phase_rnn(mt, torch, card):
+    launches = mt.ops.LAUNCHES
+    op = rnn_op_checks(mt, torch)
+    data = word_lm_data(torch)
+    check_cpu = word_lm_check_cpu(mt, torch, data)
+    release(torch)
+    mt.ops.reset_launches()                  # the main path
+    lm = word_lm_train(mt, torch, data)
+    release(torch)
+    bucketing = lstm_bucketing(mt, torch)
+    counts = {k: v for k, v in launches.items() if v}
+    release(torch)
+    hybrid = rnn_hybridized(mt, torch)
+    cells = rnn_cells(mt, torch)
+    release(torch)
+    emit({"phase": "rnn", "card": card, "rnn_op": op, "cells": cells,
+          "hybridized_lstm_block": hybrid})
+    emit({"phase": "rnn", "card": card, "word_lm": lm,
+          "word_lm_vs_cpu": {k: v for k, v in check_cpu.items()
+                             if k != "grad_max_rel_err"},
+          "word_lm_grad_worst": max(check_cpu["grad_max_rel_err"].values())})
+    emit({"phase": "rnn", "card": card, "lstm_bucketing": bucketing,
+          "kernel_launches": counts})
+    return counts
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3462,6 +4186,8 @@ def main():
         hyb_launches, hyb_runs = timed("hybridize", phase_hybridize, mt,
                                        torch, card)
         moe_launches, moe_runs = timed("moe", phase_moe, mt, torch, card)
+        ops_launches = timed("ops", phase_ops, mt, torch, card)
+        rnn_launches = timed("rnn", phase_rnn, mt, torch, card)
         keeps["end"] = trace_keeps(torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
               "trace_keeps": keeps})
@@ -3496,6 +4222,8 @@ def main():
                 e["name"], 0)
             e["launches_by_path"]["hybridize"] = hyb_launches.get(
                 e["name"], 0)
+            e["launches_by_path"]["ops"] = ops_launches.get(e["name"], 0)
+            e["launches_by_path"]["rnn"] = rnn_launches.get(e["name"], 0)
             if e["name"] in hyb_runs:
                 e["runs_per_replay"] = {"hybridize": hyb_runs[e["name"]]}
             e["launches"] = sum(

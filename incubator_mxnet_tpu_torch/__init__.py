@@ -18,7 +18,8 @@ train steps (on a CUDA device each one captured CUDA graph replay) and
 the mesh, ``kvstore`` the parameter store.  The symbolic surface rides on the same registry: ``sym``
 (Symbol, one function per op), ``Executor``, ``mod`` (``Module.fit``),
 ``metric``, ``io``, ``callback``, ``model`` (checkpoints) and
-``monitor``; ``graph`` holds the pass pipeline every bind runs and the
+``monitor``, and ``rnn`` (the bucketed sentence iterator for
+``mod.BucketingModule``); ``graph`` holds the pass pipeline every bind runs and the
 ``CachedOp`` behind ``HybridBlock.hybridize()``.  ``serving`` serves ``TransformerLM`` traffic by
 continuous batching over a paged KV cache.
 
@@ -46,6 +47,7 @@ from .model import load_checkpoint, save_checkpoint
 from . import module
 from . import module as mod
 from .module import Module
+from . import rnn
 from .monitor import Monitor
 from .io import DataBatch, DataDesc, DataIter, NDArrayIter
 from .context import (Context, cpu, gpu, cpu_pinned, current_context,
@@ -58,7 +60,7 @@ __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "attribute", "AttrScope", "symbol", "sym", "Symbol",
            "Executor", "graph", "metric", "io", "callback", "model", "monitor",
            "load_checkpoint", "save_checkpoint", "module", "mod",
-           "Module", "Monitor", "DataBatch", "DataDesc", "DataIter",
+           "Module", "rnn", "Monitor", "DataBatch", "DataDesc", "DataIter",
            "NDArrayIter", "kvstore", "kv", "Context", "cpu", "gpu",
            "cpu_pinned", "current_context", "num_gpus", "gpu_memory_info",
            "default_device"]

@@ -1,7 +1,8 @@
-"""Module API (twin of ``incubator_mxnet_tpu/module``): ``BaseModule``
-and ``Module``.  The bucketing, sequential and Python modules come with
-ROADMAP item A8."""
+"""Module API (twin of ``incubator_mxnet_tpu/module``): ``BaseModule``,
+``Module`` and ``BucketingModule``.  The sequential and Python modules
+come with ROADMAP item A8."""
 from .base_module import BaseModule
 from .module import Module
+from .bucketing_module import BucketingModule
 
-__all__ = ["BaseModule", "Module"]
+__all__ = ["BaseModule", "Module", "BucketingModule"]

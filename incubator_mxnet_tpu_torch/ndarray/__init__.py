@@ -11,7 +11,10 @@ from . import register as _register
 
 _internal = _register.populate(_sys.modules[__name__])
 
+from . import random   # noqa: E402
+from . import linalg   # noqa: E402
+
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "imperative_invoke", "waitall", "moveaxis",
            "save", "load", "to_dlpack_for_read", "to_dlpack_for_write",
-           "from_dlpack"]
+           "from_dlpack", "random", "linalg"]

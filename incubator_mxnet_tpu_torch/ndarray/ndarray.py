@@ -17,8 +17,6 @@
   there it is ``torch.bfloat16`` (``asnumpy`` then gives float32).
 - ``save`` / ``load`` keep the JAX package's npz format and its CRC32
   sidecar, so each package reads, and checks, the other's files.
-- Methods whose ops are not ported yet (``sort``, ``argsort``,
-  ``topk``) are left out until their ops come.
 """
 import numbers
 
@@ -269,6 +267,16 @@ class NDArray:
 
     def argmin(self, axis=None, keepdims=False):
         return self._op("argmin", axis=axis, keepdims=keepdims)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return self._op("argsort", axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return self._op("sort", axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return self._op("topk", axis=axis, k=k, ret_typ=ret_typ,
+                        is_ascend=is_ascend)
 
     def dot(self, other, **kw):
         return self._op("dot", other, **kw)

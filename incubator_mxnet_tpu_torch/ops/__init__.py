@@ -6,6 +6,7 @@ from .registry import OPS, OpDef, defop, alias, get_op, find_op, list_ops
 # registration side effects: order matters only for alias targets
 from . import elemwise, reduce, matrix, indexing, init_op, optimizer_op
 from . import nn, flash, moe
+from . import random_op, order, la, rnn
 from . import shape_hooks         # after the ops whose aliases it hooks
 from ._build import LAUNCHES, reset_launches
 from .flash import flash_attention, flash_attention_fwd
@@ -14,5 +15,6 @@ from .matrix import rope_fn
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention",
            "flash_attention_fwd", "rope_fn", "flash", "matrix", "_build",
            "registry", "elemwise", "reduce", "indexing", "init_op",
-           "optimizer_op", "nn", "moe", "shape_hooks", "OPS", "OpDef", "defop",
-           "alias", "get_op", "find_op", "list_ops"]
+           "optimizer_op", "nn", "moe", "random_op", "order", "la", "rnn",
+           "shape_hooks", "OPS", "OpDef", "defop", "alias", "get_op",
+           "find_op", "list_ops"]

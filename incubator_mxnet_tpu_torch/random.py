@@ -1,5 +1,5 @@
-"""Seeding and random sources (twin of ``incubator_mxnet_tpu/random.py``
-and ``random_state.py``).
+"""Seeding, random sources and the samplers (twin of
+``incubator_mxnet_tpu/random.py`` and ``random_state.py``).
 
 Whatever samples in the port takes an explicit ``torch.Generator``.
 ``seed(n)`` resets the package's default generators (one per device),
@@ -10,6 +10,10 @@ scope, the role ``random_state.key_provider(rng)`` plays around the JAX
 package's ``PureBlock.apply``.  The numbers differ from JAX's threefry
 keys for the same seed: the tests make their inputs with numpy and
 hand them to both packages.
+
+The samplers (``uniform``, ``normal``, ..., ``randint``) are
+``nd.random``'s, each drawing from ``current_generator`` of the device
+it makes its result on.
 """
 import contextlib
 import threading
@@ -19,7 +23,9 @@ import torch
 from .context import as_device
 
 __all__ = ["seed", "generator", "default_generator", "key_provider",
-           "current_generator"]
+           "current_generator", "uniform", "normal", "gamma", "exponential",
+           "poisson", "negative_binomial", "generalized_negative_binomial",
+           "multinomial", "shuffle", "randint"]
 
 _DEFAULT = torch.Generator()
 _DEVICE_DEFAULTS = {}     # torch.device -> generator, made at first use
@@ -80,3 +86,10 @@ def current_generator(device):
     default generator on ``device``."""
     stack = _stack()
     return stack[-1] if stack else default_generator(device)
+
+
+# the samplers: last, since nd imports this module for its generators
+from .ndarray.random import (uniform, normal, gamma, exponential,  # noqa: E402,F401
+                             poisson, negative_binomial,
+                             generalized_negative_binomial, multinomial,
+                             shuffle, randint)

@@ -36,7 +36,8 @@ CPU = mt.cpu()
 # the JAX modules the port registers, and the names it leaves out with
 # the sparse storage types (ROADMAP item 8)
 PORTED_MODULES = ("elemwise", "reduce", "matrix", "indexing", "init_op",
-                  "optimizer_op", "flash", "nn", "moe")
+                  "optimizer_op", "flash", "nn", "moe", "random_op",
+                  "order", "la", "rnn")
 SPARSE_LATER = {"_sparse_dot", "_sparse_zeros_like",
                 "_contrib_SparseEmbedding", "_sparse_zeros"}
 PARAM_EXCEPTIONS = {"_flash_attention": {"interpret"}}
