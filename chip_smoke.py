@@ -219,10 +219,59 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                (iv) a HybridBlock holding rnn.LSTM hybridized: one
                capture with cuDNN's RNN inside, replays bit-equal to
                the eager call.
+15. detect     config 4 (SSD) and the detection, CTC and contrib ops, each
+               held against the port on the CPU with the same inputs:
+               (i) MultiBoxTarget (hard negative mining, ratio 3) and
+               MultiBoxDetection (NMS 0.45 at nms_topk 400 and at the
+               default -1) at SSD300's 8732 anchors, B=32, 21 classes,
+               1 to 16 boxes an image: loc_target within 1e-5,
+               cls_target and loc_mask equal but where the mining key
+               lies within 1e-6 of the cut-off (counted), detections
+               equal in class and within 1e-5 but where an IoU lies
+               within 1e-6 of the threshold (counted; the CPU takes the
+               first 4 images at -1); ms per call, the -1 call's peak
+               memory; (ii) the sweep kernel (csrc/nms_sweep.cu, the
+               port's own kernel for the JAX op's lax.while_loop and
+               lax.fori_loop) bit-equal to its plain version on the
+               masks of (i) at k = 400 and 8732, of (v) at 6000 and on
+               a random mask at its largest size, 65536 rows, its
+               device ms, the plain version's ms and the byte bound; (iii)
+               config 4, examples/ssd_train.py --quick (48 px, 64
+               images, B=16, 160 iterations, SGD lr 0.1, momentum 0.9,
+               wd 1e-4, blocks hybridized): final loss below 0.7 of the
+               first and AP above 0.5, ms per iteration, one step's loss
+               (rel 1e-4) and gradients (1e-3, max error over max)
+               against the CPU from the same weights; (iv) the three
+               MultiBox ops in one hybridized block: one capture,
+               replays bit-equal to the eager call, and as a Symbol
+               bound (shape inference on meta) equal to the nd path;
+               (v) Proposal at its defaults (6000 / 300, 0.7, a 600x1000
+               image under stride 16: a 38x63 map) and MultiProposal at
+               B=2: batch indices equal, rois within 1e-4 of the largest
+               coordinate; ROIPooling (512 channels, 300 rois, 7x7),
+               PSROIPooling (R-FCN: 21 classes, 7x7 groups) and
+               DeformableConvolution (512 to 512, 3x3) within 1e-4,
+               gradients within 1e-3 (max error over max); (vi)
+               examples/speech_ctc.py --quick (BiLSTM + CTCLoss, 200
+               Adam steps): label error rate below 0.15 and the last
+               loss below half the first; ctc_loss at T=100, B=32,
+               C=29, labels up to 40 with lengths, both blank modes:
+               costs within rel 1e-5, gradients within 1e-4, an
+               impossible alignment 1e30, ms of forward and backward;
+               (vii) phase module (i)'s MLP as two Modules chained by
+               SequentialModule: its gate, one epoch from the same
+               weights within 1e-5 of one Module's, and a chain ending
+               in a PythonLossModule trains; (viii) the 18 contrib_misc
+               names against the CPU (FFT at (32, 4096), FlowNetC's
+               Correlation on (2, 256, 48, 64), quantize and dequantize
+               bit for bit).  The sweep's launches are counted per path
+               (detect_ssd300, detect_train, detect_capture,
+               detect_rcnn).
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
-runs, ``launches_by_path`` each run's own count) and, last,
+runs, ``launches_by_path`` each run's own count, for the paths whose
+phase counted that kernel) and, last,
 {"ok": true, "device": {...}}.  fp32 matrix products run in full fp32
 (TF32 off) so the plain versions are exact yardsticks.
 
@@ -629,6 +678,12 @@ def phase_build(mt, card):
     check(not spills, f"flash kernels spill: {spills}")
     check(not ptxas.get("wgmma_warnings"),
           f"ptxas serialized wgmma: {ptxas.get('wgmma_warnings')}")
+    # the sweep's rows sit in registers: none may spill
+    nms = {k: v for k, v in ptxas.items() if "nms_sweep_kernel" in k}
+    check(len(nms) == 1 and all(v.get("spill_stores") == 0
+                                and v.get("spill_loads") == 0
+                                for v in nms.values()),
+          f"nms_sweep_kernel spills or is missing: {nms}")
 
 
 def flash_cases():
@@ -4136,6 +4191,1085 @@ def phase_rnn(mt, torch, card):
     return counts
 
 
+# ------------------------------------------------------------------ detect
+# Config 4 (SSD, examples/ssd_train.py) and the ops of the detection, CTC
+# and contrib slice at the sizes their models give them, each held
+# against the port on the CPU with the same inputs.  The card is DEV.
+DEV = "cuda"
+# the SSD300 anchor layout (examples/ssd_train.py:150-164, after the
+# reference's example/ssd/symbol/symbol_builder.py): feature maps and
+# anchors a pixel
+SSD300_FMAPS = ((38, 4), (19, 6), (10, 6), (5, 6), (3, 4), (1, 4))
+SSD300_RATIOS = (1.0, 2.0, 0.5, 3.0, 1.0 / 3)
+SSD_BATCH, SSD_CLASSES, SSD_LABELS = 32, 21, 16   # VOC's 20 + background
+SSD_NMS = 0.45
+SSD_TOPK = 400                   # SSD300's setting (contrib_det.py:264)
+SSD_CPU_IMAGES = 4               # the CPU side of the nms_topk=-1 check
+NEAR = 1e-6                      # a mining key or IoU this close: a tie
+SWEEP_EDGE = 65536               # csrc/nms_sweep.cu's most rows
+SWEEP_EDGE_P = 5e-5              # its random mask: a pair suppresses
+DET_TOL = 1e-5
+# config 4 at --quick (examples/ssd_train.py:189-196)
+SSD_QUICK = dict(iters=160, images=64, batch=16, size=48, lr=0.1)
+SSD_SIZES = ((0.3, 0.45), (0.6, 0.8))             # ssd_train.py:98-100
+SSD_RATIOS = ((1.0, 2.0, 0.5),) * 2
+SSD_NUM_CLASSES = 2
+# Faster R-CNN / R-FCN: a 600x1000 image under VGG16's stride 16
+RCNN_FEAT = (38, 63)
+RCNN_ROIS = 300
+RCNN_CHANNELS = 512
+RFCN = dict(output_dim=21, group_size=7, pooled_size=7)
+# speech_ctc.py at --quick (examples/speech_ctc.py:24-43, 89-91)
+SPEECH = dict(phones=8, frame_dim=16, max_label=6, max_frames=26,
+              hidden=48, batch=32, steps=200, lr=1e-3, clip=1.0)
+# ctc_loss at a character-level English ASR size: 26 letters, space,
+# apostrophe and the blank
+CTC_SHAPE = dict(T=100, B=32, C=29, L=40)
+
+
+def rel_err(got, ref, torch):
+    """max |got - ref| over max |ref| (ref on the CPU)."""
+    got = got.detach().float().cpu()
+    ref = ref.detach().float().cpu()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)) \
+        .item()
+
+
+def ssd300_anchors(mt, ctx):
+    nd = mt.nd
+    anchors = []
+    for hw, k in SSD300_FMAPS:
+        feat = nd.zeros((1, 1, hw, hw), ctx=ctx)
+        anchors.append(nd.contrib.MultiBoxPrior(
+            feat, sizes=(0.2, 0.27), ratios=SSD300_RATIOS[:k - 1]))
+    return nd.concat(*anchors, dim=1)
+
+
+def ssd300_data(np):
+    """Labels (32, 16, 5): 1 to 16 boxes an image, padded with -1 rows;
+    class logits and box offsets for the 8732 anchors."""
+    rs = np.random.RandomState(SEED)
+    A = sum(hw * hw * k for hw, k in SSD300_FMAPS)
+    label = np.full((SSD_BATCH, SSD_LABELS, 5), -1.0, np.float32)
+    for b in range(SSD_BATCH):
+        for j in range(rs.randint(1, SSD_LABELS + 1)):
+            w, h = rs.uniform(0.05, 0.6, 2)
+            x0, y0 = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+            label[b, j] = [rs.randint(0, SSD_CLASSES - 1), x0, y0, x0 + w,
+                           y0 + h]
+    logits = rs.randn(SSD_BATCH, SSD_CLASSES, A).astype(np.float32)
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rs.randn(SSD_BATCH, 4 * A) * 0.1).astype(np.float32)
+    return label, logits, prob, loc
+
+
+def mining_near_cutoff(mt, torch, anchor, label, logits, cls_t):
+    """(B, A) bool: the anchors whose hard-negative mining key lies
+    within NEAR of the image's cut-off key (CPU tensors)."""
+    cd = mt.ops.contrib_det
+    valid = torch.cumprod((label[:, :, 0] != -1).int(), 1) == 1
+    iou = torch.where(valid[:, None, :],
+                      cd._iou_corner(anchor.reshape(-1, 4), label[..., 1:5]),
+                      -1.0)
+    positive = cls_t > 0
+    cand = ~positive & (iou.amax(2) < 0.5)
+    key = torch.where(cand, torch.softmax(logits, 1)[:, 0], math.inf)
+    srt = torch.sort(key, 1).values
+    num_pos = positive.sum(1)
+    num_neg = torch.minimum((num_pos * 3.0).long(), key.shape[1] - num_pos)
+    near = torch.zeros_like(cand)
+    for b in range(key.shape[0]):
+        n = int(num_neg[b])
+        for r in (n - 1, n):
+            if 0 <= r < key.shape[1] and math.isfinite(srt[b, r]):
+                near[b] |= (key[b] - srt[b, r]).abs() <= NEAR
+    return near
+
+
+def first_near_tie(mt, torch, prob, loc, anchor, kwargs):
+    """(first, nkeep) of one image's MultiBoxDetection ``kwargs`` on the
+    CPU: ``first`` is the first row, in score order, whose fate a pair
+    of the NMS window with IoU within NEAR of the threshold can decide
+    (the later row of such a pair of one class, of any two classes with
+    ``force_suppress``; None if no pair is that close), and ``nkeep``
+    the rows the sweep takes.  A near tie can change only the rows from
+    ``first`` to ``nkeep``."""
+    cd = mt.ops.contrib_det
+    (_, _, nkeep), (cls_s, _, boxes_s, _) = cd.detection_sweep_inputs(
+        prob, loc, anchor, **kwargs)
+    k = int(nkeep[0])
+    iou = cd._iou_corner(boxes_s[0, :k], boxes_s[0, :k])
+    near = torch.triu((iou - kwargs["nms_threshold"]).abs() <= NEAR,
+                      diagonal=1)
+    if not kwargs.get("force_suppress", False):
+        near &= cls_s[0, :k, None] == cls_s[0, None, :k]
+    if not near.any():
+        return None, k
+    return int(near.nonzero()[:, 1].min()), k
+
+
+def compare_detections(mt, torch, got, ref, prob, loc, anchor, kwargs):
+    """The rows that differ, all decided by a near-threshold IoU, of
+    (B, A, 6) detections, card against the CPU's ``ref`` of ``kwargs`` on
+    the CPU inputs ``prob``, ``loc``, ``anchor``.  Every differing row
+    must lie where a near tie of its image can decide it (between
+    ``first_near_tie``'s rows); every other row must agree."""
+    got = got.cpu()
+    bad = 0
+    for b in range(ref.shape[0]):
+        same_cls = got[b, :, 0] == ref[b, :, 0]
+        close = ((got[b, :, 1:] - ref[b, :, 1:]).abs() <= DET_TOL).all(1)
+        rows = (~(same_cls & close)).nonzero()[:, 0]
+        if not len(rows):
+            continue
+        first, k = first_near_tie(mt, torch, prob[b:b + 1], loc[b:b + 1],
+                                  anchor, kwargs)
+        check(first is not None,
+              f"image {b}: {len(rows)} detections differ from the CPU's, "
+              f"and no pair of one class has an IoU within {NEAR} of "
+              f"{kwargs['nms_threshold']}")
+        lo, hi = int(rows.min()), int(rows.max())
+        check(first <= lo and hi < k,
+              f"image {b}: detections differ at rows {lo} to {hi}, "
+              f"outside the rows {first} to {k - 1} that its near tie "
+              f"can decide")
+        bad += len(rows)
+    return bad
+
+
+def detect_ssd300(mt, torch, np, launches):
+    """(i) MultiBoxTarget and MultiBoxDetection at SSD300's 8732 anchors,
+    B=32, card against the CPU."""
+    nd = mt.nd
+    label, logits, prob, loc = ssd300_data(np)
+    anchor = ssd300_anchors(mt, DEV)
+    A = anchor.shape[1]
+    check(A == 8732, f"SSD300 layout gives {A} anchors")
+    card = {k: nd.array(v, ctx=DEV) for k, v in
+            (("label", label), ("logits", logits), ("prob", prob),
+             ("loc", loc))}
+    torch.cuda.synchronize()
+    mt.ops.reset_launches()                          # the path
+    target = nd.contrib.MultiBoxTarget(anchor, card["label"],
+                                       card["logits"],
+                                       negative_mining_ratio=3.0)
+    det400 = nd.contrib.MultiBoxDetection(
+        card["prob"], card["loc"], anchor, nms_threshold=SSD_NMS,
+        nms_topk=SSD_TOPK)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    det_all = nd.contrib.MultiBoxDetection(
+        card["prob"], card["loc"], anchor, nms_threshold=SSD_NMS)
+    torch.cuda.synchronize()
+    peak_all = torch.cuda.max_memory_allocated() - base
+    counts = {k: v for k, v in launches.items() if v}
+    ms = {
+        "target": wall_ms(lambda: nd.contrib.MultiBoxTarget(
+            anchor, card["label"], card["logits"],
+            negative_mining_ratio=3.0), torch),
+        "detection_topk400": wall_ms(lambda: nd.contrib.MultiBoxDetection(
+            card["prob"], card["loc"], anchor, nms_threshold=SSD_NMS,
+            nms_topk=SSD_TOPK), torch),
+        "detection_all": wall_ms(lambda: nd.contrib.MultiBoxDetection(
+            card["prob"], card["loc"], anchor, nms_threshold=SSD_NMS),
+            torch)}
+    # the CPU, same inputs
+    cpu = {k: torch.from_numpy(v) for k, v in
+           (("label", label), ("logits", logits), ("prob", prob),
+            ("loc", loc))}
+    cd = mt.ops.contrib_det
+    anc = anchor.handle.cpu()
+    ref_t = cd.multibox_target(anc, cpu["label"], cpu["logits"],
+                               negative_mining_ratio=3.0)
+    got_t = [t.handle.cpu() for t in target]
+    loc_err = (got_t[0] - ref_t[0]).abs().max().item()
+    check(loc_err <= DET_TOL, f"loc_target card vs CPU {loc_err}")
+    near = mining_near_cutoff(mt, torch, anc, cpu["label"], cpu["logits"],
+                              ref_t[2])
+    differ = (got_t[2] != ref_t[2]) | (got_t[1] != ref_t[1]).reshape(
+        SSD_BATCH, A, 4).any(2)
+    far = int((differ & ~near).sum())
+    check(far == 0, f"{far} anchors' cls_target/loc_mask differ from the "
+                    f"CPU's away from the mining cut-off")
+    top400 = {"nms_threshold": SSD_NMS, "nms_topk": SSD_TOPK}
+    every = {"nms_threshold": SSD_NMS}
+    ref400 = cd.multibox_detection(cpu["prob"], cpu["loc"], anc, **top400)
+    n = SSD_CPU_IMAGES
+    ref_all = cd.multibox_detection(cpu["prob"][:n], cpu["loc"][:n], anc,
+                                    **every)
+    d400 = compare_detections(mt, torch, det400.handle, ref400,
+                              cpu["prob"], cpu["loc"], anc, top400)
+    dall = compare_detections(mt, torch, det_all.handle[:n], ref_all,
+                              cpu["prob"][:n], cpu["loc"][:n], anc, every)
+    kept = (det_all.handle[..., 0] >= 0).sum(1).float()
+    return {"anchors": A, "batch": SSD_BATCH, "classes": SSD_CLASSES,
+            "label_rows": SSD_LABELS, "ms": ms,
+            "peak_bytes_topk_all": peak_all,
+            "loc_target_max_abs_err": loc_err,
+            "target_differ_near_cutoff": int((differ & near).sum()),
+            "positives_per_image": float((got_t[2] > 0).float().sum(1)
+                                         .mean()),
+            "detections_differ_near_tie": {"topk400": d400, "all": dall},
+            "kept_per_image_all": float(kept.mean())}, counts
+
+
+def sweep_bound_ms(torch, sup, alive, nkeep, out):
+    """The bytes the sweep must move: the mask row of each alive row
+    below nkeep (n bytes as bool), alive read and written."""
+    n = alive.shape[1]
+    rows = (out & (torch.arange(n, device=out.device)[None, :]
+                   < nkeep[:, None])).sum().item()
+    return (rows * n + 2 * alive.numel()) / H100_BYTES_PER_S * 1e3
+
+
+def edge_sweep_inputs(torch):
+    """The sweep's arguments at its largest size, B=1 and SWEEP_EDGE
+    rows: each pair i < j suppresses with probability SWEEP_EDGE_P, nine
+    rows in ten are alive, and nkeep takes every row."""
+    n = SWEEP_EDGE
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    sup = torch.empty((1, n, n), dtype=torch.bool, device=DEV)
+    cols = torch.arange(n, device=DEV)
+    for r0 in range(0, n, 4096):
+        r1 = min(n, r0 + 4096)
+        sup[0, r0:r1] = (torch.rand((r1 - r0, n), generator=gen,
+                                    device=DEV) < SWEEP_EDGE_P) \
+            & (cols[None, :] > cols[r0:r1, None])
+    alive = torch.rand((1, n), generator=gen, device=DEV) < 0.9
+    return sup, alive, torch.full((1,), n, dtype=torch.int64, device=DEV)
+
+
+def sweep_masks(mt, torch, np):
+    """The sweep's arguments on the card, by case: MultiBoxDetection's
+    on (i)'s inputs at nms_topk 400 and -1, Proposal's on (v)'s at
+    pre_n 6000, and ``edge_sweep_inputs``."""
+    cd = mt.ops.contrib_det
+    _, _, prob, loc = ssd300_data(np)
+    anchor = ssd300_anchors(mt, DEV).handle
+    pd, ld = (torch.from_numpy(a).to(DEV) for a in (prob, loc))
+    masks = {f"ssd300_k{k if k > 0 else anchor.shape[1]}":
+             cd.detection_sweep_inputs(pd, ld, anchor,
+                                       nms_threshold=SSD_NMS,
+                                       nms_topk=k)[0]
+             for k in (SSD_TOPK, -1)}
+    masks["rpn_k6000"] = cd.proposal_sweep_inputs(
+        *cd._proposal_args(*(torch.from_numpy(a).to(DEV)
+                             for a in rcnn_inputs(np, 1)),
+                           (4.0, 8.0, 16.0, 32.0), (0.5, 1.0, 2.0), 16),
+        6000, 0.7, 16.0)[0]
+    masks[f"edge_k{SWEEP_EDGE}"] = edge_sweep_inputs(torch)
+    return masks
+
+
+def detect_sweep(mt, torch, np, masks):
+    """(ii) nms_sweep against its plain version on the card, bit for bit,
+    on the masks of the SSD300 detections, the RPN proposals and a random
+    mask at the kernel's largest size; the
+    kernel's device ms, the plain version's ms (one call between CUDA
+    events) and the byte bound."""
+    cd = mt.ops.contrib_det
+    rows = []
+    for tag, (sup, alive, nkeep) in masks.items():
+        got = cd.nms_sweep(sup, alive, nkeep)
+        # the plain version is 4n small launches: one call between CUDA
+        # events (a profiler trace of them takes longer to read than
+        # they run), whose result is the reference
+        ref = []
+        plain_ms = call_ms(lambda: ref.append(
+            cd._sweep_plain(sup, alive, nkeep)), torch, warmup=0, reps=1)
+        same = torch.equal(got, ref[0])
+        check(same, f"nms_sweep differs from its plain version ({tag})")
+        B, n = alive.shape
+        row = {"case": tag, "batch": B, "rows": n, "bit_equal": same,
+               "alive": int(got.sum()),
+               "ms": device_ms(lambda: cd.nms_sweep(sup, alive, nkeep),
+                               torch, f"nms_sweep {tag}", reps=5),
+               "plain_ms": plain_ms,
+               "bound_ms": sweep_bound_ms(torch, sup, alive, nkeep, got)}
+        rows.append(row)
+    return rows
+
+
+# examples/ssd_train.py's model, loop and AP (its lines 46-146, 189-257)
+
+def ssd_make_dataset(np, rs, n, size):
+    x = rs.rand(n, 3, size, size).astype(np.float32) * 0.2
+    labels = np.zeros((n, 1, 5), np.float32)
+    for i in range(n):
+        wide = rs.rand() < 0.5
+        w = rs.uniform(0.4, 0.7)
+        h = w * rs.uniform(0.35, 0.55)
+        if not wide:
+            w, h = h, w
+        cx, cy = rs.uniform(w / 2, 1 - w / 2), rs.uniform(h / 2, 1 - h / 2)
+        x0, y0, x1, y1 = cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2
+        xi = [int(v * size) for v in (x0, y0, x1, y1)]
+        x[i, :, xi[1]:xi[3], xi[0]:xi[2]] += 1.0
+        labels[i, 0] = [0.0 if wide else 1.0, x0, y0, x1, y1]
+    return x, labels
+
+
+def ssd_build_net(mt):
+    nn = mt.gluon.nn
+    per_px = len(SSD_SIZES[0]) + len(SSD_RATIOS[0]) - 1
+    net = nn.HybridSequential(prefix="trunk_")
+    with net.name_scope():
+        for ch in (16, 32):
+            net.add(nn.Conv2D(ch, 3, padding=1), nn.Activation("relu"),
+                    nn.MaxPool2D(2))
+        net.add(nn.Conv2D(32, 3, padding=1), nn.Activation("relu"))
+    down = nn.HybridSequential(prefix="down_")
+    with down.name_scope():
+        down.add(nn.MaxPool2D(2), nn.Conv2D(32, 3, padding=1),
+                 nn.Activation("relu"))
+    heads = [(nn.Conv2D((SSD_NUM_CLASSES + 1) * per_px, 3, padding=1,
+                        prefix=f"cls{s}_"),
+              nn.Conv2D(4 * per_px, 3, padding=1, prefix=f"loc{s}_"))
+             for s in range(2)]
+    return [net, down] + [h for pair in heads for h in pair]
+
+
+def ssd_forward(nd, blocks, xb):
+    net, down, c0, l0, c1, l1 = blocks
+    f1 = net(xb)
+    f2 = down(f1)
+    anchors, cls_preds, loc_preds = [], [], []
+    for clsh, loch, feat, sizes, ratios in (
+            (c0, l0, f1, SSD_SIZES[0], SSD_RATIOS[0]),
+            (c1, l1, f2, SSD_SIZES[1], SSD_RATIOS[1])):
+        anchors.append(nd.contrib.MultiBoxPrior(feat, sizes=sizes,
+                                                ratios=ratios))
+        c = clsh(feat)
+        b = c.shape[0]
+        cls_preds.append(nd.transpose(c, axes=(0, 2, 3, 1)).reshape(
+            (b, -1, SSD_NUM_CLASSES + 1)))
+        loc_preds.append(nd.transpose(loch(feat), axes=(0, 2, 3, 1))
+                         .reshape((b, -1)))
+    return (nd.concat(*anchors, dim=1), nd.concat(*cls_preds, dim=1),
+            nd.concat(*loc_preds, dim=1))
+
+
+def ssd_loss(nd, anchor, cls_pred, loc_pred, lb, one):
+    cp_t = nd.transpose(cls_pred, axes=(0, 2, 1))
+    loc_t, loc_m, cls_t = nd.contrib.MultiBoxTarget(
+        anchor, lb, cp_t, negative_mining_ratio=3.0)
+    valid = cls_t >= 0
+    logp = nd.log_softmax(cls_pred, axis=-1)
+    lc = -nd.pick(logp, nd.maximum(cls_t, 0), axis=-1) * valid
+    n_valid = nd.maximum(valid.sum(), one)
+    n_pos = nd.maximum(loc_m.sum() / 4.0, one)
+    ll = nd.smooth_l1((loc_pred - loc_t) * loc_m, scalar=1.0)
+    return lc.sum() / n_valid + ll.sum() / n_pos
+
+
+def ssd_ap(np, nd, blocks, x, labels, ctx):
+    """The example's single-point AP: each image's best detection
+    matched to its box at IoU >= 0.5 and the right class."""
+    anchor, cls_pred, loc_pred = ssd_forward(nd, blocks, nd.array(x,
+                                                                  ctx=ctx))
+    cls_prob = nd.transpose(nd.softmax(cls_pred, axis=-1), axes=(0, 2, 1))
+    dets = nd.contrib.MultiBoxDetection(cls_prob, loc_pred, anchor,
+                                        threshold=0.3,
+                                        nms_threshold=0.45).asnumpy()
+    tp = 0
+    for i in range(len(labels)):
+        gt = labels[i, 0]
+        det = dets[i][dets[i][:, 0] >= 0]
+        if not len(det):
+            continue
+        best = det[np.argmax(det[:, 1])]
+        ix0, iy0 = max(best[2], gt[1]), max(best[3], gt[2])
+        ix1, iy1 = min(best[4], gt[3]), min(best[5], gt[4])
+        inter = max(ix1 - ix0, 0) * max(iy1 - iy0, 0)
+        a1 = (best[4] - best[2]) * (best[5] - best[3])
+        a2 = (gt[3] - gt[1]) * (gt[4] - gt[2])
+        iou = inter / max(a1 + a2 - inter, 1e-9)
+        tp += iou >= 0.5 and int(best[0]) == int(gt[0])
+    return tp / max(len(labels), 1)
+
+
+def ssd_blocks(mt, ctx):
+    blocks = ssd_build_net(mt)
+    for blk in blocks:
+        blk.initialize(mt.initializer.Xavier(), ctx=ctx)
+        blk.hybridize()
+    return blocks
+
+
+def ssd_grads(mt, blocks, xb, lb, ctx):
+    nd = mt.nd
+    with mt.autograd.record():
+        loss = ssd_loss(nd, *ssd_forward(nd, blocks, xb), lb,
+                        nd.array([1.0], ctx=ctx))
+    loss.backward()
+    params = {}
+    for blk in blocks:
+        params.update(blk.collect_params())
+    return float(loss.asnumpy()[0]), {k: p.grad().handle.cpu()
+                                      for k, p in params.items()}
+
+
+def detect_train(mt, torch, np, launches):
+    """(iii) config 4: examples/ssd_train.py --quick on the card (blocks
+    hybridized), its gate; one step against the CPU from the same
+    weights."""
+    nd = mt.nd
+    q = SSD_QUICK
+    rs = np.random.RandomState(0)
+    mt.random.seed(0)
+    x, labels = ssd_make_dataset(np, rs, q["images"], q["size"])
+    blocks = ssd_blocks(mt, DEV)
+    ssd_forward(nd, blocks, nd.array(x[:2], ctx=DEV))  # settle shapes
+    # one step, card against the CPU, from the card's first weights
+    cpu_blocks = ssd_blocks(mt, "cpu")
+    ssd_forward(nd, cpu_blocks, nd.array(x[:2], ctx="cpu"))
+    for blk, cblk in zip(blocks, cpu_blocks):
+        mt.convert.load_gluon_params(
+            cblk, {k: p.data().asnumpy()
+                   for k, p in blk.collect_params().items()}, ctx="cpu")
+    sel = np.arange(q["batch"])
+    card_loss, card_g = ssd_grads(mt, blocks, nd.array(x[sel], ctx=DEV),
+                                  nd.array(labels[sel], ctx=DEV), DEV)
+    cpu_loss, cpu_g = ssd_grads(mt, cpu_blocks, nd.array(x[sel], ctx="cpu"),
+                                nd.array(labels[sel], ctx="cpu"), "cpu")
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_worst = max(rel_err(card_g[k], cpu_g[k], torch) for k in cpu_g)
+    check(loss_rel <= 1e-4, f"SSD loss card {card_loss} vs CPU {cpu_loss}")
+    check(grad_worst <= 1e-3, f"SSD gradient card vs CPU {grad_worst}")
+    del cpu_blocks
+
+    params = {}
+    for blk in blocks:
+        params.update(blk.collect_params())
+    trainer = mt.gluon.Trainer(params, "sgd", dict(
+        learning_rate=q["lr"], momentum=0.9, wd=1e-4))
+    one = nd.array([1.0], ctx=DEV)
+    B = q["batch"]
+    torch.cuda.synchronize()
+    mt.ops.reset_launches()                          # the main path
+    t0 = time.perf_counter()
+    first = None
+    for it in range(q["iters"]):
+        sel = rs.randint(0, q["images"], B)
+        xb = nd.array(x[sel], ctx=DEV)
+        lb = nd.array(labels[sel], ctx=DEV)
+        with mt.autograd.record():
+            loss = ssd_loss(nd, *ssd_forward(nd, blocks, xb), lb, one)
+        loss.backward()
+        trainer.step(B)
+        if it == 0:
+            first = float(loss.asnumpy()[0])
+            t1 = time.perf_counter()
+    final = float(loss.asnumpy()[0])
+    ms_iter = (time.perf_counter() - t1) * 1e3 / (q["iters"] - 1)
+    ap = ssd_ap(np, nd, blocks, x, labels, DEV)
+    counts = {k: v for k, v in launches.items() if v}
+    check(final < 0.7 * first and ap > 0.5,
+          f"config 4 gate: first loss {first}, final {final}, AP {ap}")
+    captures = {type(b).__name__ + str(i): b._cached_op.trace_count
+                for i, b in enumerate(blocks)}
+    return {"image": q["size"], "images": q["images"], "batch": B,
+            "iters": q["iters"], "sgd": {"lr": q["lr"], "momentum": 0.9,
+                                         "wd": 1e-4},
+            "first_loss": first, "final_loss": final, "ap": ap,
+            "ms_per_iter": ms_iter,
+            "seconds": time.perf_counter() - t0,
+            "captures": sum(captures.values()),
+            "vs_cpu": {"loss_rel": loss_rel, "grad_worst": grad_worst}}, \
+        counts
+
+
+def detect_block(mt):
+    class MultiBox(mt.gluon.HybridBlock):
+        """MultiBoxPrior, MultiBoxTarget and MultiBoxDetection in one
+        block."""
+
+        def hybrid_forward(self, F, feat, label, cls, loc):
+            anchor = F.contrib.MultiBoxPrior(
+                feat, sizes=(0.2, 0.27), ratios=SSD300_RATIOS)
+            t = F.contrib.MultiBoxTarget(anchor, label, cls,
+                                         negative_mining_ratio=3.0)
+            d = F.contrib.MultiBoxDetection(
+                F.softmax(cls, axis=1), loc, anchor, nms_threshold=SSD_NMS,
+                nms_topk=SSD_TOPK)
+            return t[0], t[1], t[2], d
+
+    return MultiBox()
+
+
+def detect_capture(mt, torch, np, launches):
+    """(iv) no host sync: the three MultiBox ops in one hybridized block
+    captured once, replays bit-equal to the eager call; the same graph
+    as a Symbol binds (shape inference on meta) and equals the nd
+    path."""
+    nd, S = mt.nd, mt.sym
+    label, _, _, _ = ssd300_data(np)
+    rs = np.random.RandomState(SEED + 1)
+    hw = SSD300_FMAPS[1][0]
+    A = hw * hw * (1 + len(SSD300_RATIOS))
+    feat = rs.rand(SSD_BATCH, 8, hw, hw).astype(np.float32)
+    cls = rs.randn(SSD_BATCH, SSD_CLASSES, A).astype(np.float32)
+    loc = (rs.randn(SSD_BATCH, 4 * A) * 0.1).astype(np.float32)
+    args = [nd.array(a, ctx=DEV) for a in (feat, label, cls, loc)]
+    net = detect_block(mt)
+    eager = [o.handle.clone() for o in net(*args)]
+    net.hybridize()
+    mt.ops.reset_launches()
+    replays = [[o.handle.clone() for o in net(*args)] for _ in range(4)]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches.items() if v}
+    equal = all(torch.equal(a, b) for r in replays
+                for a, b in zip(r, eager))
+    stats = net._cached_op.stats()
+    captures = net._cached_op.trace_count
+    check(equal, "the hybridized MultiBox block's replays differ from its "
+                 "eager call")
+    check(captures == 1, f"MultiBox block captured {captures} times")
+    replay_ms = wall_ms(lambda: net(*args), torch, reps=5)
+    net.hybridize(False)
+    eager_ms = wall_ms(lambda: net(*args), torch, reps=5)
+    cls_v = S.var("cls")
+    anchor = S.contrib.MultiBoxPrior(S.var("feat"), sizes=(0.2, 0.27),
+                                     ratios=SSD300_RATIOS)
+    target = S.contrib.MultiBoxTarget(anchor, S.var("label"), cls_v,
+                                      negative_mining_ratio=3.0)
+    det = S.contrib.MultiBoxDetection(S.softmax(cls_v, axis=1),
+                                      S.var("loc"), anchor,
+                                      nms_threshold=SSD_NMS,
+                                      nms_topk=SSD_TOPK)
+    exe = S.Group(list(target) + [det]).simple_bind(
+        DEV, grad_req="null", feat=feat.shape, label=label.shape,
+        cls=cls.shape, loc=loc.shape)
+    outs = exe.forward(is_train=False, feat=feat, label=label, cls=cls,
+                       loc=loc)
+    sym_equal = all(torch.equal(o.handle, e) for o, e in zip(outs, eager))
+    check(sym_equal, "the MultiBox Symbol differs from the nd path")
+    return {"anchors": A, "bit_equal": equal, "captures": captures,
+            "modes": stats["modes"],
+            "replay_ms": replay_ms, "eager_ms": eager_ms,
+            "symbol_bit_equal": sym_equal}, counts
+
+
+def rcnn_inputs(np, B):
+    rs = np.random.RandomState(SEED + 2)
+    H, W = RCNN_FEAT
+    cls_prob = rs.rand(B, 24, H, W).astype(np.float32)
+    bbox = (rs.randn(B, 48, H, W) * 0.2).astype(np.float32)
+    im_info = np.tile(np.array([[600, 1000, 1]], np.float32), (B, 1))
+    return cls_prob, bbox, im_info
+
+
+def compare_rois(mt, torch, got, ref, cpu_inputs, thr):
+    """Rows of (N, 5) rois that differ from the CPU's beyond 1e-4 of the
+    largest coordinate; a difference needs an IoU within NEAR of the
+    threshold among the boxes the CPU swept."""
+    got = got.cpu()
+    scale = ref[:, 1:].abs().max()
+    differ = int(((got - ref).abs() > 1e-4 * scale).any(1).sum())
+    if differ:
+        cd = mt.ops.contrib_det
+        _, (boxes, _) = cd.proposal_sweep_inputs(
+            *cd._proposal_args(*cpu_inputs, (4.0, 8.0, 16.0, 32.0),
+                               (0.5, 1.0, 2.0), 16), 6000, thr, 16.0)
+        n = sum(int(torch.triu((cd._proposal_iou(b) - thr).abs() <= NEAR,
+                               diagonal=1).sum()) for b in boxes)
+        check(n > 0, f"{differ} rois differ from the CPU's and no IoU lies "
+                     f"within {NEAR} of {thr}")
+    return differ
+
+
+def grads_card_cpu(mt, torch, name, inputs, wrt, params, ct_seed):
+    """The op forward and the gradient of a weighted sum with respect to
+    ``wrt`` on the card and on the CPU, same inputs; (out errors, grad
+    errors) as max error over max."""
+    fn = mt.ops.OPS[name].fn
+    outs = {}
+    for dev in (DEV, "cpu"):
+        xs = [torch.from_numpy(a).to(dev) for a in inputs]
+        for i in wrt:
+            xs[i].requires_grad_(True)
+        out = fn(*xs, **params)
+        g = torch.Generator().manual_seed(ct_seed)
+        ct = torch.randn(out.shape, generator=g).to(dev)
+        grads = torch.autograd.grad(out, [xs[i] for i in wrt], ct)
+        outs[dev] = (out.detach(), grads)
+    (out, grads), (rout, rgrads) = outs[DEV], outs["cpu"]
+    return rel_err(out, rout, torch), [rel_err(a, b, torch)
+                                       for a, b in zip(grads, rgrads)]
+
+
+def detect_rcnn(mt, torch, np, launches):
+    """(v) Faster R-CNN and R-FCN scale: Proposal at its defaults,
+    MultiProposal at B=2, ROIPooling, PSROIPooling and
+    DeformableConvolution, card against the CPU."""
+    out = {}
+    rois = None
+    runs = {}
+    mt.ops.reset_launches()                          # the path
+    for name, B in (("_contrib_Proposal", 1), ("_contrib_MultiProposal", 2)):
+        inputs = rcnn_inputs(np, B)
+        card = [torch.from_numpy(a).to(DEV) for a in inputs]
+        runs[name] = (inputs, card, mt.ops.OPS[name].fn(*card,
+                                                        output_score=True))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches.items() if v}
+    for name, (inputs, card, (got, got_s)) in runs.items():
+        fn = mt.ops.OPS[name].fn
+        ms = wall_ms(lambda: fn(*card), torch)
+        cpu = [torch.from_numpy(a) for a in inputs]
+        ref, ref_s = fn(*cpu, output_score=True)
+        differ = compare_rois(mt, torch, got, ref, cpu, 0.7)
+        check(torch.equal(got[:, 0].cpu(), ref[:, 0]),
+              f"{name} batch indices differ from the CPU's")
+        out[name] = {"batch": len(inputs[0]), "rois": list(got.shape),
+                     "ms": ms, "rows_differ": differ,
+                     "score_max_abs_err": (got_s.cpu() - ref_s).abs().max()
+                     .item()}
+        if rois is None:
+            rois = got.cpu().numpy()
+    H, W = RCNN_FEAT
+    rs = np.random.RandomState(SEED + 3)
+    data = rs.randn(1, RCNN_CHANNELS, H, W).astype(np.float32)
+    t0 = time.perf_counter()
+    o, g = grads_card_cpu(mt, torch, "ROIPooling", [data, rois], [0],
+                          dict(pooled_size=(7, 7), spatial_scale=1 / 16), 1)
+    check(o <= 1e-4 and g[0] <= 1e-3, f"ROIPooling card vs CPU {o}, {g}")
+    out["ROIPooling"] = {"data": list(data.shape), "rois": RCNN_ROIS,
+                         "out_err": o, "grad_err": g[0],
+                         "seconds": time.perf_counter() - t0}
+    ps = rs.randn(1, RFCN["output_dim"] * RFCN["group_size"] ** 2, H,
+                  W).astype(np.float32)
+    t0 = time.perf_counter()
+    o, g = grads_card_cpu(mt, torch, "_contrib_PSROIPooling", [ps, rois],
+                          [0], dict(spatial_scale=1 / 16, **RFCN), 2)
+    check(o <= 1e-4 and g[0] <= 1e-3, f"PSROIPooling card vs CPU {o}, {g}")
+    out["PSROIPooling"] = {"data": list(ps.shape), "out_err": o,
+                           "grad_err": g[0],
+                           "seconds": time.perf_counter() - t0}
+    offset = (rs.randn(1, 18, H, W) * 2).astype(np.float32)
+    weight = (rs.randn(RCNN_CHANNELS, RCNN_CHANNELS, 3, 3) * 0.02) \
+        .astype(np.float32)
+    bias = rs.randn(RCNN_CHANNELS).astype(np.float32)
+    t0 = time.perf_counter()
+    o, g = grads_card_cpu(
+        mt, torch, "_contrib_DeformableConvolution",
+        [data, offset, weight, bias], [0, 1, 2, 3],
+        dict(kernel=(3, 3), pad=(1, 1), num_filter=RCNN_CHANNELS), 3)
+    check(o <= 1e-4 and max(g) <= 1e-3,
+          f"DeformableConvolution card vs CPU {o}, {g}")
+    out["DeformableConvolution"] = {"filters": RCNN_CHANNELS, "out_err": o,
+                                    "grad_err": max(g),
+                                    "seconds": time.perf_counter() - t0}
+    return out, counts
+
+
+def edit_distance(a, b):
+    """examples/common.py's Levenshtein distance."""
+    dp = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        prev, dp[0] = dp[0], i
+        for j, cb in enumerate(b, 1):
+            prev, dp[j] = dp[j], min(dp[j] + 1, dp[j - 1] + 1,
+                                     prev + (ca != cb))
+    return dp[-1]
+
+
+def speech_utterances(np, rs, n, templates):
+    """examples/speech_ctc.py:45-62."""
+    s = SPEECH
+    X = np.zeros((n, s["max_frames"], s["frame_dim"]), np.float32)
+    Y = np.full((n, s["max_label"]), -1, np.float32)
+    xl = np.zeros(n, np.float32)
+    yl = np.zeros(n, np.float32)
+    for i in range(n):
+        nl = rs.randint(3, s["max_label"] + 1)
+        labels = rs.randint(0, s["phones"], nl)
+        t = 0
+        for ph in labels:
+            for _ in range(rs.randint(2, 5)):
+                if t >= s["max_frames"]:
+                    break
+                X[i, t] = templates[ph] + \
+                    rs.randn(s["frame_dim"]).astype(np.float32) * 0.3
+                t += 1
+        Y[i, :nl] = labels
+        xl[i], yl[i] = t, nl
+    return X, Y, xl, yl
+
+
+def speech_ctc(mt, torch, np):
+    """(vi) examples/speech_ctc.py --quick on the card: BiLSTM + Dense,
+    CTCLoss with lengths, clip_global_norm, Adam; its gate."""
+    s = SPEECH
+    nd = mt.nd
+
+    class AcousticModel(mt.gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.lstm = mt.gluon.rnn.LSTM(
+                    s["hidden"], num_layers=1, bidirectional=True,
+                    layout="NTC", input_size=s["frame_dim"])
+                self.proj = mt.gluon.nn.Dense(s["phones"] + 1,
+                                              flatten=False)
+
+        def forward(self, x):
+            h, _ = self.lstm(x, self.lstm.begin_state(x.shape[0],
+                                                      ctx=x.context))
+            return self.proj(h)
+
+    mt.random.seed(0)
+    rs = np.random.RandomState(0)
+    templates = rs.randn(s["phones"], s["frame_dim"]).astype(np.float32) * 2
+    net = AcousticModel()
+    net.initialize(mt.init.Xavier(), ctx=DEV)
+    trainer = mt.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": s["lr"]})
+    ctc = mt.gluon.loss.CTCLoss(layout="NTC", label_layout="NT")
+
+    def ler(n_eval=64):
+        X, Y, xl, yl = speech_utterances(np, np.random.RandomState(1),
+                                         n_eval, templates)
+        logits = net(nd.array(X, ctx=DEV)).asnumpy()
+        errs = tot = 0
+        for i in range(n_eval):
+            path = logits[i][:int(xl[i])].argmax(1)
+            hyp, prev = [], -1
+            for p in path:
+                if p != prev and p != s["phones"]:
+                    hyp.append(int(p))
+                prev = p
+            ref = [int(c) for c in Y[i][:int(yl[i])]]
+            errs += edit_distance(hyp, ref)
+            tot += len(ref)
+        return errs / tot
+
+    init_ler = ler()
+    first = last = None
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    t0 = time.perf_counter()
+    for _ in range(s["steps"]):
+        X, Y, xl, yl = speech_utterances(np, rs, s["batch"], templates)
+        xs = [nd.array(a, ctx=DEV) for a in (X, Y, xl, yl)]
+        with mt.autograd.record():
+            loss = ctc(net(xs[0]), *xs[1:]).mean()
+        loss.backward()
+        mt.gluon.utils.clip_global_norm([p.grad() for p in params],
+                                        s["clip"])
+        trainer.step(s["batch"])
+        last = float(loss.asnumpy().reshape(-1)[0])
+        first = last if first is None else first
+    ms = (time.perf_counter() - t0) * 1e3 / s["steps"]
+    final_ler = ler()
+    check(final_ler < 0.15 and last < 0.5 * first,
+          f"speech_ctc gate: LER {final_ler}, losses {first} -> {last}")
+    return {"steps": s["steps"], "batch": s["batch"], "first_loss": first,
+            "last_loss": last, "init_ler": init_ler, "ler": final_ler,
+            "ms_per_step": ms}
+
+
+def ctc_check(mt, torch, np):
+    """(vi) ctc_loss at T=100, B=32, C=29, labels up to 40, with data
+    and label lengths, both blank modes: costs and gradients card
+    against the CPU, an impossible alignment's 1e30, ms of forward and
+    backward."""
+    c = CTC_SHAPE
+    rs = np.random.RandomState(SEED + 4)
+    fn = mt.ops.OPS["ctc_loss"].fn
+    out = {}
+    for blank in ("first", "last"):
+        data = rs.randn(c["T"], c["B"], c["C"]).astype(np.float32)
+        lab_len = rs.randint(5, c["L"] + 1, c["B"])
+        dat_len = rs.randint(c["T"] // 2, c["T"] + 1, c["B"])
+        # impossible: 40 labels in 30 frames
+        lab_len[0], dat_len[0] = c["L"], c["L"] * 3 // 4
+        pad, lo, hi = (0, 1, c["C"]) if blank == "first" else \
+            (-1, 0, c["C"] - 1)
+        label = np.full((c["B"], c["L"]), pad, np.float32)
+        for i in range(c["B"]):
+            label[i, :lab_len[i]] = rs.randint(lo, hi, lab_len[i])
+        inputs = [data, label, dat_len.astype(np.float32),
+                  lab_len.astype(np.float32)]
+        params = dict(use_data_lengths=True, use_label_lengths=True,
+                      blank_label=blank)
+        res = {}
+        for dev in (DEV, "cpu"):
+            xs = [torch.from_numpy(a).to(dev) for a in inputs]
+            xs[0].requires_grad_(True)
+            cost = fn(*xs, **params)
+            mask = cost < 1e29
+            (g,) = torch.autograd.grad((cost * mask).sum(), xs[0])
+            res[dev] = (cost.detach().cpu(), g.cpu())
+            if dev == DEV:
+                def step():
+                    cst = fn(*xs, **params)
+                    torch.autograd.grad((cst * (cst < 1e29)).sum(), xs[0])
+                ms = wall_ms(step, torch)
+        (cost, g), (rcost, rg) = res[DEV], res["cpu"]
+        possible = rcost < 1e29
+        cost_rel = ((cost - rcost).abs() / rcost.abs())[possible].max() \
+            .item()
+        grad_err = (g - rg).abs().max().item()
+        check(float(cost[0]) == float(rcost[0]) == float(np.float32(1e30)),
+              f"impossible alignment costs {cost[0]} (CPU {rcost[0]})")
+        check(cost_rel <= 1e-5 and grad_err <= 1e-4 and
+              bool(torch.isfinite(g).all()),
+              f"ctc_loss ({blank}) card vs CPU: cost {cost_rel}, grad "
+              f"{grad_err}")
+        out[blank] = {"cost_rel_err": cost_rel, "grad_max_abs_err":
+                      grad_err, "impossible_cost": float(cost[0]),
+                      "fwd_bwd_ms": ms}
+    return out
+
+
+def seq_stages(S):
+    """mnist_mlp split after relu2: fc1-relu1-fc2-relu2, then fc3 under
+    the SoftmaxOutput."""
+    net = S.FullyConnected(S.Variable("data"), name="fc1", num_hidden=128)
+    net = S.Activation(net, name="relu1", act_type="relu")
+    net = S.FullyConnected(net, name="fc2", num_hidden=64)
+    head = S.Activation(net, name="relu2", act_type="relu")
+    tail = S.SoftmaxOutput(S.FullyConnected(S.Variable("data"), name="fc3",
+                                            num_hidden=10), name="softmax")
+    return head, tail
+
+
+def detect_sequential(mt, torch, np):
+    """(vii) phase module (i)'s MNIST MLP as two Modules chained by
+    SequentialModule (labels on the last): its gate; one epoch from the
+    same weights moves the parameters as the single Module does; a
+    PythonLossModule tail trains."""
+    rs = np.random.RandomState(SEED)
+    xtr, ytr = synthetic_mnist(MLP_TRAIN, rs)
+    xva, yva = synthetic_mnist(MLP_VAL, rs)
+
+    def chain(tail=None):
+        head, last = seq_stages(mt.sym)
+        seq = mt.mod.SequentialModule()
+        seq.add(mt.mod.Module(head, label_names=[], context=DEV))
+        seq.add(tail or mt.mod.Module(last, context=DEV), take_labels=True)
+        return seq
+
+    seq = chain()
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    seq.fit(mt.io.NDArrayIter(xtr, ytr, MLP_BATCH, shuffle=True, seed=SEED),
+            num_epoch=MLP_EPOCHS, optimizer="sgd", optimizer_params=MLP_SGD,
+            initializer=mt.init.Xavier())
+    fit_s = time.perf_counter() - t0
+    acc = seq.score(mt.io.NDArrayIter(xva, yva, MLP_BATCH), "acc")[0][1]
+    check(acc > MLP_GATE, f"SequentialModule MLP accuracy {acc}")
+    # one epoch from the same weights: the chain and one Module
+    weights = {k: v.asnumpy() for k, v in seq.get_params()[0].items()}
+    moved = {}
+    for name, mod in (("seq", chain()), ("one", mt.mod.Module(
+            mnist_mlp(mt.sym), context=DEV))):
+        mod.fit(mt.io.NDArrayIter(xtr, ytr, MLP_BATCH), num_epoch=1,
+                optimizer="sgd", optimizer_params=MLP_SGD,
+                arg_params={k: mt.nd.array(v, ctx=DEV)
+                            for k, v in weights.items()})
+        moved[name] = {k: v.asnumpy() for k, v in mod.get_params()[0]
+                       .items()}
+    worst = max(float(np.abs(moved["seq"][k] - moved["one"][k]).max())
+                for k in weights)
+    check(worst <= 1e-5, f"SequentialModule vs Module after an epoch "
+                         f"{worst}")
+
+    def softmax_ce_grad(label, pred):
+        p = torch.softmax(pred.handle, 1)
+        p[torch.arange(len(p), device=p.device), label.handle.long()] -= 1
+        return mt.nd.NDArray(p / len(p))
+
+    head, _ = seq_stages(mt.sym)
+    lin = mt.mod.Module(mt.sym.FullyConnected(
+        mt.sym.Variable("data"), name="fc3", num_hidden=10),
+        label_names=[], context=DEV)
+    py = mt.mod.SequentialModule()
+    py.add(mt.mod.Module(head, label_names=[], context=DEV))
+    py.add(lin)
+    py.add(mt.mod.PythonLossModule(grad_func=softmax_ce_grad),
+           take_labels=True)
+    py.fit(mt.io.NDArrayIter(xtr, ytr, MLP_BATCH, shuffle=True, seed=SEED),
+           num_epoch=2, optimizer="sgd", optimizer_params=MLP_SGD,
+           initializer=mt.init.Xavier())
+    hits = 0
+    for batch in mt.io.NDArrayIter(xva, yva, MLP_BATCH):
+        py.forward(batch, is_train=False)
+        hits += int((py.get_outputs()[0].asnumpy().argmax(1)
+                     == batch.label[0].asnumpy()).sum())
+    py_acc = hits / MLP_VAL
+    check(py_acc > 0.9, f"PythonLossModule chain accuracy {py_acc}")
+    return {"val_acc": acc, "gate": MLP_GATE, "fit_seconds": fit_s,
+            "epoch_vs_module_max_abs": worst,
+            "python_loss_val_acc": py_acc}
+
+
+def contrib_misc_cases(np):
+    rs = np.random.RandomState(SEED + 5)
+
+    def r(*shape, scale=1.0):
+        return (rs.randn(*shape) * scale).astype(np.float32)
+
+    H, W = RCNN_FEAT
+    rois = np.concatenate([np.zeros((RCNN_ROIS, 1), np.float32),
+                           rs.uniform(0, 500, (RCNN_ROIS, 2)),
+                           rs.uniform(500, 999, (RCNN_ROIS, 2))],
+                          1).astype(np.float32)
+    x = r(32, 4096)
+    lo, hi = np.float32(-3.0), np.float32(3.0)
+    # name: (inputs, params, differentiable inputs, "bit" or tolerance)
+    return {
+        "_contrib_fft": ([x], {}, [0], 1e-5),
+        "_contrib_ifft": ([r(32, 2 * 4096)], {}, [0], 1e-5),
+        "_contrib_count_sketch": (
+            [x, rs.randint(0, 1024, 4096).astype(np.float32),
+             rs.choice([-1, 1], 4096).astype(np.float32)],
+            dict(out_dim=1024), [0], 1e-5),
+        "_contrib_quantize": ([x, np.array([lo]), np.array([hi])], {}, [],
+                              "bit"),
+        "_contrib_dequantize": (
+            [rs.randint(0, 256, (32, 4096)).astype(np.uint8),
+             np.array([lo]), np.array([hi])], {}, [], "bit"),
+        # FlowNetC's correlation layer (Dosovitskiy et al. 2015)
+        "Correlation": ([r(2, 256, 48, 64), r(2, 256, 48, 64)],
+                        dict(kernel_size=1, max_displacement=20, stride1=1,
+                             stride2=2, pad_size=20), [0, 1], 1e-4),
+        "_contrib_DeformablePSROIPooling": (
+            [r(1, RFCN["output_dim"] * RFCN["group_size"] ** 2, H, W), rois,
+             r(RCNN_ROIS, 2, 7, 7, scale=0.5)],
+            dict(spatial_scale=1 / 16, part_size=7, sample_per_part=2,
+                 trans_std=0.1, **RFCN), [0, 2], 1e-4),
+        "IdentityAttachKLSparseReg": (
+            [np.clip(r(256, 1024, scale=0.2) + 0.5, 0.01, 0.99)],
+            dict(sparseness_target=0.1, penalty=0.1), [0], 1e-5),
+        "cast_storage": ([x], {}, [0], "bit"),
+        "_sparse_cast_storage": ([x], {}, [0], "bit"),
+        "reshape_like": ([x, r(4096, 32)], {}, [0], "bit"),
+        "_sparse_retain": ([x, rs.choice(32, 8, replace=False)
+                            .astype(np.float32)], {}, [0], "bit"),
+        "_square_sum": ([x], dict(axis=1), [0], 1e-5),
+        "_scatter_elemwise_div": ([x, r(32, 4096) + 4.0], {}, [0, 1], 1e-5),
+        "_scatter_plus_scalar": ([x], dict(scalar=1.5), [0], "bit"),
+        "_scatter_minus_scalar": ([x], dict(scalar=0.5), [0], "bit"),
+    }
+
+
+def detect_contrib_misc(mt, torch, np):
+    """(viii) the contrib_misc names on the card against the CPU: the
+    forward bit for bit where marked (quantize and dequantize among
+    them), else within the tolerance as max error over max; the
+    gradients within 1e-4 (max error over max); the plugin hooks
+    raise."""
+    out = {}
+    for name, (inputs, params, wrt, tol) in contrib_misc_cases(np).items():
+        fn = mt.ops.OPS[name].fn
+        res = {}
+        for dev in (DEV, "cpu"):
+            xs = [torch.from_numpy(a).to(dev) for a in inputs]
+            for i in wrt:
+                xs[i].requires_grad_(True)
+            o = fn(*xs, **params)
+            o = list(o) if isinstance(o, tuple) else [o]
+            grads = []
+            if wrt:
+                g = torch.Generator().manual_seed(7)
+                cts = [torch.randn(t.shape, generator=g).to(dev) for t in o]
+                grads = torch.autograd.grad(o, [xs[i] for i in wrt], cts)
+            res[dev] = ([t.detach().cpu() for t in o],
+                        [t.cpu() for t in grads])
+        (o, g), (ro, rg) = res[DEV], res["cpu"]
+        if tol == "bit":
+            err = 0.0 if all(torch.equal(a, b) for a, b in zip(o, ro)) \
+                else math.inf
+        else:
+            err = max(rel_err(a, b, torch) for a, b in zip(o, ro))
+        gerr = max((rel_err(a, b, torch) for a, b in zip(g, rg)),
+                   default=0.0)
+        check(err <= (0.0 if tol == "bit" else tol) and gerr <= 1e-4,
+              f"{name} card vs CPU: out {err}, grad {gerr}")
+        out[name] = [err, gerr]
+    x = mt.nd.ones((2, 2), ctx=DEV)
+    for name in ("_NDArray", "_Native"):
+        try:
+            getattr(mt.nd._internal, name)(x)
+            check(False, f"{name} ran")
+        except NotImplementedError:
+            pass
+    return out
+
+
+def phase_detect(mt, torch, card):
+    import numpy as np
+    launches = mt.ops.LAUNCHES
+    t = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        t[name] = round(time.perf_counter() - t0, 2)
+        release(torch)
+        return res
+
+    ssd300, c_ssd300 = part("ssd300", detect_ssd300, mt, torch, np,
+                            launches)
+    masks = sweep_masks(mt, torch, np)
+    sweep = part("sweep", detect_sweep, mt, torch, np, masks)
+    del masks
+    train, c_train = part("train", detect_train, mt, torch, np, launches)
+    capture, c_capture = part("capture", detect_capture, mt, torch, np,
+                              launches)
+    rcnn, c_rcnn = part("rcnn", detect_rcnn, mt, torch, np, launches)
+    speech = part("speech_ctc", speech_ctc, mt, torch, np)
+    ctc = part("ctc_loss", ctc_check, mt, torch, np)
+    seq = part("sequential", detect_sequential, mt, torch, np)
+    misc = part("contrib_misc", detect_contrib_misc, mt, torch, np)
+    by_path = {"detect_ssd300": c_ssd300, "detect_train": c_train,
+               "detect_capture": c_capture, "detect_rcnn": c_rcnn}
+    for path, counts in by_path.items():
+        check(counts.get("nms_sweep", 0) > 0,
+              f"{path} launched no nms_sweep: {counts}")
+        check(set(counts) == {"nms_sweep"}, f"{path} launched {counts}")
+    main = sweep[1]                      # SSD300 at the default nms_topk
+    emit({"phase": "detect", "card": card, "seconds": t, "ssd300": {
+        k: ssd300[k] for k in ("ms", "peak_bytes_topk_all",
+                               "loc_target_max_abs_err",
+                               "target_differ_near_cutoff",
+                               "detections_differ_near_tie")},
+        "sweep": [{k: r[k] for k in ("case", "bit_equal", "ms", "plain_ms",
+                                     "bound_ms")} for r in sweep],
+        "config4": {k: train[k] for k in ("first_loss", "final_loss", "ap",
+                                          "ms_per_iter", "vs_cpu")},
+        "capture": {k: capture[k] for k in ("bit_equal", "captures",
+                                            "symbol_bit_equal",
+                                            "replay_ms", "eager_ms")},
+        "rcnn": {k: {kk: v for kk, v in r.items()
+                     if kk in ("ms", "rows_differ", "out_err", "grad_err")}
+                 for k, r in rcnn.items()},
+        "speech_ctc": {k: speech[k] for k in ("first_loss", "last_loss",
+                                              "ler", "ms_per_step")},
+        "ctc_loss": ctc, "sequential": seq,
+        "contrib_misc_worst": [max(v[0] for v in misc.values()),
+                               max(v[1] for v in misc.values())]})
+    entry = {
+        "name": "nms_sweep", "route": "cuda",
+        "source": "incubator_mxnet_tpu_torch/csrc/nms_sweep.cu",
+        "replaces": "incubator_mxnet_tpu/ops/contrib_det.py:287 "
+                    "(lax.while_loop) and :516 (lax.fori_loop): the "
+                    "port's own kernel, no Pallas kernel",
+        "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": [main["batch"], main["rows"]],
+        "tol": "bit-exact",
+        "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms")}
+                  for r in sweep],
+        "launches_by_path": {p: c.get("nms_sweep", 0)
+                             for p, c in by_path.items()}}
+    return entry, by_path
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4188,6 +5322,8 @@ def main():
         moe_launches, moe_runs = timed("moe", phase_moe, mt, torch, card)
         ops_launches = timed("ops", phase_ops, mt, torch, card)
         rnn_launches = timed("rnn", phase_rnn, mt, torch, card)
+        sweep_entry, detect_launches = timed("detect", phase_detect, mt,
+                                             torch, card)
         keeps["end"] = trace_keeps(torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
               "trace_keeps": keeps})
@@ -4213,7 +5349,9 @@ def main():
             e["runs_per_replay"] = dict(replay_runs[e["name"]],
                                         moe_train=moe_runs[e["name"]])
             e["fp32_train"]["launches"] = sum(fp32_launches[e["name"]])
-        for e in [entry] + bwd_entries + rtc_entries:
+        # the paths whose phases keep every kernel's count; the sweep's
+        # entry has no key for a path that kept the flash counts alone
+        for e in [entry] + bwd_entries + rtc_entries + [sweep_entry]:
             e["launches_by_path"]["resnet"] = resnet_launches.get(
                 e["name"], 0)
             e["launches_by_path"]["module"] = module_launches.get(
@@ -4226,6 +5364,8 @@ def main():
             e["launches_by_path"]["rnn"] = rnn_launches.get(e["name"], 0)
             if e["name"] in hyb_runs:
                 e["runs_per_replay"] = {"hybridize": hyb_runs[e["name"]]}
+            for path, counts in detect_launches.items():
+                e["launches_by_path"][path] = counts.get(e["name"], 0)
             e["launches"] = sum(
                 n if isinstance(n, int) else sum(n)
                 for n in e["launches_by_path"].values())
@@ -4233,7 +5373,7 @@ def main():
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(card)
-    emit({"kernels": [entry] + bwd_entries + rtc_entries})
+    emit({"kernels": [entry] + bwd_entries + rtc_entries + [sweep_entry]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -19,7 +19,9 @@ the mesh, ``kvstore`` the parameter store.  The symbolic surface rides on the sa
 (Symbol, one function per op), ``Executor``, ``mod`` (``Module.fit``),
 ``metric``, ``io``, ``callback``, ``model`` (checkpoints) and
 ``monitor``, and ``rnn`` (the bucketed sentence iterator for
-``mod.BucketingModule``); ``graph`` holds the pass pipeline every bind runs and the
+``mod.BucketingModule``); ``contrib`` names the ``_contrib_*`` ops
+(detection, CTC, FFT, quantization) as ``nd.contrib`` and
+``sym.contrib``; ``graph`` holds the pass pipeline every bind runs and the
 ``CachedOp`` behind ``HybridBlock.hybridize()``.  ``serving`` serves ``TransformerLM`` traffic by
 continuous batching over a paged KV cache.
 
@@ -48,6 +50,7 @@ from . import module
 from . import module as mod
 from .module import Module
 from . import rnn
+from . import contrib
 from .monitor import Monitor
 from .io import DataBatch, DataDesc, DataIter, NDArrayIter
 from .context import (Context, cpu, gpu, cpu_pinned, current_context,
@@ -60,7 +63,7 @@ __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "attribute", "AttrScope", "symbol", "sym", "Symbol",
            "Executor", "graph", "metric", "io", "callback", "model", "monitor",
            "load_checkpoint", "save_checkpoint", "module", "mod",
-           "Module", "rnn", "Monitor", "DataBatch", "DataDesc", "DataIter",
+           "Module", "rnn", "contrib", "Monitor", "DataBatch", "DataDesc", "DataIter",
            "NDArrayIter", "kvstore", "kv", "Context", "cpu", "gpu",
            "cpu_pinned", "current_context", "num_gpus", "gpu_memory_info",
            "default_device"]

@@ -1,8 +1,8 @@
 """Gluon losses (twin of ``incubator_mxnet_tpu/gluon/loss.py``), as
 HybridBlocks through ``nd``: each returns one loss per sample (the mean
 over every axis but ``batch_axis``), scaled by ``weight`` and
-``sample_weight``.  ``CTCLoss`` needs ``ops/ctc.py`` (ROADMAP item A8)
-and raises until it is ported.
+``sample_weight``.  ``CTCLoss`` runs the ``ctc_loss`` op
+(``ops/ctc.py``).
 """
 from .block import HybridBlock
 
@@ -137,14 +137,33 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification: needs the ctc_loss op
-    (``ops/ctc.py``), not ported yet (ROADMAP item A8)."""
+    """Connectionist temporal classification through the ``ctc_loss``
+    op, with Gluon's convention: labels are classes 0..C-2 padded with
+    -1, and the blank is the last channel (ref: gluon/loss.py:439-446).
+    ``layout`` is "NTC" or "TNC", ``label_layout`` "NT" or "TN"."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise NotImplementedError(
-            "CTCLoss needs the ctc_loss op (ops/ctc.py), which the port "
-            "does not have yet (ROADMAP item A8)")
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        args = [pred, label]
+        kw = {"blank_label": "last"}
+        if pred_lengths is not None:
+            kw["use_data_lengths"] = True
+            args.append(pred_lengths)
+        if label_lengths is not None:
+            kw["use_label_lengths"] = True
+            args.append(label_lengths)
+        loss = F.ctc_loss(*args, **kw)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

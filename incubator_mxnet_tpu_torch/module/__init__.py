@@ -1,8 +1,11 @@
 """Module API (twin of ``incubator_mxnet_tpu/module``): ``BaseModule``,
-``Module`` and ``BucketingModule``.  The sequential and Python modules
-come with ROADMAP item A8."""
+``Module``, ``BucketingModule``, ``SequentialModule``, and the Python
+modules ``PythonModule`` and ``PythonLossModule``."""
 from .base_module import BaseModule
 from .module import Module
 from .bucketing_module import BucketingModule
+from .sequential_module import SequentialModule
+from .python_module import PythonModule, PythonLossModule
 
-__all__ = ["BaseModule", "Module", "BucketingModule"]
+__all__ = ["BaseModule", "Module", "BucketingModule", "SequentialModule",
+           "PythonModule", "PythonLossModule"]

@@ -1,0 +1,378 @@
+"""The port's detection ops (``ops/contrib_det.py``) against the JAX
+package's, on the CPU with the same numpy inputs.
+
+- ``MultiBoxPrior`` (clip, steps, offsets) within 1e-6.
+- ``MultiBoxTarget`` on three images (two boxes; none; four, two of them
+  the same box, over anchors of which some are the same box, so the
+  bipartite matching meets ties), with hard negative mining and
+  without: ``cls_target`` and ``loc_mask`` equal, ``loc_target`` within
+  1e-5; the image without ground truth keeps every output at its start
+  value.
+- ``MultiBoxDetection`` with ``force_suppress`` both ways and
+  ``nms_topk`` both ways (off with -1, on with 20): classes equal,
+  scores and boxes within 1e-5.
+- ``nms_sweep``'s plain version (what CPU and ``meta`` tensors run)
+  against the JAX op's ``lax.while_loop`` (with a trip count below the
+  rows) and ``lax.fori_loop`` on random masks: equal.
+- ``ROIPooling`` on data with flat (tied) regions and zeros, and
+  ``PSROIPooling``: outputs within 1e-5, gradients within 1e-5 (a tie's
+  gradient split evenly, as the JAX op's max).
+- ``Proposal`` and ``MultiProposal``: rois and scores within 1e-5 and
+  rel 1e-6 (coordinates in pixels, up to 95).
+- ``DeformableConvolution``: output within 1e-4, gradients of data,
+  offset, weight and bias within 1e-4.
+- The ops on ``meta`` tensors (shape inference) give the CPU's shapes.
+- The slice as a whole: 3 steps of ``examples/ssd_train.py``'s training
+  loop (its data, net and forward run on either package, with
+  ``MultiBoxPrior``; ``MultiBoxTarget`` with mining, the masked losses,
+  ``gluon.Trainer`` SGD with momentum and wd, blocks hybridized) at 32
+  px and 4 images a step from the same weights (the port's Xavier draw, set into
+  the JAX net): losses within rel 1e-4, and
+  the port's ``MultiBoxDetection`` on the trained net agrees with
+  the JAX one's.
+"""
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax import lax  # noqa: E402
+
+import incubator_mxnet_tpu as mx  # noqa: E402
+import incubator_mxnet_tpu_torch as mt  # noqa: E402
+from incubator_mxnet_tpu.ops.registry import OPS as JOPS  # noqa: E402
+from incubator_mxnet_tpu_torch.ops import contrib_det as tdet  # noqa: E402
+from torch_port_threads import one_intra_op_thread  # noqa: E402,F401
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples"))
+import ssd_train  # noqa: E402
+
+CPU = mt.cpu()
+NUM_CLASSES = 2
+
+
+def _j(name, *arrays, **params):
+    fn = jax.jit(lambda *a: JOPS[name].fn(*a, **params))
+    out = fn(*(jnp.asarray(a) for a in arrays))
+    if isinstance(out, (tuple, list)):
+        return [np.asarray(o) for o in out]
+    return np.asarray(out)
+
+
+def _t(name, *arrays, **params):
+    short = name[len("_contrib_"):] if name.startswith("_contrib_") else name
+    fn = getattr(mt.nd.contrib, short, None) or getattr(mt.nd, name)
+    out = fn(*(mt.nd.array(a, ctx=CPU) for a in arrays), **params)
+    if isinstance(out, list):
+        return [o.asnumpy() for o in out]
+    return out.asnumpy()
+
+
+def _anchors():
+    """Two feature maps' anchors: 6x6 and 3x3 with 4 boxes a pixel; the
+    repeated size makes boxes that are the same box (matching ties)."""
+    out = []
+    for hw in (6, 3):
+        feat = np.zeros((1, 1, hw, hw), np.float32)
+        out.append(_j("_contrib_MultiBoxPrior", feat, sizes=(0.4, 0.4),
+                      ratios=(1.0, 2.0, 0.5)))
+    return np.concatenate(out, axis=1)                  # (1, 180, 4)
+
+
+def _labels():
+    lab = np.full((3, 4, 5), -1.0, np.float32)
+    lab[0, :2] = [[0, 0.1, 0.1, 0.5, 0.45], [1, 0.55, 0.3, 0.9, 0.95]]
+    box = [0, 0.3, 0.3, 0.7, 0.7]
+    lab[2] = [box, [1, 0.3, 0.3, 0.7, 0.7], [1, 0.0, 0.6, 0.35, 1.0],
+              [0, 0.62, 0.05, 0.98, 0.4]]
+    return lab                                           # image 1: none
+
+
+@pytest.mark.parametrize("params", [
+    dict(sizes=(0.3, 0.6), ratios=(1.0, 2.0, 0.5)),
+    dict(sizes=(0.5,), ratios=(1.0, 3.0), clip=True, steps=(0.2, 0.25),
+         offsets=(0.3, 0.6))])
+def test_multibox_prior(params):
+    feat = np.zeros((2, 3, 5, 7), np.float32)
+    want = _j("_contrib_MultiBoxPrior", feat, **params)
+    got = _t("_contrib_MultiBoxPrior", feat, **params)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mining", [-1.0, 3.0])
+def test_multibox_target(mining):
+    anchor, label = _anchors(), _labels()
+    A = anchor.shape[1]
+    rs = np.random.RandomState(1)
+    cls_pred = rs.randn(3, NUM_CLASSES + 1, A).astype(np.float32)
+    params = dict(negative_mining_ratio=mining, overlap_threshold=0.5)
+    want = _j("_contrib_MultiBoxTarget", anchor, label, cls_pred, **params)
+    got = _t("_contrib_MultiBoxTarget", anchor, label, cls_pred, **params)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    # the image without ground truth: start values
+    assert (got[0][1] == 0).all() and (got[1][1] == 0).all() \
+        and (got[2][1] == -1).all()
+    assert (got[2][2] > 0).sum() >= 4           # every box matched
+    if mining > 0:
+        assert ((got[2] == 0).sum(1) <= 3 * (got[2] > 0).sum(1)).all()
+
+
+@pytest.mark.parametrize("force,topk", [(False, -1), (True, 20)])
+def test_multibox_detection(force, topk):
+    anchor = _anchors()
+    A = anchor.shape[1]
+    rs = np.random.RandomState(2)
+    logits = rs.randn(2, NUM_CLASSES + 1, A).astype(np.float32) * 2
+    cls_prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    loc = (rs.randn(2, 4 * A) * 0.2).astype(np.float32)
+    params = dict(threshold=0.2, nms_threshold=0.4, force_suppress=force,
+                  nms_topk=topk)
+    want = _j("_contrib_MultiBoxDetection", cls_prob, loc, anchor, **params)
+    got = _t("_contrib_MultiBoxDetection", cls_prob, loc, anchor, **params)
+    assert got.shape == want.shape == (2, A, 6)
+    np.testing.assert_array_equal(got[..., 0], want[..., 0])
+    np.testing.assert_allclose(got[..., 1:], want[..., 1:], rtol=0,
+                               atol=1e-5)
+    kept = (got[..., 0] >= 0).sum()
+    assert 0 < kept < (got[..., 1] >= 0).sum()          # NMS did work
+
+
+def _jax_while_sweep(sup, alive, nkeep):
+    def cond(st):
+        return st[0] < nkeep
+
+    def body(st):
+        i, a = st
+        return i + 1, jnp.where(a[i], a & ~sup[i], a)
+
+    return lax.while_loop(cond, body, (jnp.int32(0), alive))[1]
+
+
+def _jax_fori_sweep(sup):
+    def body(i, a):
+        return jnp.where(a[i], a & ~sup[i], a)
+
+    return lax.fori_loop(0, sup.shape[0], body,
+                         jnp.ones((sup.shape[0],), bool))
+
+
+def test_nms_sweep_plain_matches_jax_loops():
+    rs = np.random.RandomState(3)
+    n = 40
+    sup = np.triu(rs.rand(3, n, n) < 0.15, k=1)
+    alive = rs.rand(3, n) < 0.8
+    nkeep = np.array([n, 25, 0])
+    want = np.asarray(jax.jit(jax.vmap(_jax_while_sweep))(sup, alive,
+                                                           nkeep))
+    got = tdet.nms_sweep(torch.from_numpy(sup), torch.from_numpy(alive),
+                         torch.from_numpy(nkeep)).numpy()
+    np.testing.assert_array_equal(got, want)
+    want = np.asarray(jax.jit(jax.vmap(_jax_fori_sweep))(sup))
+    got = tdet.nms_sweep(torch.from_numpy(sup), torch.ones(3, n, dtype=bool),
+                         torch.full((3,), n)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < got.size
+    meta = tdet.nms_sweep(torch.from_numpy(sup).to("meta"),
+                          torch.from_numpy(alive).to("meta"),
+                          torch.from_numpy(nkeep).to("meta"))
+    assert meta.shape == (3, n) and meta.device.type == "meta"
+
+
+def _grads_both(name, inputs, wrt, params, tol):
+    """Forward and the gradient of a weighted sum with respect to the
+    inputs ``wrt``, in both packages."""
+    jfn = JOPS[name].fn
+
+    def jf(*diff):
+        args = [jnp.asarray(a) for a in inputs]
+        for i, d in zip(wrt, diff):
+            args[i] = d
+        return jfn(*args, **params)
+
+    diff = [jnp.asarray(inputs[i]) for i in wrt]
+    shape = jax.eval_shape(jf, *diff).shape
+    ct = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    jout, jgrads = jax.jit(lambda c, *d: (jf(*d), jax.vjp(jf, *d)[1](c)))(
+        jnp.asarray(ct), *diff)
+    xs = [mt.nd.array(a, ctx=CPU) for a in inputs]
+    for i in wrt:
+        xs[i].attach_grad()
+    short = name[len("_contrib_"):] if name.startswith("_contrib_") else name
+    fn = getattr(mt.nd.contrib, short, None) or getattr(mt.nd, name)
+    with mt.autograd.record():
+        out = fn(*xs, **params)
+    out.backward(mt.nd.array(ct, ctx=CPU))
+    np.testing.assert_allclose(out.asnumpy(), np.asarray(jout), rtol=0,
+                               atol=tol)
+    for i, jg in zip(wrt, jgrads):
+        np.testing.assert_allclose(xs[i].grad.asnumpy(), np.asarray(jg),
+                                   rtol=0, atol=tol, err_msg=f"d/dx{i}")
+    return out.asnumpy()
+
+
+def _rois():
+    return np.array([[0, 0, 0, 7, 7], [1, 2.4, 1.6, 13.2, 9.8],
+                     [0, 5, 5, 5, 5], [1, -3, 4, 30, 30],
+                     [0, 8.6, 0.2, 15.1, 6.7]], np.float32)
+
+
+def test_roi_pooling_with_ties():
+    rs = np.random.RandomState(6)
+    data = rs.randn(2, 3, 12, 16).astype(np.float32)
+    data[0, :, 2:6, 1:5] = 0.75             # a flat region: ties
+    data[1, 1, 3:8, 4:9] = 0.0
+    data[1, 2] = np.round(data[1, 2])       # many small ties
+    out = _grads_both("ROIPooling", [data, _rois()], [0],
+                      dict(pooled_size=(3, 4), spatial_scale=0.5), 1e-5)
+    assert out.shape == (5, 3, 3, 4)
+
+
+def test_psroi_pooling():
+    rs = np.random.RandomState(7)
+    od, g = 2, 3
+    data = rs.randn(2, od * g * g, 10, 14).astype(np.float32)
+    out = _grads_both("_contrib_PSROIPooling", [data, _rois()], [0],
+                      dict(spatial_scale=0.5, output_dim=od,
+                           pooled_size=3, group_size=g), 1e-5)
+    assert out.shape == (5, od, 3, 3)
+
+
+@pytest.mark.parametrize("dg,group,bias", [(1, 1, True), (2, 2, False)])
+def test_deformable_convolution(dg, group, bias):
+    rs = np.random.RandomState(8)
+    data = rs.randn(2, 4, 7, 8).astype(np.float32)
+    offset = (rs.randn(2, 2 * 9 * dg, 7, 8) * 1.3).astype(np.float32)
+    weight = (rs.randn(6, 4 // group, 3, 3) * 0.3).astype(np.float32)
+    inputs = [data, offset, weight]
+    if bias:
+        inputs.append(rs.randn(6).astype(np.float32))
+    params = dict(kernel=(3, 3), pad=(1, 1), num_filter=6,
+                  num_group=group, num_deformable_group=dg,
+                  no_bias=not bias)
+    out = _grads_both("_contrib_DeformableConvolution", inputs,
+                      list(range(len(inputs))), params, 1e-4)
+    assert out.shape == (2, 6, 7, 8)
+
+
+def _rpn_inputs(B, rs):
+    K, H, W = 12, 5, 6
+    cls_prob = rs.rand(B, 2 * K, H, W).astype(np.float32)
+    bbox = (rs.randn(B, 4 * K, H, W) * 0.3).astype(np.float32)
+    im_info = np.array([[80, 96, 1.0], [70, 90, 0.8]], np.float32)[:B]
+    return cls_prob, bbox, im_info
+
+
+@pytest.mark.parametrize("name,B", [("_contrib_Proposal", 1),
+                                    ("_contrib_MultiProposal", 2)])
+def test_proposal(name, B):
+    inputs = _rpn_inputs(B, np.random.RandomState(9))
+    params = dict(rpn_pre_nms_top_n=120, rpn_post_nms_top_n=40,
+                  threshold=0.5, rpn_min_size=4, output_score=True)
+    want = _j(name, *inputs, **params)
+    got = _t(name, *inputs, **params)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-5)
+    assert got[0].shape == (B * 40, 5)
+    # fewer rows survive than the window held, so the rows cycle
+    assert len(np.unique(got[0], axis=0)) < B * 40
+
+
+def test_ops_on_meta_tensors():
+    anchor = torch.zeros(1, 180, 4, device="meta")
+    out = tdet.multibox_target(anchor, torch.zeros(3, 4, 5, device="meta"),
+                               torch.zeros(3, 3, 180, device="meta"),
+                               negative_mining_ratio=3.0)
+    assert [tuple(o.shape) for o in out] == [(3, 720), (3, 720), (3, 180)]
+    det = tdet.multibox_detection(torch.zeros(2, 3, 180, device="meta"),
+                                  torch.zeros(2, 720, device="meta"),
+                                  anchor)
+    assert det.shape == (2, 180, 6) and det.device.type == "meta"
+    rois = tdet.multi_proposal(torch.zeros(2, 24, 5, 6, device="meta"),
+                               torch.zeros(2, 48, 5, 6, device="meta"),
+                               torch.zeros(2, 3, device="meta"),
+                               rpn_pre_nms_top_n=50, rpn_post_nms_top_n=10)
+    assert rois.shape == (20, 5)
+
+
+# ---------------------------------------------------- the slice as a whole:
+# examples/ssd_train.py's data, net and forward, its loss (:221-235)
+
+def _ssd_loss(nd, anchor, cls_pred, loc_pred, lb, one):
+    cp_t = nd.transpose(cls_pred, axes=(0, 2, 1))
+    loc_t, loc_m, cls_t = nd.contrib.MultiBoxTarget(
+        anchor, lb, cp_t, negative_mining_ratio=3.0)
+    valid = cls_t >= 0
+    logp = nd.log_softmax(cls_pred, axis=-1)
+    lc = -nd.pick(logp, nd.maximum(cls_t, 0), axis=-1) * valid
+    n_valid = nd.maximum(valid.sum(), one)
+    n_pos = nd.maximum(loc_m.sum() / 4.0, one)
+    ll = nd.smooth_l1((loc_pred - loc_t) * loc_m, scalar=1.0)
+    return lc.sum() / n_valid + ll.sum() / n_pos
+
+
+def test_ssd_train_loop_matches_jax():
+    rs = np.random.RandomState(0)
+    x, labels = ssd_train.make_dataset(rs, 8, 32)
+    batches = [rs.randint(0, 8, 4) for _ in range(3)]
+    losses, dets = {}, {}
+    weights = None
+    for pkg in (mt, mx):          # the port's Xavier weights go to JAX
+        kw = {"ctx": CPU} if pkg is mt else {}
+        mt.random.seed(0)
+        net, down, heads = ssd_train.build_net(pkg)
+        blocks = [net, down] + [h for pair in heads for h in pair]
+        for blk in blocks:
+            blk.initialize(pkg.initializer.Xavier() if pkg is mt
+                           else pkg.initializer.Zero(), **kw)
+            blk.hybridize()
+
+        def forward(xb):
+            return ssd_train.forward(pkg, pkg.nd, net, down, heads, xb)
+
+        forward(pkg.nd.array(x[:4], **kw))              # settle shapes
+        if weights is None:
+            weights = [{k: p.data().asnumpy()
+                        for k, p in blk.collect_params().items()}
+                       for blk in blocks]
+        else:
+            for blk, w in zip(blocks, weights):
+                for k, p in blk.collect_params().items():
+                    p.set_data(pkg.nd.array(w[k]))
+        params = {}
+        for blk in blocks:
+            params.update(blk.collect_params())
+        trainer = pkg.gluon.Trainer(params, "sgd", dict(
+            learning_rate=0.1, momentum=0.9, wd=1e-4))
+        one = pkg.nd.array([1.0], **kw)
+        losses[pkg] = []
+        for sel in batches:
+            xb = pkg.nd.array(x[sel], **kw)
+            lb = pkg.nd.array(labels[sel], **kw)
+            with pkg.autograd.record():
+                loss = _ssd_loss(pkg.nd, *forward(xb), lb, one)
+            loss.backward()
+            trainer.step(4)
+            losses[pkg].append(float(loss.asnumpy()[0]))
+        anchor, cls_pred, loc_pred = forward(pkg.nd.array(x[:4], **kw))
+        cls_prob = pkg.nd.transpose(pkg.nd.softmax(cls_pred, axis=-1),
+                                    axes=(0, 2, 1))
+        dets[pkg] = pkg.nd.contrib.MultiBoxDetection(
+            cls_prob, loc_pred, anchor, threshold=0.3,
+            nms_threshold=0.45).asnumpy()
+    np.testing.assert_allclose(losses[mt], losses[mx], rtol=1e-4)
+    assert np.isfinite(losses[mt]).all()
+    np.testing.assert_array_equal(dets[mt][..., 0], dets[mx][..., 0])
+    np.testing.assert_allclose(dets[mt][..., 1:], dets[mx][..., 1:],
+                               rtol=0, atol=1e-4)

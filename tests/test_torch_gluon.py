@@ -450,8 +450,15 @@ def test_triplet_loss_and_ctc():
     got = mt.gluon.loss.TripletLoss(margin=0.5)(
         *[torch.from_numpy(v) for v in (a, p, n)])
     _close(got.numpy(), ref)
-    with pytest.raises(NotImplementedError, match="A8"):
-        mt.gluon.loss.CTCLoss()
+    # CTCLoss runs the ported ctc_loss op (Gluon's convention: blank the
+    # last channel, labels padded with -1)
+    pred = np.random.RandomState(98).randn(2, 5, 4).astype(np.float32)
+    label = np.array([[1, 2], [0, -1]], np.float32)
+    ref = mx.gluon.loss.CTCLoss()(mx.nd.array(pred),
+                                  mx.nd.array(label)).asnumpy()
+    got = mt.gluon.loss.CTCLoss()(torch.from_numpy(pred),
+                                  torch.from_numpy(label))
+    _close(got.numpy(), ref)
 
 
 # ---------------------------------------------------------- schedulers

@@ -30,6 +30,11 @@ against the JAX package's, on the CPU with the same numpy inputs.
   integer and shape logic, fp32 on values.
 - ``Optimizer(sym=)`` reads ``lr_mult``/``wd_mult``; ``fixed_param_names``
   freezes a parameter; what is not ported raises.
+- ``SequentialModule`` and ``PythonLossModule`` (twins of
+  ``tests/test_seq_python_module.py``'s two cases) against the JAX
+  package's from the same weights: outputs, parameters and losses within
+  1e-4; a two-stage ``SequentialModule.fit`` moves the parameters as one
+  ``Module`` over the whole graph does (within 1e-5).
 """
 import functools
 import gzip
@@ -903,3 +908,165 @@ def test_iterator_skip_matches_jax():
     for a, b in zip(got[mt], got[mx]):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got[mt][0][0], [16, 17])
+
+
+# ------------------- SequentialModule and PythonLossModule (twins of
+# tests/test_seq_python_module.py's two cases, held against the JAX
+# package's on the same weights and batches)
+
+def _seq_stages(S):
+    s1 = S.Activation(S.FullyConnected(S.Variable("data"), num_hidden=16,
+                                       name="s1fc"), act_type="relu")
+    s2 = S.SoftmaxOutput(S.FullyConnected(S.Variable("data"), num_hidden=4,
+                                          name="s2fc"), name="softmax")
+    return s1, s2
+
+
+def _seq_batches(M, n=20, b=8):
+    rs = np.random.RandomState(0)
+    for _ in range(n):
+        x = rs.rand(b, 6).astype("float32")
+        y = (x[:, 0] > 0.5).astype("float32")
+        yield M.io.DataBatch([_arr(M, x)], [_arr(M, y)])
+
+
+def _seq_weights():
+    rs = np.random.RandomState(3)
+    return {"s1fc_weight": rs.randn(16, 6).astype("f4") * 0.4,
+            "s1fc_bias": np.zeros(16, "f4"),
+            "s2fc_weight": rs.randn(4, 16).astype("f4") * 0.4,
+            "s2fc_bias": np.zeros(4, "f4")}
+
+
+def test_sequential_module_matches_jax():
+    """test_seq_python_module.py's first case: two Modules chained, the
+    labels on the last; 2 epochs of 20 SGD steps in both packages from
+    the same weights: outputs and parameters within 1e-4, and the port's
+    chain trains to the JAX test's accuracy."""
+    weights = _seq_weights()
+    res = {}
+    for M in (mx, mt):
+        s1, s2 = _seq_stages(M.sym)
+        seq = M.mod.SequentialModule()
+        seq.add(M.mod.Module(s1, label_names=[], context=_ctx(M)))
+        seq.add(M.mod.Module(s2, context=_ctx(M)), take_labels=True)
+        seq.bind(data_shapes=[M.io.DataDesc("data", (8, 6))],
+                 label_shapes=[M.io.DataDesc("softmax_label", (8,))])
+        seq.init_params(arg_params={k: _arr(M, v)
+                                    for k, v in weights.items()})
+        seq.init_optimizer(optimizer="sgd",
+                           optimizer_params=dict(learning_rate=0.5))
+        assert seq.output_shapes == [("softmax_output", (8, 4))]
+        for _ in range(2):
+            for batch in _seq_batches(M):
+                seq.forward(batch, is_train=True)
+                seq.backward()
+                seq.update()
+        arg, aux = seq.get_params()
+        res[M] = seq.get_outputs()[0].asnumpy(), \
+            {k: v.asnumpy() for k, v in arg.items()}
+        assert aux == {} and sorted(arg) == sorted(weights)
+    _close(res[mt][0], res[mx][0])
+    for k in weights:
+        _close(res[mt][1][k], res[mx][1][k])
+    for _ in range(13):                 # the JAX test's 15 epochs in all
+        for batch in _seq_batches(mt):
+            seq.forward(batch, is_train=True)
+            seq.backward()
+            seq.update()
+    out = seq.get_outputs()[0].asnumpy()
+    assert (out.argmax(1) == batch.label[0].asnumpy()).mean() >= 0.85
+
+
+def test_python_loss_module_matches_jax():
+    """test_seq_python_module.py's second case: a linear Module under a
+    PythonLossModule whose grad_func is the MSE gradient; 150 steps in
+    both packages from the same weights: losses within rel 1e-4, the
+    last below a tenth of the first."""
+    def grad_func(label, pred):
+        return pred - label.reshape(pred.shape)
+
+    w0 = {"lin_weight": np.array([[0.3, 0.1, -0.2]], "f4"),
+          "lin_bias": np.zeros(1, "f4")}
+    w_true = np.array([[1.0], [-2.0], [0.5]], np.float32)
+    res = {}
+    for M in (mx, mt):
+        scores = M.sym.FullyConnected(M.sym.Variable("data"), num_hidden=1,
+                                      name="lin")
+        seq = M.mod.SequentialModule()
+        seq.add(M.mod.Module(scores, label_names=[], context=_ctx(M)))
+        seq.add(M.mod.PythonLossModule(grad_func=grad_func),
+                take_labels=True)
+        seq.bind(data_shapes=[M.io.DataDesc("data", (8, 3))],
+                 label_shapes=[M.io.DataDesc("softmax_label", (8,))])
+        seq.init_params(arg_params={k: _arr(M, v) for k, v in w0.items()})
+        seq.init_optimizer(optimizer="sgd",
+                           optimizer_params=dict(learning_rate=0.2))
+        rs = np.random.RandomState(1)
+        losses = []
+        for _ in range(150):
+            x = rs.rand(8, 3).astype("float32")
+            y = (x @ w_true).ravel()
+            seq.forward(M.io.DataBatch([_arr(M, x)], [_arr(M, y)]),
+                        is_train=True)
+            pred = seq.get_outputs()[0].asnumpy().ravel()
+            losses.append(float(((pred - y) ** 2).mean()))
+            seq.backward()
+            seq.update()
+        res[M] = losses
+    np.testing.assert_allclose(res[mt], res[mx], rtol=1e-4)
+    assert res[mt][-1] < res[mt][0] * 0.1
+
+
+def test_sequential_module_fit_equals_one_module():
+    """SequentialModule.fit over two stages moves the parameters as one
+    Module over the whole graph does, from the same weights (within
+    1e-5); a chain whose tail is a PythonLossModule fits too."""
+    rs = np.random.RandomState(4)
+    x = rs.rand(64, 6).astype("f4")
+    y = (x[:, 0] > 0.5).astype("f4")
+    weights = _seq_weights()
+    S = mt.sym
+    s1, s2 = _seq_stages(S)
+    whole = S.SoftmaxOutput(S.FullyConnected(
+        S.Activation(S.FullyConnected(S.Variable("data"), num_hidden=16,
+                                      name="s1fc"), act_type="relu"),
+        num_hidden=4, name="s2fc"), name="softmax")
+    seq = mt.mod.SequentialModule()
+    seq.add(mt.mod.Module(s1, label_names=[], context=CPU))
+    seq.add(mt.mod.Module(s2, context=CPU), take_labels=True)
+    params = {}
+    for name, mod in (("seq", seq),
+                      ("one", mt.mod.Module(whole, context=CPU))):
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=8), num_epoch=1,
+                optimizer="sgd",
+                optimizer_params=dict(learning_rate=0.5, momentum=0.9),
+                arg_params={k: _arr(mt, v) for k, v in weights.items()})
+        params[name] = {k: v.asnumpy() for k, v in mod.get_params()[0]
+                        .items()}
+    for k in weights:
+        np.testing.assert_allclose(params["seq"][k], params["one"][k],
+                                   rtol=0, atol=1e-5)
+        assert not np.allclose(params["seq"][k], weights[k])
+
+    def grad_func(label, pred):           # softmax cross-entropy
+        p = np.exp(pred.asnumpy())
+        p /= p.sum(1, keepdims=True)
+        p[np.arange(len(p)), label.asnumpy().astype(int)] -= 1
+        return p / len(p)
+
+    chain = mt.mod.SequentialModule()
+    chain.add(mt.mod.Module(S.FullyConnected(S.Variable("data"),
+                                             num_hidden=2, name="lin"),
+                            label_names=[], context=CPU))
+    chain.add(mt.mod.PythonLossModule(grad_func=grad_func),
+              take_labels=True)
+    chain.fit(mt.io.NDArrayIter(x, y, batch_size=8), num_epoch=8,
+              optimizer="sgd", optimizer_params=dict(learning_rate=2.0),
+              initializer=mt.init.Xavier())
+    hits = 0                      # a PythonLossModule updates no metric
+    for batch in mt.io.NDArrayIter(x, y, batch_size=8):
+        chain.forward(batch, is_train=False)
+        hits += (chain.get_outputs()[0].asnumpy().argmax(1)
+                 == batch.label[0].asnumpy()).sum()
+    assert hits / len(x) > 0.8

@@ -37,7 +37,8 @@ CPU = mt.cpu()
 # the sparse storage types (ROADMAP item 8)
 PORTED_MODULES = ("elemwise", "reduce", "matrix", "indexing", "init_op",
                   "optimizer_op", "flash", "nn", "moe", "random_op",
-                  "order", "la", "rnn")
+                  "order", "la", "rnn", "ctc", "contrib_det",
+                  "contrib_misc")
 SPARSE_LATER = {"_sparse_dot", "_sparse_zeros_like",
                 "_contrib_SparseEmbedding", "_sparse_zeros"}
 PARAM_EXCEPTIONS = {"_flash_attention": {"interpret"}}
@@ -72,6 +73,13 @@ def test_registry_matches_jax():
     assert mt.nd.broadcast_add is not None
     assert mt.nd._internal._plus_scalar is not None
     assert not hasattr(mt.nd, "_plus_scalar")
+
+
+def test_registry_lacks_only_custom_and_sparse():
+    # what is left of the JAX registry: the Custom op (operator.py) and
+    # the sparse storage types, both ROADMAP item A8
+    assert set(JOPS) - set(TOPS) == {"Custom"} | SPARSE_LATER
+    assert not set(TOPS) - set(JOPS)
 
 
 def _port_fn(name):

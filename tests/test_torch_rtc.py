@@ -385,7 +385,7 @@ def test_cuda_call_without_card_raises_and_never_runs_the_plain_version(
 def test_package_kernels_exclude_the_user_kernel_sources():
     # sources() globs csrc/*.cu without recursion: csrc/rtc/*.cu are
     # built through rtc.compile_kernel, not as the package's kernels
-    assert set(_build.sources()) == {"flash_fwd", "flash_bwd"}
+    assert set(_build.sources()) == {"flash_fwd", "flash_bwd", "nms_sweep"}
     assert sorted(p.stem for p in ex.SOURCES.glob("*.cu")) == \
         sorted(ex.NAMES)
     # a source's library is named by the hash of its text
