@@ -15,7 +15,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                split-TF32) at each head dim must have HGMMA; the fp32
                forward at every head dim, the fp32 flash_dq and
                flash_dkv and the bf16 forward at D=64 no spills; no
-               wgmma serialized by ptxas.
+               wgmma serialized by ptxas; csrc/nms_sweep.cu's kernels
+               (the pair test, the sweep at one and at four words a
+               thread) present and without spills.
 2. kernels     hold flash_fwd against its plain PyTorch version on the
                card at the main paths' shapes (fp32 forward and serve,
                bf16 train) and a sweep of others, and time kernel, plain
@@ -230,12 +232,22 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                equal in class and within 1e-5 but where an IoU lies
                within 1e-6 of the threshold (counted; the CPU takes the
                first 4 images at -1); ms per call, the -1 call's peak
-               memory; (ii) the sweep kernel (csrc/nms_sweep.cu, the
-               port's own kernel for the JAX op's lax.while_loop and
-               lax.fori_loop) bit-equal to its plain version on the
-               masks of (i) at k = 400 and 8732, of (v) at 6000 and on
-               a random mask at its largest size, 65536 rows, its
-               device ms, the plain version's ms and the byte bound; (iii)
+               memory, below one (B, k, k) bool mask's bytes; (ii) the
+               NMS kernels (csrc/nms_sweep.cu, the port's own kernels
+               for the JAX ops' (k, k) masks and their lax.while_loop
+               and lax.fori_loop) bit-equal to their plain versions:
+               nms_boxes (the pair test, then the sweep) on the windows
+               of (i) at k = 400 and 8732, of (v) at 6000, on
+               adversarial windows (exact ties at 0.45, duplicates,
+               zero areas, NaN boxes; 8 x 8732 with and without
+               force_suppress, 1 x 6000 at +1 pixel) and on random
+               boxes at its largest size, 1 x 65536 (four alive words a
+               sweep thread, the pair test past 512 words), and the
+               pair test's packed words against the plain mask packed
+               by _pack_plain; each one's device ms, the pair test's
+               and the sweep's from the same trace, the plain version's
+               ms and the bound (the IoU tests these inputs need, or
+               their bytes); (iii)
                config 4, examples/ssd_train.py --quick (48 px, 64
                images, B=16, 160 iterations, SGD lr 0.1, momentum 0.9,
                wd 1e-4, blocks hybridized): final loss below 0.7 of the
@@ -264,9 +276,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                in a PythonLossModule trains; (viii) the 18 contrib_misc
                names against the CPU (FFT at (32, 4096), FlowNetC's
                Correlation on (2, 256, 48, 64), quantize and dequantize
-               bit for bit).  The sweep's launches are counted per path
+               bit for bit).  nms_boxes's launches are counted per path
                (detect_ssd300, detect_train, detect_capture,
-               detect_rcnn).
+               detect_rcnn), and the ops launch nothing else.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -327,6 +339,11 @@ FWD_KERNELS = {"float32": "flash_fwd_tf32_kernel",
                "bfloat16": "flash_fwd_tc_kernel"}
 BWD_KERNELS = {"float32": ["flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"],
                "bfloat16": ["flash_dq_tc_kernel", "flash_dkv_tc_kernel"]}
+
+
+# the kernels of csrc/nms_sweep.cu, and how many instances each has (the
+# sweep's: one and four alive words a thread)
+NMS_KERNELS = {"nms_pair_kernel": 1, "nms_sweep_kernel": 2}
 
 
 class CheckFailed(Exception):
@@ -445,6 +462,14 @@ def device_ms(fn, torch, what, warmup=3, reps=20):
     on the card for calls that launched kernels) is taken again, up to
     TRACE_ATTEMPTS traces, and counted in TRACES["empty"], which the run
     prints; if none has device time the check fails."""
+    return device_split_ms(fn, torch, what, (), warmup, reps)[0]
+
+
+def device_split_ms(fn, torch, what, kernels, warmup=3, reps=20):
+    """``device_ms`` of ``what`` and, from the same trace, the device ms
+    of one call of each of ``kernels`` (the events whose name holds it):
+    -> (ms, {kernel: ms}).  A trace in which a kernel of ``kernels`` ran
+    other than once a call is taken again, as an empty one is."""
     for _ in range(warmup):
         fn()
     for _ in range(TRACE_ATTEMPTS):
@@ -452,12 +477,18 @@ def device_ms(fn, torch, what, warmup=3, reps=20):
             for _ in range(reps):
                 fn()
         TRACES["taken"] += 1
-        us = sum(e.self_device_time_total for e in device_events(prof))
-        if us > 0:
-            return us / 1e3 / reps
+        rows = device_events(prof)
+        us = sum(e.self_device_time_total for e in rows)
+        parts = {k: [e for e in rows if k in e.key] for k in kernels}
+        if us > 0 and all(sum(e.count for e in v) == reps
+                          for v in parts.values()):
+            return us / 1e3 / reps, {
+                k: sum(e.self_device_time_total for e in v) / 1e3 / reps
+                for k, v in parts.items()}
         TRACES["empty"] += 1
     raise CheckFailed(f"torch.profiler recorded no device time for "
-                      f"{what} in {TRACE_ATTEMPTS} traces")
+                      f"{what}, or not each of {list(kernels)} once a "
+                      f"call, in {TRACE_ATTEMPTS} traces")
 
 
 def timed_ms(fn, torch, what, reps=20):
@@ -678,12 +709,14 @@ def phase_build(mt, card):
     check(not spills, f"flash kernels spill: {spills}")
     check(not ptxas.get("wgmma_warnings"),
           f"ptxas serialized wgmma: {ptxas.get('wgmma_warnings')}")
-    # the sweep's rows sit in registers: none may spill
-    nms = {k: v for k, v in ptxas.items() if "nms_sweep_kernel" in k}
-    check(len(nms) == 1 and all(v.get("spill_stores") == 0
-                                and v.get("spill_loads") == 0
-                                for v in nms.values()),
-          f"nms_sweep_kernel spills or is missing: {nms}")
+    # csrc/nms_sweep.cu: the pair test and the sweep, whose alive words
+    # and loads in flight sit in registers: none may spill
+    for kernel, count in NMS_KERNELS.items():
+        nms = {k: v for k, v in ptxas.items() if kernel in k}
+        check(len(nms) == count and all(v.get("spill_stores") == 0
+                                    and v.get("spill_loads") == 0
+                                    for v in nms.values()),
+              f"{kernel} spills or is missing: {nms}")
 
 
 def flash_cases():
@@ -4206,8 +4239,16 @@ SSD_NMS = 0.45
 SSD_TOPK = 400                   # SSD300's setting (contrib_det.py:264)
 SSD_CPU_IMAGES = 4               # the CPU side of the nms_topk=-1 check
 NEAR = 1e-6                      # a mining key or IoU this close: a tie
-SWEEP_EDGE = 65536               # csrc/nms_sweep.cu's most rows
-SWEEP_EDGE_P = 5e-5              # its random mask: a pair suppresses
+NMS_EDGE = 65536                 # csrc/nms_sweep.cu's most rows
+NMS_EDGE_SIDES = (0.002, 0.05)   # its random boxes' sides, unit square
+MASK_CHUNK = 1 << 28             # mask elements a plain-version chunk
+ADV_BATCH = 8                    # images of the adversarial NMS cases
+# FLOP of one IoU test in the plain version's ops (_iou_corner: minimum,
+# maximum, subtract, clamp for each of w and h, the product, the union's
+# add and subtract, union > 0, the division, >= the threshold;
+# _proposal_iou: +1 to w and h, no union > 0) and of one box's area
+NMS_PAIR_FLOPS = {False: 14, True: 15}
+NMS_AREA_FLOPS = {False: 3, True: 5}
 DET_TOL = 1e-5
 # config 4 at --quick (examples/ssd_train.py:189-196)
 SSD_QUICK = dict(iters=160, images=64, batch=16, size=48, lr=0.1)
@@ -4296,9 +4337,9 @@ def first_near_tie(mt, torch, prob, loc, anchor, kwargs):
     the rows the sweep takes.  A near tie can change only the rows from
     ``first`` to ``nkeep``."""
     cd = mt.ops.contrib_det
-    (_, _, nkeep), (cls_s, _, boxes_s, _) = cd.detection_sweep_inputs(
+    nms, (cls_s, _, boxes_s, _) = cd.detection_sweep_inputs(
         prob, loc, anchor, **kwargs)
-    k = int(nkeep[0])
+    k = int(nms[3][0])
     iou = cd._iou_corner(boxes_s[0, :k], boxes_s[0, :k])
     near = torch.triu((iou - kwargs["nms_threshold"]).abs() <= NEAR,
                       diagonal=1)
@@ -4365,6 +4406,10 @@ def detect_ssd300(mt, torch, np, launches):
     torch.cuda.synchronize()
     peak_all = torch.cuda.max_memory_allocated() - base
     counts = {k: v for k, v in launches.items() if v}
+    # the NMS makes no (B, k, k) tensor: less than one bool mask's bytes
+    check(peak_all < SSD_BATCH * A * A,
+          f"MultiBoxDetection at nms_topk=-1 peaked at {peak_all} bytes, "
+          f"as much as a ({SSD_BATCH}, {A}, {A}) mask")
     ms = {
         "target": wall_ms(lambda: nd.contrib.MultiBoxTarget(
             anchor, card["label"], card["logits"],
@@ -4415,81 +4460,206 @@ def detect_ssd300(mt, torch, np, launches):
             "kept_per_image_all": float(kept.mean())}, counts
 
 
-def sweep_bound_ms(torch, sup, alive, nkeep, out):
-    """The bytes the sweep must move: the mask row of each alive row
-    below nkeep (n bytes as bool), alive read and written."""
-    n = alive.shape[1]
-    rows = (out & (torch.arange(n, device=out.device)[None, :]
-                   < nkeep[:, None])).sum().item()
-    return (rows * n + 2 * alive.numel()) / H100_BYTES_PER_S * 1e3
+def iou_tests(torch, cls, alive, nkeep, out):
+    """The IoU tests greedy NMS needs on these inputs: each taken row i
+    below nkeep (alive in ``out``: on the boxes route a taken row stays
+    alive) against each later row in play of its class (of any class
+    when ``cls`` is None)."""
+    k = alive.shape[1]
+    taken = out & (torch.arange(k, device=out.device)[None, :]
+                   < nkeep[:, None])
+    groups = [(taken, alive)] if cls is None else [
+        (taken & (cls == c), alive & (cls == c)) for c in torch.unique(cls)]
+    tests = 0
+    for t, w in groups:
+        before = torch.cumsum(t.to(torch.int64), 1) - t.to(torch.int64)
+        tests += int((before * w).sum())
+    return tests
 
 
-def edge_sweep_inputs(torch):
-    """The sweep's arguments at its largest size, B=1 and SWEEP_EDGE
-    rows: each pair i < j suppresses with probability SWEEP_EDGE_P, nine
-    rows in ten are alive, and nkeep takes every row."""
-    n = SWEEP_EDGE
+def boxes_bound(torch, args, out):
+    """nms_boxes's bound: the larger of (i) its operations, the IoU
+    tests these inputs need (``iou_tests``) at NMS_PAIR_FLOPS each (one
+    more with a class test) and each box's area, over the fp32 rate
+    outside the tensor cores, and (ii) its bytes, boxes, classes and
+    alive read once, nkeep read, alive written.  -> (ms, "operations"
+    or "bytes", tests)."""
+    boxes, cls, alive, nkeep, _, force, pixel = args
+    cls = None if force else cls
+    B, k = alive.shape
+    tests = iou_tests(torch, cls, alive, nkeep, out)
+    per_test = NMS_PAIR_FLOPS[bool(pixel)] + (cls is not None)
+    ops_ms = (tests * per_test + B * k * NMS_AREA_FLOPS[bool(pixel)]) \
+        / H100_FP32_FLOPS * 1e3
+    nbytes = B * k * (16 + 4 * (cls is not None) + 2) + 8 * B
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), (
+        "operations" if ops_ms >= bytes_ms else "bytes"), tests
+
+
+def edge_nms_inputs(torch):
+    """nms_boxes's arguments at its largest size, B=1 and NMS_EDGE
+    rows: random corner boxes in the unit square with sides in
+    NMS_EDGE_SIDES, 20 classes, nine rows in ten in play, nkeep every
+    row, SSD300's threshold."""
+    n = NMS_EDGE
     gen = torch.Generator(device=DEV).manual_seed(SEED)
-    sup = torch.empty((1, n, n), dtype=torch.bool, device=DEV)
-    cols = torch.arange(n, device=DEV)
-    for r0 in range(0, n, 4096):
-        r1 = min(n, r0 + 4096)
-        sup[0, r0:r1] = (torch.rand((r1 - r0, n), generator=gen,
-                                    device=DEV) < SWEEP_EDGE_P) \
-            & (cols[None, :] > cols[r0:r1, None])
+    lo, hi = NMS_EDGE_SIDES
+    side = lo + (hi - lo) * torch.rand((1, n, 2), generator=gen, device=DEV)
+    corner = torch.rand((1, n, 2), generator=gen, device=DEV) * (1 - side)
+    cls = torch.randint(0, 20, (1, n), generator=gen, device=DEV)
     alive = torch.rand((1, n), generator=gen, device=DEV) < 0.9
-    return sup, alive, torch.full((1,), n, dtype=torch.int64, device=DEV)
+    return (torch.cat([corner, corner + side], 2), cls.float(), alive,
+            torch.full((1,), n, dtype=torch.int64, device=DEV), SSD_NMS,
+            False, False)
 
 
-def sweep_masks(mt, torch, np):
-    """The sweep's arguments on the card, by case: MultiBoxDetection's
-    on (i)'s inputs at nms_topk 400 and -1, Proposal's on (v)'s at
-    pre_n 6000, and ``edge_sweep_inputs``."""
+def adversarial_nms(torch, np, batch, k, force, pixel):
+    """nms_boxes's arguments built to meet its traps, ``batch`` x ``k``
+    rows: boxes on a grid (1/64 of the unit, or whole pixels with
+    ``pixel``), so many IoUs are exact, with zero areas; pairs whose IoU
+    is exactly 9/20, which fp32 rounds to float32(0.45), the threshold;
+    duplicates; boxes with one or all coordinates NaN; 20 classes; a few
+    rows out of play; nkeep below k in some images."""
+    rs = np.random.RandomState(SEED + 3)
+    unit = 1.0 if pixel else 1.0 / 64
+    lo = rs.randint(0, 60, (batch, k, 2))
+    hi = lo + rs.randint(0, 9, (batch, k, 2)) - pixel
+    boxes = np.concatenate([lo, hi], 2).astype(np.float64)
+    for r in range(0, k - 1, 11):     # IoU 9/20: widths 10 and 19, overlap 9
+        x, y = boxes[:, r, 0], boxes[:, r, 1]
+        boxes[:, r] = np.stack([x, y, x + 10 - pixel, y + 1 - pixel], 1)
+        boxes[:, r + 1] = np.stack([x + 1, y, x + 20 - pixel,
+                                    y + 1 - pixel], 1)
+    boxes[:, 7::13] = boxes[:, 6:-1:13][:, :boxes[:, 7::13].shape[1]]
+    boxes = (boxes * unit).astype(np.float32)
+    boxes[:, 5::97] = np.nan
+    boxes[:, 9::89, 2] = np.nan
+    cls = rs.randint(0, 20, (batch, k)).astype(np.float32)
+    cls[:, 1::11] = cls[:, 0:-1:11][:, :cls[:, 1::11].shape[1]]
+    alive = rs.rand(batch, k) < 0.97
+    nkeep = rs.randint(k // 2, k + 1, batch)
+    nkeep[0] = k
+    t = {name: torch.from_numpy(v).to(DEV) for name, v in
+         (("boxes", boxes), ("cls", cls), ("alive", alive),
+          ("nkeep", nkeep.astype(np.int64)))}
+    return (t["boxes"], None if pixel else t["cls"], t["alive"], t["nkeep"],
+            SSD_NMS, force, pixel)
+
+
+def nms_cases(mt, torch, np):
+    """nms_boxes's arguments on the card, by case: MultiBoxDetection's on
+    (i)'s inputs at nms_topk 400 and -1, Proposal's on (v)'s at pre_n
+    6000, ``adversarial_nms`` at SSD300's window (with and without
+    force_suppress) and at the RPN's (+1-pixel IoU), and
+    ``edge_nms_inputs``."""
     cd = mt.ops.contrib_det
     _, _, prob, loc = ssd300_data(np)
     anchor = ssd300_anchors(mt, DEV).handle
+    A = anchor.shape[1]
     pd, ld = (torch.from_numpy(a).to(DEV) for a in (prob, loc))
-    masks = {f"ssd300_k{k if k > 0 else anchor.shape[1]}":
+    cases = {f"ssd300_k{k if k > 0 else A}":
              cd.detection_sweep_inputs(pd, ld, anchor,
                                        nms_threshold=SSD_NMS,
                                        nms_topk=k)[0]
              for k in (SSD_TOPK, -1)}
-    masks["rpn_k6000"] = cd.proposal_sweep_inputs(
+    cases["rpn_k6000"] = cd.proposal_sweep_inputs(
         *cd._proposal_args(*(torch.from_numpy(a).to(DEV)
                              for a in rcnn_inputs(np, 1)),
                            (4.0, 8.0, 16.0, 32.0), (0.5, 1.0, 2.0), 16),
         6000, 0.7, 16.0)[0]
-    masks[f"edge_k{SWEEP_EDGE}"] = edge_sweep_inputs(torch)
-    return masks
+    cases[f"adversarial_force_k{A}"] = adversarial_nms(
+        torch, np, ADV_BATCH, A, True, False)
+    cases[f"adversarial_k{A}"] = adversarial_nms(torch, np, ADV_BATCH, A,
+                                                 False, False)
+    cases["adversarial_rpn_k6000"] = adversarial_nms(torch, np, 1, 6000,
+                                                     False, True)
+    cases[f"edge_k{NMS_EDGE}"] = edge_nms_inputs(torch)
+    return cases
 
 
-def detect_sweep(mt, torch, np, masks):
-    """(ii) nms_sweep against its plain version on the card, bit for bit,
-    on the masks of the SSD300 detections, the RPN proposals and a random
-    mask at the kernel's largest size; the
-    kernel's device ms, the plain version's ms (one call between CUDA
-    events) and the byte bound."""
+def row_chunks(k):
+    """Slices of k rows, each of at most MASK_CHUNK mask elements."""
+    step = max(1, min(k, MASK_CHUNK // max(k, 1)))
+    return [slice(r, min(k, r + step)) for r in range(0, k, step)]
+
+
+def plain_mask(cd, torch, args):
+    """nms_boxes's (B, k, k) mask on ``args`` by its plain version's
+    torch ops (``_boxes_mask``), an image and ``row_chunks`` at a time:
+    the ops are elementwise, so these are ``_boxes_masks``'s bits."""
+    boxes, cls, alive, _, thr, force, pixel = args
+    B, k = alive.shape
+    sup = torch.empty((B, k, k), dtype=torch.bool, device=alive.device)
+    for b in range(B):
+        for rows in row_chunks(k):
+            sup[b, rows] = cd._boxes_mask(
+                boxes[b], None if cls is None else cls[b], alive[b], thr,
+                force, pixel, rows)
+    return sup
+
+
+def words_match(cd, torch, words, sup, nkeep):
+    """Whether the pair test's packed words equal the plain mask packed
+    by ``_pack_plain`` wherever the pair test writes them: rows below
+    nkeep, from the row's diagonal word on."""
+    B, k = sup.shape[:2]
+    cols = torch.arange(words.shape[2], device=sup.device)
+    for b in range(B):
+        for rows in row_chunks(k):
+            r = torch.arange(k, device=sup.device)[rows]
+            written = (r[:, None] < nkeep[b]) \
+                & (cols[None, :] >= r[:, None] // 32)
+            packed = cd._pack_plain(sup[b:b + 1, rows])[0]
+            if not torch.equal(words[b, rows][written], packed[written]):
+                return False
+    return True
+
+
+def detect_nms(mt, torch, np):
+    """(ii) nms_boxes against its plain version on the card, bit for bit,
+    on ``nms_cases``: the pair test's words against the plain mask
+    (``plain_mask``) packed by ``_pack_plain`` where it writes them, the
+    alive rows against the plain route (the mask, then
+    ``_sweep_plain``); device ms of a call and, from the same trace, of
+    its pair test and its sweep; the plain version's ms (one call
+    between CUDA events, mask and sweep) and the bound."""
     cd = mt.ops.contrib_det
-    rows = []
-    for tag, (sup, alive, nkeep) in masks.items():
-        got = cd.nms_sweep(sup, alive, nkeep)
-        # the plain version is 4n small launches: one call between CUDA
-        # events (a profiler trace of them takes longer to read than
-        # they run), whose result is the reference
+    out = []
+    for tag, args in nms_cases(mt, torch, np).items():
+        B, n = args[2].shape
+        sup = []
+        mask_ms = call_ms(lambda: sup.append(plain_mask(cd, torch, args)),
+                          torch, warmup=0, reps=1)
+        sup = sup[0]
         ref = []
-        plain_ms = call_ms(lambda: ref.append(
-            cd._sweep_plain(sup, alive, nkeep)), torch, warmup=0, reps=1)
-        same = torch.equal(got, ref[0])
-        check(same, f"nms_sweep differs from its plain version ({tag})")
-        B, n = alive.shape
-        row = {"case": tag, "batch": B, "rows": n, "bit_equal": same,
-               "alive": int(got.sum()),
-               "ms": device_ms(lambda: cd.nms_sweep(sup, alive, nkeep),
-                               torch, f"nms_sweep {tag}", reps=5),
-               "plain_ms": plain_ms,
-               "bound_ms": sweep_bound_ms(torch, sup, alive, nkeep, got)}
-        rows.append(row)
-    return rows
+        sweep_plain_ms = call_ms(lambda: ref.append(
+            cd._sweep_plain(sup, args[2], args[3])), torch, warmup=0,
+            reps=1)
+        ref = ref[0]
+        _, words = cd._boxes_launch(*args, sweep=False)
+        words_equal = words_match(cd, torch, words, sup, args[3])
+        check(words_equal, f"the pair test's words differ from the plain "
+                           f"mask's ({tag})")
+        del sup, words
+        got = cd.nms_boxes(*args)
+        same = torch.equal(got, ref)
+        check(same, f"nms_boxes differs from its plain version ({tag})")
+        bound, bound_by, tests = boxes_bound(torch, args, ref)
+        ms, split = device_split_ms(
+            lambda: cd.nms_boxes(*args), torch, f"nms_boxes {tag}",
+            ("nms_pair_kernel", "nms_sweep_kernel"), reps=5)
+        out.append({
+            "case": tag, "batch": B, "rows": n, "words_equal": words_equal,
+            "bit_equal": same, "alive": int(ref.sum()),
+            "force_suppress": args[5], "pixel_offset": args[6], "ms": ms,
+            "pair_ms": split["nms_pair_kernel"],
+            "sweep_ms": split["nms_sweep_kernel"],
+            "plain_ms": mask_ms + sweep_plain_ms,
+            "plain_mask_ms": mask_ms, "bound_ms": bound,
+            "bound_by": bound_by, "iou_tests": tests})
+        release(torch)
+    return out
 
 
 # examples/ssd_train.py's model, loop and AP (its lines 46-146, 189-257)
@@ -5215,9 +5385,7 @@ def phase_detect(mt, torch, card):
 
     ssd300, c_ssd300 = part("ssd300", detect_ssd300, mt, torch, np,
                             launches)
-    masks = sweep_masks(mt, torch, np)
-    sweep = part("sweep", detect_sweep, mt, torch, np, masks)
-    del masks
+    boxes = part("nms", detect_nms, mt, torch, np)
     train, c_train = part("train", detect_train, mt, torch, np, launches)
     capture, c_capture = part("capture", detect_capture, mt, torch, np,
                               launches)
@@ -5228,18 +5396,23 @@ def phase_detect(mt, torch, card):
     misc = part("contrib_misc", detect_contrib_misc, mt, torch, np)
     by_path = {"detect_ssd300": c_ssd300, "detect_train": c_train,
                "detect_capture": c_capture, "detect_rcnn": c_rcnn}
+    # the ops go from the boxes (the pair test and the sweep), never
+    # through a (B, k, k) mask
     for path, counts in by_path.items():
-        check(counts.get("nms_sweep", 0) > 0,
-              f"{path} launched no nms_sweep: {counts}")
-        check(set(counts) == {"nms_sweep"}, f"{path} launched {counts}")
-    main = sweep[1]                      # SSD300 at the default nms_topk
+        check(counts.get("nms_boxes", 0) > 0,
+              f"{path} launched no nms_boxes: {counts}")
+        check(set(counts) == {"nms_boxes"}, f"{path} launched {counts}")
+    main = next(r for r in boxes                 # the default nms_topk
+                if r["case"] == f"ssd300_k{ssd300['anchors']}")
     emit({"phase": "detect", "card": card, "seconds": t, "ssd300": {
         k: ssd300[k] for k in ("ms", "peak_bytes_topk_all",
                                "loc_target_max_abs_err",
                                "target_differ_near_cutoff",
                                "detections_differ_near_tie")},
-        "sweep": [{k: r[k] for k in ("case", "bit_equal", "ms", "plain_ms",
-                                     "bound_ms")} for r in sweep],
+        "nms_boxes": [{k: r[k] for k in (
+            "case", "words_equal", "bit_equal", "ms", "pair_ms",
+            "sweep_ms", "plain_ms", "bound_ms", "bound_by")}
+            for r in boxes],
         "config4": {k: train[k] for k in ("first_loss", "final_loss", "ap",
                                           "ms_per_iter", "vs_cpu")},
         "capture": {k: capture[k] for k in ("bit_equal", "captures",
@@ -5253,21 +5426,27 @@ def phase_detect(mt, torch, card):
         "ctc_loss": ctc, "sequential": seq,
         "contrib_misc_worst": [max(v[0] for v in misc.values()),
                                max(v[1] for v in misc.values())]})
+    source = "incubator_mxnet_tpu_torch/csrc/nms_sweep.cu"
+    replaces = ("incubator_mxnet_tpu/ops/contrib_det.py:287 "
+                "(lax.while_loop) and :516 (lax.fori_loop), with the "
+                "(k, k) masks they sweep (:270-278, :505-511): the port's "
+                "own kernel, no Pallas kernel")
     entry = {
-        "name": "nms_sweep", "route": "cuda",
-        "source": "incubator_mxnet_tpu_torch/csrc/nms_sweep.cu",
-        "replaces": "incubator_mxnet_tpu/ops/contrib_det.py:287 "
-                    "(lax.while_loop) and :516 (lax.fori_loop): the "
-                    "port's own kernel, no Pallas kernel",
-        "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "name": "nms_boxes", "route": "cuda", "source": source,
+        "kernels": ["nms_pair_kernel", "nms_sweep_kernel"],
+        "replaces": replaces, "max_abs_err": 0.0, "ms": main["ms"],
+        "pair_ms": main["pair_ms"], "sweep_ms": main["sweep_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "shape": [main["batch"], main["rows"]],
         "tol": "bit-exact",
-        "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms")}
-                  for r in sweep],
-        "launches_by_path": {p: c.get("nms_sweep", 0)
+        "cases": [{k: r[k] for k in ("case", "ms", "pair_ms", "sweep_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "iou_tests")}
+                  for r in boxes],
+        "launches_by_path": {p: c.get("nms_boxes", 0)
                              for p, c in by_path.items()}}
-    return entry, by_path
+    return [entry], by_path
 
 
 def card_line():
@@ -5322,7 +5501,7 @@ def main():
         moe_launches, moe_runs = timed("moe", phase_moe, mt, torch, card)
         ops_launches = timed("ops", phase_ops, mt, torch, card)
         rnn_launches = timed("rnn", phase_rnn, mt, torch, card)
-        sweep_entry, detect_launches = timed("detect", phase_detect, mt,
+        nms_entries, detect_launches = timed("detect", phase_detect, mt,
                                              torch, card)
         keeps["end"] = trace_keeps(torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
@@ -5351,7 +5530,7 @@ def main():
             e["fp32_train"]["launches"] = sum(fp32_launches[e["name"]])
         # the paths whose phases keep every kernel's count; the sweep's
         # entry has no key for a path that kept the flash counts alone
-        for e in [entry] + bwd_entries + rtc_entries + [sweep_entry]:
+        for e in [entry] + bwd_entries + rtc_entries + nms_entries:
             e["launches_by_path"]["resnet"] = resnet_launches.get(
                 e["name"], 0)
             e["launches_by_path"]["module"] = module_launches.get(
@@ -5373,7 +5552,7 @@ def main():
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(card)
-    emit({"kernels": [entry] + bwd_entries + rtc_entries + [sweep_entry]})
+    emit({"kernels": [entry] + bwd_entries + rtc_entries + nms_entries})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -12,15 +12,17 @@ inside a CUDA-graph capture and on ``meta`` tensors (shape inference):
 - the bipartite matching of MultiBoxTarget is L rounds over the static
   label rows, batched over the images; negative mining ranks by stable
   sorts;
-- the greedy NMS sweeps of MultiBoxDetection, Proposal and
-  MultiProposal (a ``lax.while_loop`` and a ``lax.fori_loop`` in the
-  JAX package) are ``nms_sweep``: the hand-written kernel
-  ``csrc/nms_sweep.cu`` for CUDA tensors, one block an image with the
-  trip count a device tensor, and its plain version, a loop over the
-  static row count with ``torch.where`` masking, for CPU and ``meta``
-  tensors.  The suppression mask is built by the same torch ops on
-  either side, an image at a time, so the kernel is bit-equal to the
-  plain version;
+- the greedy NMS of MultiBoxDetection, Proposal and MultiProposal (a
+  (k, k) IoU mask swept by a ``lax.while_loop`` and a ``lax.fori_loop``
+  in the JAX package) is ``nms_boxes``: for CUDA tensors the
+  hand-written kernels of ``csrc/nms_sweep.cu``, a pair test that packs
+  the suppression bits 32 a word and a sweep that takes 32 rows a
+  barrier, the trip count a device tensor and no (B, k, k) tensor made;
+  for CPU and ``meta`` tensors its plain version, the IoU mask in torch
+  ops an image at a time and a loop over the static row count with
+  ``torch.where`` masking.  The kernel does the torch ops' arithmetic op
+  for op, so the two are bit-equal.  ``nms_sweep`` is that loop over a
+  given mask, for CPU and ``meta`` tensors only;
 - ROIPooling's two-stage masked max is a ``torch.autograd.Function``
   whose backward splits a tie's gradient evenly among the tied entries
   of each stage, as the JAX op's ``max`` reductions do, without the
@@ -40,7 +42,7 @@ import torch
 from . import _build
 from .registry import defop
 
-__all__ = ["nms_sweep"]
+__all__ = ["nms_boxes", "nms_sweep"]
 
 _F32 = torch.float32
 
@@ -97,13 +99,14 @@ def _iou_corner(a, b):
 
 
 # ---------------------------------------------------------------------------
-# the greedy sweep: csrc/nms_sweep.cu and its plain version
+# greedy NMS: csrc/nms_sweep.cu and its plain versions
 # ---------------------------------------------------------------------------
 
 _SIGNATURES = {
-    "mxt_nms_sweep": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    "mxt_nms_boxes": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                      + [ctypes.c_float] + [ctypes.c_int] * 2
                       + [ctypes.c_void_p], ctypes.c_int),
-    "mxt_nms_sweep_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "mxt_nms_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 
@@ -116,27 +119,25 @@ def _sweep_plain(sup, alive, nkeep):
     return alive
 
 
-def _sweep_launch(sup, alive, nkeep):
-    """Run csrc/nms_sweep.cu on CUDA tensors; raises on sizes the kernel
-    does not take (its error string says which) or on a failed launch."""
-    batch, n = alive.shape
-    sup = sup.contiguous()
-    alive = alive.contiguous()
-    nkeep = nkeep.to(torch.int64).contiguous()
-    out = torch.empty_like(alive)
-    scratch = torch.empty(batch * n * ((n + 31) // 32), dtype=torch.int32,
-                          device=alive.device)
-    lib = _build.load("nms_sweep", _SIGNATURES)
-    with torch.cuda.device(alive.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mxt_nms_sweep(sup.data_ptr(), alive.data_ptr(),
-                               nkeep.data_ptr(), out.data_ptr(),
-                               scratch.data_ptr(), batch, n, stream)
-    if rc != 0:
-        raise RuntimeError("nms_sweep launch failed: "
-                           + lib.mxt_nms_sweep_error_string(rc).decode())
-    _build.LAUNCHES["nms_sweep"] += 1
-    return out
+def _words(n):
+    return (n + 31) // 32
+
+
+def _pack_plain(sup):
+    """(B, r, n) bool -> (B, r, ceil(n / 32)) int32 words, bit j % 32 of
+    word j / 32: the kernels' packed layout (an image at a time; r rows
+    of an (n, n) mask, or all of them)."""
+    r, n = sup.shape[-2:]
+    shifts = torch.arange(32, device=sup.device)
+    weights = torch.bitwise_left_shift(torch.ones_like(shifts), shifts)
+    out = []
+    for one in sup:
+        cols = torch.nn.functional.pad(one.to(torch.int64),
+                                       (0, _words(n) * 32 - n))
+        words = (cols.reshape(r, -1, 32) * weights).sum(-1)
+        out.append(torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+                   .to(torch.int32))
+    return torch.stack(out)
 
 
 def nms_sweep(sup, alive, nkeep):
@@ -144,10 +145,10 @@ def nms_sweep(sup, alive, nkeep):
     ``nkeep[b]`` in order, an alive row i clears the rows it suppresses.
 
     sup (B, n, n) bool, ``sup[b, i, j]``: row i suppresses row j;
-    alive (B, n) bool, the rows in play; nkeep (B,) integer, a device
-    tensor (never read on the host).  Returns the alive mask (B, n).
-    CUDA tensors launch ``csrc/nms_sweep.cu`` or raise; CPU and ``meta``
-    tensors run the plain version."""
+    alive (B, n) bool, the rows in play; nkeep (B,) integer.  Returns
+    the alive mask (B, n).  CPU and ``meta`` tensors only: it is the
+    plain version of ``nms_boxes``'s sweep, and on the card the NMS is
+    ``nms_boxes``, which makes no mask, so CUDA tensors raise."""
     if sup.dtype != torch.bool or alive.dtype != torch.bool:
         raise TypeError("nms_sweep takes bool sup and alive masks")
     if sup.dim() != 3 or alive.dim() != 2 \
@@ -156,12 +157,115 @@ def nms_sweep(sup, alive, nkeep):
         raise ValueError(f"nms_sweep: sup (B, n, n), alive (B, n), nkeep "
                          f"(B,); got {tuple(sup.shape)}, "
                          f"{tuple(alive.shape)}, {tuple(nkeep.shape)}")
-    if sup.device.type == "cuda":
-        return _sweep_launch(sup, alive, nkeep)
     if sup.device.type not in ("cpu", "meta"):
-        raise ValueError(f"nms_sweep runs on cuda, cpu or meta, not "
-                         f"{sup.device}")
+        raise ValueError(f"nms_sweep runs on cpu or meta, not "
+                         f"{sup.device}: on the card, nms_boxes")
     return _sweep_plain(sup, alive, nkeep)
+
+
+def _boxes_mask(boxes, cls, alive, threshold, force_suppress,
+                pixel_offset, rows=slice(None)):
+    """sup (k, k) of one image, or its rows ``rows``: row i suppresses a
+    later row j when both are alive, their IoU (``_iou_corner``, or
+    ``_proposal_iou`` with ``pixel_offset``) is at or above the
+    threshold and, unless ``force_suppress`` or ``cls`` is None, their
+    classes are equal."""
+    iou = (_proposal_iou if pixel_offset else _iou_corner)(boxes[rows],
+                                                           boxes)
+    sup = iou >= threshold
+    if cls is not None and not force_suppress:
+        sup &= cls[rows, None] == cls[None, :]
+    rank = torch.arange(boxes.shape[0], device=boxes.device)
+    return sup & (rank[None, :] > rank[rows, None]) & alive[rows, None] \
+        & alive[None, :]
+
+
+def _boxes_masks(boxes, cls, alive, nkeep, threshold, force_suppress=False,
+                 pixel_offset=False):
+    """The (B, k, k) masks that ``nms_boxes`` sweeps, from its arguments
+    (``nkeep`` unused), an image at a time: with ``alive`` and
+    ``nkeep`` they are ``nms_sweep``'s arguments."""
+    return torch.stack([
+        _boxes_mask(boxes[b], None if cls is None else cls[b], alive[b],
+                    threshold, force_suppress, pixel_offset)
+        for b in range(boxes.shape[0])])
+
+
+def _boxes_launch(boxes, cls, alive, nkeep, threshold, force_suppress,
+                  pixel_offset, sweep=True):
+    """Run csrc/nms_sweep.cu on CUDA tensors: the pair test and, with
+    ``sweep``, the sweep.  Returns (alive (B, k) bool, or None
+    without ``sweep``; the packed words (B, k, ceil(k / 32)) int32, of
+    which only rows below nkeep and words from each row's diagonal word
+    on are written).  Raises on sizes the kernel does not take or on a
+    failed launch."""
+    batch, n = alive.shape
+    boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16:                 # float4 loads
+        boxes = boxes.clone()
+    cls = None if cls is None or force_suppress else cls.contiguous()
+    alive = alive.contiguous()
+    nkeep = nkeep.to(torch.int64).contiguous()
+    out = torch.empty_like(alive)
+    words = torch.empty((batch, n, _words(n)), dtype=torch.int32,
+                        device=alive.device)
+    lib = _build.load("nms_sweep", _SIGNATURES)
+    with torch.cuda.device(alive.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mxt_nms_boxes(
+            boxes.data_ptr(), None if cls is None else cls.data_ptr(),
+            alive.data_ptr(), nkeep.data_ptr(), out.data_ptr(),
+            words.data_ptr(), batch, n, float(threshold),
+            int(bool(pixel_offset)), int(sweep), stream)
+    if rc != 0:
+        raise RuntimeError("nms_boxes launch failed: "
+                           + lib.mxt_nms_error_string(rc).decode())
+    _build.LAUNCHES["nms_boxes"] += 1
+    return (out if sweep else None), words
+
+
+def nms_boxes(boxes, cls, alive, nkeep, threshold, force_suppress=False,
+              pixel_offset=False):
+    """Greedy NMS from the boxes: ``nms_sweep`` of the mask in which row
+    i suppresses a later row j when both are alive, their IoU is at or
+    above ``threshold`` (compared in float32) and their classes are
+    equal (any classes with ``force_suppress`` or ``cls`` None).
+
+    boxes (B, k, 4) float32 corner boxes sorted by score; cls (B, k)
+    float32 or None; alive (B, k) bool, the rows in play; nkeep (B,)
+    integer, a device tensor (never read on the host).  The IoU is
+    ``_iou_corner``'s (union <= 0 gives 0) or, with ``pixel_offset``,
+    ``_proposal_iou``'s (+1-pixel widths).  Returns the alive mask
+    (B, k).  CUDA tensors launch ``csrc/nms_sweep.cu``, which makes no
+    (B, k, k) tensor, or raise; CPU and ``meta`` tensors run the plain
+    version, ``_boxes_masks`` then ``_sweep_plain``."""
+    if boxes.dtype != _F32 or alive.dtype != torch.bool \
+            or (cls is not None and cls.dtype != _F32):
+        raise TypeError("nms_boxes takes float32 boxes and classes and a "
+                        "bool alive mask")
+    if boxes.dim() != 3 or boxes.shape[2] != 4 \
+            or alive.shape != boxes.shape[:2] \
+            or (cls is not None and cls.shape != boxes.shape[:2]) \
+            or nkeep.shape != boxes.shape[:1]:
+        raise ValueError(
+            f"nms_boxes: boxes (B, k, 4), cls (B, k) or None, alive "
+            f"(B, k), nkeep (B,); got {tuple(boxes.shape)}, "
+            f"{None if cls is None else tuple(cls.shape)}, "
+            f"{tuple(alive.shape)}, {tuple(nkeep.shape)}")
+    if any(t.device != boxes.device for t in (cls, alive, nkeep)
+           if t is not None):
+        raise ValueError("nms_boxes: every tensor on one device")
+    if boxes.device.type == "cuda":
+        return _boxes_launch(boxes, cls, alive, nkeep, threshold,
+                             force_suppress, pixel_offset)[0]
+    if boxes.device.type not in ("cpu", "meta"):
+        raise ValueError(f"nms_boxes runs on cuda, cpu or meta, not "
+                         f"{boxes.device}")
+    if boxes.shape[0] == 0:
+        return alive.clone()
+    return _sweep_plain(_boxes_masks(boxes, cls, alive, nkeep, threshold,
+                                     force_suppress, pixel_offset),
+                        alive, nkeep)
 
 
 # ---------------------------------------------------------------------------
@@ -341,25 +445,13 @@ def _decode_boxes(anchors, loc, variances, clip):
     return out
 
 
-def _detection_mask(boxes, cls, in_nms, nms_threshold, force_suppress):
-    """sup (k, k) of one image: row i suppresses a later row j of the
-    NMS window (IoU at or above the threshold, same class unless
-    ``force_suppress``)."""
-    k = boxes.shape[0]
-    sup = _iou_corner(boxes, boxes) >= nms_threshold
-    if not force_suppress:
-        sup &= cls[:, None] == cls[None, :]
-    rank = torch.arange(k, device=boxes.device)
-    return sup & (rank[None, :] > rank[:, None]) & in_nms[:, None] \
-        & in_nms[None, :]
-
-
 def detection_sweep_inputs(cls_prob, loc_pred, anchor, clip=True,
                            threshold=0.01, nms_threshold=0.5,
                            force_suppress=False,
                            variances=(0.1, 0.1, 0.2, 0.2), nms_topk=-1):
-    """MultiBoxDetection up to its sweep: ``(sup, in_nms, nkeep)``, the
-    arguments of ``nms_sweep``, and the rows sorted by score,
+    """MultiBoxDetection up to its NMS: ``(boxes, cls, in_nms, nkeep,
+    nms_threshold, force_suppress, False)`` of the window (the top k
+    rows), the arguments of ``nms_boxes``, and the rows sorted by score,
     ``(cls_s, score_s, boxes_s, present)``."""
     variances = _tuple(variances, 4)
     anchors = anchor.reshape(-1, 4).to(_F32)
@@ -387,11 +479,9 @@ def detection_sweep_inputs(cls_prob, loc_pred, anchor, clip=True,
     nkeep = torch.clamp_max(valid.sum(dim=1), k)
     in_nms = present[:, :k] & (torch.arange(k, device=dev)[None, :]
                                < nkeep[:, None])
-    sup = torch.stack([
-        _detection_mask(boxes_s[b, :k], cls_s[b, :k], in_nms[b],
-                        float(nms_threshold), bool(force_suppress))
-        for b in range(B)])
-    return (sup, in_nms, nkeep), (cls_s, score_s, boxes_s, present)
+    return ((boxes_s[:, :k].contiguous(), cls_s[:, :k].contiguous(), in_nms,
+             nkeep, float(nms_threshold), bool(force_suppress), False),
+            (cls_s, score_s, boxes_s, present))
 
 
 @defop("_contrib_MultiBoxDetection", differentiable=False)
@@ -407,13 +497,12 @@ def multibox_detection(cls_prob, loc_pred, anchor, clip=True,
     As the JAX op: with ``nms_topk`` > 0 the rows past top-k are marked
     suppressed (the reference leaves stale duplicates there), and
     ``background_id`` is accepted but class 0 is always the background,
-    as in the reference kernel.  The suppression mask is built an image
-    at a time (k = A = 8732 for SSD300 at the default ``nms_topk``:
-    305 MB of IoU an image) and swept by ``nms_sweep``."""
-    sweep, (cls_s, score_s, boxes_s, present) = detection_sweep_inputs(
+    as in the reference kernel.  The NMS is ``nms_boxes`` over the
+    window (k = A = 8732 for SSD300 at the default ``nms_topk``)."""
+    nms, (cls_s, score_s, boxes_s, present) = detection_sweep_inputs(
         cls_prob, loc_pred, anchor, clip, threshold, nms_threshold,
         force_suppress, variances, nms_topk)
-    alive_k = nms_sweep(*sweep)
+    alive_k = nms_boxes(*nms)
     B, A = present.shape
     alive = torch.cat([alive_k, torch.zeros(
         (B, A - alive_k.shape[1]), dtype=torch.bool, device=present.device)],
@@ -646,32 +735,29 @@ def _gen_base_anchors(stride, scales, ratios):
     return out
 
 
-def _proposal_iou(b):
-    """IoU (pre, pre) of one image's boxes with the +1 pixel convention
-    (ref: proposal.cc NonMaximumSuppression)."""
-    w = torch.clamp_min(torch.minimum(b[:, None, 2], b[None, :, 2])
-                        - torch.maximum(b[:, None, 0], b[None, :, 0])
+def _proposal_iou(a, b=None):
+    """IoU (A, L) of one image's boxes a against b (a itself when None)
+    with the +1 pixel convention (ref: proposal.cc
+    NonMaximumSuppression)."""
+    b = a if b is None else b
+    w = torch.clamp_min(torch.minimum(a[:, None, 2], b[None, :, 2])
+                        - torch.maximum(a[:, None, 0], b[None, :, 0])
                         + 1.0, 0.0)
-    h = torch.clamp_min(torch.minimum(b[:, None, 3], b[None, :, 3])
-                        - torch.maximum(b[:, None, 1], b[None, :, 1])
+    h = torch.clamp_min(torch.minimum(a[:, None, 3], b[None, :, 3])
+                        - torch.maximum(a[:, None, 1], b[None, :, 1])
                         + 1.0, 0.0)
     inter = w * h
-    area = (b[:, 2] - b[:, 0] + 1.0) * (b[:, 3] - b[:, 1] + 1.0)
-    return inter / (area[:, None] + area[None, :] - inter)
-
-
-def _proposal_mask(b, thresh):
-    """sup (pre, pre) of one image: IoU at or above ``thresh``, a later
-    row only."""
-    rank = torch.arange(b.shape[0], device=b.device)
-    return (_proposal_iou(b) >= thresh) & (rank[None, :] > rank[:, None])
+    area_a = (a[:, 2] - a[:, 0] + 1.0) * (a[:, 3] - a[:, 1] + 1.0)
+    area_b = (b[:, 2] - b[:, 0] + 1.0) * (b[:, 3] - b[:, 1] + 1.0)
+    return inter / (area_a[:, None] + area_b[None, :] - inter)
 
 
 def proposal_sweep_inputs(fg, deltas, im_info, base, stride, pre_n,
                           thresh, min_size):
     """Proposal up to its sweep: fg (B, K, H, W), deltas (B, 4K, H, W),
-    im_info (B, 3) -> ``(sup, alive, nkeep)``, the arguments of
-    ``nms_sweep``, and the top ``pre`` boxes and scores by score."""
+    im_info (B, 3) -> ``(boxes, None, alive, nkeep, thresh, False,
+    True)``, the arguments of ``nms_boxes`` (+1-pixel IoU, every row in
+    play), and the top ``pre`` boxes and scores by score."""
     B, K, H, W = fg.shape
     dev = fg.device
     shift_x = torch.arange(W, dtype=_F32, device=dev) * stride
@@ -719,17 +805,17 @@ def proposal_sweep_inputs(fg, deltas, im_info, base, stride, pre_n,
     b = _take(boxes, sel)
     s = sc.gather(1, sel)
 
-    sup = torch.stack([_proposal_mask(b[i], thresh) for i in range(B)])
-    return (sup, torch.ones((B, pre), dtype=torch.bool, device=dev),
-            torch.full((B,), pre, dtype=torch.int64, device=dev)), (b, s)
+    return (b, None, torch.ones((B, pre), dtype=torch.bool, device=dev),
+            torch.full((B,), pre, dtype=torch.int64, device=dev),
+            float(thresh), False, True), (b, s)
 
 
 def _proposals(fg, deltas, im_info, base, stride, pre_n, post_n, thresh,
                min_size):
     """-> rois (B, post_n, 5) with batch index 0, scores (B, post_n)."""
-    sweep, (b, s) = proposal_sweep_inputs(fg, deltas, im_info, base,
-                                          stride, pre_n, thresh, min_size)
-    alive = nms_sweep(*sweep)
+    nms, (b, s) = proposal_sweep_inputs(fg, deltas, im_info, base, stride,
+                                        pre_n, thresh, min_size)
+    alive = nms_boxes(*nms)
     B, pre = alive.shape
     dev = alive.device
 

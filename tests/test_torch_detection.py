@@ -14,6 +14,20 @@ package's, on the CPU with the same numpy inputs.
 - ``nms_sweep``'s plain version (what CPU and ``meta`` tensors run)
   against the JAX op's ``lax.while_loop`` (with a trip count below the
   rows) and ``lax.fori_loop`` on random masks: equal.
+- The NMS's traps, the port's plain route against the JAX op: 96 boxes
+  on a 1/32 grid through ``MultiBoxDetection`` (``force_suppress``,
+  ``nms_topk`` and the threshold 0.45 or 0.5 each both ways) with exact
+  duplicates, zero areas (union 0), a NaN box, two classes, rows past
+  the window and pairs whose fp32 IoU is exactly 1/2 and 9/20
+  (float32(0.45): a float64 threshold would keep the row); the same for
+  ``Proposal`` at +1 pixel (boxes moved by whole pixels, clipped to the
+  image): classes equal, boxes within 1e-5.
+- ``_pack_plain`` (the kernels' packed layout) against ``np.packbits``
+  at a row length that is not a multiple of 32; ``_boxes_mask`` and
+  ``_pack_plain`` of a few rows equal to those rows of the whole mask
+  and its packing (a large window's plain mask is built so, in row
+  chunks); ``nms_boxes`` on ``meta`` tensors, its checks, and its plain
+  route the sweep of ``_boxes_masks``.
 - ``ROIPooling`` on data with flat (tied) regions and zeros, and
   ``PSROIPooling``: outputs within 1e-5, gradients within 1e-5 (a tie's
   gradient split evenly, as the JAX op's max).
@@ -187,6 +201,197 @@ def test_nms_sweep_plain_matches_jax_loops():
                           torch.from_numpy(alive).to("meta"),
                           torch.from_numpy(nkeep).to("meta"))
     assert meta.shape == (3, n) and meta.device.type == "meta"
+
+
+# ------------------------------------- the NMS's adversarial cases: exact
+# ties at the threshold, duplicates, zero areas, NaN, classes, the window
+
+U = 1.0 / 32            # corner boxes on a 1/32 grid: every IoU is exact
+
+
+def _adversarial_detection():
+    """(cls_prob (2, 3, A), loc (2, 4A), anchor (1, A, 4), rows): A = 96
+    anchors on a 1/32 grid with zero offsets, so the decoded boxes are
+    the anchors exactly; image 0 holds the designed rows by score
+    (``rows`` names each by its score), image 1 random ones."""
+    designed = [                        # (box in 1/32 units, class)
+        ([0, 0, 2, 1], 0), ([0, 0, 1, 1], 0),          # IoU 1/2
+        ([0, 2, 10, 3], 1), ([1, 2, 20, 3], 1),        # IoU 9/20
+        ([4, 4, 12, 12], 0), ([4, 4, 12, 12], 1),      # duplicate, 2 classes
+        ([14, 4, 22, 12], 1), ([14, 4, 22, 12], 1),    # duplicate, 1 class
+        ([5, 25, 5, 25], 0), ([5, 25, 5, 25], 0),      # points: union 0
+        ([20, 24, 28, 30], 1), ([24, 24, 24, 30], 1),  # a line: area 0
+        ([14, 4, 22, 12], 1),                          # NaN offsets
+    ]
+    names = ["half_a", "half_b", "tie45_a", "tie45_b", "dup2_a", "dup2_b",
+             "dup1_a", "dup1_b", "point_a", "point_b", "box", "line", "nan"]
+    rs = np.random.RandomState(10)
+    A = 96
+    boxes = np.zeros((A, 4), np.float32)
+    cls = rs.randint(0, 2, (2, A))
+    score = np.empty((2, A), np.float32)
+    for r, (box, c) in enumerate(designed):
+        boxes[r] = np.array(box, np.float32) * U
+        cls[0, r] = c
+        score[0, r] = 0.99 - 0.01 * r           # in order, the top rows
+    lo = rs.randint(0, 28, (A, 2))
+    hi = lo + rs.randint(0, 5, (A, 2))
+    rnd = np.concatenate([lo, hi], 1)[:, [0, 1, 2, 3]] * U
+    n = len(designed)
+    boxes[n:] = rnd[n:].astype(np.float32)
+    score[0, n:] = rs.uniform(0.05, 0.85, A - n)   # some below 0.2
+    score[1] = rs.permutation(np.linspace(0.05, 0.95, A)).astype(np.float32)
+    prob = np.zeros((2, 3, A), np.float32)
+    for b in range(2):
+        prob[b, 1 + cls[b], np.arange(A)] = score[b]
+        prob[b, 2 - cls[b], np.arange(A)] = score[b] * 0.5
+        prob[b, 0] = 1.0 - score[b]
+    loc = np.zeros((2, A, 4), np.float32)
+    loc[0, names.index("nan")] = np.nan
+    return prob, loc.reshape(2, -1), boxes[None], dict(
+        zip(names, score[0, :n]))
+
+
+def _row(out, score):
+    return int(np.flatnonzero(out[0, :, 1] == score)[0])
+
+
+@pytest.mark.parametrize("force", [False, True])
+@pytest.mark.parametrize("topk", [-1, 40])
+@pytest.mark.parametrize("thr", [0.45, 0.5])
+def test_multibox_detection_adversarial(force, topk, thr):
+    prob, loc, anchor, rows = _adversarial_detection()
+    params = dict(threshold=0.2, nms_threshold=thr, force_suppress=force,
+                  nms_topk=topk)
+    want = _j("_contrib_MultiBoxDetection", prob, loc, anchor, **params)
+    got = _t("_contrib_MultiBoxDetection", prob, loc, anchor, **params)
+    np.testing.assert_array_equal(got[..., 0], want[..., 0])
+    np.testing.assert_allclose(got[..., 1:], want[..., 1:], rtol=0,
+                               atol=1e-5)
+    kept = {k: got[0, _row(got, v), 0] >= 0 for k, v in rows.items()}
+    # fp32 IoU 9/20 == float32(0.45): suppressed at 0.45 (a float64
+    # threshold would keep it), kept at 0.5
+    assert kept["tie45_b"] == (thr == 0.5)
+    assert not kept["half_b"] and not kept["dup1_b"]
+    assert kept["dup2_b"] != force
+    assert kept["point_a"] and kept["point_b"] and kept["line"]
+    assert kept["nan"] and np.isnan(got[0, _row(got, rows["nan"]), 2:]).all()
+    if topk > 0:                  # rows past the window are marked
+        assert (got[:, topk:, 0] == -1).all()
+    assert (got[1, :, 0] >= 0).sum() < (got[1, :, 1] >= 0).sum()
+
+
+def _adversarial_rpn():
+    """Proposal inputs, 1 x 96 boxes (K = 3 square anchors of 16, 32 and
+    64 pixels on a 4 x 8 map, stride 16) moved by whole pixels (offsets
+    m / width, no scaling), so every +1-pixel IoU is exact: two pairs at
+    the image's corner at 9/20 and 1/2, duplicates, and boxes clipped to
+    the image's right edge.  Scores put the designed pairs first."""
+    K, H, W = 3, 4, 8
+    rs = np.random.RandomState(11)
+    shift = rs.randint(-20, 21, (K, H, W, 2)).astype(np.float32)
+    score = rs.uniform(0.05, 0.9, (K, H, W)).astype(np.float32)
+    width = np.array([16.0, 32.0, 64.0], np.float32)
+
+    def corner(k, h, w, x2, y2, s):
+        """anchor (k, h, w) moved so that its x2, y2 are these (its x1,
+        y1 fall below 0 and clip)"""
+        half = (width[k] - 1) / 2
+        shift[k, h, w] = [x2 - (16 * w + 7.5 + half),
+                          y2 - (16 * h + 7.5 + half)]
+        score[k, h, w] = s
+
+    corner(2, 0, 0, 19, 9, 0.99)        # 20 x 10
+    corner(1, 0, 0, 8, 9, 0.98)         # 9 x 10: IoU 9/20 with it
+    corner(2, 1, 1, 19, 39, 0.97)       # 20 x 40
+    corner(2, 1, 2, 9, 39, 0.96)        # 10 x 40: IoU 1/2 with it
+    shift[0, 2, 3] = shift[0, 2, 2] - [16, 0]   # a duplicate
+    deltas = np.zeros((K, 4, H, W), np.float32)
+    deltas[:, 0] = shift[..., 0] / width[:, None, None]
+    deltas[:, 1] = shift[..., 1] / width[:, None, None]
+    cls_prob = np.concatenate([1 - score, score])[None]
+    bbox = deltas.reshape(1, 4 * K, H, W)
+    im_info = np.array([[70, 100, 1.0]], np.float32)   # clips the right
+    return cls_prob, bbox, im_info
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.5])
+def test_proposal_adversarial(thr):
+    inputs = _adversarial_rpn()
+    params = dict(rpn_pre_nms_top_n=96, rpn_post_nms_top_n=30,
+                  threshold=thr, rpn_min_size=1, output_score=True,
+                  scales=(1.0, 2.0, 4.0), ratios=(1.0,))
+    want = _j("_contrib_Proposal", *inputs, **params)
+    got = _t("_contrib_Proposal", *inputs, **params)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-5)
+    top = got[0][:4, 1:].tolist()
+    assert top[0] == [0, 0, 19, 9]
+    # fp32 IoU 9/20 == float32(0.45): the 9 x 10 box goes at 0.45 only
+    assert ([0, 0, 8, 9] in top) == (thr == 0.5)
+    assert [0, 0, 19, 39] in top and [0, 0, 9, 39] not in top
+
+
+def test_pack_plain_matches_numpy_packbits():
+    rs = np.random.RandomState(12)
+    n = 45                                  # not a multiple of 32
+    sup = rs.rand(2, n, n) < 0.3
+    got = tdet._pack_plain(torch.from_numpy(sup)).numpy()
+    want = np.packbits(np.pad(sup, ((0, 0), (0, 0), (0, 64 - n))),
+                       axis=-1, bitorder="little").view("<u4") \
+        .view(np.int32)
+    assert got.shape == (2, n, 2) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("pixel", [False, True])
+def test_boxes_mask_and_pack_by_rows(pixel):
+    rs = np.random.RandomState(14)
+    k = 70
+    lo = rs.randint(0, 6, (k, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [lo, lo + rs.randint(0, 5, (k, 2))], 1).astype(np.float32))
+    boxes[5, 2] = float("nan")
+    cls = torch.from_numpy(rs.randint(0, 3, k).astype(np.float32))
+    alive = torch.from_numpy(rs.rand(k) < 0.9)
+    whole = tdet._boxes_mask(boxes, cls, alive, 0.45, False, pixel)
+    packed = tdet._pack_plain(whole[None])[0]
+    assert 0 < whole.sum() < whole.numel()
+    for rows in (slice(0, 33), slice(33, 64), slice(64, k)):
+        part = tdet._boxes_mask(boxes, cls, alive, 0.45, False, pixel, rows)
+        assert torch.equal(part, whole[rows])
+        assert torch.equal(tdet._pack_plain(part[None])[0], packed[rows])
+
+
+def test_nms_boxes_on_meta_and_its_checks():
+    B, k = 3, 50
+    args = [torch.zeros(B, k, 4, device="meta"),
+            torch.zeros(B, k, device="meta"),
+            torch.ones(B, k, dtype=torch.bool, device="meta"),
+            torch.full((B,), k, device="meta")]
+    for pixel in (False, True):
+        out = tdet.nms_boxes(*args, 0.45, pixel_offset=pixel)
+        assert out.shape == (B, k) and out.dtype == torch.bool \
+            and out.device.type == "meta"
+    with pytest.raises(TypeError):
+        tdet.nms_boxes(args[0].double(), *args[1:], 0.5)
+    with pytest.raises(ValueError):
+        tdet.nms_boxes(args[0][:, :, :3], *args[1:], 0.5)
+    # the plain route is the mask's sweep
+    rs = np.random.RandomState(13)
+    lo = rs.rand(B, k, 2).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate(
+        [lo, lo + rs.rand(B, k, 2).astype(np.float32) * 0.3], 2))
+    cls = torch.from_numpy(rs.randint(0, 3, (B, k)).astype(np.float32))
+    alive = torch.from_numpy(rs.rand(B, k) < 0.9)
+    nkeep = torch.tensor([k, 30, 0])
+    got = tdet.nms_boxes(boxes, cls, alive, nkeep, 0.3)
+    sup = tdet._boxes_masks(boxes, cls, alive, nkeep, 0.3)
+    assert torch.equal(got, tdet.nms_sweep(sup, alive, nkeep))
+    assert torch.equal(tdet.nms_boxes(boxes, None, alive, nkeep, 0.3),
+                       tdet.nms_boxes(boxes, cls, alive, nkeep, 0.3,
+                                      force_suppress=True))
 
 
 def _grads_both(name, inputs, wrt, params, tol):
