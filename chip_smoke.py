@@ -17,7 +17,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                flash_dkv and the bf16 forward at D=64 no spills; no
                wgmma serialized by ptxas; csrc/nms_sweep.cu's kernels
                (the pair test, the sweep at one and at four words a
-               thread) present and without spills.
+               thread, and with the words in shared memory) present and
+               without spills.
 2. kernels     hold flash_fwd against its plain PyTorch version on the
                card at the main paths' shapes (fp32 forward and serve,
                bf16 train) and a sweep of others, and time kernel, plain
@@ -104,8 +105,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                class (conv, batchnorm, pool, matmul, optimizer, other),
                busy share and cProfile; (iii) the same in fp32; (iv) 23
                steps of the imperative loop (autograd.record, SoftmaxCross
-               EntropyLoss, backward, gluon.Trainer.step(32)): losses
-               finite and falling, every parameter with a gradient.
+               EntropyLoss, backward, gluon.Trainer.step(32)) with
+               cuDNN's deterministic algorithms: losses finite and
+               falling, equal bit for bit to (iii)'s eager step's,
+               every parameter with a gradient.
                (The loss rises for steps 3 to 7 at lr 0.1 before it
                falls, so each run takes 23 steps.)  Each
                kernel's launches on this path are counted ("resnet").
@@ -198,7 +201,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                T=35, N=20): outputs within 1e-4 and gradients within
                1e-3 (max error over max) of the CPU on the same
                weights; (ii) the Gluon word LM (examples/
-               word_language_model.py's RNNModel, untied, with dropout)
+               word_language_model.py's RNNModel, tied by params= as
+               the example builds it, with dropout)
                at the "large" PTB LSTM's width (Zaremba et al. 2014:
                2 x 1500, embedding 1500, vocabulary 10000, bptt 35,
                batch 20): one step at dropout 0 whose loss (rel 1e-5)
@@ -241,10 +245,18 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                adversarial windows (exact ties at 0.45, duplicates,
                zero areas, NaN boxes; 8 x 8732 with and without
                force_suppress, 1 x 6000 at +1 pixel) and on random
-               boxes at its largest size, 1 x 65536 (four alive words a
-               sweep thread, the pair test past 512 words), and the
-               pair test's packed words against the plain mask packed
-               by _pack_plain; each one's device ms, the pair test's
+               boxes at 1 x 65536 (four alive words a sweep thread, the
+               pair test past 512 words), and the pair test's packed
+               words against the plain mask packed by _pack_plain; and
+               above the sweep's register limit, 1 x 131072 boxes in
+               1024 groups of 128 that no box of another group meets,
+               the groups' rows interleaved in score order, bit-equal
+               to the plain version run on each group alone (the sweep
+               keeps its alive words in shared memory; the pair test's
+               words take 2 GB, its peak printed), and 66000 images of
+               256 rows (a batch above 65535: eight adversarial images
+               repeated) bit-equal to the plain version; each one's
+               device ms, the pair test's
                and the sweep's from the same trace, the plain version's
                ms and the bound (the IoU tests these inputs need, or
                their bytes); (iii)
@@ -279,6 +291,39 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                bit for bit).  nms_boxes's launches are counted per path
                (detect_ssd300, detect_train, detect_capture,
                detect_rcnn), and the ops launch nothing else.
+16. sparse     config 5, the sparse linear classifier
+               (examples/linear_classification.py's loop through
+               incubator_mxnet_tpu_torch/tools/linear_classification.py:
+               LibSVMIter's CSR batches, the weight in a KVStore with
+               the lazy sparse.sgd_update store-side, row_sparse_pull
+               of the rows a batch touches, sparse.dot forward and
+               csr.T backward): (i) the example's --quick size passes
+               its gate (final NLL below 0.65 of the first, accuracy
+               above 0.8, fewer rows pulled than 0.75 of a dense pull);
+               (ii) its default size (dim 2000, 8192 rows, batch 64, 30
+               epochs): final NLL and accuracy within 0.01 of the same
+               loop on the CPU, seconds and steps/s of both (the NLL
+               with float64 logits: the example's float32 one is nan
+               at this size on either device); (iii) the
+               reference example's width on Avazu-app (1,000,000
+               features, batch 8192) on make_libsvm's rows synthesized
+               in bulk at 20 nonzeros a row, 20 steps: wall ms a step,
+               rows pulled a step, peak memory, each part's ms alone
+               (row_sparse_pull, the logits' dot, the csr.T gradient,
+               the lazy sgd_update), and the first two steps' pulled
+               rows and updated weight rows within rel 1e-5 of the
+               CPU's.  The path runs torch's own ops: it launches no
+               kernel of the port.
+17. vision     alexnet, vgg16, squeezenet1_1, densenet121, mobilenet1_0
+               and inception_v3 (the model zoo's other families) at
+               their published inputs (224; 299) from seeded Xavier
+               weights: at B=1 the card's forward within 1e-3 (max error
+               over max) of the CPU's on the same weights (a .params
+               file); at B=32 the eager forward and the hybridized one
+               (one capture, then replays) bit-equal under deterministic
+               cuDNN, ms and img/s of each; inception_v3 then takes 5
+               gluon.Trainer SGD steps on one fixed batch of 32 and its
+               loss falls.  No kernel of the port runs.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -342,8 +387,10 @@ BWD_KERNELS = {"float32": ["flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"],
 
 
 # the kernels of csrc/nms_sweep.cu, and how many instances each has (the
-# sweep's: one and four alive words a thread)
-NMS_KERNELS = {"nms_pair_kernel": 1, "nms_sweep_kernel": 2}
+# sweep's: one and four alive words a thread in registers, and the words
+# in shared memory above 65536 rows)
+NMS_KERNELS = {"nms_pair_kernel": 1, "nms_sweep_kernel": 2,
+               "nms_sweep_shared_kernel": 1}
 
 
 class CheckFailed(Exception):
@@ -1810,21 +1857,31 @@ def resnet_step_profile(torch, run, run_optimizer):
 
 def resnet_loop(mt, torch, x, y):
     """(iv) the imperative Gluon loop: record, SoftmaxCrossEntropyLoss,
-    backward, Trainer.step(32), from fresh seeded weights."""
+    backward, Trainer.step(32), from fresh seeded weights, with cuDNN's
+    deterministic algorithms.  The trajectory at lr 0.1 is chaotic (see
+    RESNET_WARMUP): under cuDNN's default fp32 algorithms, which differ
+    from run to run, a 1e-6 difference at step 2 decides whether the
+    loss spikes again before step 23, so the verdict of "falling" would
+    change from run to run."""
     net = resnet_net(mt, torch, "cuda")
     trainer = mt.gluon.Trainer(net.collect_params(), "sgd", RESNET_SGD)
     loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
     xs, ys = mt.nd.NDArray(x), mt.nd.NDArray(y)
     losses, step_ms = [], []
-    for _ in range(RESNET_LOOP_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with mt.autograd.record():
-            loss = loss_fn(net(xs), ys)
-        loss.backward()
-        trainer.step(RESNET_BATCH)
-        losses.append(float(loss.mean().asscalar()))      # synchronizes
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(RESNET_LOOP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mt.autograd.record():
+                loss = loss_fn(net(xs), ys)
+            loss.backward()
+            trainer.step(RESNET_BATCH)
+            losses.append(float(loss.mean().asscalar()))  # synchronizes
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.backends.cudnn.deterministic = det
     check(all(math.isfinite(v) for v in losses), f"loop losses {losses}")
     check(losses[-1] < losses[0], f"loop loss did not fall: {losses}")
     no_grad = [p.name for p in net.collect_params().values()
@@ -1832,8 +1889,8 @@ def resnet_loop(mt, torch, x, y):
                and not bool((p.grad().handle != 0).any())]
     check(not no_grad, f"loop left parameters without a gradient: "
                        f"{no_grad[:5]}")
-    return {"steps": RESNET_LOOP_STEPS, "losses": losses,
-            "step_ms": step_ms, "step_ms_after_first":
+    return {"steps": RESNET_LOOP_STEPS, "cudnn_deterministic": True,
+            "losses": losses, "step_ms": step_ms, "step_ms_after_first":
             sorted(step_ms[1:])[len(step_ms[1:]) // 2]}
 
 
@@ -1901,6 +1958,13 @@ def phase_resnet(mt, torch, card):
     fp32, fp32_counts = resnet_ways(mt, torch, x, y, None)
     torch.cuda.empty_cache()
     loop = resnet_loop(mt, torch, x, y)
+    # the Trainer loop and ShardedTrainStep's eager fp32 step do the same
+    # arithmetic under cuDNN's deterministic algorithms
+    loop["losses_equal_fp32_eager"] = loop["losses"] == \
+        fp32["eager"]["losses"]
+    check(loop["losses_equal_fp32_eager"],
+          f"Gluon loop losses {loop['losses']} are not the fp32 eager "
+          f"step's {fp32['eager']['losses']}")
     n = {}
     for c in bf16_counts["captured_default"] \
             + fp32_counts["captured_default"]:
@@ -3819,9 +3883,11 @@ def rnn_op_checks(mt, torch):
 
 
 def word_lm_model(mt, device, dropout):
-    """examples/word_language_model.py's RNNModel, untied, with
-    dropout on the embedding, between the LSTM layers and on its output
-    (the reference Gluon example's and Zaremba et al.'s placement)."""
+    """examples/word_language_model.py's RNNModel, tied as the example
+    builds it by default (the decoder's weight is the encoder's, through
+    ``params=``), with dropout on the embedding, between the LSTM layers
+    and on its output (the reference Gluon example's and Zaremba et
+    al.'s placement)."""
     wl = WORD_LM
 
     class RNNModel(mt.gluon.Block):
@@ -3833,8 +3899,9 @@ def word_lm_model(mt, device, dropout):
                 self.rnn = mt.gluon.rnn.LSTM(
                     nhid, num_layers=nlayers, layout="TNC",
                     input_size=emsize, dropout=dropout)
-                self.decoder = mt.gluon.nn.Dense(vocab, flatten=False,
-                                                 in_units=nhid)
+                self.decoder = mt.gluon.nn.Dense(
+                    vocab, flatten=False, in_units=nhid,
+                    params=self.encoder.params)
 
         def forward(self, x, state):
             emb = self.drop(self.encoder(x))
@@ -3844,6 +3911,8 @@ def word_lm_model(mt, device, dropout):
     net = RNNModel(wl["vocab"], wl["emsize"], wl["nhid"], wl["nlayers"])
     mt.random.seed(SEED)
     net.initialize(mt.initializer.Xavier(), ctx=device)
+    check(net.decoder.weight is net.encoder.weight,
+          "the word LM's decoder is not tied to its encoder")
     return net
 
 
@@ -4239,7 +4308,9 @@ SSD_NMS = 0.45
 SSD_TOPK = 400                   # SSD300's setting (contrib_det.py:264)
 SSD_CPU_IMAGES = 4               # the CPU side of the nms_topk=-1 check
 NEAR = 1e-6                      # a mining key or IoU this close: a tie
-NMS_EDGE = 65536                 # csrc/nms_sweep.cu's most rows
+NMS_EDGE = 65536                 # the sweep's most rows in registers
+NMS_CLUSTERS = (1024, 128)       # above them: groups x boxes a group
+NMS_FOLD = (8, 8250, 256)        # images x copies, rows: a batch > 65535
 NMS_EDGE_SIDES = (0.002, 0.05)   # its random boxes' sides, unit square
 MASK_CHUNK = 1 << 28             # mask elements a plain-version chunk
 ADV_BATCH = 8                    # images of the adversarial NMS cases
@@ -4660,6 +4731,111 @@ def detect_nms(mt, torch, np):
             "bound_by": bound_by, "iou_tests": tests})
         release(torch)
     return out
+
+
+def cluster_nms_inputs(torch, np):
+    """nms_boxes's arguments above the sweep's register limit: one image
+    of NMS_CLUSTERS[0] x NMS_CLUSTERS[1] boxes, each group inside a cell
+    of its own on a grid (cells 1 apart, boxes within 0.8 of a cell, so
+    no box meets another group's), the groups' rows interleaved in
+    score order (a random permutation: every row block of 32 mixes
+    groups), 2 classes, 19 rows in 20 in play, nkeep every row, SSD300's
+    threshold.  Also returns each row's group."""
+    groups, per = NMS_CLUSTERS
+    k = groups * per
+    rs = np.random.RandomState(SEED + 5)
+    group = rs.permutation(k) // per
+    side = int(np.ceil(np.sqrt(groups)))
+    origin = np.stack([group % side, group // side], -1).astype(np.float32)
+    lo = rs.rand(k, 2).astype(np.float32) * 0.5
+    hi = lo + 0.05 + rs.rand(k, 2).astype(np.float32) * 0.25
+    boxes = np.concatenate([origin + lo, origin + hi], -1)[None]
+    cls = rs.randint(0, 2, (1, k)).astype(np.float32)
+    alive = rs.rand(1, k) < 0.95
+    t = [torch.from_numpy(a).to(DEV) for a in (boxes, cls, alive)]
+    return (t[0], t[1], t[2], torch.full((1,), k, dtype=torch.int64,
+                                         device=DEV),
+            SSD_NMS, False, False), group
+
+
+def cluster_oracle(cd, torch, args, group):
+    """Greedy NMS splits by group when no box meets another group's: the
+    plain version (``_boxes_masks``, then ``_sweep_plain``) on each
+    group's rows alone, in order, the groups as the images of one batch,
+    scattered back to their rows."""
+    boxes, cls, alive, _, thr, force, pixel = args
+    rows = torch.from_numpy(group.argsort(kind="stable")).to(DEV)
+    G, per = NMS_CLUSTERS
+    sub = [t[0, rows].reshape(G, per, *t.shape[2:])
+           for t in (boxes, cls, alive)]
+    nkeep = torch.full((G,), per, dtype=torch.int64, device=DEV)
+    kept = cd._sweep_plain(cd._boxes_masks(*sub, nkeep, thr, force, pixel),
+                           sub[2], nkeep)
+    out = torch.zeros_like(alive)
+    out[0, rows] = kept.reshape(-1)
+    return out
+
+
+def detect_nms_clusters(mt, torch, np):
+    """(ii)'s case above 65536 rows: nms_boxes on ``cluster_nms_inputs``
+    (the sweep's alive words in shared memory) bit-equal to
+    ``cluster_oracle``; device ms of a call and of its pair test and
+    sweep, the oracle's ms, the bound and the peak memory (the pair
+    test's words are n * n / 8 bytes)."""
+    cd = mt.ops.contrib_det
+    args, group = cluster_nms_inputs(torch, np)
+    B, n = args[2].shape
+    check(n > NMS_EDGE, f"the cluster case has {n} rows")
+    ref = []
+    plain_ms = call_ms(lambda: ref.append(cluster_oracle(cd, torch, args,
+                                                         group)),
+                       torch, warmup=0, reps=1)
+    ref = ref[0]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = cd.nms_boxes(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    same = torch.equal(got, ref)
+    check(same, f"nms_boxes at {n} rows differs from the cluster oracle")
+    bound, bound_by, tests = boxes_bound(torch, args, ref)
+    ms, split = device_split_ms(
+        lambda: cd.nms_boxes(*args), torch, f"nms_boxes clusters_k{n}",
+        ("nms_pair_kernel", "nms_sweep_shared_kernel"), reps=3)
+    fold = detect_nms_fold(mt, torch, np)
+    return {"case": f"clusters_k{n}", "batch": B, "rows": n,
+            "groups": NMS_CLUSTERS[0], "batch_fold": fold,
+            "words_equal": None,
+            "bit_equal": same, "alive": int(ref.sum()),
+            "force_suppress": False, "pixel_offset": False, "ms": ms,
+            "pair_ms": split["nms_pair_kernel"],
+            "sweep_ms": split["nms_sweep_shared_kernel"],
+            "plain_ms": plain_ms, "plain_what": "cluster oracle",
+            "bound_ms": bound, "bound_by": bound_by, "iou_tests": tests,
+            "peak_bytes": peak}
+
+
+def detect_nms_fold(mt, torch, np):
+    """A batch above 65535 images (folded into the pair test's grid):
+    ``adversarial_nms``'s NMS_FOLD[0] images of NMS_FOLD[2] rows, each
+    repeated NMS_FOLD[1] times, bit-equal to the plain version of the
+    distinct images repeated; one call's ms."""
+    cd = mt.ops.contrib_det
+    images, copies, k = NMS_FOLD
+    args = adversarial_nms(torch, np, images, k, False, False)
+    boxes, cls, alive, nkeep, thr, force, pixel = args
+    ref = cd._sweep_plain(cd._boxes_masks(boxes, cls, alive, nkeep, thr,
+                                          force, pixel), alive, nkeep)
+    big = [t.repeat((copies,) + (1,) * (t.dim() - 1))
+           for t in (boxes, cls, alive, nkeep)]
+    got = cd.nms_boxes(*big, thr, force, pixel)
+    same = torch.equal(got, ref.repeat(copies, 1))
+    check(same, f"nms_boxes over {images * copies} images differs from "
+                f"its plain version")
+    ms = call_ms(lambda: cd.nms_boxes(*big, thr, force, pixel), torch,
+                 warmup=1, reps=3)
+    return {"batch": images * copies, "rows": k, "bit_equal": same,
+            "call_ms": ms}
 
 
 # examples/ssd_train.py's model, loop and AP (its lines 46-146, 189-257)
@@ -5386,6 +5562,7 @@ def phase_detect(mt, torch, card):
     ssd300, c_ssd300 = part("ssd300", detect_ssd300, mt, torch, np,
                             launches)
     boxes = part("nms", detect_nms, mt, torch, np)
+    boxes.append(part("nms_clusters", detect_nms_clusters, mt, torch, np))
     train, c_train = part("train", detect_train, mt, torch, np, launches)
     capture, c_capture = part("capture", detect_capture, mt, torch, np,
                               launches)
@@ -5412,7 +5589,8 @@ def phase_detect(mt, torch, card):
         "nms_boxes": [{k: r[k] for k in (
             "case", "words_equal", "bit_equal", "ms", "pair_ms",
             "sweep_ms", "plain_ms", "bound_ms", "bound_by")}
-            for r in boxes],
+            for r in boxes], "nms_clusters_peak_bytes": boxes[-1][
+                "peak_bytes"], "nms_batch_fold": boxes[-1]["batch_fold"],
         "config4": {k: train[k] for k in ("first_loss", "final_loss", "ap",
                                           "ms_per_iter", "vs_cpu")},
         "capture": {k: capture[k] for k in ("bit_equal", "captures",
@@ -5433,7 +5611,8 @@ def phase_detect(mt, torch, card):
                 "own kernel, no Pallas kernel")
     entry = {
         "name": "nms_boxes", "route": "cuda", "source": source,
-        "kernels": ["nms_pair_kernel", "nms_sweep_kernel"],
+        "kernels": ["nms_pair_kernel", "nms_sweep_kernel",
+                    "nms_sweep_shared_kernel"],
         "replaces": replaces, "max_abs_err": 0.0, "ms": main["ms"],
         "pair_ms": main["pair_ms"], "sweep_ms": main["sweep_ms"],
         "plain_ms": main["plain_ms"],
@@ -5447,6 +5626,317 @@ def phase_detect(mt, torch, card):
         "launches_by_path": {p: c.get("nms_boxes", 0)
                              for p, c in by_path.items()}}
     return [entry], by_path
+
+
+# ------------------------------------------------------------------ sparse
+# Config 5, the sparse linear classifier (examples/linear_classification.py,
+# ref: MXNet 0.12's example/sparse/linear_classification.py), through
+# incubator_mxnet_tpu_torch/tools/linear_classification.py: (i) the
+# example's --quick size and gate; (ii) its default size against the same
+# loop on the CPU; (iii) the reference example's width on Avazu-app
+# (1,000,000 features, batch 8192) with make_libsvm's rows synthesized in
+# bulk at 20 nonzeros a row, 20 steps.
+SPARSE_DEFAULT_TOL = 0.01
+AVAZU = dict(dim=1_000_000, batch=8192, nnz=20, steps=20, lr=3.0)
+AVAZU_CHECK_STEPS = 2            # the steps held against the CPU
+
+
+def avazu_batches(mt, np):
+    """AVAZU["steps"] CSR batches (host) of make_libsvm's distribution at
+    Avazu-app's width: each row binomial(dim, nnz / dim) distinct
+    columns (at least one), ascending, values uniform in [0.1, 1.1)
+    rounded to 4 decimals as its text is, the label the sign of the
+    row's margin under a seeded N(0, 4) weight plus 0.05 N(0, 1) noise.
+    Made in bulk with numpy; returns [(CSRNDArray, labels)]."""
+    a = AVAZU
+    rs = np.random.RandomState(SEED)
+    dim, bs = a["dim"], a["batch"]
+    true_w = (rs.randn(dim) * 2).astype(np.float32)
+    out = []
+    for _ in range(a["steps"]):
+        nnz = np.maximum(1, rs.binomial(dim, a["nnz"] / dim, bs))
+        rows = np.repeat(np.arange(bs), nnz)
+        cols = rs.randint(0, dim, rows.shape[0])
+        order = np.lexsort((cols, rows))
+        rows, cols = rows[order], cols[order]
+        keep = np.ones(len(cols), bool)        # drop a repeated column
+        keep[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        rows, cols = rows[keep], cols[keep]
+        vals = np.round(rs.rand(len(cols)) + 0.1, 4).astype(np.float32)
+        indptr = np.zeros(bs + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=bs), out=indptr[1:])
+        margin = np.bincount(rows, weights=vals * true_w[cols],
+                             minlength=bs)
+        y = (margin + 0.05 * rs.randn(bs) > 0).astype(np.float32)
+        x = mt.nd.sparse.csr_matrix((vals, cols, indptr), shape=(bs, dim),
+                                    ctx=mt.cpu())
+        out.append((x, y))
+    return out
+
+
+def avazu_store(mt, ctx):
+    """The example's store on ``ctx``: the (dim, 1) weight at zero, the
+    lazy sgd_update store-side, and its row-sparse pull target."""
+    import numpy as np
+    sparse = mt.nd.sparse
+    kv = mt.kv.create("local")
+    kv.init("weight", mt.nd.zeros((AVAZU["dim"], 1), ctx=ctx))
+    kv.set_updater(lambda key, grad, stored: sparse.sgd_update(
+        stored, grad, lr=AVAZU["lr"]))
+    w_rsp = sparse.row_sparse_array(np.zeros((1, 1), np.float32),
+                                    shape=(AVAZU["dim"], 1), ctx=ctx)
+    return kv, w_rsp
+
+
+def avazu_step(mt, np, kv, w_rsp, x, y, bias):
+    """One step of the example's loop (:123-138); returns (bias, the
+    row-sparse gradient)."""
+    sparse = mt.nd.sparse
+    kv.row_sparse_pull("weight", out=w_rsp, row_ids=x.indices)
+    logits = sparse.dot(x, w_rsp).asnumpy()[:, 0] + bias
+    p = 1.0 / (1.0 + np.exp(-logits))
+    gl = mt.nd.array(((p - y) / len(y))[:, None].astype(np.float32))
+    gw = sparse.dot(x, gl, transpose_a=True, forward_stype="row_sparse")
+    kv.push("weight", gw)
+    return bias - AVAZU["lr"] * float((p - y).mean()), gw
+
+
+def avazu_rows(kv, w_rsp, gw):
+    """(pulled row ids, pulled rows, the updated weight's rows at the
+    gradient's ids), on the host."""
+    stored = kv._store["weight"]._data
+    idx = gw.indices._data.to(stored.device).long()
+    return (w_rsp.indices.asnumpy(), w_rsp.data.asnumpy(),
+            stored.index_select(0, idx).cpu().numpy())
+
+
+def sparse_avazu(mt, torch, np):
+    """(iii): AVAZU["steps"] steps on the card, wall ms a step (each ends
+    in the logits' host copy), rows pulled a step and peak memory; the
+    first AVAZU_CHECK_STEPS steps' pulled rows and updated weight rows
+    against the CPU's (ids bit for bit, values rel 1e-5); then
+    ``call_ms`` of each part alone on the last batch: the pull, the
+    logits' dot (its rows' dense view rebuilt each call), the csr.T
+    gradient and the lazy sgd_update."""
+    sparse = mt.nd.sparse
+    batches = avazu_batches(mt, np)
+    nnz = [int(x.data.shape[0]) for x, _ in batches]
+    checks = {}
+    for dev, ctx in (("cpu", mt.cpu()), ("cuda", mt.gpu(0))):
+        with ctx:
+            kv, w_rsp = avazu_store(mt, ctx)
+            bias, got = 0.0, []
+            for x, y in batches[:AVAZU_CHECK_STEPS]:
+                bias, gw = avazu_step(mt, np, kv, w_rsp, x, y, bias)
+                got.append(avazu_rows(kv, w_rsp, gw))
+            checks[dev] = got
+        del kv, w_rsp
+    errs = []
+    for (ci, cr, cw), (gi, gr, gw_) in zip(checks["cpu"], checks["cuda"]):
+        check(np.array_equal(ci, gi), "Avazu step: pulled row ids differ")
+        for a, b in ((gr, cr), (gw_, cw)):
+            errs.append(float(np.abs(a - b).max()
+                              / max(np.abs(b).max(), 1e-30)))
+    check(max(errs) <= 1e-5, f"Avazu step vs the CPU: {errs}")
+    ctx = mt.gpu(0)
+    release(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with ctx:
+        kv, w_rsp = avazu_store(mt, ctx)
+        bias, step_ms, pulled = 0.0, [], []
+        for x, y in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bias, gw = avazu_step(mt, np, kv, w_rsp, x, y, bias)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            pulled.append(int(w_rsp.indices.shape[0]))
+        peak = torch.cuda.max_memory_allocated() - base
+        x, y = batches[-1]
+        stored = kv._store["weight"]
+        gl = mt.nd.array(np.full((AVAZU["batch"], 1), 1e-4, np.float32))
+
+        def logits():
+            w_rsp._dense_cache = None
+            sparse.dot(x, w_rsp)
+
+        parts = {
+            "row_sparse_pull": lambda: kv.row_sparse_pull(
+                "weight", out=w_rsp, row_ids=x.indices),
+            "dot": logits,
+            "dot_csrT_row_sparse": lambda: sparse.dot(
+                x, gl, transpose_a=True, forward_stype="row_sparse"),
+            "sgd_update_lazy": lambda: sparse.sgd_update(stored, gw,
+                                                         lr=1e-9)}
+        alone = {k: call_ms(fn, torch, warmup=2, reps=10)
+                 for k, fn in parts.items()}
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    return {"features": AVAZU["dim"], "batch": AVAZU["batch"],
+            "nnz_per_row_target": AVAZU["nnz"],
+            "nnz_per_row": sum(nnz) / len(nnz) / AVAZU["batch"],
+            "steps": len(batches), "step_ms": step_ms,
+            "step_ms_median_after_first": med,
+            "rows_pulled_per_step": pulled, "peak_bytes_over_start": peak,
+            "part_ms_alone": alone, "vs_cpu_max_rel_err": max(errs),
+            "bias": bias}
+
+
+def phase_sparse(mt, torch, card):
+    import numpy as np
+    from incubator_mxnet_tpu_torch.tools import linear_classification as lc
+    launches = mt.ops.LAUNCHES
+    ex = lc.example()
+    out = {}
+    mt.ops.reset_launches()                  # the main path
+    for tag, quick in (("quick", True), ("default", False)):
+        dim, n, epochs, batch, density = lc.sizes(quick)
+        t0 = time.perf_counter()
+        train, val = lc.make_batches(mt, dim, n, batch, density, ex)
+        data_s = time.perf_counter() - t0
+        runs = {}
+        for dev, ctx in (("cuda", mt.gpu(0)), ("cpu", mt.cpu())):
+            if quick and dev == "cpu":
+                continue
+            with ctx:
+                t0 = time.perf_counter()
+                r = lc.run_loop(mt, train, val, dim, epochs, ex=ex)
+                r.pop("weight")
+                r = {k: v if not isinstance(v, float) or math.isfinite(v)
+                     else str(v) for k, v in r.items()}
+                r["seconds"] = time.perf_counter() - t0
+                r["steps_per_s"] = r["steps"] / r["train_seconds"]
+            runs[dev] = r
+        if quick:
+            lc.gate(runs["cuda"])
+        else:
+            # the example's own NLL is nan at this size in either
+            # package (its float32 clip); the float64 one is compared
+            for k in ("final_nll_f64", "val_acc"):
+                check(abs(runs["cuda"][k] - runs["cpu"][k])
+                      <= SPARSE_DEFAULT_TOL,
+                      f"config 5 {k}: card {runs['cuda'][k]}, CPU "
+                      f"{runs['cpu'][k]}")
+        out[tag] = dict(runs, dim=dim, rows=n, epochs=epochs, batch=batch,
+                        data_seconds=data_s)
+    release(torch)
+    out["avazu_width"] = sparse_avazu(mt, torch, np)
+    counts = {k: v for k, v in launches.items() if v}
+    release(torch)
+    emit({"phase": "sparse", "card": card, **out,
+          "kernel_launches": counts})
+    return counts
+
+
+# ------------------------------------------------------------------ vision
+# The model zoo's other families at each one's reference variant and
+# published input (224, or 299 for Inception3), B=32, eval mode.
+VISION = (("alexnet", 224), ("vgg16", 224), ("squeezenet1_1", 224),
+          ("densenet121", 224), ("mobilenet1_0", 224),
+          ("inception_v3", 299))
+VISION_BATCH = 32
+VISION_TOL = 1e-3                # card vs CPU at B=1, max err / max
+VISION_TRAIN_STEPS = 5
+VISION_SGD = dict(learning_rate=0.01, momentum=0.9)
+
+
+def vision_net(mt, name, ctx):
+    mt.random.seed(SEED)
+    net = mt.gluon.model_zoo.vision.get_model(name)
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    return net
+
+
+def vision_family(mt, torch, name, side, tmp):
+    """One family: the card's eager forward at B=1 against the CPU's on
+    the same weights (a .params file); then at B=VISION_BATCH the eager
+    forward and the hybridized one (its first call captures, later calls
+    replay), bit-equal, each one's ms and img/s."""
+    import os
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    net = vision_net(mt, name, mt.gpu(0))
+    one = torch.rand((1, 3, side, side), generator=gen, device=DEV)
+    card = net(mt.nd.NDArray(one)).handle
+    path = os.path.join(tmp, f"{name}.params")
+    net.save_parameters(path)
+    cpu_net = mt.gluon.model_zoo.vision.get_model(name)
+    cpu_net.load_parameters(path, ctx=mt.cpu())
+    ref = cpu_net(mt.nd.NDArray(one.cpu())).handle
+    err = ((card.cpu() - ref).abs().max() / ref.abs().max()).item()
+    check(err <= VISION_TOL and bool(torch.isfinite(card).all()),
+          f"{name}: card vs CPU {err}")
+    del cpu_net
+    x = mt.nd.NDArray(torch.rand((VISION_BATCH, 3, side, side),
+                                 generator=gen, device=DEV))
+    eager = net(x).handle
+    eager_ms = wall_ms(lambda: net(x).wait_to_read(), torch, reps=5)
+    net.hybridize()
+    hybrid = net(x).handle
+    hybrid_ms = wall_ms(lambda: net(x).wait_to_read(), torch, reps=5)
+    same = torch.equal(eager, hybrid)
+    check(same, f"{name}: the hybridized forward differs from the eager")
+    stats = net._cached_op.stats()
+    check(stats["traces"] == 1 and "capture_skipped" not in stats,
+          f"{name}: {stats}")
+    return {"input": side, "params": sum(p.numel()
+                                         for p in net.parameters()),
+            "card_vs_cpu_b1": err, "bit_equal": same,
+            "eager_ms": eager_ms, "hybrid_ms": hybrid_ms,
+            "eager_img_s": VISION_BATCH / eager_ms * 1e3,
+            "hybrid_img_s": VISION_BATCH / hybrid_ms * 1e3,
+            "captures": stats["traces"]}
+
+
+def vision_train(mt, torch):
+    """inception_v3: VISION_TRAIN_STEPS gluon.Trainer SGD steps on one
+    fixed batch of B=VISION_BATCH at 299; the loss must fall."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    net = vision_net(mt, "inception_v3", mt.gpu(0))
+    x = mt.nd.NDArray(torch.rand((VISION_BATCH, 3, 299, 299),
+                                 generator=gen, device=DEV))
+    y = mt.nd.NDArray(torch.randint(0, 1000, (VISION_BATCH,),
+                                    generator=gen, device=DEV).float())
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", VISION_SGD)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, step_ms = [], []
+    for _ in range(VISION_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(VISION_BATCH)
+        losses.append(float(loss.mean().asscalar()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"inception_v3 training loss did not fall: {losses}")
+    return {"losses": losses, "step_ms": step_ms}
+
+
+def phase_vision(mt, torch, card):
+    import tempfile
+    launches = mt.ops.LAUNCHES
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mt.ops.reset_launches()                  # the main path
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            nets = {}
+            for name, side in VISION:
+                nets[name] = vision_family(mt, torch, name, side, tmp)
+                release(torch)
+        train = vision_train(mt, torch)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    counts = {k: v for k, v in launches.items() if v}
+    release(torch)
+    emit({"phase": "vision", "card": card, "batch": VISION_BATCH,
+          "nets": nets, "inception_v3_train": train,
+          "kernel_launches": counts})
+    return counts
 
 
 def card_line():
@@ -5503,6 +5993,8 @@ def main():
         rnn_launches = timed("rnn", phase_rnn, mt, torch, card)
         nms_entries, detect_launches = timed("detect", phase_detect, mt,
                                              torch, card)
+        sparse_launches = timed("sparse", phase_sparse, mt, torch, card)
+        vision_launches = timed("vision", phase_vision, mt, torch, card)
         keeps["end"] = trace_keeps(torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
               "trace_keeps": keeps})
@@ -5541,6 +6033,10 @@ def main():
                 e["name"], 0)
             e["launches_by_path"]["ops"] = ops_launches.get(e["name"], 0)
             e["launches_by_path"]["rnn"] = rnn_launches.get(e["name"], 0)
+            e["launches_by_path"]["sparse"] = sparse_launches.get(
+                e["name"], 0)
+            e["launches_by_path"]["vision"] = vision_launches.get(
+                e["name"], 0)
             if e["name"] in hyb_runs:
                 e["runs_per_replay"] = {"hybridize": hyb_runs[e["name"]]}
             for path, counts in detect_launches.items():

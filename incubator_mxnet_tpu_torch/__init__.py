@@ -22,12 +22,13 @@ the mesh, ``kvstore`` the parameter store.  The symbolic surface rides on the sa
 ``mod.BucketingModule``); ``contrib`` names the ``_contrib_*`` ops
 (detection, CTC, FFT, quantization) as ``nd.contrib`` and
 ``sym.contrib``; ``graph`` holds the pass pipeline every bind runs and the
-``CachedOp`` behind ``HybridBlock.hybridize()``.  ``serving`` serves ``TransformerLM`` traffic by
+``CachedOp`` behind ``HybridBlock.hybridize()``; ``operator`` holds the
+``Custom`` ops written in Python.  ``serving`` serves ``TransformerLM`` traffic by
 continuous batching over a paged KV cache.
 
 This package imports neither JAX nor ``incubator_mxnet_tpu``.
 """
-from .base import __version__, MXNetError
+from .base import __version__, MXNetError, MXTPUError, TShape
 from . import (base, context, random, initializer, ops, gluon, convert,
                parallel, engine, autograd, optimizer, lr_scheduler)
 from . import initializer as init
@@ -51,10 +52,13 @@ from . import module as mod
 from .module import Module
 from . import rnn
 from . import contrib
+from . import operator
 from .monitor import Monitor
 from .io import DataBatch, DataDesc, DataIter, NDArrayIter
-from .context import (Context, cpu, gpu, cpu_pinned, current_context,
-                      num_gpus, gpu_memory_info, default_device)
+from .optimizer import Optimizer
+from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
+                      default_context, num_gpus, num_tpus, gpu_memory_info,
+                      tpu_memory_info, default_device)
 
 __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "initializer", "init", "ops", "gluon", "convert", "parallel",
@@ -66,4 +70,5 @@ __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "Module", "rnn", "contrib", "Monitor", "DataBatch", "DataDesc", "DataIter",
            "NDArrayIter", "kvstore", "kv", "Context", "cpu", "gpu",
            "cpu_pinned", "current_context", "num_gpus", "gpu_memory_info",
-           "default_device"]
+           "default_device", "MXTPUError", "TShape", "Optimizer", "tpu",
+           "num_tpus", "tpu_memory_info", "default_context", "operator"]

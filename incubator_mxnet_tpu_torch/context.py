@@ -141,6 +141,10 @@ def gpu_memory_info(device_id=0):
     return gpu(device_id).memory_info()
 
 
+num_tpus = num_gpus                 # the JAX package's names for the card
+tpu_memory_info = gpu_memory_info
+
+
 def current_scope():
     """The innermost ``with ctx:`` scope's Context, or None."""
     stack = _stack()

@@ -67,9 +67,15 @@
 // (tools/sweep_variants.py, PERF.md).
 //
 // Size: a sweep block has at most SWEEP_THREADS = 512 threads, and a
-// thread one alive word up to 512 words (n <= 16384, every NMS window of
-// the ops' models) or four, so n <= 65536.  __launch_bounds__(512, 1)
-// leaves a thread 128 registers for its loads in flight.
+// thread holds one alive word in registers up to 512 words (n <= 16384,
+// every NMS window of the ops' models) or four up to 65536 rows.
+// __launch_bounds__(512, 1) leaves a thread 128 registers for its loads
+// in flight.  Above 65536 rows nms_sweep_shared_kernel keeps an image's
+// alive bits in shared memory instead (n / 8 bytes: 16 KB at 131072
+// rows), which the card's 227 KB a block bound at about 1.85M rows; the
+// scratch, n * n / 8 bytes an image (2 GB at 131072 rows), is the
+// limit that binds first.  A batch above 65535 images is folded into the
+// pair test's grid.x.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,8 +141,8 @@ nms_pair_kernel(const float4* __restrict__ boxes,
                 const float* __restrict__ cls,
                 const uint8_t* __restrict__ alive,
                 const long long* __restrict__ nkeep,
-                uint32_t* __restrict__ bits, int n, int words, float thr,
-                int pixel_offset) {
+                uint32_t* __restrict__ bits, int batch, int n, int words,
+                int xtiles, float thr, int pixel_offset) {
   // column 32 (w0 + l) + c of the tile sits at c * 33 + l, so the lanes
   // of a warp read neighbours.  A column's key is its class if it is
   // alive and NaN (equal to nothing) if not, so one compare tests both.
@@ -144,11 +150,13 @@ nms_pair_kernel(const float4* __restrict__ boxes,
   __shared__ float s_area[32 * 33];
   __shared__ float s_key[32 * 33];
   const bool pixel = pixel_offset != 0;
-  const int b = blockIdx.z;
+  // grid.x holds gridDim.x / xtiles images of a z slice, xtiles each
+  const int b = blockIdx.z * (gridDim.x / xtiles) + blockIdx.x / xtiles;
+  if (b >= batch) return;
   const int rb = blockIdx.y;
   const int i0 = 32 * rb;
   const int stop = clamp_rows(nkeep[b], n);
-  const int w0 = rb + 32 * blockIdx.x;            // the tile's first word
+  const int w0 = rb + 32 * (blockIdx.x % xtiles);  // the tile's first word
   if (i0 >= stop || w0 >= words) return;          // uniform in the block
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -328,8 +336,115 @@ nms_sweep_kernel(const uint32_t* __restrict__ bits,
   }
 }
 
-// Launch the sweep of n rows: one word a thread up to SWEEP_THREADS
-// words (n <= 16384), else four; -3 above 65536 rows.
+// Kernel (c), above 65536 rows: kernel (b) with the alive words in
+// shared memory, thread t owning words t, t + blockDim, ...  Word rb and
+// row block rb have one owner, so the resolve reads and writes its own
+// word; after the barrier each thread clears its words right of rb with
+// the taken rows, 8 loads in flight.  Offsets into the image's words are
+// 64-bit: n * words passes 2^31 above 262144 rows.
+__global__ void __launch_bounds__(SWEEP_THREADS, 1)
+nms_sweep_shared_kernel(const uint32_t* __restrict__ bits,
+                        const uint8_t* __restrict__ alive_in,
+                        const long long* __restrict__ nkeep,
+                        uint8_t* __restrict__ alive_out, int n,
+                        int words) {
+  extern __shared__ uint32_t s_alive[];
+  __shared__ __align__(16) uint32_t s_diag[2][32];
+  __shared__ uint32_t s_taken[2];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int bd = blockDim.x;
+  const uint32_t* mask = bits + static_cast<long long>(b) * n * words;
+  const uint8_t* in = alive_in + static_cast<long long>(b) * n;
+  uint8_t* out = alive_out + static_cast<long long>(b) * n;
+  for (int w = tid; w < words; w += bd) {
+    uint32_t word = 0;
+    for (int bit = 0; bit < 32; ++bit) {
+      const int j = w * 32 + bit;
+      if (j < n && in[j]) word |= 1u << bit;
+    }
+    s_alive[w] = word;
+  }
+
+  const int stop = clamp_rows(nkeep[b], n);
+  const int blocks = (stop + 31) >> 5;
+  auto diag = [&](int rb) -> uint32_t {
+    const int i = 32 * rb + tid;
+    return (rb < blocks && i < stop)
+               ? __ldg(mask + static_cast<long long>(i) * words + rb)
+               : 0u;
+  };
+  uint32_t next = 0;
+  if (tid < 32) {
+    s_diag[0][tid] = diag(0);
+    next = diag(1);
+  }
+  __syncthreads();
+
+  for (int rb = 0; rb < blocks; ++rb) {
+    const int buf = rb & 1;
+    if (tid == rb % bd) {
+      uint32_t a = s_alive[rb];
+      const int lim = stop - 32 * rb;
+      const uint32_t live = lim >= 32 ? 0xffffffffu : (1u << lim) - 1u;
+      uint32_t took = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const uint4 v = reinterpret_cast<const uint4*>(s_diag[buf])[q];
+        const uint32_t d[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const uint32_t row = a & live & (1u << (4 * q + t));
+          took |= row;
+          if (row) a &= ~d[t];
+        }
+      }
+      s_alive[rb] = a;
+      s_taken[buf] = took;
+    }
+    if (tid < 32) {
+      s_diag[buf ^ 1][tid] = next;
+      next = diag(rb + 2);
+    }
+    __syncthreads();
+    const uint32_t taken = s_taken[buf];
+    if (!taken) continue;
+    const uint32_t* block = mask + 32LL * rb * words;
+    // this thread's first word right of rb
+    const int w0 = tid > rb ? tid : tid + ((rb - tid) / bd + 1) * bd;
+    for (int w = w0; w < words; w += bd) {
+      uint32_t acc = 0;
+      for (uint32_t t = taken; t;) {
+        uint32_t v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          int r = -1;
+          if (t) {
+            r = __ffs(t) - 1;
+            t &= t - 1;
+          }
+          v[k] = r >= 0 ? __ldg(block + static_cast<long long>(r) * words + w)
+                        : 0u;
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc |= v[k];
+      }
+      s_alive[w] &= ~acc;
+    }
+  }
+
+  for (int w = tid; w < words; w += bd) {
+    const uint32_t word = s_alive[w];
+    for (int bit = 0; bit < 32; ++bit) {
+      const int j = w * 32 + bit;
+      if (j < n) out[j] = (word >> bit) & 1u;
+    }
+  }
+}
+
+// Launch the sweep of n rows: one word a thread in registers up to
+// SWEEP_THREADS words (n <= 16384), four up to 65536 rows, else the words
+// in shared memory; -3 where they do not fit the card's shared memory.
 int launch_sweep(const uint32_t* bits, const void* alive_in,
                  const void* nkeep, void* alive_out, int batch, int n,
                  cudaStream_t s) {
@@ -344,7 +459,24 @@ int launch_sweep(const uint32_t* bits, const void* alive_in,
     nms_sweep_kernel<4><<<batch, SWEEP_THREADS, 0, s>>>(
         bits, in, nk, out, n, words);
   } else {
-    return -3;
+    const size_t smem = static_cast<size_t>(words) * sizeof(uint32_t);
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    // the static s_diag and s_taken take 264 bytes
+    if (smem + 1024 > static_cast<size_t>(optin)) return -3;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(nms_sweep_shared_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    nms_sweep_shared_kernel<<<batch, SWEEP_THREADS, smem, s>>>(
+        bits, in, nk, out, n, words);
   }
   return 0;
 }
@@ -358,30 +490,34 @@ int launch_sweep(const uint32_t* bits, const void* alive_in,
 // wrote; pixel_offset: 0 for _iou_corner, 1 for _proposal_iou.  sweep: 0
 // runs the pair test alone (the words are the result).  Returns 0 on
 // success, a cudaError_t from the launches, or -3 for sizes the kernels
-// do not take (n > 65536, batch > 65535).
+// do not take (negative, or an image's alive bits above the card's
+// shared memory a block: about 1.85M rows on an H100).
 extern "C" int mxt_nms_boxes(const void* boxes, const void* cls,
                              const void* alive_in, const void* nkeep,
                              void* alive_out, void* scratch, int batch,
                              int n, float threshold, int pixel_offset,
                              int sweep, void* stream) {
-  if (batch < 0 || n < 0 || n > 65536 || batch > 65535) return -3;
+  if (batch < 0 || n < 0) return -3;
   if (batch == 0 || n == 0) return 0;
   const int words = (n + 31) / 32;
+  if (words > 65535) return -3;                   // grid.y of the pair test
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* bits = static_cast<uint32_t*>(scratch);
-  const dim3 grid((words + 31) / 32, words, batch);
+  const int xtiles = (words + 31) / 32;
+  const int fold = (batch + 65534) / 65535;       // images a z slice
+  const dim3 grid(xtiles * fold, words, (batch + fold - 1) / fold);
   nms_pair_kernel<<<grid, PAIR_WARPS * 32, 0, s>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(cls),
       static_cast<const uint8_t*>(alive_in),
-      static_cast<const long long*>(nkeep), bits, n, words, threshold,
-      pixel_offset);
+      static_cast<const long long*>(nkeep), bits, batch, n, words, xtiles,
+      threshold, pixel_offset);
   const int rc = sweep ? launch_sweep(bits, alive_in, nkeep, alive_out,
                                       batch, n, s) : 0;
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* mxt_nms_error_string(int code) {
-  if (code == -3) return "bad sizes (n above 65536, batch above 65535, "
-                         "or negative)";
+  if (code == -3) return "bad sizes (negative, or an image's alive bits "
+                         "above the card's shared memory a block)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -50,12 +50,12 @@ def _devices(values):
             if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
 
 
-def maybe_block(values):
+def maybe_block(value):
     """Called after each eager op on its output tensors; synchronizes
     their devices in naive mode."""
     if _is_naive():
-        wait(values)
-    return values
+        wait(value)
+    return value
 
 
 def wait_all():

@@ -5,8 +5,9 @@
 The same HybridBlocks, built in the same order, so parameter names and
 shapes equal the JAX package's letter for letter
 (``resnetv10_stage1_conv2d0_weight``).  Channels-first NCHW; convolution
-and pooling run through cuDNN (``ops/nn.py``).  ``pretrained=True``
-raises: the port fetches nothing.
+and pooling run through cuDNN (``ops/nn.py``).  ``pretrained=True`` loads
+``resnet<layers>_v<version>`` from the local store
+(``model_store.py``), which fetches nothing.
 """
 from ... import nn
 from ...block import HybridBlock
@@ -258,16 +259,16 @@ resnet_block_versions = [
 def get_resnet(version, num_layers, pretrained=False, ctx=None,
                root=None, **kwargs):
     """ResNet-``num_layers`` V``version``; ``kwargs`` go to the net
-    (classes, thumbnail, prefix, params)."""
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained weights cannot be fetched: the port has no model "
-            "store; build the net and load a .params file "
-            "(load_parameters) or arrays (convert.load_gluon_params)")
+    (classes, thumbnail, prefix, params).  ``pretrained=True`` loads the
+    stored weights onto ``ctx`` (``model_store.load_pretrained``)."""
     block_type, layers, channels = resnet_spec[num_layers]
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
     net = resnet_class(block_class, layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import load_pretrained
+        load_pretrained(net, f"resnet{num_layers}_v{version}", ctx=ctx,
+                        root=root)
     return net
 
 

@@ -4,7 +4,9 @@ torch modules with the reference's names, parameters and
 ``hybrid_forward`` through ``nd`` (see ``gluon/block.py``).
 
 Constructors take the reference's parameters in its order with its
-defaults.  ``Dense``, ``Embedding`` and ``LayerNorm`` also take a
+defaults, and pass ``prefix`` and ``params`` (``**kwargs``) on to
+``HybridBlock``, so ``Dense(..., params=embedding.params)`` ties two
+layers' weights.  ``Dense``, ``Embedding`` and ``LayerNorm`` also take a
 keyword-only ``device``: the parameters whose shapes are known are made
 there at once (unfilled, for ``initializer.initialize`` or a weight
 copy), and a deferred one at the first forward.  Without ``device`` they
@@ -108,8 +110,8 @@ class Dense(HybridBlock):
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  weight_initializer=None, bias_initializer="zeros",
-                 in_units=0, *, device=None):
-        super().__init__()
+                 in_units=0, *, device=None, **kwargs):
+        super().__init__(**kwargs)
         if activation is not None and activation not in _ACTIVATIONS:
             raise ValueError(f"activation {activation!r}: takes None or "
                              f"{sorted(_ACTIVATIONS)}")
@@ -166,8 +168,8 @@ class Dropout(HybridBlock):
     ``random.key_provider``, else the package's default generator for
     the input's device, never torch's global one."""
 
-    def __init__(self, rate, axes=()):
-        super().__init__()
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
         if not 0.0 <= rate < 1.0:
             raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
         self._rate = float(rate)
@@ -240,8 +242,8 @@ class Embedding(HybridBlock):
     """Row lookup in a (input_dim, output_dim) table of ``dtype``."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, *, device=None):
-        super().__init__()
+                 weight_initializer=None, *, device=None, **kwargs):
+        super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
         with self.name_scope():
@@ -327,8 +329,8 @@ class LayerNorm(HybridBlock):
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, *, device=None):
-        super().__init__()
+                 in_channels=0, *, device=None, **kwargs):
+        super().__init__(**kwargs)
         self._axis = axis
         self._epsilon = epsilon
         with self.name_scope():

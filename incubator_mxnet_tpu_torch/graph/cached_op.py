@@ -36,6 +36,13 @@ How an entry runs depends on where its inputs live:
   the parameters as an eager backward does.  ``trace_count`` counts
   captures: one per key and route (recorded or not).
 
+A block whose forward reaches a ``Custom`` op (``operator.py``: its
+Python runs at every call) cannot be captured: the warm-up before the
+capture sees the op (``parallel._graph.refuse_capture``), the entry then
+runs eagerly on the card as it would on the CPU, and ``stats()`` says
+why (its ``capture_skipped`` key, "Custom"; absent while nothing was
+skipped), as a warning does once.
+
 A captured graph reads the parameters by address.  ``set_data``,
 ``load_params`` and ``initialize(force_reinit=True)`` write in place, so
 replays see them; a parameter that gets new storage (``reset_ctx``,
@@ -54,6 +61,7 @@ The JAX package's telemetry counters and compile ledger wait for the
 operability slice (ROADMAP item A11); the counts stay on the object
 (``hits``, ``misses``, ``trace_count``, ``stats()``).
 """
+import logging
 import threading
 import weakref
 from collections import OrderedDict
@@ -72,6 +80,7 @@ __all__ = ["CachedOp", "UnsupportedSignatureError", "canonical_static",
            "in_trace", "Inside"]
 
 _TLS = threading.local()
+_LOG = logging.getLogger(__name__)
 
 
 class UnsupportedSignatureError(TypeError):
@@ -195,7 +204,7 @@ class _Entry:
     CUDA graphs captured for it: ``captures["infer"]`` a StepGraph, and
     under each recorded route's key a list of ``_Pair``s."""
 
-    __slots__ = ("mode", "forward", "counted", "captures")
+    __slots__ = ("mode", "forward", "counted", "captures", "eager")
 
     def __init__(self, mode, forward):
         self.mode = mode
@@ -204,6 +213,7 @@ class _Entry:
         self.forward = forward
         self.counted = False
         self.captures = {}
+        self.eager = None      # on the card: the ops that refused capture
 
 
 class _Pair:
@@ -292,11 +302,15 @@ class CachedOp:
         return self._trace_events
 
     def stats(self):
-        return {"hits": self.hits, "misses": self.misses,
-                "traces": self._trace_events,
-                "entries": len(self._entries),
-                "modes": sorted({e.mode
-                                 for e in self._entries.values()})}
+        out = {"hits": self.hits, "misses": self.misses,
+               "traces": self._trace_events,
+               "entries": len(self._entries),
+               "modes": sorted({e.mode for e in self._entries.values()})}
+        skipped = sorted({n for e in self._entries.values()
+                          for n in (e.eager or ())})
+        if skipped:          # the card ran an entry eagerly: say why
+            out["capture_skipped"] = ",".join(skipped)
+        return out
 
     # ------------------------------------------------------------ call
     def __call__(self, *args):
@@ -408,9 +422,10 @@ class CachedOp:
     # ---------------------------------------------------------- execute
     def _execute(self, entry, template, training, recording):
         inputs = [a._data for a in template.tensor_nds]
-        if self._on_card(inputs):
+        outs = None
+        if self._on_card(inputs) and entry.eager is None:
             outs = self._replay(entry, inputs, training, recording)
-        else:
+        if outs is None:
             if not entry.counted:
                 entry.counted = True
                 self._trace_events += 1
@@ -458,6 +473,8 @@ class CachedOp:
             if pair is None:       # every pair waits for its backward
                 pair = self._capture_pair(entry, inputs, needs, tparams,
                                           training, gens)
+                if pair is None:   # refused: the caller runs it eagerly
+                    return None
                 pairs.append(pair)
                 self._trace_events += 1
             return list(_Replay.apply(pair, *inputs, *trainable))
@@ -471,7 +488,9 @@ class CachedOp:
                 fn, self._mutable, "cachedop")
         n = step.counts.get("cachedop", 0)
         outs = step(inputs, gens)
-        self._trace_events += step.counts["cachedop"] - n
+        self._trace_events += step.counts.get("cachedop", 0) - n
+        if step.capture_skipped:
+            entry.eager = step.capture_skipped.split(",")
         return list(outs)
 
     def _capture_pair(self, entry, inputs, needs, tparams, training,
@@ -511,7 +530,13 @@ class CachedOp:
                                     [torch.ones_like(o) for o in outs],
                                     allow_unused=True)
 
-            _graph.warm_up(fwd_bwd, self._mutable, gens)
+            refused = _graph.warm_up(fwd_bwd, self._mutable, gens)
+            if refused:
+                entry.eager = refused
+                _LOG.warning("%s: not captured, %s runs Python at every "
+                             "call; the block runs eagerly on the card",
+                             self._block.name, ", ".join(refused))
+                return None
             subs = aliases()
             pair.fwd = _graph.new_graph(device, gens)
             with torch.cuda.graph(pair.fwd):

@@ -40,13 +40,13 @@ _REG = get_registry("initializer")
 register = _REG.register
 
 
-def create(init, **kwargs):
+def create(name, **kwargs):
     """An initializer from an instance or from its registry name."""
-    if isinstance(init, (Initializer, Mixed, Load)):
-        return init
-    cls = _REG.find(init) if isinstance(init, str) else None
+    if isinstance(name, (Initializer, Mixed, Load)):
+        return name
+    cls = _REG.find(name) if isinstance(name, str) else None
     if cls is None:
-        raise ValueError(f"initializer {init!r}: the port has "
+        raise ValueError(f"initializer {name!r}: the port has "
                          f"{_REG.keys()}")
     return cls(**kwargs)
 

@@ -13,9 +13,10 @@ the operating system), never from numpy's global state, and its
 ``state_dict`` carries that generator's state, so a restored iterator
 replays this epoch's remaining batches and every later shuffle.
 
-Not in this slice: ``LibSVMIter`` (CSR batches: the sparse arrays of
-ROADMAP item A8), and ``ImageRecordIter``, ``DataServiceIter`` and
-``DevicePrefetchIter`` (the input pipeline, item A10); each raises.
+``LibSVMIter`` gives CSR batches (``ndarray/sparse.py``), parsed
+straight to CSR.  Not in this slice: ``ImageRecordIter``,
+``DataServiceIter`` and ``DevicePrefetchIter`` (the input pipeline,
+ROADMAP item A10); each raises.
 ``PrefetchingIter`` has no data deadline (``MXTPU_DATA_TIMEOUT``), no
 fault injection (item A11) and no resumable state (``state_dict``, the
 JAX package's, comes with A10's pipeline): a worker that dies is
@@ -525,6 +526,80 @@ class MNISTIter(NDArrayIter):
                          seed=seed)
 
 
+class LibSVMIter(DataIter):
+    """LibSVM text as CSR data batches (ref: src/io/iter_libsvm.cc:200,
+    which emits CSR too), with the JAX package's arguments and tail: the
+    last batch is padded by wrapping to the first rows (``pad`` says how
+    many), and ``num_parts``/``part_index`` take every num_parts-th row.
+
+    The JAX package builds a dense row a line; this parses each line
+    straight to its nonzeros, so a million features cost nothing, and
+    gives the same batches bit for bit: columns ascending, a later
+    duplicate of a column overriding an earlier one, zero values (as
+    float32) dropped, values as float32, indices and indptr int32.
+    Batches are host (``cpu()``) arrays."""
+
+    def __init__(self, data_libsvm, data_shape, label_shape=(1,),
+                 batch_size=1, num_parts=1, part_index=0, **kwargs):
+        dim = int(np.prod(data_shape))
+        cols, vals, counts, labels = [], [], [], []
+        with open(data_libsvm) as f:
+            for ln in f:
+                parts = ln.strip().split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                row = {}
+                for tok in parts[1:]:
+                    i, v = tok.split(":")
+                    c = int(i)
+                    if not -dim <= c < dim:
+                        raise IndexError(f"{data_libsvm}: feature {c} "
+                                         f"out of range for {dim}")
+                    row[c % dim] = np.float32(float(v))
+                kept = sorted((c, v) for c, v in row.items() if v != 0)
+                cols.append(np.array([c for c, _ in kept], np.int32))
+                vals.append(np.array([v for _, v in kept], np.float32))
+                counts.append(len(kept))
+        take = slice(part_index, None, num_parts)
+        self._cols, self._vals = cols[take], vals[take]
+        self._counts = np.asarray(counts[take], np.int32)
+        self._labels = np.asarray(labels, np.float32)[take]
+        self._dim = dim
+        self._cursor = 0
+        super().__init__(batch_size)
+        self.provide_data = [DataDesc("data", (batch_size, dim))]
+        self.provide_label = [DataDesc(
+            "label", (batch_size,) + tuple(label_shape)
+            if label_shape != (1,) else (batch_size,))]
+
+    def reset(self):
+        self._cursor = 0
+
+    def iter_next(self):
+        return self._cursor < len(self._cols)
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        from ..ndarray import sparse as nd_sparse
+        i = self._cursor
+        self._cursor += self.batch_size
+        rows = list(range(i, min(i + self.batch_size, len(self._cols))))
+        pad = self.batch_size - len(rows)
+        rows += list(range(pad))        # wrap the tail (NDArrayIter 'pad')
+        indptr = np.zeros(len(rows) + 1, np.int32)
+        np.cumsum(self._counts[rows], out=indptr[1:])
+        data = nd_sparse.csr_matrix(
+            (np.concatenate([self._vals[r] for r in rows]),
+             np.concatenate([self._cols[r] for r in rows]), indptr),
+            shape=(len(rows), self._dim), ctx=cpu())
+        label = nd_array(self._labels[rows], ctx=cpu())
+        return DataBatch([data], [label], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+
 def _not_ported(name, item, why=""):
     def ctor(*args, **kwargs):
         raise NotImplementedError(
@@ -534,8 +609,6 @@ def _not_ported(name, item, why=""):
     return ctor
 
 
-LibSVMIter = _not_ported("LibSVMIter", "A8",
-                         ": its CSR batches need ndarray/sparse.py")
 ImageRecordIter = _not_ported("ImageRecordIter", "A10")
 DataServiceIter = _not_ported("DataServiceIter", "A10")
 DevicePrefetchIter = _not_ported("DevicePrefetchIter", "A10")

@@ -98,12 +98,21 @@ class KVStore:
                 raise KeyError(f"key {k} not initialized")
             outs = o if isinstance(o, (list, tuple)) else [o]
             for dst in outs:
-                autograd.rebind(dst, src._data.to(dst._data.device))
+                # a copy: the lazy sparse updates write the stored
+                # weight's rows in place
+                autograd.rebind(dst, src._data.to(dst.context.device,
+                                                  copy=True))
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        """Pull only the rows in ``row_ids`` (ref: kvstore.py:289) into a
-        dense ``out``: those rows of the stored value, zeros elsewhere
-        (the row-sparse storage type is ROADMAP item A8)."""
+        """Pull only the rows in ``row_ids`` (ref: kvstore.py:289).
+
+        O(k), like the reference's server-side row gather (ref:
+        src/kvstore/kvstore_dist_server.h:212): a row-sparse ``out``
+        receives the unique pulled rows, ascending, and their ids only; a
+        dense ``out`` receives those rows of the stored value and zeros
+        elsewhere."""
+        from .ndarray.ndarray import NDArray
+        from .ndarray.sparse import RowSparseNDArray
         for k, o in self._pairs(key, out):
             src = self._store.get(k)
             if src is None:
@@ -112,8 +121,21 @@ class KVStore:
             rids = row_ids if isinstance(row_ids, (list, tuple)) \
                 else [row_ids] * len(outs)
             for dst, rid in zip(outs, rids):
-                data = src._data.to(dst._data.device)
-                idx = rid._data.to(data.device).long()
+                data = src._data
+                dev = dst.context.device
+                if isinstance(dst, RowSparseNDArray):
+                    # row ids repeat in a batch, and a row-sparse array
+                    # sums duplicates when densified: each row once
+                    uniq = torch.unique(rid._data.to(data.device,
+                                                     torch.int32))
+                    dst._sp_data = NDArray(
+                        data.index_select(0, uniq).to(dev))
+                    dst._sp_indices = NDArray(uniq.to(dev))
+                    dst._dense_cache = None
+                    dst._sp_stale = False
+                    continue
+                data = data.to(dev)
+                idx = rid._data.to(dev).long()
                 full = torch.zeros_like(data)
                 full[idx] = data[idx]
                 autograd.rebind(dst, full)

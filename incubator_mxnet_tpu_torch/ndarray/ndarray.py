@@ -160,11 +160,12 @@ class NDArray:
         return NDArray(self._data.detach())
 
     def tostype(self, stype):
+        """This array in storage type ``stype``: 'default', 'csr' or
+        'row_sparse' (``sparse.cast_storage``)."""
         if stype == "default":
             return self
-        raise NotImplementedError(
-            f"storage type {stype!r}: the sparse storage types are not "
-            "ported yet (ROADMAP item 8)")
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     def attach_grad(self, grad_req="write", stype=None):
         """Allocate a gradient buffer and mark the array for autograd."""
@@ -560,7 +561,8 @@ def array(source, ctx=None, dtype=None):
     if isinstance(source, NDArray):
         t = source._data.detach().to(device, copy=True)
     else:
-        t = _as_tensor(source, device)
+        # a copy: a CPU tensor from numpy would share the source's memory
+        t = _as_tensor(np.array(source), device)
     if dtype is not None:
         t = t.to(_narrow(torch_dtype(dtype)))
     return _placed(NDArray(t), ctx)
@@ -571,6 +573,9 @@ def _shape(shape):
 
 
 def zeros(shape, ctx=None, dtype="float32", stype=None):
+    if stype not in (None, "default"):
+        from .sparse import zeros as sparse_zeros
+        return sparse_zeros(stype, shape, ctx, dtype)
     return _placed(NDArray(torch.zeros(
         _shape(shape), dtype=torch_dtype(dtype), device=resolve(ctx))), ctx)
 

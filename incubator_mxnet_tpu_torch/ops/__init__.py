@@ -8,6 +8,7 @@ from . import elemwise, reduce, matrix, indexing, init_op, optimizer_op
 from . import nn, flash, moe
 from . import random_op, order, la, rnn
 from . import ctc, contrib_misc, contrib_det
+from ..operator import custom as _custom  # noqa: F401,E402 (registers 'Custom')
 from . import shape_hooks         # after the ops whose aliases it hooks
 from ._build import LAUNCHES, reset_launches
 from .flash import flash_attention, flash_attention_fwd

@@ -237,8 +237,10 @@ def nms_boxes(boxes, cls, alive, nkeep, threshold, force_suppress=False,
     ``_iou_corner``'s (union <= 0 gives 0) or, with ``pixel_offset``,
     ``_proposal_iou``'s (+1-pixel widths).  Returns the alive mask
     (B, k).  CUDA tensors launch ``csrc/nms_sweep.cu``, which makes no
-    (B, k, k) tensor, or raise; CPU and ``meta`` tensors run the plain
-    version, ``_boxes_masks`` then ``_sweep_plain``."""
+    (B, k, k) tensor and takes any size whose scratch of k * k / 8 bytes
+    an image fits, or raise; CPU tensors run the plain version,
+    ``_boxes_masks`` then ``_sweep_plain``, and ``meta`` ones give the
+    result's shape."""
     if boxes.dtype != _F32 or alive.dtype != torch.bool \
             or (cls is not None and cls.dtype != _F32):
         raise TypeError("nms_boxes takes float32 boxes and classes and a "
@@ -261,6 +263,8 @@ def nms_boxes(boxes, cls, alive, nkeep, threshold, force_suppress=False,
     if boxes.device.type not in ("cpu", "meta"):
         raise ValueError(f"nms_boxes runs on cuda, cpu or meta, not "
                          f"{boxes.device}")
+    if boxes.device.type == "meta":        # shapes only: no (B, k, k) walk
+        return torch.empty_like(alive)
     if boxes.shape[0] == 0:
         return alive.clone()
     return _sweep_plain(_boxes_masks(boxes, cls, alive, nkeep, threshold,

@@ -280,8 +280,8 @@ def cast_storage_op(data, stype="default"):
     if stype != "default":
         raise ValueError(
             "cast_storage inside a graph supports only stype='default' "
-            "(graph tensors are dense); the sparse storage types are "
-            "ROADMAP item A8 (ndarray/sparse.py)")
+            "(graph tensors are dense); cast an array to a sparse "
+            "storage type with nd.cast_storage or NDArray.tostype")
     return data * 1.0
 
 
@@ -332,8 +332,8 @@ def scatter_minus_scalar(data, scalar=0.0):
 
 # legacy plugin hooks: the Custom op is the supported extension point
 _PLUGIN = ("{} plugin ops are not supported; the extension point is a "
-           "Custom op (operator.CustomOp), which the port does not have "
-           "yet (ROADMAP item A8, Custom)")
+           "Custom op: subclass operator.CustomOp and CustomOpProp, "
+           "register it with operator.register, and call the 'Custom' op")
 
 
 @defop("_NDArray", differentiable=False)

@@ -1,14 +1,14 @@
 """Indexing ops (twin of ``incubator_mxnet_tpu/ops/indexing.py``):
 Embedding, take, batch_take, one_hot, pick, gather_nd, scatter_nd and
-_scatter_set_nd.  ``_contrib_SparseEmbedding`` comes with the sparse
-storage types (ROADMAP item 8)."""
+_scatter_set_nd, with ``_contrib_SparseEmbedding`` the reference's alias
+of ``Embedding``."""
 import torch
 
 from ..base import torch_dtype
 from .registry import defop
 
 
-@defop("Embedding")
+@defop("Embedding", aliases=["_contrib_SparseEmbedding"])
 def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
               sparse_grad=False):
     """Row lookup into an (input_dim, output_dim) table."""

@@ -1,6 +1,6 @@
 """Creation ops (twin of ``incubator_mxnet_tpu/ops/init_op.py``): _zeros,
-_ones, _full, _arange and _eye.  ``_sparse_zeros`` comes with the sparse
-storage types (ROADMAP item 8).  ``ctx`` is the device the result is
+_ones, _full, _arange and _eye, with ``_sparse_zeros`` the reference's
+alias of ``_zeros`` (sparse zeros are ``nd.sparse.zeros``).  ``ctx`` is the device the result is
 made on; ``nd`` fills it in (``context.default_device()`` when the
 caller gives none)."""
 import torch
@@ -17,7 +17,7 @@ def _shape(shape):
     return tuple(int(s) for s in shape)
 
 
-@defop("_zeros", differentiable=False)
+@defop("_zeros", aliases=["_sparse_zeros"], differentiable=False)
 def _zeros(shape=(), dtype="float32", ctx=None):
     return torch.zeros(_shape(shape), dtype=_dt(dtype), device=ctx)
 

@@ -1,7 +1,8 @@
 """Shape-manipulation and linear-algebra ops (twin of
-``incubator_mxnet_tpu/ops/matrix.py``): its 47 names less ``_sparse_dot``
-and ``_sparse_zeros_like``, which come with the sparse storage types
-(ROADMAP item 8).  ``dot`` and ``batch_dot`` are ``torch.matmul``: XLA
+``incubator_mxnet_tpu/ops/matrix.py``): its 47 names, ``_sparse_dot``
+and ``_sparse_zeros_like`` the reference's aliases of ``dot`` and
+``zeros_like`` (the storage-aware forms are ``nd.sparse``'s, on the
+arrays).  ``dot`` and ``batch_dot`` are ``torch.matmul``: XLA
 computed them outside any kernel, and cuBLAS does here.  ``rope_fn``
 is the rotary position embedding of the TransformerLM, registered as
 ``_rope``.
@@ -218,7 +219,7 @@ def slice_channel(data, num_outputs=1, axis=1, squeeze_axis=False):
 
 
 # ------------------------------------------------------------------ matmul
-@defop("dot")
+@defop("dot", aliases=["_sparse_dot"])
 def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     """Matrix product.  For >2-D inputs follows MXNet: lhs reshaped to
     (prod(head), last) and rhs to (first, prod(tail))."""
@@ -281,7 +282,7 @@ def amp_cast(data, dtype="float16"):
     return data.to(torch_dtype(dtype))
 
 
-@defop("zeros_like")
+@defop("zeros_like", aliases=["_sparse_zeros_like"])
 def zeros_like(data):
     return torch.zeros_like(data)
 

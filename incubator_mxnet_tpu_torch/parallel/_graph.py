@@ -32,16 +32,37 @@ second capture of the same inputs for another generator warns.
 Anything a replay must see change per step has to live in a device
 tensor that the step reads (the learning rate, Adam's step count): a
 Python number is frozen into the graph at capture.  A capture that
-fails raises; nothing drops to an eager step on the card.
+fails raises; nothing drops to an eager step on the card, with one
+exception, stated where it is read: an op whose Python runs at every
+call (a ``Custom`` op) reports each call to ``refuse_capture``, and a
+signature whose warm-up reached one is not captured.  Its calls run the
+step eagerly on the card (the first call also pays the two warm-up
+runs), ``capture_skipped`` names the op, and a warning says so once.
 """
+import collections
+import logging
 import warnings
 
 import torch
 
 __all__ = ["StepGraph", "WARMUP_STEPS", "tensors_of", "warm_up",
-           "new_graph"]
+           "new_graph", "refuse_capture"]
 
 WARMUP_STEPS = 2
+_LOG = logging.getLogger(__name__)
+_REFUSED = collections.Counter()     # op name -> calls that refuse capture
+
+
+def refuse_capture(name):
+    """Called by an op at each call whose host code a CUDA graph cannot
+    hold (a ``Custom`` op's Python): a warm-up that reaches it keeps its
+    step eager, and a capture that reaches it anyway raises."""
+    _REFUSED[name] += 1
+    if torch.cuda.is_initialized() and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{name} runs Python at every call and cannot run inside a "
+            f"CUDA graph capture")
 
 
 def tensors_of(tree):
@@ -60,7 +81,9 @@ def warm_up(run, mutable, generators, steps=WARMUP_STEPS):
     initialisation, library workspaces, autograd's streams) and undo
     what they changed: the tensors of ``mutable()`` and each generator's
     state are put back, so a capture after it starts where the caller
-    found the state."""
+    found the state.  Returns the names of the ops the runs reached that
+    refuse capture (``refuse_capture``), sorted."""
+    before = collections.Counter(_REFUSED)
     state = mutable()
     snapshot = [t.detach().clone() for t in state]
     gen_states = [g.get_state() for g in generators]
@@ -79,6 +102,7 @@ def warm_up(run, mutable, generators, steps=WARMUP_STEPS):
         del snapshot
         for g, s in zip(generators, gen_states):
             g.set_state(s)
+    return sorted(n for n, c in _REFUSED.items() if c != before[n])
 
 
 def new_graph(device, generators):
@@ -124,11 +148,22 @@ class StepGraph:
         self.name = name
         self.counts = counts if counts is not None else {}
         self._captured = {}
+        self._eager = {}          # signature -> the ops that refused
+
+    @property
+    def capture_skipped(self):
+        """The ops (comma-joined) that kept a signature from being
+        captured, or None."""
+        names = sorted({n for ops in self._eager.values() for n in ops})
+        return ",".join(names) or None
 
     def __call__(self, inputs, generators=()):
         """Replay the step on ``inputs`` (CUDA tensors); returns clones
-        of its outputs (a tuple)."""
+        of its outputs (a tuple).  A signature whose warm-up reached an
+        op that refuses capture runs the step eagerly instead."""
         key = _signature(inputs, generators)
+        if key in self._eager:
+            return self._run_eager(inputs)
         cap = self._captured.get(key)
         if cap is None:
             same_inputs = sum(k[0] == key[0] for k in self._captured)
@@ -138,19 +173,34 @@ class StepGraph:
                     f"{same_inputs + 1} of the same inputs, with a memory "
                     f"pool of its own; draw from one generator across "
                     f"steps", stacklevel=3)
-            cap = self._captured[key] = self._capture(inputs, generators)
+            cap = self._capture(inputs, generators)
+            if isinstance(cap, list):
+                self._eager[key] = cap
+                _LOG.warning("%s: not captured, %s runs Python at every "
+                             "call; the step runs eagerly on the card",
+                             self.name, ", ".join(cap))
+                return self._run_eager(inputs)
+            self._captured[key] = cap
         for s, x in zip(cap.static_in, inputs):
             s.copy_(x, non_blocking=True)
         cap.graph.replay()
         return tuple(o.clone() for o in cap.static_out)
 
+    def _run_eager(self, inputs):
+        out = self.fn(*inputs)
+        return out if isinstance(out, tuple) else (out,)
+
     def _capture(self, inputs, generators):
+        """The captured step, or the list of ops that refused capture."""
         device = inputs[0].device
         with torch.cuda.device(device):
             static_in = [torch.empty_like(x) for x in inputs]
             for s, x in zip(static_in, inputs):
                 s.copy_(x)
-            warm_up(lambda: self.fn(*static_in), self.mutable, generators)
+            refused = warm_up(lambda: self.fn(*static_in), self.mutable,
+                              generators)
+            if refused:
+                return refused
             graph = new_graph(device, generators)
             with torch.cuda.graph(graph):
                 out = self.fn(*static_in)

@@ -277,6 +277,13 @@ class ShardedTrainStep:
 
     step = __call__
 
+    @property
+    def capture_skipped(self):
+        """The op that kept a batch signature from being captured (a
+        ``Custom`` op in the net), or None: such a step runs eagerly on
+        the card."""
+        return self._graph.capture_skipped
+
     def _eager_call(self, x, y, generator=None):
         """The same step, op by op (no graph): the CPU's path, and on
         the card the yardstick a captured step is held against."""

@@ -148,6 +148,13 @@ class SymbolTrainStep:
         return (list(self.params.values()) + list(self.aux.values())
                 + _graph.tensors_of(self.opt_state))
 
+    @property
+    def capture_skipped(self):
+        """The op that kept a batch signature from being captured (a
+        ``Custom`` node), or None: such a step runs eagerly on the
+        card."""
+        return self._graph.capture_skipped
+
     # ------------------------------------------------------------- run
     def __call__(self, inputs, rng=None, lr=0.01):
         """One step on a batch: ``inputs`` maps each input name to an

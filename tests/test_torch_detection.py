@@ -581,3 +581,57 @@ def test_ssd_train_loop_matches_jax():
     np.testing.assert_array_equal(dets[mt][..., 0], dets[mx][..., 0])
     np.testing.assert_allclose(dets[mt][..., 1:], dets[mx][..., 1:],
                                rtol=0, atol=1e-4)
+
+
+def _cluster_case(rs, clusters, per, batch):
+    """``clusters`` groups of ``per`` boxes, each group inside a cell of
+    its own on a grid (cells 1 apart, boxes within 0.8 of a cell), rows
+    in score order with the groups interleaved: every row block mixes
+    groups, and no box of one group meets another's.  Returns boxes (B,
+    k, 4), classes, alive, nkeep and each row's group (B, k)."""
+    k = clusters * per
+    side = int(np.ceil(np.sqrt(clusters)))
+    group = np.stack([rs.permutation(k) // per for _ in range(batch)])
+    origin = np.stack([group % side, group // side], -1).astype(np.float32)
+    lo = rs.rand(batch, k, 2).astype(np.float32) * 0.5
+    hi = lo + 0.05 + rs.rand(batch, k, 2).astype(np.float32) * 0.25
+    boxes = np.concatenate([origin + lo, origin + hi], -1)
+    cls = rs.randint(0, 2, (batch, k)).astype(np.float32)
+    alive = rs.rand(batch, k) < 0.95
+    nkeep = rs.randint(k // 2, k + 1, batch)
+    return (torch.from_numpy(boxes), torch.from_numpy(cls),
+            torch.from_numpy(alive), torch.from_numpy(nkeep), group)
+
+
+def _cluster_oracle(boxes, cls, alive, nkeep, group, thr):
+    """Greedy NMS splits by group when no box meets another group's: the
+    plain version run on each group's rows alone (in order, each group's
+    nkeep its rows below the image's), scattered back."""
+    out = torch.zeros_like(alive)
+    for b in range(boxes.shape[0]):
+        for g in np.unique(group[b]):
+            rows = torch.from_numpy(np.flatnonzero(group[b] == g))
+            keep = (rows < nkeep[b]).sum().reshape(1)
+            out[b, rows] = tdet.nms_boxes(
+                boxes[b, rows][None], cls[b, rows][None],
+                alive[b, rows][None], keep, thr)[0]
+    return out
+
+
+def test_nms_boxes_above_65536_rows_and_the_cluster_oracle():
+    # the card now takes any size its scratch holds (C8): on meta the
+    # route takes the sizes above the old limits (131072 rows, a batch
+    # above 65535) and makes no (B, k, k) walk
+    for B, k in ((2, 131072), (65537, 8)):
+        out = tdet.nms_boxes(torch.zeros(B, k, 4, device="meta"), None,
+                             torch.ones(B, k, dtype=torch.bool,
+                                        device="meta"),
+                             torch.full((B,), k, device="meta"), 0.5)
+        assert out.shape == (B, k) and out.device.type == "meta"
+    # chip_smoke's check at 131072 rows, here at 512: the plain route
+    # equals the per-group oracle
+    case = _cluster_case(np.random.RandomState(21), 64, 8, 2)
+    boxes, cls, alive, nkeep, group = case
+    got = tdet.nms_boxes(boxes, cls, alive, nkeep, 0.45)
+    assert torch.equal(got, _cluster_oracle(*case, 0.45))
+    assert 0 < int(got.sum()) < int(alive.sum())

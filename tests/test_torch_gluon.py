@@ -346,15 +346,18 @@ def _strip_all(params, prefix):
 @pytest.mark.parametrize("factory,kw", [("resnet18_v1", {"thumbnail": True}),
                                         ("resnet50_v1", {}),
                                         ("resnet18_v2", {"classes": 10})])
-def test_resnet_names_shapes_and_grad_req_match_jax(factory, kw):
+def test_resnet_names_shapes_and_grad_req_match_jax(factory, kw, tmp_path):
     tnet = getattr(tres, factory)(**kw)
     jnet = getattr(jres, factory)(**kw)
     got = _strip_all(tnet.collect_params(), tnet.prefix)
     want = _strip_all(jnet.collect_params(), jnet.prefix)
     assert list(got) == list(want)
     assert got == want
-    with pytest.raises(NotImplementedError, match="pretrained"):
-        getattr(tres, factory)(pretrained=True)
+    # pretrained=True reads the local store, as the reference does: an
+    # empty one raises in both
+    for mod in (tres, jres):
+        with pytest.raises(FileNotFoundError, match="no pretrained"):
+            getattr(mod, factory)(pretrained=True, root=str(tmp_path))
 
 
 def test_resnet50_parameter_count():

@@ -54,8 +54,15 @@ def test_signature_has_the_reference_parameters_in_order(name):
         [(p.name, p.default) for p in want]
     assert all(p.kind is p.POSITIONAL_OR_KEYWORD for p in got[:len(want)])
     extras = got[len(want):]
-    assert all(p.kind is p.KEYWORD_ONLY for p in extras), extras
-    assert {p.name for p in extras} <= {"device"}
+    # keyword-only extras (device), and **kwargs where the reference
+    # passes them on (prefix, params) to its base block
+    ref_var = [p.name for p in _params(ref) if p.kind is p.VAR_KEYWORD]
+    assert all(p.kind is p.KEYWORD_ONLY for p in extras
+               if p.kind is not p.VAR_KEYWORD), extras
+    assert {p.name for p in extras if p.kind is p.KEYWORD_ONLY} \
+        <= {"device"}
+    assert {p.name for p in extras if p.kind is p.VAR_KEYWORD} \
+        <= set(ref_var)
 
 
 def _x(*shape, seed=0):

@@ -33,14 +33,11 @@ from test_op_sweep import CASES as SWEEP  # noqa: E402  (_build_cases())
 TOL = dict(rtol=1e-4, atol=1e-5)
 CPU = mt.cpu()
 
-# the JAX modules the port registers, and the names it leaves out with
-# the sparse storage types (ROADMAP item 8)
+# the JAX modules whose ops the port registers: all of them
 PORTED_MODULES = ("elemwise", "reduce", "matrix", "indexing", "init_op",
                   "optimizer_op", "flash", "nn", "moe", "random_op",
                   "order", "la", "rnn", "ctc", "contrib_det",
-                  "contrib_misc")
-SPARSE_LATER = {"_sparse_dot", "_sparse_zeros_like",
-                "_contrib_SparseEmbedding", "_sparse_zeros"}
+                  "contrib_misc", "operator")
 PARAM_EXCEPTIONS = {"_flash_attention": {"interpret"}}
 
 CASES = {n: spec for n, spec in SWEEP.items() if n in TOPS}
@@ -52,7 +49,7 @@ def test_registry_matches_jax():
     # registers with it (the Module users' loss head)
     want = {n for n, op in JOPS.items()
             if op.fn.__module__.rsplit(".", 1)[-1] in PORTED_MODULES} \
-        - SPARSE_LATER | {"make_loss", "MakeLoss"}
+        | {"make_loss", "MakeLoss"}
     assert set(TOPS) == want
     for name, op in TOPS.items():
         jop = JOPS[name]
@@ -76,10 +73,10 @@ def test_registry_matches_jax():
 
 
 def test_registry_lacks_only_custom_and_sparse():
-    # what is left of the JAX registry: the Custom op (operator.py) and
-    # the sparse storage types, both ROADMAP item A8
-    assert set(JOPS) - set(TOPS) == {"Custom"} | SPARSE_LATER
-    assert not set(TOPS) - set(JOPS)
+    # the Custom op (operator.py) and the sparse names are ported too:
+    # the two registries hold the same 327 names
+    assert set(TOPS) == set(JOPS)
+    assert len(TOPS) == 327
 
 
 def _port_fn(name):
@@ -574,8 +571,9 @@ def test_keyword_inputs_and_not_yet_ported_surfaces():
     np.testing.assert_allclose(mt.nd.dot(lhs=x, rhs=w).asnumpy(), [[3.0]])
     with pytest.raises(TypeError, match="earlier inputs"):
         mt.nd.dot(rhs=w)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        x.tostype("csr")
+    csr = x.tostype("csr")
+    assert isinstance(csr, mt.nd.CSRNDArray) and csr.stype == "csr"
+    np.testing.assert_array_equal(csr.asnumpy(), x.asnumpy())
     assert x.tostype("default") is x and x.stype == "default"
     # an array with no recorded history is a bare Variable
     assert mt.autograd.get_symbol(x).list_arguments() == ["var0"]

@@ -671,3 +671,72 @@ def test_bucketing_checkpoint_of_the_jax_package_loads(jax_bucketing,
     with pytest.raises(ValueError, match="rnn_parameters"):
         mt.convert._check_rnn_nodes(pm.symbol, bad,
                                     {d.name: d.shape for d in dsh + lsh})
+
+
+# ------------------------------------------------------- the tied word LM
+def _rnn_model(P, vocab, size, tied):
+    """examples/word_language_model.py's RNNModel (:75-99), built on
+    package P: Embedding -> LSTM -> Dense decoder, the decoder tied to the
+    encoder's weight through ``params=`` by default."""
+    nn, rnn = P.gluon.nn, P.gluon.rnn
+
+    class RNNModel(P.gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.encoder = nn.Embedding(vocab, size)
+                self.rnn = rnn.LSTM(size, num_layers=2, layout="TNC",
+                                    input_size=size)
+                if tied:
+                    self.decoder = nn.Dense(vocab, flatten=False,
+                                            in_units=size,
+                                            params=self.encoder.params)
+                else:
+                    self.decoder = nn.Dense(vocab, flatten=False,
+                                            in_units=size)
+
+        def forward(self, x, state):
+            out, state = self.rnn(self.encoder(x), state)
+            return self.decoder(out), state
+
+    return RNNModel()
+
+
+def test_tied_word_lm_shares_one_weight_and_matches_jax(tmp_path):
+    vocab, size, steps, batch = 30, 8, 6, 3
+    rs = np.random.RandomState(12)
+    x = rs.randint(0, vocab, (steps, batch)).astype("f")
+    y = rs.randint(0, vocab, (steps, batch)).astype("f")
+    j = _rnn_model(mx, vocab, size, True)
+    j.initialize(mx.init.Uniform(0.3))
+    f = str(tmp_path / "lm.params")
+    j.save_parameters(f)
+    p = _rnn_model(mt, vocab, size, True)
+    p.load_parameters(f, ctx=CPU)
+    # one Parameter, one tensor: the decoder's weight is the encoder's
+    assert len(list(p.collect_params())) == len(list(j.collect_params()))
+    assert p.decoder._param("weight") is p.encoder._param("weight")
+    assert p.decoder.weight is p.encoder.weight
+    assert list(p.collect_params()) == list(j.collect_params())
+    losses = {}
+    for P, net in ((mx, j), (mt, p)):
+        kw = {} if P is mx else {"ctx": CPU}
+        state = net.rnn.begin_state(batch_size=batch, **kw)
+        out, _ = net(P.nd.array(x, **kw), state)
+        loss = P.gluon.loss.SoftmaxCrossEntropyLoss()(
+            out.reshape((-1, vocab)), P.nd.array(y.reshape(-1), **kw))
+        losses[P] = loss.mean().asnumpy()
+    np.testing.assert_allclose(losses[mt], losses[mx], rtol=1e-5)
+    # and it trains as one: a step moves the shared weight once
+    trainer = mt.gluon.Trainer(p.collect_params(), "sgd",
+                               {"learning_rate": 0.5})
+    before = p.encoder.weight.detach().clone()
+    state = p.rnn.begin_state(batch_size=batch, ctx=CPU)
+    with mt.autograd.record():
+        out, _ = p(mt.nd.array(x, ctx=CPU), state)
+        loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()(
+            out.reshape((-1, vocab)), mt.nd.array(y.reshape(-1), ctx=CPU))
+    loss.backward()
+    trainer.step(batch)
+    assert not torch.equal(before, p.decoder.weight.detach())
+    assert p.decoder.weight is p.encoder.weight

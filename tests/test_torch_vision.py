@@ -23,10 +23,26 @@ into the port's by ``convert.load_gluon_params`` from the JAX net's
 - one bf16 ``compute_dtype`` step, against the fp32 step (within 1e-5
   of float64 at 4 images) and the JAX bf16 step (see the test).
 
+The other vision families (AlexNet, VGG, SqueezeNet, DenseNet,
+MobileNet, Inception3) and ResNet-18 through ``pretrained=True``: each
+at B=1, ``classes=10``, in eval mode.  The port initializes the net and
+saves a ``.params`` file, the JAX package installs it in a local store
+(``model_store.import_model_file``, the sha1-tagged name) and loads it
+with ``pretrained=True``, and so does the port from the same store;
+parameter names and shapes are equal and the outputs within rel 1e-4.
+Each family runs at its smallest published variant and input, except
+DenseNet: ``densenet121``'s 58 layers of distinct widths cost the JAX
+package ~25 s of per-shape compiles on the CPU, so the family's class
+runs at two blocks of two layers, and densenet121 is held to the JAX
+net by names alone.  ``get_model`` lists the reference's names, and the
+store's layout, digest check, ``list_models`` and ``purge`` match.
+
 fp32 tolerances: rel 1e-4 on losses; 1e-4 of each tensor's largest
 |value| on outputs, parameters and moving stats (3 steps of sums in
 another order).
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -317,3 +333,119 @@ def test_trainer_updater_route_and_states(data, tmp_path, monkeypatch):
     monkeypatch.setenv("MXTPU_LOSS_SCALE_DYNAMIC", "1")
     with pytest.raises(NotImplementedError, match="A11"):
         mt.gluon.Trainer(net.collect_params(), "sgd")
+
+
+# ------------------------------------------------------------ the families
+FAMILIES = {          # variant -> (input side, constructor kwargs)
+    "alexnet": (64, {}),
+    "vgg11": (32, {}),
+    "squeezenet1_1": (48, {}),
+    "densenet": (32, dict(num_init_features=16, growth_rate=8,
+                          block_config=[2, 2])),
+    "mobilenet0_25": (32, {}),
+    "inception_v3": (75, {}),
+    "resnet18_v1": (16, dict(thumbnail=True)),
+}
+
+
+STORE_NAMES = {"squeezenet1_1": "squeezenet1.1"}   # the reference's
+
+
+def _family(P, name, pretrained=False, root=None):
+    V = P.gluon.model_zoo.vision
+    kw = dict(FAMILIES[name][1], classes=10)
+    if name == "densenet":
+        net = V.DenseNet(**kw)
+        if pretrained:
+            V.others._pretrained(net, True, "densenet", root=root,
+                                 **({} if P is mx else {"ctx": CPU}))
+        return net
+    extra = {"pretrained": True, "root": root} if pretrained else {}
+    if pretrained and P is mt:
+        extra["ctx"] = CPU
+    return V.get_model(name, **kw, **extra)
+
+
+@pytest.fixture
+def quick_jax_compiles():
+    """XLA's optimizations off while the test runs: the JAX side's
+    per-shape compiles of a one-off forward are most of these tests'
+    time on the CPU (about a third less without them)."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_vision_family_through_the_store_matches_jax(name, tmp_path,
+                                                     quick_jax_compiles):
+    side = FAMILIES[name][0]
+    x = np.random.RandomState(3).rand(1, 3, side, side).astype(np.float32)
+    made = _family(mt, name)
+    made.initialize(mt.init.Xavier(), ctx=CPU)
+    made(mt.nd.array(x, ctx=CPU))                # settle deferred shapes
+    src = str(tmp_path / "net.params")
+    made.save_parameters(src)
+    root = str(tmp_path / "models")
+    stored = STORE_NAMES.get(name, name)
+    path = mx.gluon.model_zoo.model_store.import_model_file(src, stored,
+                                                            root=root)
+    assert mt.gluon.model_zoo.model_store.get_model_file(
+        stored, root=root) == path
+    jnet = _family(mx, name, pretrained=True, root=root)
+    pnet = _family(mt, name, pretrained=True, root=root)
+    got = _strip_all_shapes(pnet)
+    assert got == _strip_all_shapes(jnet)
+    want = jnet(mx.nd.array(x)).asnumpy()
+    out = pnet(mt.nd.array(x, ctx=CPU)).asnumpy()
+    assert out.shape == (1, 10)
+    _close(out, want)
+
+
+def _strip_all_shapes(net):
+    return [(k[len(net.prefix):], tuple(p.shape))
+            for k, p in net.collect_params().items()]
+
+
+def test_get_model_names_and_the_store_match_jax(tmp_path):
+    tv = mt.gluon.model_zoo.vision
+    jv = mx.gluon.model_zoo.vision
+    assert sorted(tv._models) == sorted(jv._models)
+    assert len(tv._models) == 32
+    with pytest.raises(ValueError, match="unknown model"):
+        tv.get_model("resnet19_v1")
+    # the reference's names of a family it holds by names only here
+    t121, j121 = tv.densenet121(), jv.densenet121()
+    assert [k[len(t121.prefix):] for k in t121.collect_params()] == \
+        [k[len(j121.prefix):] for k in j121.collect_params()]
+    stores = (mt.gluon.model_zoo.model_store,
+              mx.gluon.model_zoo.model_store)
+    src = tmp_path / "w.params"
+    src.write_bytes(b"weights")
+    root = str(tmp_path / "store")
+    for ms in stores:
+        with pytest.raises(FileNotFoundError):
+            ms.get_model_file("alexnet", root=root)
+    tagged = stores[0].import_model_file(str(src), "alexnet", root=root)
+    assert os.path.basename(tagged) == os.path.basename(
+        stores[1].import_model_file(str(src), "alexnet", root=root))
+    (tmp_path / "store" / "vgg11.params").write_bytes(b"plain")
+    for ms in stores:
+        assert ms.list_models(root=root) == ["alexnet", "vgg11"]
+        assert ms.get_model_file("alexnet", root=root) == tagged
+    with open(tagged, "ab") as f:                  # the digest breaks
+        f.write(b"!")
+    for ms in stores:
+        with pytest.raises(OSError, match="checksum"):
+            ms.get_model_file("alexnet", root=root)
+    stores[0].purge(root=root)
+    for ms in stores:
+        assert ms.list_models(root=root) == []
+    monkey_home = str(tmp_path / "home")
+    os.environ["MXTPU_HOME"] = monkey_home
+    try:
+        assert stores[0]._default_root() == stores[1]._default_root() == \
+            os.path.join(monkey_home, "models")
+    finally:
+        del os.environ["MXTPU_HOME"]
