@@ -324,6 +324,39 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                cuDNN, ms and img/s of each; inception_v3 then takes 5
                gluon.Trainer SGD steps on one fixed batch of 32 and its
                loss falls.  No kernel of the port runs.
+18. data       the input pipeline (no hand kernel: decode, augmentation
+               and batching run on the host, the copy is a DMA): which
+               JPEG decoder the host has (native or PIL); (i) 10,000
+               RecordIO records of 100 KB written and read back through
+               the native backend (MB/s); (ii) 1,280 synthetic JPEGs
+               stored as ImageNet's (shorter side 256 at 4:3, quality
+               95) through ImageRecordIter as train_imagenet.py sets it
+               up (B=32, random crop and mirror, its mean and std,
+               min(cpu_count, 16) threads): img/s over two epochs, and
+               the first epoch again from its state_dict, bit for bit;
+               (iii) ResNet-50 v1 as a Symbol through
+               Module.fit(kvstore='tpu') for 40 steps from
+               DevicePrefetchIter(ImageRecordIter), under deterministic
+               cuDNN with TF32 off: its losses bit-equal to the same
+               Module fed (ii)'s batches built on the card beforehand,
+               both from one copy of the weights; steps/s, img/s, the
+               step without the pipeline and which sets the pace;
+               (iv) DevicePrefetchIter at depth 1, 2 and 4 over 500 host
+               batches filled from their index, the consumer sleeping on
+               its stream past the copy before it checks: 0 mismatches,
+               and the pinned copy's GB/s; (v) gluon.data.DataLoader
+               (4 process workers) over a RecordFileDataset of (ii)'s
+               .rec, decoding in the workers: its first 8 batches
+               bit-equal to num_workers=0's, then 20 Gluon ResNet-50
+               Trainer steps; (vi) Predictor over (iii)'s checkpoint
+               within 1e-5 of Module.predict, and the profiler around 5
+               steps: one framework event per dispatched op, cuDNN's
+               convolution and batch-norm kernels in the device trace,
+               the busy share; (vii) test_utils.check_consistency of
+               Convolution, BatchNorm, FullyConnected, Pooling and
+               softmax between cpu() and the card; (viii) ImageDetIter
+               over 256 JPEGs at 300 x 300 feeds config 4's SSD loop
+               for 10 steps and its loss falls.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -5939,6 +5972,773 @@ def phase_vision(mt, torch, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase data: the input pipeline (recordio, image, io, gluon.data) and the
+# frontends beside it (profiler, predictor, test_utils)
+# ---------------------------------------------------------------------------
+
+DATA_RAW = (10000, 100 * 1024)   # (i) records x bytes each
+DATA_IMAGES = 1280               # (ii) ImageNet-stored JPEGs: 40 batches
+DATA_SHORT, DATA_LONG = 256, 341  # shorter side 256 at 4:3
+DATA_QUALITY = 95
+DATA_STEPS = 40                  # (iii) Module.fit steps
+DATA_EPOCHS = 2                  # (ii) timed epochs
+# train_imagenet.py's normalization (example/image-classification/common/
+# data.py: --rgb-mean 123.68,116.779,103.939, --rgb-std 1,1,1)
+DATA_MEAN = (123.68, 116.779, 103.939)
+DATA_STD = (1.0, 1.0, 1.0)
+DATA_STRESS = 500                # (iv) host batches at each depth
+DATA_DEPTHS = (1, 2, 4)
+DATA_LOADER_WORKERS = 4          # (v)
+DATA_LOADER_CHECKED = 8          # (v) batches held against num_workers=0
+DATA_GLUON_STEPS = 20
+DATA_PROFILED_STEPS = 5          # (vi)
+DATA_PREDICT_TOL = 1e-5
+DATA_DET = dict(images=256, side=300, batch=16, iters=10, lr=0.1)
+# (vii): the reference's tolerances (test_utils.check_consistency)
+DATA_CONSISTENCY = {
+    "Convolution": ("conv", {"data": (8, 16, 28, 28),
+                             "conv_weight": (32, 16, 3, 3),
+                             "conv_bias": (32,)}),
+    "BatchNorm": ("bn", {"data": (8, 16, 14, 14), "bn_gamma": (16,),
+                         "bn_beta": (16,)}),
+    "FullyConnected": ("fc", {"data": (16, 256), "fc_weight": (128, 256),
+                              "fc_bias": (128,)}),
+    "Pooling": ("pool", {"data": (8, 16, 28, 28)}),
+    "softmax": ("softmax", {"data": (64, 1000)}),
+}
+
+
+def data_threads():
+    import os
+    return min(os.cpu_count() or 1, 16)
+
+
+def data_jpeg(np, Image, rs, i):
+    """One synthetic ImageNet-stored JPEG: shorter side 256 at 4:3,
+    quality 95.  Three in four are smooth (a coarse random field,
+    bilinearly enlarged, with mild noise), one in four is textured: noise
+    alone would make records far larger than photographs."""
+    h, w = (DATA_SHORT, DATA_LONG) if i % 2 else (DATA_LONG, DATA_SHORT)
+    if i % 4:
+        coarse = (rs.rand(6, 8, 3) * 255).astype(np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((w, h),
+                                                        Image.BILINEAR),
+                         np.float32)
+        img += rs.normal(0, 6, img.shape)
+    else:
+        img = rs.rand(h, w, 3) * 255
+    import io as _io
+    buf = _io.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+        buf, format="JPEG", quality=DATA_QUALITY)
+    return buf.getvalue()
+
+
+def data_write_images(mt, np, path, n):
+    """``n`` records of data_jpeg images (labels i % 1000) with an .idx;
+    encoded on the host's threads.  Returns (seconds, bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    t0 = time.perf_counter()
+
+    def one(i):
+        return data_jpeg(np, Image, np.random.RandomState(SEED + i), i)
+    with ThreadPoolExecutor(data_threads()) as pool:
+        jpegs = list(pool.map(one, range(n)))
+    rio = mt.recordio
+    w = rio.MXIndexedRecordIO(path + ".idx", path + ".rec", "w")
+    for i, jpg in enumerate(jpegs):
+        w.write_idx(i, rio.pack(rio.IRHeader(0, float(i % 1000), i, 0),
+                                jpg))
+    w.close()
+    return time.perf_counter() - t0, sum(len(j) for j in jpegs)
+
+
+def data_recordio(mt, np, tmp):
+    """(i) 10,000 records of 100 KB written, then read back, through the
+    native backend; MB/s of each (the read comes from the page cache:
+    warm)."""
+    import os
+    check(mt.recordio.backend_name() == "native",
+          f"recordio backend {mt.recordio.backend_name()}, not native")
+    n, size = DATA_RAW
+    block = np.random.RandomState(SEED).randint(0, 256, size + n,
+                                                dtype=np.uint8).tobytes()
+    path = os.path.join(tmp, "raw.rec")
+    w = mt.recordio.MXRecordIO(path, "w")
+    t0 = time.perf_counter()
+    for i in range(n):
+        w.write(block[i:i + size])
+    w.close()
+    write_s = time.perf_counter() - t0
+    r = mt.recordio.MXRecordIO(path, "r")
+    t0 = time.perf_counter()
+    got = [r.read() for _ in range(n)]
+    read_s = time.perf_counter() - t0
+    end = r.read()
+    r.close()
+    bad = sum(g != block[i:i + size] for i, g in enumerate(got))
+    check(bad == 0 and end is None,
+          f"recordio read back {bad} differing records")
+    total = n * size
+    file_bytes = os.path.getsize(path)
+    os.remove(path)
+    return {"records": n, "record_bytes": size, "backend": "native",
+            "file_bytes": file_bytes,
+            "write_mb_s": total / write_s / 1e6,
+            "read_mb_s": total / read_s / 1e6, "read": "warm page cache"}
+
+
+def data_record_iter(mt, path):
+    """An ImageRecordIter as train_imagenet.py builds it, from fixed
+    seeds."""
+    import random
+    import numpy as np
+    np.random.seed(SEED)
+    random.seed(SEED)
+    return mt.io.ImageRecordIter(
+        path_imgrec=path, data_shape=RESNET_IMAGE, batch_size=RESNET_BATCH,
+        shuffle=True, rand_crop=True, rand_mirror=True,
+        mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1], mean_b=DATA_MEAN[2],
+        std_r=DATA_STD[0], std_g=DATA_STD[1], std_b=DATA_STD[2],
+        preprocess_threads=data_threads())
+
+
+def data_iter_alone(mt, path):
+    """(ii) the iterator alone: img/s over DATA_EPOCHS epochs, then the
+    first epoch again from its state_dict, bit for bit.  Returns its
+    record and the first epoch's host batches (the materialized batches
+    of (iii))."""
+    import numpy as np
+    it = data_record_iter(mt, path)
+    start = it.state_dict()
+    epochs, seconds = [], []
+    for e in range(DATA_EPOCHS):
+        if e:
+            it.reset()
+        t0 = time.perf_counter()
+        epochs.append([(b.data[0].handle, b.label[0].handle, b.pad)
+                       for b in it])
+        seconds.append(time.perf_counter() - t0)
+    first = epochs[0]
+    check(len(first) == DATA_IMAGES // RESNET_BATCH,
+          f"{len(first)} batches in an epoch of {DATA_IMAGES} images")
+    it.load_state_dict(start)
+    it.reset()
+    again = [(b.data[0].handle, b.label[0].handle, b.pad) for b in it]
+    differ = sum(not (bool((a[0] == b[0]).all()) and
+                      bool((a[1] == b[1]).all()) and a[2] == b[2])
+                 for a, b in zip(first, again))
+    check(len(again) == len(first) and differ == 0,
+          f"the resumed epoch differs from the first in {differ} batches")
+    second_differs = any(not bool((a[0] == b[0]).all())
+                         for a, b in zip(first, epochs[1]))
+    check(second_differs, "the second epoch repeated the first")
+    images = sum(RESNET_BATCH - p for _, _, p in first)
+    decoders = dict(it.decoder_counts)
+    return {"images": images, "batch": RESNET_BATCH,
+            "preprocess_threads": data_threads(),
+            "epoch_seconds": seconds,
+            "images_per_s": DATA_EPOCHS * images / sum(seconds),
+            "decoder": it.last_decoder, "decoder_batches": decoders,
+            "resume_bit_equal": True, "batches_compared": len(first),
+            "mean": list(DATA_MEAN), "std": list(DATA_STD)}, first
+
+
+class _CardBatches:
+    """Batches built on the card before the loop, as a DataIter (the
+    yardstick of (iii): the same loop without the pipeline)."""
+
+    def __init__(self, mt, batches, provide_data, provide_label):
+        self._mt, self._batches = mt, batches
+        self.batch_size = RESNET_BATCH
+        self.provide_data, self.provide_label = provide_data, provide_label
+        self._i = 0
+
+    def reset(self):
+        self._i = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._i >= len(self._batches):
+            raise StopIteration
+        x, y = self._batches[self._i]
+        self._i += 1
+        nd = self._mt.nd
+        return self._mt.io.DataBatch([nd.NDArray(x)], [nd.NDArray(y)])
+
+    next = __next__
+
+
+DATA_BUSY_STEPS = (20, 25)       # (iii): the steps traced for the busy share
+
+
+def data_fit(mt, torch, sym, weights, train):
+    """One epoch of Module.fit(kvstore='tpu') over ``train``; each step's
+    loss (the SoftmaxOutput's cross-entropy), the host clock at each
+    step's end, and the device's busy share (kernel time over wall time)
+    over the steps DATA_BUSY_STEPS, traced by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    mod = resnet_module(mt, sym, "cuda", weights, RESNET_BATCH,
+                        kvstore="tpu")
+    losses, ends = [], []
+    trace = profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA])
+    traced = {}
+
+    def on_batch(param):
+        y = param.locals["data_batch"].label[0].handle
+        losses.append(module_loss(mod, y.float(), torch))
+        ends.append(time.perf_counter())
+        if param.nbatch + 1 == DATA_BUSY_STEPS[0]:
+            torch.cuda.synchronize()
+            trace.start()
+            traced["t0"] = time.perf_counter()
+        elif param.nbatch + 1 == DATA_BUSY_STEPS[1]:
+            torch.cuda.synchronize()
+            traced["wall_ms"] = (time.perf_counter() - traced["t0"]) * 1e3
+            trace.stop()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(train, num_epoch=1, batch_end_callback=on_batch,
+            kvstore="tpu", optimizer="sgd", optimizer_params=RESNET_SGD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    steady = (ends[-1] - ends[4]) / (len(ends) - 5)
+    busy_ms = sum(e.self_device_time_total for e in device_events(trace)) \
+        / 1e3
+    check(busy_ms > 0, "the traced steps hold no device time")
+    return mod, {"losses": losses, "seconds": wall,
+                 "steady_step_ms": steady * 1e3,
+                 "steady_images_per_s": RESNET_BATCH / steady,
+                 "captures": dict(mod._mesh_step.trace_counts),
+                 "busy_steps": list(DATA_BUSY_STEPS),
+                 "busy_wall_ms": traced["wall_ms"],
+                 "device_busy_ms": busy_ms,
+                 "device_busy_share": busy_ms / traced["wall_ms"]}
+
+
+def data_config2(mt, torch, path, host_batches, iter_rate, tmp):
+    """(iii) config 2 as the reference runs it: ResNet-50 v1 as a Symbol,
+    Module.fit(kvstore='tpu') over DevicePrefetchIter(ImageRecordIter),
+    against the same Module fed the same batches built on the card
+    before the loop; both from one copy of the initial weights.  Returns
+    the pipeline's Module, its checkpoint's prefix, the Symbol, the
+    initial weights and the record."""
+    import os
+    net = resnet_net(mt, torch, "cuda")
+    sym = resnet_symbol(mt, net)
+    weights = {k: p.data().copy() for k, p in net.collect_params().items()}
+    del net
+    staged = [(x.cuda(), y.cuda()) for x, y, _ in host_batches[:DATA_STEPS]]
+    provide = data_record_iter(mt, path)
+    card = _CardBatches(mt, staged, provide.provide_data,
+                        provide.provide_label)
+    del provide
+    base_mod, base = data_fit(mt, torch, sym, weights, card)
+    del base_mod, card, staged
+    torch.cuda.empty_cache()
+    train = mt.io.DevicePrefetchIter(data_record_iter(mt, path),
+                                     ctx=mt.tpu(0))
+    mod, piped = data_fit(mt, torch, sym, weights, train)
+    differ = [i for i, (a, b) in enumerate(zip(piped["losses"],
+                                               base["losses"])) if a != b]
+    check(len(piped["losses"]) == DATA_STEPS and not differ,
+          f"pipeline losses differ from the pre-staged run at steps "
+          f"{differ[:8]}: {piped['losses'][:4]} vs {base['losses'][:4]}")
+    step_rate = base["steady_images_per_s"]
+    pace = "pipeline" if iter_rate < step_rate else "step"
+    prefix = os.path.join(tmp, "config2")
+    mod.save_checkpoint(prefix, 1)
+    return mod, prefix, sym, weights, {
+        "model": "resnet50_v1", "steps": DATA_STEPS, "batch": RESNET_BATCH,
+        "kvstore": "tpu", "cudnn_deterministic": True, "tf32": False,
+        "losses_bit_equal": True, "losses": piped["losses"],
+        "pipeline": {k: piped[k] for k in (
+            "seconds", "steady_step_ms", "steady_images_per_s", "captures",
+            "busy_steps", "busy_wall_ms", "device_busy_ms",
+            "device_busy_share")},
+        "pipeline_steps_per_s": DATA_STEPS / piped["seconds"],
+        "pipeline_images_per_s_end_to_end":
+            DATA_STEPS * RESNET_BATCH / piped["seconds"],
+        "prestaged": {k: base[k] for k in (
+            "seconds", "steady_step_ms", "steady_images_per_s",
+            "device_busy_ms", "device_busy_share")},
+        "iterator_images_per_s": iter_rate,
+        "paced_by": pace}
+
+
+class _IndexedBatches:
+    """(iv)'s host batches: batch i is filled with i."""
+
+    def __init__(self, torch, n, shape):
+        self._torch, self._n, self._shape = torch, n, shape
+        self.batch_size = shape[0]
+        self._i = 0
+
+    def next(self):
+        from incubator_mxnet_tpu_torch import io, nd
+        if self._i >= self._n:
+            raise StopIteration
+        i = self._i
+        self._i += 1
+        x = self._torch.full(self._shape, float(i))
+        y = self._torch.full(self._shape[:1], float(i))
+        return io.DataBatch([nd.NDArray(x)], [nd.NDArray(y)])
+
+    def reset(self):
+        self._i = 0
+
+    def state_dict(self):
+        raise NotImplementedError
+
+
+def data_copy_stress(mt, torch):
+    """(iv) DevicePrefetchIter at each depth over DATA_STRESS host
+    batches filled from their index; the consumer first sleeps on its
+    stream past the copy's time, then counts on the card the elements
+    of the staged batch that differ from its index.  The copy's GB/s
+    from pinned memory is timed alone between CUDA events."""
+    shape = (RESNET_BATCH,) + RESNET_IMAGE
+    nbytes = 4 * math.prod(shape)
+    pinned = torch.empty(shape, pin_memory=True)
+    dev = torch.empty(shape, device="cuda")
+    dev.copy_(pinned, non_blocking=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        dev.copy_(pinned, non_blocking=True)
+    end.record()
+    end.synchronize()
+    copy_ms = start.elapsed_time(end) / 20
+    del dev, pinned
+    # a sleep that outlasts the copy: cycles at the SM clock
+    clock_hz = torch.cuda.get_device_properties(0).clock_rate * 1e3 \
+        if hasattr(torch.cuda.get_device_properties(0), "clock_rate") \
+        else 2e9
+    cycles = int(3 * copy_ms * 1e-3 * clock_hz)
+    out = {}
+    for depth in DATA_DEPTHS:
+        it = mt.io.DevicePrefetchIter(_IndexedBatches(torch, DATA_STRESS,
+                                                      shape),
+                                      ctx=mt.tpu(0), depth=depth)
+        mismatched = torch.zeros((), dtype=torch.int64, device="cuda")
+        seen = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, batch in enumerate(it):
+            torch.cuda._sleep(cycles)
+            mismatched += (batch.data[0].handle != i).sum()
+            mismatched += (batch.label[0].handle != i).sum()
+            seen += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = int(mismatched.item())
+        check(seen == DATA_STRESS and bad == 0,
+              f"DevicePrefetchIter depth {depth}: {bad} mismatched "
+              f"elements over {seen} batches")
+        out[str(depth)] = {"batches": seen, "mismatches": bad,
+                           "seconds": wall}
+    return {"batch_bytes": nbytes, "sleep_cycles": cycles,
+            "copy_ms": copy_ms, "copy_gb_s": nbytes / copy_ms / 1e6,
+            "depths": out}
+
+
+def data_decode_crop(record):
+    """(v)'s transform, run in the DataLoader's workers: unpack a record,
+    decode it (image.imdecode), crop the center 224 x 224, and normalize
+    as (ii) does; numpy out."""
+    import numpy as np
+    import incubator_mxnet_tpu_torch as mt
+    header, jpg = mt.recordio.unpack(record)
+    img = mt.image.imdecode(jpg).asnumpy()
+    h, w = img.shape[:2]
+    side = RESNET_IMAGE[1]
+    y0, x0 = (h - side) // 2, (w - side) // 2
+    crop = img[y0:y0 + side, x0:x0 + side].astype(np.float32)
+    crop = (crop - np.asarray(DATA_MEAN, np.float32)) \
+        / np.asarray(DATA_STD, np.float32)
+    return crop.transpose(2, 0, 1).copy(), np.float32(header.label)
+
+
+def data_gluon(mt, torch, path):
+    """(v) gluon.data.DataLoader over a RecordFileDataset of (ii)'s .rec
+    with DATA_LOADER_WORKERS process workers: its first batches bit-equal
+    to num_workers=0's, its rate alone, and the Gluon ResNet-50 v1
+    Trainer fed from it."""
+    gd = mt.gluon.data
+    dataset = gd.RecordFileDataset(path).transform(data_decode_crop)
+
+    def loader(workers):
+        return gd.DataLoader(dataset, batch_size=RESNET_BATCH,
+                             shuffle=False, num_workers=workers)
+
+    sync = iter(loader(0))
+    ref = [next(sync) for _ in range(DATA_LOADER_CHECKED)]
+    del sync
+    t0 = time.perf_counter()
+    got = []
+    for i, batch in enumerate(loader(DATA_LOADER_WORKERS)):
+        if i < DATA_LOADER_CHECKED:
+            got.append(batch)
+        if i + 1 == DATA_GLUON_STEPS:
+            break
+    alone_s = time.perf_counter() - t0
+    differ = sum(not (bool((a[0].handle == b[0].handle).all()) and
+                      bool((a[1].handle == b[1].handle).all()))
+                 for a, b in zip(ref, got))
+    check(len(got) == DATA_LOADER_CHECKED and differ == 0,
+          f"DataLoader process workers: {differ} of {len(got)} batches "
+          "differ from num_workers=0's")
+    net = resnet_net(mt, torch, "cuda")
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", RESNET_SGD)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (x, y) in enumerate(loader(DATA_LOADER_WORKERS)):
+        xs = mt.nd.NDArray(x.handle.cuda())
+        ys = mt.nd.NDArray(y.handle.cuda())
+        with mt.autograd.record():
+            loss = loss_fn(net(xs), ys)
+        loss.backward()
+        trainer.step(RESNET_BATCH)
+        losses.append(loss.mean())
+        if i + 1 == DATA_GLUON_STEPS:
+            break
+    losses = [float(v.asscalar()) for v in losses]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    check(len(losses) == DATA_GLUON_STEPS and
+          all(math.isfinite(v) for v in losses), f"Gluon losses {losses}")
+    del net, trainer
+    return {"workers": DATA_LOADER_WORKERS, "process_workers": True,
+            "batches_bit_equal": DATA_LOADER_CHECKED,
+            "loader_images_per_s": DATA_GLUON_STEPS * RESNET_BATCH
+            / alone_s,
+            "loop_images_per_s": DATA_GLUON_STEPS * RESNET_BATCH / loop_s,
+            "steps": DATA_GLUON_STEPS, "losses": losses}
+
+
+def data_predictor(mt, torch, mod, prefix, host_batch):
+    """(vi) the Predictor over (iii)'s checkpoint on the card, against
+    Module.predict on one batch (fp32, TF32 off); its latency."""
+    import numpy as np
+    x, y = host_batch[0].numpy(), host_batch[1].numpy()
+    shapes = {"data": x.shape, "softmax_label": y.shape}
+    pred = mt.Predictor(f"{prefix}-symbol.json", f"{prefix}-0001.params",
+                        shapes)
+    check(pred._exec._ctx.type == "cuda", "the Predictor is not on the card")
+
+    def run():
+        pred.forward(data=x, softmax_label=y)
+        return pred.get_output(0).asnumpy()
+
+    got = run()
+    want = mod.predict(mt.io.NDArrayIter(x, y, batch_size=len(x)))
+    want = want.asnumpy() if hasattr(want, "asnumpy") else np.asarray(want)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    check(rel <= DATA_PREDICT_TOL,
+          f"Predictor vs Module.predict: rel {rel} > {DATA_PREDICT_TOL}")
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"rel_err_vs_module_predict": rel, "tol": DATA_PREDICT_TOL,
+            "batch": len(x), "predict_ms_median": sorted(times)[5],
+            "predict_ms_min": min(times)}
+
+
+def data_profiler(mt, torch, sym, weights, path, tmp):
+    """(vi) the profiler on around DATA_PROFILED_STEPS steps of (iii)'s
+    loop (its Module, kvstore='tpu', fed by the pipeline) with an nd
+    loss read each step: the framework trace holds one event per
+    dispatched op (counted through the dispatch hook), the device trace
+    names cuDNN's convolution and batch-norm kernels; the device's busy
+    share over those steps."""
+    import json
+    import os
+    import re
+    mod = resnet_module(mt, sym, "cuda", weights, RESNET_BATCH,
+                        kvstore="tpu")
+    it = mt.io.DevicePrefetchIter(data_record_iter(mt, path),
+                                  ctx=mt.tpu(0))
+    batches = iter(it)
+    for _ in range(2):                        # capture outside the window
+        mod.forward_backward(next(batches))
+        mod.update()
+    nd = mt.nd
+    monitor = mt.monitor
+    dispatched = []
+    saved = (monitor.active, monitor.observe_op)
+    monitor.active = lambda: True
+    monitor.observe_op = lambda name, outs: dispatched.append(name)
+    framework = os.path.join(tmp, "profile.json")
+    mt.profiler.set_config(filename=framework, mode="coarse")
+    logdir = os.path.join(tmp, "device_trace")
+    torch.cuda.synchronize()
+    try:
+        mt.profiler.start_xla_trace(logdir)
+        mt.profiler.set_state("run")
+        t0 = time.perf_counter()
+        for _ in range(DATA_PROFILED_STEPS):
+            batch = next(batches)
+            mod.forward_backward(batch)
+            mod.update()
+            prob = mod.get_outputs()[0]
+            loss = -nd.log(nd.pick(prob, batch.label[0], axis=-1)).mean()
+        loss.asnumpy()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        mt.profiler.set_state("stop")
+        device = mt.profiler.stop_xla_trace()
+    finally:
+        monitor.active, monitor.observe_op = saved
+        mt.profiler.set_state("stop")
+    mt.profiler.dump_profile()
+    with open(framework) as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e["name"] for e in events if e.get("ph") == "X"]
+    check(ops == dispatched and len(ops) >= DATA_PROFILED_STEPS,
+          f"framework trace holds {len(ops)} op events for "
+          f"{len(dispatched)} dispatched ops")
+    with open(device) as f:
+        dev_events = json.load(f)["traceEvents"]
+    kernels = [e for e in dev_events if e.get("cat") == "kernel"]
+    conv = [e["name"] for e in kernels if re.search(
+        r"conv|fprop|dgrad|wgrad|xmma|implicit_gemm", e["name"], re.I)]
+    bn = [e["name"] for e in kernels if re.search(
+        r"bn_|batch_?norm|batchnorm", e["name"], re.I)]
+    check(conv and bn, f"device trace: {len(conv)} convolution and "
+                       f"{len(bn)} batch-norm kernels")
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"framework_trace_bytes": os.path.getsize(framework),
+            "framework_op_events": len(ops),
+            "dispatched_ops": len(dispatched),
+            "device_trace_bytes": os.path.getsize(device),
+            "device_kernel_events": len(kernels),
+            "conv_kernel_events": len(conv), "bn_kernel_events": len(bn),
+            "conv_kernel_example": conv[0][:80],
+            "bn_kernel_example": bn[0][:80],
+            "profiled_steps": DATA_PROFILED_STEPS, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "top5_device_ms": [[k[:80], v] for k, v in top]}
+
+
+def data_consistency(mt):
+    """(vii) test_utils.check_consistency of five Symbols between cpu()
+    and the card, at the reference's tolerances."""
+    S = mt.sym
+    syms = {
+        "Convolution": S.Convolution(S.Variable("data"), num_filter=32,
+                                     kernel=(3, 3), pad=(1, 1), name="conv"),
+        "BatchNorm": S.BatchNorm(S.Variable("data"), name="bn"),
+        "FullyConnected": S.FullyConnected(S.Variable("data"),
+                                           num_hidden=128, name="fc"),
+        "Pooling": S.Pooling(S.Variable("data"), kernel=(3, 3),
+                             stride=(2, 2), pool_type="max", name="pool"),
+        "softmax": S.softmax(S.Variable("data"), name="softmax"),
+    }
+    out = {}
+    for op, sym in syms.items():
+        shapes = DATA_CONSISTENCY[op][1]
+        try:
+            res = mt.test_utils.check_consistency(
+                sym, [dict(ctx=mt.cpu(), shapes=shapes),
+                      dict(ctx=mt.tpu(0), shapes=shapes)])
+        except AssertionError as exc:
+            raise CheckFailed(f"check_consistency({op}): {exc}") from None
+        (co, cg, _), (go, gg, _) = res
+        out[op] = {"out_max_abs_err": max(float(abs(a - b).max())
+                                          for a, b in zip(go, co)),
+                   "grad_max_abs_err": max((float(abs(gg[k] - cg[k]).max())
+                                            for k in cg), default=0.0)}
+    return {"rtol": 1e-4, "atol": 1e-5, "ops": out}
+
+
+def data_det_rec(mt, np, path):
+    """DATA_DET's detection .rec: 300 x 300 JPEGs, one to three boxes
+    each (class 0 wide, 1 tall), brighter than the background."""
+    from PIL import Image
+    import io as _io
+    rs = np.random.RandomState(SEED)
+    side = DATA_DET["side"]
+    rio = mt.recordio
+    w = rio.MXIndexedRecordIO(path + ".idx", path + ".rec", "w")
+    for i in range(DATA_DET["images"]):
+        img = rs.rand(side, side, 3) * 50
+        objs = []
+        for _ in range(1 + i % 3):
+            wide = rs.rand() < 0.5
+            bw = rs.uniform(0.25, 0.45)
+            bh = bw * rs.uniform(0.4, 0.6)
+            if not wide:
+                bw, bh = bh, bw
+            x0, y0 = rs.uniform(0, 1 - bw), rs.uniform(0, 1 - bh)
+            px = [int(v * side) for v in (x0, y0, x0 + bw, y0 + bh)]
+            img[px[1]:px[3], px[0]:px[2]] += 150
+            objs += [0.0 if wide else 1.0, x0, y0, x0 + bw, y0 + bh]
+        buf = _io.BytesIO()
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=DATA_QUALITY)
+        label = np.asarray([2, 5] + objs, np.float32)
+        w.write_idx(i, rio.pack(rio.IRHeader(0, label, i, 0),
+                                buf.getvalue()))
+    w.close()
+    return path + ".rec"
+
+
+def data_detection(mt, torch, np, tmp):
+    """(viii) ImageDetIter over DATA_DET's .rec feeds config 4's SSD loop
+    (the detect phase's blocks, loss and SGD) on the card; its loss
+    falls."""
+    import os
+    import random
+    rec = data_det_rec(mt, np, os.path.join(tmp, "det"))
+    q = DATA_DET
+    shape = (3, q["side"], q["side"])
+    random.seed(SEED)
+    np.random.seed(SEED)
+    augs = mt.image.CreateDetAugmenter(shape, rand_mirror=True,
+                                       mean=np.zeros(3),
+                                       std=np.full(3, 255.0))
+    it = mt.image.ImageDetIter(q["batch"], shape, path_imgrec=rec,
+                               shuffle=True, aug_list=augs)
+    nd = mt.nd
+    mt.random.seed(0)
+    blocks = ssd_blocks(mt, DEV)
+    params = {}
+    for blk in blocks:
+        params.update(blk.collect_params())
+    trainer = mt.gluon.Trainer(params, "sgd", dict(
+        learning_rate=q["lr"], momentum=0.9, wd=1e-4))
+    one = nd.array([1.0], ctx=DEV)
+    losses, load_s = [], 0.0
+    t0 = time.perf_counter()
+    for _ in range(q["iters"]):
+        t1 = time.perf_counter()
+        try:
+            batch = it.next()
+        except StopIteration:
+            it.reset()
+            batch = it.next()
+        xb = nd.array(batch.data[0], ctx=DEV)
+        lb = nd.array(batch.label[0], ctx=DEV)
+        load_s += time.perf_counter() - t1
+        with mt.autograd.record():
+            loss = ssd_loss(nd, *ssd_forward(nd, blocks, xb), lb, one)
+        loss.backward()
+        trainer.step(q["batch"])
+        losses.append(float(loss.asnumpy()[0]))
+    seconds = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"(viii) SSD loss did not fall: {losses}")
+    return {"images": q["images"], "side": q["side"], "batch": q["batch"],
+            "iters": q["iters"], "label_shape": list(it.provide_label[0]
+                                                      .shape),
+            "losses": losses, "seconds": seconds, "load_seconds": load_s}
+
+
+def data_decoder(mt):
+    """Which JPEG decoder this host has: 'native' (src/imgdec on
+    libjpeg), 'pil', or None; and why the native one is missing."""
+    import importlib.util
+    native = mt.image.native_dec.available()
+    pil = importlib.util.find_spec("PIL") is not None
+    return ("native" if native else "pil" if pil else None,
+            {"native": native, "native_why": mt.image.native_dec.why(),
+             "pil": pil})
+
+
+def phase_data(mt, torch, card):
+    import os
+    import tempfile
+    import numpy as np
+    launches = mt.ops.LAUNCHES
+    decoder, decoders = data_decoder(mt)
+    check(decoder is not None,
+          f"no JPEG decoder on this host: {decoders}")
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mt.ops.reset_launches()
+    t = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        t[name] = time.perf_counter() - t0
+        return res
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            raw = part("recordio", data_recordio, mt, np, tmp)
+            rec = os.path.join(tmp, "imagenet")
+            enc_s, enc_bytes = part("encode", data_write_images, mt, np,
+                                    rec, DATA_IMAGES)
+            rec += ".rec"
+            alone, host_batches = part("iterator", data_iter_alone, mt, rec)
+            mod, prefix, sym, weights, config2 = part(
+                "config2", data_config2, mt, torch, rec, host_batches,
+                alone["images_per_s"], tmp)
+            config2["peak_card_bytes_over_phase_start"] = \
+                torch.cuda.max_memory_allocated() - base_bytes
+            predictor = part("predictor", data_predictor, mt, torch, mod,
+                             prefix, host_batches[0])
+            del mod
+            release(torch)
+            profiled = part("profiler", data_profiler, mt, torch, sym,
+                            weights, rec, tmp)
+            release(torch)
+            stress = part("copy_stress", data_copy_stress, mt, torch)
+            del host_batches
+            gluon = part("gluon", data_gluon, mt, torch, rec)
+            release(torch)
+            consistency = part("consistency", data_consistency, mt)
+            detection = part("detection", data_detection, mt, torch, np,
+                             tmp)
+            release(torch)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    counts = {k: v for k, v in launches.items() if v}
+    check(not counts, f"phase data launched kernels of the port: {counts}")
+    emit({"phase": "data", "card": card, "cpu_count": os.cpu_count(),
+          "jpeg_decoder": decoder, "decoders": decoders,
+          "seconds": t,
+          "recordio": raw,
+          "images": {"records": DATA_IMAGES, "jpeg_bytes": enc_bytes,
+                     "mean_jpeg_bytes": enc_bytes / DATA_IMAGES,
+                     "encode_seconds": enc_s, "quality": DATA_QUALITY,
+                     "stored": [DATA_SHORT, DATA_LONG]},
+          "image_record_iter": alone, "config2": config2,
+          "copy_stress": stress, "gluon": gluon, "predictor": predictor,
+          "profiler": profiled, "check_consistency": consistency,
+          "image_det_iter": detection,
+          "kernel_launches": counts,
+          "hand_kernels": "none: decode, augmentation and batching run on "
+                          "the host, the copy is a DMA"})
+    return counts
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5995,6 +6795,7 @@ def main():
                                              torch, card)
         sparse_launches = timed("sparse", phase_sparse, mt, torch, card)
         vision_launches = timed("vision", phase_vision, mt, torch, card)
+        data_launches = timed("data", phase_data, mt, torch, card)
         keeps["end"] = trace_keeps(torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
               "trace_keeps": keeps})
@@ -6037,6 +6838,7 @@ def main():
                 e["name"], 0)
             e["launches_by_path"]["vision"] = vision_launches.get(
                 e["name"], 0)
+            e["launches_by_path"]["data"] = data_launches.get(e["name"], 0)
             if e["name"] in hyb_runs:
                 e["runs_per_replay"] = {"hybridize": hyb_runs[e["name"]]}
             for path, counts in detect_launches.items():

@@ -24,7 +24,10 @@ the mesh, ``kvstore`` the parameter store.  The symbolic surface rides on the sa
 ``sym.contrib``; ``graph`` holds the pass pipeline every bind runs and the
 ``CachedOp`` behind ``HybridBlock.hybridize()``; ``operator`` holds the
 ``Custom`` ops written in Python.  ``serving`` serves ``TransformerLM`` traffic by
-continuous batching over a paged KV cache.
+continuous batching over a paged KV cache.  The input pipeline is
+``recordio``, ``image`` (``ImageRecordIter``, ``ImageDetIter``), ``io``'s
+``DevicePrefetchIter`` and ``gluon.data``; ``profiler``, ``predictor``
+(``Predictor``), ``visualization`` and ``test_utils`` complete the surface.
 
 This package imports neither JAX nor ``incubator_mxnet_tpu``.
 """
@@ -53,6 +56,8 @@ from .module import Module
 from . import rnn
 from . import contrib
 from . import operator
+from . import recordio, image, profiler, predictor, visualization, test_utils
+from .predictor import Predictor
 from .monitor import Monitor
 from .io import DataBatch, DataDesc, DataIter, NDArrayIter
 from .optimizer import Optimizer
@@ -71,4 +76,6 @@ __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "NDArrayIter", "kvstore", "kv", "Context", "cpu", "gpu",
            "cpu_pinned", "current_context", "num_gpus", "gpu_memory_info",
            "default_device", "MXTPUError", "TShape", "Optimizer", "tpu",
-           "num_tpus", "tpu_memory_info", "default_context", "operator"]
+           "num_tpus", "tpu_memory_info", "default_context", "operator",
+           "recordio", "image", "profiler", "predictor", "Predictor",
+           "visualization", "test_utils"]

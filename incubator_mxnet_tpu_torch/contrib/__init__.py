@@ -4,8 +4,8 @@
 (ref: python/mxnet/contrib/__init__.py), e.g.
 ``mt.nd.contrib.MultiBoxPrior``.  ``import
 incubator_mxnet_tpu_torch.ndarray.contrib`` works as a statement too.
-``contrib/{autograd,tensorboard}.py`` are ROADMAP item A8's last
-sub-slice."""
+``contrib.autograd`` is the legacy autograd namespace and
+``contrib.tensorboard`` the metric-logging callback."""
 import sys as _sys
 import types as _types
 
@@ -13,7 +13,7 @@ from .. import ndarray as _nd
 from .. import symbol as _sym
 from ..ops.registry import OPS as _OPS
 
-__all__ = ["ndarray", "nd", "symbol", "sym"]
+__all__ = ["ndarray", "nd", "symbol", "sym", "autograd", "tensorboard"]
 
 
 def _make_namespace(modname, internal):
@@ -33,3 +33,5 @@ _nd.contrib = ndarray
 _sym.contrib = symbol
 _sys.modules[_nd.__name__ + ".contrib"] = ndarray
 _sys.modules[_sym.__name__ + ".contrib"] = symbol
+
+from . import autograd, tensorboard  # noqa: E402  (after the namespaces)

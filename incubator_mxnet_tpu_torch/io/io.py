@@ -14,23 +14,26 @@ the operating system), never from numpy's global state, and its
 replays this epoch's remaining batches and every later shuffle.
 
 ``LibSVMIter`` gives CSR batches (``ndarray/sparse.py``), parsed
-straight to CSR.  Not in this slice: ``ImageRecordIter``,
-``DataServiceIter`` and ``DevicePrefetchIter`` (the input pipeline,
-ROADMAP item A10); each raises.
-``PrefetchingIter`` has no data deadline (``MXTPU_DATA_TIMEOUT``), no
-fault injection (item A11) and no resumable state (``state_dict``, the
-JAX package's, comes with A10's pipeline): a worker that dies is
-reported, a wedged one waits.
+straight to CSR.  ``ImageRecordIter`` is ``image.ImageRecordIter``.
+
+Every wait on a background producer (``PrefetchingIter``,
+``DevicePrefetchIter``, ``ImageRecordIter``) is bounded by
+``MXTPU_DATA_TIMEOUT``: a producer that died or wedged surfaces as a
+``DataPipelineError`` naming its source.  Fault injection comes with
+ROADMAP item A11; ``DataServiceIter`` (the multi-process data service)
+is the next slice of item A10 and raises.
 """
 import gzip
 import queue
 import struct
 import threading
+import time
 
 import numpy as np
 
-from ..context import cpu
+from ..context import cpu, resolve
 from ..ndarray.ndarray import NDArray, array as nd_array
+from ..resilience import DataPipelineError, data_env, data_timeout
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
            "ResizeIter", "PrefetchingIter", "DevicePrefetchIter",
@@ -40,9 +43,15 @@ __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
 _GET_POLL_S = 0.2
 
 
-def _get(q, thread, source):
-    """``q.get()`` that notices a producer thread that died without
-    delivering."""
+def _bounded_get(q, source, thread=None, timeout=None):
+    """``q.get()`` bounded by ``MXTPU_DATA_TIMEOUT`` (``timeout=None``
+    reads the flag; a value <= 0 disables the deadline).  Raises
+    ``DataPipelineError`` naming ``source`` when the producer thread
+    died without delivering, or when nothing arrives in time."""
+    if timeout is None:
+        timeout = data_timeout()
+    deadline = time.monotonic() + timeout \
+        if timeout and timeout > 0 else None
     while True:
         try:
             return q.get(timeout=_GET_POLL_S)
@@ -52,9 +61,15 @@ def _get(q, thread, source):
             try:  # the final put may have landed after our get timed out
                 return q.get_nowait()
             except queue.Empty:
-                raise RuntimeError(
+                raise DataPipelineError(
                     f"{source}: prefetch worker thread died without "
-                    "delivering a batch, end-of-epoch, or error") from None
+                    "delivering a batch, end-of-epoch, or error; the "
+                    "stream cannot continue") from None
+        if deadline is not None and time.monotonic() >= deadline:
+            raise DataPipelineError(
+                f"{source} stalled: no batch arrived within "
+                f"{timeout:g}s (MXTPU_DATA_TIMEOUT); the upstream "
+                "iterator or its storage is wedged") from None
 
 
 def _stop_aware_put(q, stop, item):
@@ -69,17 +84,26 @@ def _stop_aware_put(q, stop, item):
     return False
 
 
-def _halt_worker_thread(thread, q, stop):
+def _halt_worker_thread(thread, q, stop, source, timeout=30):
     """Stop and join a producer, draining its queue while joining (a
-    producer mid-put needs a slot to see the stop) and after."""
+    producer mid-put needs a slot to see the stop) and after.  A worker
+    still alive past ``timeout`` is wedged inside the inner iterator:
+    resetting that iterator under it would interleave two readers, so
+    this raises ``DataPipelineError`` instead."""
     stop.set()
     if thread is not None:
+        deadline = time.monotonic() + timeout
         while thread.is_alive():
             try:
                 q.get_nowait()
             except queue.Empty:
                 pass
             thread.join(timeout=0.05)
+            if time.monotonic() > deadline:
+                raise DataPipelineError(
+                    f"{source}: worker still blocked in the inner "
+                    f"iterator after {timeout}s; it cannot be reset "
+                    "safely")
     try:
         while True:
             q.get_nowait()
@@ -375,7 +399,15 @@ class ResizeIter(DataIter):
 class PrefetchingIter(DataIter):
     """Background-thread prefetch of one or more iterators (their
     batches joined), ``prefetch_depth`` batches ahead: host batch
-    preparation overlaps the device's step."""
+    preparation overlaps the device's step (ref: io.py PrefetchingIter,
+    src/io/iter_prefetcher.h:47).
+
+    ``state_dict`` pairs the inner iterators' epoch-start state with the
+    count of batches delivered, since the worker reads ahead of the
+    consumer; a restore reloads that state and skips the delivered
+    batches.  A ``reset()`` of an epoch nothing was taken from keeps it
+    (and what the worker read ahead), so ``fit``'s epoch-start reset of
+    a fresh iterator does not reset the inner ones under the worker."""
 
     def __init__(self, iters, rename_data=None, rename_label=None,
                  prefetch_depth=2):
@@ -391,6 +423,9 @@ class PrefetchingIter(DataIter):
         self._thread = None
         self._exhausted = False
         self._error = None
+        self._delivered = 0
+        self._pending_resume = None
+        self._capture_epoch_state()
         self._start()
 
     def _start(self):
@@ -400,6 +435,7 @@ class PrefetchingIter(DataIter):
 
         def worker():
             while not stop.is_set():
+                # the ``data:prefetch`` fault point comes with item A11
                 try:
                     batches = [it.next() for it in self.iters]
                 except StopIteration:
@@ -433,37 +469,312 @@ class PrefetchingIter(DataIter):
                              self.rename_label)
 
     def _halt_worker(self):
-        _halt_worker_thread(self._thread, self._queue, self._stop)
+        _halt_worker_thread(self._thread, self._queue, self._stop,
+                            "PrefetchingIter")
         self._thread = None
 
+    def _capture_epoch_state(self):
+        try:
+            self._epoch_state = [it.state_dict() for it in self.iters]
+        except NotImplementedError:
+            self._epoch_state = None
+
     def reset(self):
+        if (self._pending_resume is None and self._delivered == 0
+                and self._error is None and not self._exhausted
+                and self._thread is not None):
+            return      # an epoch nothing was taken from is kept
         self._halt_worker()
-        for it in self.iters:
-            it.reset()
+        if self._pending_resume is not None:
+            state, self._pending_resume = self._pending_resume, None
+            for it, inner in zip(self.iters, state["inner"]):
+                it.load_state_dict(inner)
+                # skip() fast-forwards and disarms the inner reset
+                # shield: the prefetcher owns the resume here
+                it.skip(state["delivered"])
+        else:
+            for it in self.iters:
+                it.reset()
         self._stop = threading.Event()
         self._queue = queue.Queue(maxsize=self._depth)
         self._exhausted = False
         self._error = None
+        self._delivered = 0
+        self._capture_epoch_state()
         self._start()
 
+    def state_dict(self):
+        if self._pending_resume is not None:
+            return dict(self._pending_resume)    # not applied yet
+        if self._epoch_state is None:
+            raise NotImplementedError(
+                "PrefetchingIter state needs every inner iterator to "
+                "implement state_dict")
+        return {"type": "PrefetchingIter", "inner": self._epoch_state,
+                "delivered": self._delivered}
+
+    def load_state_dict(self, state):
+        if len(state.get("inner") or []) != len(self.iters):
+            raise ValueError(
+                "state_dict holds state for "
+                f"{len(state.get('inner') or [])} inner iterators; "
+                f"this PrefetchingIter wraps {len(self.iters)}")
+        self._halt_worker()
+        self._pending_resume = dict(state)
+
     def next(self):
+        if self._pending_resume is not None:
+            self.reset()    # applies the restored position
         if self._exhausted:
             raise StopIteration
         if self._error is not None:
             raise self._error
-        item = _get(self._queue, self._thread, "PrefetchingIter")
+        item = _bounded_get(self._queue, "PrefetchingIter",
+                            thread=self._thread)
         if item is None:
             self._exhausted = True
             raise StopIteration
         if isinstance(item, tuple) and len(item) == 2 and item[0] == "err":
-            self._error = RuntimeError(
-                f"PrefetchingIter worker raised {type(item[1]).__name__}: "
-                f"{item[1]}")
-            self._error.__cause__ = item[1]
+            self._error = _typed(item[1], "PrefetchingIter")
             raise self._error
+        self._delivered += 1
         data = [d for b in item for d in b.data]
         label = [lb for b in item for lb in b.label]
         return DataBatch(data, label, pad=item[0].pad)
+
+    def iter_next(self):
+        raise NotImplementedError("use next()")
+
+
+def _typed(exc, source):
+    """A worker's exception as a ``DataPipelineError`` (kept as it is
+    when it already is one)."""
+    if isinstance(exc, DataPipelineError):
+        return exc
+    err = DataPipelineError(
+        f"{source} worker raised {type(exc).__name__}: {exc}")
+    err.__cause__ = exc
+    return err
+
+
+class DevicePrefetchIter(DataIter):
+    """Stage batch N+1 on the card while batch N's step runs (twin of
+    the JAX package's, which starts ``jax.device_put`` from a thread).
+
+    A worker thread takes each host batch from ``data_iter``, copies it
+    into a pinned host slot and from there to the card on a CUDA stream
+    of the iterator's own (``non_blocking``), then records an event.
+    ``next()`` makes the caller's current stream wait on that event and
+    calls ``record_stream`` on each staged tensor for that stream, so
+    the caching allocator cannot hand the memory on while the step
+    reads it.  The run holds ``depth`` pinned slots (one ring for each
+    batch signature); a slot is refilled only after the copy out of it
+    has completed, and at most ``depth`` staged batches wait for the
+    consumer, so the staged batches hold ``depth`` x the batch's bytes
+    of card memory.  A batch whose tensors are on the card already
+    passes through uncopied.  Call ``next()`` on the stream the step
+    runs on: a captured step copies its inputs into its static buffers
+    on the current stream, after the wait.
+
+    A ``reset()`` of an epoch nothing was taken from keeps it, as
+    ``PrefetchingIter``'s does.  ``ctx=None`` means the card (it raises
+    on a host without one); on a ``cpu()`` context the batches pass
+    through unchanged, which keeps the resume protocol testable there.
+    ``depth=None`` reads ``MXTPU_DEVICE_PREFETCH_DEPTH`` (default 2).
+
+        train = mt.io.DevicePrefetchIter(
+            mt.io.ImageRecordIter(...), ctx=mt.tpu(0))
+        module.fit(train, ...)
+    """
+
+    def __init__(self, data_iter, ctx=None, depth=None):
+        super().__init__(data_iter.batch_size)
+        self._iter = data_iter
+        self._device = resolve(ctx)
+        if depth is None:
+            depth = data_env("MXTPU_DEVICE_PREFETCH_DEPTH")
+        self._depth = max(1, int(depth))
+        self._on_card = self._device.type == "cuda"
+        if self._on_card:
+            import torch
+            if self._device.index is None:
+                self._device = torch.device(
+                    "cuda", torch.cuda.current_device())
+            self._stream = torch.cuda.Stream(self._device)
+        self._rings = {}          # batch signature -> [slot, ...]
+        self._staged = 0          # batches staged by the current worker
+        self._delivered = 0
+        self._pending_resume = None
+        self._capture_epoch_state()
+        self._spawn()
+
+    def _capture_epoch_state(self):
+        try:
+            self._epoch_state = self._iter.state_dict()
+        except NotImplementedError:
+            self._epoch_state = None
+
+    def _spawn(self):
+        self._queue = queue.Queue()
+        self._stop = threading.Event()
+        self._room = threading.Semaphore(self._depth)
+        self._terminal = None
+        # the worker keeps ITS queue, stop event and semaphore: one that
+        # outlives a reset() must not write into their replacements
+        q, stop, room = self._queue, self._stop, self._room
+
+        def worker():
+            while not stop.is_set():
+                # the ``data:device_prefetch`` fault point comes with A11
+                try:
+                    batch = self._iter.next()
+                except StopIteration:
+                    _stop_aware_put(q, stop, ("end", None))
+                    return
+                except Exception as exc:     # surfaces in the consumer
+                    _stop_aware_put(q, stop, ("err", exc))
+                    return
+                while not room.acquire(timeout=0.05):
+                    if stop.is_set():
+                        return
+                try:
+                    staged = self._stage(batch)
+                except Exception as exc:
+                    _stop_aware_put(q, stop, ("err", exc))
+                    return
+                if not _stop_aware_put(q, stop, ("ok", staged)):
+                    return
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def _stage(self, batch):
+        """``(DataBatch on the card, event or None)`` of a host batch."""
+        arrays = list(batch.data) + list(batch.label or [])
+        tensors = [a._data if isinstance(a, NDArray) else a
+                   for a in arrays]
+        event = None
+        if self._on_card:
+            tensors, event = self._copy_in(tensors)
+        out = [NDArray(t) for t in tensors]
+        n = len(batch.data)
+        return DataBatch(out[:n], out[n:], pad=batch.pad,
+                         index=batch.index, bucket_key=batch.bucket_key,
+                         provide_data=batch.provide_data,
+                         provide_label=batch.provide_label), event
+
+    def _copy_in(self, tensors):
+        """Copy the host tensors to the card through a pinned slot on
+        the iterator's stream; a tensor on the card already passes."""
+        import torch
+        host = [t for t in tensors if t.device.type == "cpu"]
+        if not host:
+            return [t.to(self._device) for t in tensors], None
+        sig = tuple((tuple(t.shape), t.dtype) for t in host)
+        ring = self._rings.get(sig)
+        if ring is None:
+            for old in self._rings.values():    # a new signature: the
+                for slot in old:                # old slots' copies end
+                    if slot["event"] is not None:   # before they go
+                        slot["event"].synchronize()
+            self._rings.clear()
+            ring = self._rings[sig] = [
+                {"bufs": [torch.empty(s, dtype=d, pin_memory=True)
+                          for s, d in sig],
+                 "event": None}
+                for _ in range(self._depth)]
+        slot = ring[self._staged % self._depth]
+        self._staged += 1
+        if slot["event"] is not None:
+            slot["event"].synchronize()    # the copy out of it ended
+        for buf, t in zip(slot["bufs"], host):
+            buf.copy_(t)
+        out, bufs = [], iter(slot["bufs"])
+        with torch.cuda.device(self._device), \
+                torch.cuda.stream(self._stream):
+            for t in tensors:
+                if t.device.type == "cpu":
+                    out.append(next(bufs).to(self._device,
+                                             non_blocking=True))
+                else:
+                    out.append(t.to(self._device))
+            event = slot["event"] = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event
+
+    @property
+    def provide_data(self):
+        return self._iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self._iter.provide_label
+
+    def _halt_worker(self):
+        _halt_worker_thread(self._thread, self._queue, self._stop,
+                            "DevicePrefetchIter")
+        self._staged = 0
+
+    def reset(self):
+        if (self._pending_resume is None and self._delivered == 0
+                and self._terminal is None and self._thread.is_alive()):
+            return      # an epoch nothing was taken from is kept
+        self._halt_worker()
+        if self._pending_resume is not None:
+            state, self._pending_resume = self._pending_resume, None
+            self._iter.load_state_dict(state["inner"])
+            self._iter.skip(state["delivered"])
+        else:
+            self._iter.reset()
+        self._delivered = 0
+        self._capture_epoch_state()
+        self._spawn()
+
+    def state_dict(self):
+        if self._pending_resume is not None:
+            return dict(self._pending_resume)
+        if self._epoch_state is None:
+            raise NotImplementedError(
+                "DevicePrefetchIter state needs the inner iterator to "
+                "implement state_dict")
+        return {"type": "DevicePrefetchIter", "inner": self._epoch_state,
+                "delivered": self._delivered}
+
+    def load_state_dict(self, state):
+        if state.get("type") != "DevicePrefetchIter":
+            raise ValueError(f"state_dict type {state.get('type')!r} "
+                             "does not match DevicePrefetchIter")
+        self._halt_worker()
+        self._pending_resume = dict(state)
+
+    def next(self):
+        if self._pending_resume is not None:
+            self.reset()    # applies the restored position
+        if self._terminal is not None:     # the worker is gone: raise
+            kind, payload = self._terminal  # again instead of waiting
+            if kind == "end":               # on a producerless queue
+                raise StopIteration
+            raise payload
+        kind, payload = _bounded_get(self._queue, "DevicePrefetchIter",
+                                     thread=self._thread)
+        if kind == "end":
+            self._terminal = (kind, payload)
+            raise StopIteration
+        if kind == "err":
+            err = _typed(payload, "DevicePrefetchIter")
+            self._terminal = (kind, err)
+            raise err
+        batch, event = payload
+        if event is not None:
+            import torch
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(event)
+            for a in list(batch.data) + list(batch.label):
+                if a._data.device.type == "cuda":
+                    a._data.record_stream(stream)
+        self._room.release()
+        self._delivered += 1
+        return batch
 
     def iter_next(self):
         raise NotImplementedError("use next()")
@@ -600,15 +911,16 @@ class LibSVMIter(DataIter):
                          provide_label=self.provide_label)
 
 
-def _not_ported(name, item, why=""):
-    def ctor(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet{why} (ROADMAP item {item})")
-    ctor.__name__ = ctor.__qualname__ = name
-    ctor.__doc__ = f"Raises: {name} comes with ROADMAP item {item}."
-    return ctor
+def ImageRecordIter(*args, **kwargs):
+    """The RecordIO image pipeline: ``image.ImageRecordIter`` (ref:
+    src/io/iter_image_recordio_2.cc)."""
+    from ..image.record_iter import ImageRecordIter as _Impl
+    return _Impl(*args, **kwargs)
 
 
-ImageRecordIter = _not_ported("ImageRecordIter", "A10")
-DataServiceIter = _not_ported("DataServiceIter", "A10")
-DevicePrefetchIter = _not_ported("DevicePrefetchIter", "A10")
+def DataServiceIter(*args, **kwargs):
+    """Raises: the sharded multi-process data service
+    (``data_service/``) is the next slice of ROADMAP item A10."""
+    raise NotImplementedError(
+        "DataServiceIter is not ported yet: the multi-process data "
+        "service (data_service/) is the next slice of ROADMAP item A10")

@@ -25,6 +25,7 @@ import torch
 import torch.utils.dlpack
 
 from .. import autograd, engine, monitor as _monitor, random as _random
+from .. import profiler as _profiler
 from ..base import torch_dtype
 from ..context import Context, as_device, current_scope, resolve
 from ..ops.registry import get_op
@@ -487,7 +488,11 @@ def imperative_invoke(op, args, kwargs, out=None):
     """Run a registered op on NDArrays.  Under ``autograd.record()`` an
     op with an input that requires grad is recorded by torch; every
     other call runs under ``torch.no_grad()``.  ``out=`` rebinds the
-    given arrays to the results, in the targets' dtypes."""
+    given arrays to the results, in the targets' dtypes.  While the
+    profiler runs, each call is one event of its trace."""
+    prof = _profiler._profiler if _profiler._profiler.running else None
+    if prof is not None:
+        prof.op_start()
     params = {k: (tuple(v) if isinstance(v, list) else v)
               for k, v in kwargs.items()
               if v is not None and k not in ("name", "ctx")}
@@ -525,6 +530,8 @@ def imperative_invoke(op, args, kwargs, out=None):
     outs_list = [o if o.device == device else o.to(device)
                  for o in outs_list]
     engine.maybe_block(outs_list)
+    if prof is not None:
+        prof.record_op(op.name, outs_list)
     if _monitor.active():
         _monitor.observe_op(op.name, [NDArray(o) for o in outs_list])
     if out is not None:

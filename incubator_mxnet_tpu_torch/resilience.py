@@ -11,6 +11,14 @@ size"); ``read_validated_bytes`` reads it back against that sidecar,
 ``CheckpointCorruptError``.  The sidecar format is the JAX package's,
 so a file written by either package validates in the other.
 
+The input pipeline (``io``, ``image``, ``gluon.data``) raises
+``DataPipelineError`` and reads its flags through ``data_env``: the
+JAX package's defaults for ``MXTPU_DATA_TIMEOUT``,
+``MXTPU_MAX_BAD_RECORDS``, ``MXTPU_DEVICE_PREFETCH_DEPTH``,
+``MXTPU_DL_DEAD_GRACE``, ``MXTPU_DATA_WORKER_RESTARTS`` and
+``MXTPU_NATIVE_DECODE`` (``utils/env.py`` there, ROADMAP item A11
+here).
+
 Not in this slice: retry policies, deadline calls, fault injection
 (``MXTPU_FAULT_SPEC``), heartbeats and the numeric guard.
 """
@@ -18,8 +26,11 @@ import os
 import tempfile
 import zlib
 
+from .engine import get_env
+
 __all__ = ["ResilienceError", "DeadlineExceededError",
-           "CheckpointCorruptError", "checksum_path", "atomic_save",
+           "CheckpointCorruptError", "DataPipelineError", "data_env",
+           "data_timeout", "checksum_path", "atomic_save",
            "read_validated_bytes", "validate_or_raise",
            "decode_or_corrupt"]
 
@@ -37,6 +48,47 @@ class CheckpointCorruptError(ResilienceError, IOError):
 
     Subclasses IOError so legacy ``except IOError`` checkpoint
     handling still catches it."""
+
+
+class DataPipelineError(ResilienceError):
+    """The input pipeline failed as a pipeline: a prefetch worker
+    raised or wedged, a DataLoader process died past its restart
+    budget, or a record source exceeded its bad-record budget.  Typed
+    so a training loop can tell "the data stopped" from a model
+    failure; a RuntimeError too, through ResilienceError."""
+
+
+# the input pipeline's flags and their defaults, as the JAX package
+# registers them (incubator_mxnet_tpu/utils/env.py)
+_DATA_ENV = {
+    "MXTPU_DATA_TIMEOUT": (float, 600.0),
+    "MXTPU_DATA_WORKER_RESTARTS": (int, 2),
+    "MXTPU_MAX_BAD_RECORDS": (int, 0),
+    "MXTPU_DL_DEAD_GRACE": (float, 60.0),
+    "MXTPU_DEVICE_PREFETCH_DEPTH": (int, 2),
+    "MXTPU_NATIVE_DECODE": (str, "1"),
+}
+
+
+def data_env(name):
+    """Input-pipeline flag ``name`` parsed as the JAX package's
+    registry parses it: a missing or unparsable value gives the
+    default."""
+    type_, default = _DATA_ENV[name]
+    raw = get_env(name)
+    if raw is None:
+        return default
+    try:
+        return type_(raw)
+    except ValueError:
+        return default
+
+
+def data_timeout():
+    """Deadline in seconds on input-pipeline queue waits
+    (``MXTPU_DATA_TIMEOUT``; 0 disables): a wedged producer surfaces
+    as a ``DataPipelineError`` naming its source."""
+    return data_env("MXTPU_DATA_TIMEOUT")
 
 
 def checksum_path(path):
