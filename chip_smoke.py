@@ -356,7 +356,29 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                Convolution, BatchNorm, FullyConnected, Pooling and
                softmax between cpu() and the card; (viii) ImageDetIter
                over 256 JPEGs at 300 x 300 feeds config 4's SSD loop
-               for 10 steps and its loss falls.
+               for 10 steps and its loss falls; (ix) the multi-process
+               data service over (ii)'s .rec: the host's CPUs, the
+               size and free space of /dev/shm against the rings (W x
+               depth 4 x 19.27 MB; a ring that does not fit fails
+               typed), the decoder the workers use; its merged stream
+               of 40 batches at W = 1, 2 and 4 (random crop and mirror
+               off) bit-equal to ImageRecordIter's, and with
+               train_imagenet.py's augmentation W=4 bit-equal to W=1
+               from one seed; img/s at W = 1, 2, 4 and 6 over an epoch
+               after a warm one, beside (ii)'s; config 2 at the best W:
+               40 Module.fit steps from
+               DevicePrefetchIter(DataServiceIter), its losses bit-equal
+               to the same batches staged on the card, steps/s, img/s,
+               the busy share, the telemetry spans (data wait,
+               forward-backward, optimizer) and the peak card memory; a
+               state_dict after 7 batches at W=4 restored at W=3 gives
+               the next batch; a worker SIGKILLed mid-epoch is restarted
+               (one restart counted, the flight recorder's dead and
+               restart events) and the stream stays bit-identical; a
+               RemoteShardServer in a subprocess takes the last of 2
+               shards for 8 batches, bit-identical; every worker
+               reports CUDA not initialized in it, the parent's CUDA
+               initialized before the fork.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -6653,6 +6675,362 @@ def data_detection(mt, torch, np, tmp):
             "losses": losses, "seconds": seconds, "load_seconds": load_s}
 
 
+# (ix) the multi-process data service
+DATA_SERVICE_WORKERS = (1, 2, 4, 6)    # timed: an epoch after a warm one
+DATA_SERVICE_CONTRACT = (1, 2, 4)      # held against ImageRecordIter
+DATA_SERVICE_DEPTH = 4                 # MXTPU_DATA_RING_DEPTH's default
+DATA_SERVICE_RESUME = (4, 3, 7)        # W, then W', after 7 batches
+DATA_SERVICE_KILLED = 12               # batches of the SIGKILL stream
+DATA_SERVICE_REMOTE = 8                # batches with a remote shard
+
+
+def data_service_iter(mt, path, workers, augment=True, **kw):
+    """A DataServiceIter as train_imagenet.py's ImageRecordIter
+    (augment=True) or with random crop and mirror off, from fixed
+    seeds."""
+    import random
+    import numpy as np
+    np.random.seed(SEED)
+    random.seed(SEED)
+    return mt.io.DataServiceIter(
+        path_imgrec=path, data_shape=RESNET_IMAGE, batch_size=RESNET_BATCH,
+        num_workers=workers, shuffle=True, rand_crop=augment,
+        rand_mirror=augment, mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1],
+        mean_b=DATA_MEAN[2], std_r=DATA_STD[0], std_g=DATA_STD[1],
+        std_b=DATA_STD[2], preprocess_threads=1, **kw)
+
+
+def _host_batches(it, limit=None):
+    out = []
+    for b in it:
+        out.append((b.data[0].handle, b.label[0].handle, b.pad))
+        if limit is not None and len(out) == limit:
+            break
+    return out
+
+
+def _differing(got, ref):
+    """Indices of the batches of ``got`` that differ from ``ref``'s
+    (data, label or pad), and whether the counts differ."""
+    bad = [i for i, (a, b) in enumerate(zip(got, ref))
+           if not (a[2] == b[2] and bool((a[0] == b[0]).all())
+                   and bool((a[1] == b[1]).all()))]
+    return bad + (["count"] if len(got) != len(ref) else [])
+
+
+def data_service_probe(mt, decoder):
+    """The host the workers run on: CPUs, /dev/shm against the rings of
+    each timed worker count, and the decoder."""
+    import os
+    from incubator_mxnet_tpu_torch.data_service import (
+        build_decode_spec as build)
+    st = os.statvfs("/dev/shm")
+    slot = 64 + RESNET_BATCH * (3 * RESNET_IMAGE[1] * RESNET_IMAGE[2] + 1) * 4
+    rings = {w: w * DATA_SERVICE_DEPTH * slot for w in DATA_SERVICE_WORKERS}
+    free = st.f_bavail * st.f_frsize
+    return {"cpu_count": os.cpu_count(),
+            "cpu_affinity": len(os.sched_getaffinity(0)),
+            "shm_bytes": st.f_blocks * st.f_frsize, "shm_free_bytes": free,
+            "slot_bytes": slot, "depth": DATA_SERVICE_DEPTH,
+            "ring_bytes_by_workers": rings,
+            "rings_fit": {w: b <= free for w, b in rings.items()},
+            # random crop keeps the native decoder off (config 2's
+            # augmentation decodes with PIL wherever it runs)
+            "worker_decoder": {
+                "center_crop": "native" if build(RESNET_IMAGE)["native"]
+                else decoder,
+                "random_crop": "native" if build(
+                    RESNET_IMAGE, rand_crop=True)["native"] else decoder}}
+
+
+def data_service_contract(mt, path):
+    """The merged stream at W = 1, 2, 4 without random augmentation
+    against ImageRecordIter's, bit for bit."""
+    import random
+    import numpy as np
+    np.random.seed(SEED)
+    random.seed(SEED)
+    ref = _host_batches(mt.io.ImageRecordIter(
+        path_imgrec=path, data_shape=RESNET_IMAGE, batch_size=RESNET_BATCH,
+        shuffle=True, mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1],
+        mean_b=DATA_MEAN[2], std_r=DATA_STD[0], std_g=DATA_STD[1],
+        std_b=DATA_STD[2], preprocess_threads=data_threads()))
+    check(len(ref) == DATA_STEPS, f"ImageRecordIter gave {len(ref)} batches")
+    out = {}
+    for w in DATA_SERVICE_CONTRACT:
+        t0 = time.perf_counter()
+        with data_service_iter(mt, path, w, augment=False) as svc:
+            got = _host_batches(svc)
+        bad = _differing(got, ref)
+        check(not bad, f"the service at W={w} differs from "
+                       f"ImageRecordIter at batches {bad[:8]}")
+        out[w] = {"batches": len(got), "bit_equal": True,
+                  "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _probe_workers(outdir):
+    """Make every worker forked from now on write, at its first epoch,
+    whether CUDA is initialized in it.  Returns the undo."""
+    import os
+    from incubator_mxnet_tpu_torch.data_service import worker
+    run = worker._run_shard
+
+    def probed(ring, spec):
+        t = sys.modules.get("torch")
+        rec = {"pid": os.getpid(), "torch_imported": t is not None,
+               "cuda_initialized": bool(t is not None
+                                        and t.cuda.is_initialized()),
+               "in_bad_fork": bool(t is not None
+                                   and t.cuda._is_in_bad_fork())}
+        with open(os.path.join(outdir, f"w{os.getpid()}.json"), "w") as f:
+            json.dump(rec, f)
+        return run(ring, spec)
+    worker._run_shard = probed
+
+    def undo():
+        worker._run_shard = run
+    return undo
+
+
+def data_service_rates(mt, torch, path, tmp):
+    """img/s of the service alone at each timed W, over an epoch after a
+    warm one, with train_imagenet.py's augmentation; W=4's warm epoch
+    bit-equal to W=1's (the same seed); the workers' CUDA state.
+    Returns the record and W=1's first epoch (the stream the later
+    parts are held against)."""
+    import os
+    probes = os.path.join(tmp, "worker_probes")
+    os.makedirs(probes, exist_ok=True)
+    check(torch.cuda.is_initialized(),
+          "CUDA is not initialized in the parent before the fork")
+    undo = _probe_workers(probes)
+    first, rates = None, {}
+    try:
+        for w in DATA_SERVICE_WORKERS:
+            t0 = time.perf_counter()
+            with data_service_iter(mt, path, w) as svc:
+                spawn_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                warm = _host_batches(svc)
+                warm_s = time.perf_counter() - t0
+                if first is None:
+                    first = warm
+                else:
+                    bad = _differing(warm, first)
+                    check(not bad, f"the augmented stream at W={w} differs "
+                                   f"from W={DATA_SERVICE_WORKERS[0]}'s at "
+                                   f"batches {bad[:8]}")
+                del warm
+                svc.reset()
+                t0 = time.perf_counter()
+                n = sum(RESNET_BATCH - p for _, _, p in _host_batches(svc))
+                sec = time.perf_counter() - t0
+                stats = svc.stats()
+            rates[w] = {"images": n, "seconds": sec, "images_per_s": n / sec,
+                        "warm_seconds": warm_s, "spawn_seconds": spawn_s,
+                        "restarts": stats["restarts"]}
+    finally:
+        undo()
+    workers = [json.load(open(os.path.join(probes, f)))
+               for f in sorted(os.listdir(probes))]
+    check(len(workers) >= sum(DATA_SERVICE_WORKERS),
+          f"{len(workers)} worker probes for {sum(DATA_SERVICE_WORKERS)} "
+          "workers")
+    hot = [r for r in workers if r["cuda_initialized"]]
+    check(not hot, f"CUDA is initialized in workers {hot[:3]}")
+    return {"rates": rates,
+            "augmented_bit_equal_across_workers": True,
+            "workers_probed": len(workers),
+            "workers_import_torch": all(r["torch_imported"]
+                                        for r in workers),
+            "workers_cuda_initialized": False,
+            "workers_in_bad_fork": sorted({r["in_bad_fork"]
+                                           for r in workers}),
+            "parent_cuda_initialized_before_fork": True}, first
+
+
+def data_service_config2(mt, torch, sym, weights, path, first, workers):
+    """Config 2 from DevicePrefetchIter(DataServiceIter) at ``workers``:
+    40 Module.fit steps, losses bit-equal to ``first`` staged on the
+    card beforehand; the telemetry spans of the fit."""
+    tel = mt.telemetry
+    staged = [(x.cuda(), y.cuda()) for x, y, _ in first[:DATA_STEPS]]
+    card = _CardBatches(
+        mt, staged, [mt.io.DataDesc("data", (RESNET_BATCH,) + RESNET_IMAGE)],
+        [mt.io.DataDesc("softmax_label", (RESNET_BATCH,))])
+    base_mod, base = data_fit(mt, torch, sym, weights, card)
+    del base_mod, card, staged
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tel.get_registry().reset()
+    with data_service_iter(mt, path, workers) as svc:
+        train = mt.io.DevicePrefetchIter(svc, ctx=mt.tpu(0))
+        mod, piped = data_fit(mt, torch, sym, weights, train)
+        stats = svc.stats()
+    peak = torch.cuda.max_memory_allocated()
+    del mod, train
+    differ = [i for i, (a, b) in enumerate(zip(piped["losses"],
+                                               base["losses"])) if a != b]
+    check(len(piped["losses"]) == DATA_STEPS and not differ,
+          f"service losses differ from the pre-staged run at steps "
+          f"{differ[:8]}: {piped['losses'][:4]} vs {base['losses'][:4]}")
+    hists = tel.snapshot()["histograms"]
+    spans = {}
+    for name in ("data_wait", "forward_backward", "optimizer",
+                 "host_sync"):
+        h = hists.get(f"span_{name}_seconds")
+        check(h is not None and h["count"] >= DATA_STEPS,
+              f"span {name}: {h}")
+        spans[name] = {"count": h["count"], "sum_s": h["sum"],
+                       "p50_s": h["p50"], "p90_s": h["p90"]}
+    data_share = spans["data_wait"]["sum_s"] / piped["seconds"]
+    return {"workers": workers, "steps": DATA_STEPS,
+            "losses_bit_equal": True, "losses": piped["losses"],
+            "seconds": piped["seconds"],
+            "steps_per_s": DATA_STEPS / piped["seconds"],
+            "images_per_s_end_to_end":
+                DATA_STEPS * RESNET_BATCH / piped["seconds"],
+            "steady_step_ms": piped["steady_step_ms"],
+            "steady_images_per_s": piped["steady_images_per_s"],
+            "device_busy_share": piped["device_busy_share"],
+            "busy_steps": piped["busy_steps"],
+            "spans": spans, "data_wait_share_of_fit": data_share,
+            "peak_card_bytes": peak,
+            "peak_card_bytes_over_start": peak - start_bytes,
+            "service_restarts": stats["restarts"],
+            "prestaged": {k: base[k] for k in (
+                "seconds", "steady_step_ms", "steady_images_per_s",
+                "device_busy_share")}}
+
+
+def data_service_resume_kill(mt, path, first):
+    """A state_dict at W=4 after 7 batches restored at W=3; a worker
+    SIGKILLed mid-epoch."""
+    import os
+    import signal
+    import warnings
+    w, w_new, k = DATA_SERVICE_RESUME
+    with data_service_iter(mt, path, w) as svc:
+        head = _host_batches(svc, limit=k)
+        state = svc.state_dict()
+    check(not _differing(head, first[:k]), "the stream before the state")
+    with data_service_iter(mt, path, w_new) as svc:
+        svc.load_state_dict(state)
+        svc.reset()                   # fit's epoch-start reset keeps it
+        nxt = _host_batches(svc, limit=1)
+    check(not _differing(nxt, first[k:k + 1]),
+          f"the batch after a state_dict at W={w} restored at W={w_new} "
+          "is not the uninterrupted stream's")
+    tel, tr = mt.telemetry, mt.tracing
+    tel.get_registry().reset()
+    tr.reset_for_tests()
+    with data_service_iter(mt, path, w, ring_depth=1) as svc:
+        got = _host_batches(svc, limit=2)
+        victim = svc._procs[1].pid
+        os.kill(victim, signal.SIGKILL)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got += _host_batches(svc, limit=DATA_SERVICE_KILLED - 2)
+        restarts = svc._restarts
+    bad = _differing(got, first[:DATA_SERVICE_KILLED])
+    check(not bad, f"the stream after a SIGKILL differs at {bad[:8]}")
+    counted = tel.snapshot()["counters"].get(
+        "data_service_worker_restarts_total")
+    dead = tr.events("data_service_worker_dead")
+    restart = tr.events("data_service_worker_restart")
+    check(restarts == 1 and counted == 1 and dead and restart,
+          f"SIGKILL: restarts {restarts}, counter {counted}, events "
+          f"{len(dead)} dead and {len(restart)} restart")
+    return {"resume": {"workers": w, "restored_at": w_new,
+                       "after_batches": k, "next_batch_equal": True},
+            "sigkill": {"workers": w, "ring_depth": 1, "killed_pid": victim,
+                        "batches": len(got), "bit_identical": True,
+                        "restarts": restarts,
+                        "data_service_worker_restarts_total": counted,
+                        "events": {"data_service_worker_dead": len(dead),
+                                   "data_service_worker_restart":
+                                       len(restart)}}}
+
+
+def data_service_remote(mt, path, first, tmp):
+    """A RemoteShardServer in a subprocess (the CLI) takes the last of 2
+    shards over loopback."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    pf = os.path.join(tmp, "data_net.port")
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "incubator_mxnet_tpu_torch.data_service.net",
+         "--shards", "1", "--port-file", pf], cwd=root, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        while not os.path.exists(pf):
+            check(proc.poll() is None and time.perf_counter() - t0 < 120,
+                  "the RemoteShardServer subprocess did not start: "
+                  + (proc.stderr.read().decode()[-2000:]
+                     if proc.poll() is not None else "timed out"))
+            time.sleep(0.05)
+        up_s = time.perf_counter() - t0
+        addr = f"127.0.0.1:{int(open(pf).read())}"
+        t0 = time.perf_counter()
+        with data_service_iter(mt, path, 2, remote_addrs=[addr]) as svc:
+            got = _host_batches(svc, limit=DATA_SERVICE_REMOTE)
+            stats = svc.stats()
+        sec = time.perf_counter() - t0
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=20)
+    bad = _differing(got, first[:DATA_SERVICE_REMOTE])
+    check(not bad, f"the stream with a remote shard differs at {bad[:8]}")
+    check(stats["remote_shards"] == 1 and stats["restarts"] == 0,
+          f"remote shard stats {stats['remote_shards']} remote, "
+          f"{stats['restarts']} restarts")
+    return {"shards": 2, "remote": addr, "batches": len(got),
+            "bit_identical": True, "server_start_seconds": up_s,
+            "seconds": sec, "restarts": 0}
+
+
+def data_service(mt, torch, path, decoder, iter_rate, sym, weights, tmp):
+    """(ix) the data service on the card host."""
+    from incubator_mxnet_tpu_torch.resilience import DataPipelineError
+    t = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        t[name] = time.perf_counter() - t0
+        return res
+
+    probe = data_service_probe(mt, decoder)
+    try:
+        contract = part("contract", data_service_contract, mt, path)
+        rates, first = part("rates", data_service_rates, mt, torch, path,
+                            tmp)
+        best = max(rates["rates"],
+                   key=lambda w: rates["rates"][w]["images_per_s"])
+        config2 = part("config2", data_service_config2, mt, torch, sym,
+                       weights, path, first, best)
+        release(torch)
+        resume = part("resume_kill", data_service_resume_kill, mt, path,
+                      first)
+        remote = part("remote", data_service_remote, mt, path, first, tmp)
+    except DataPipelineError as exc:
+        raise CheckFailed(f"data service: {type(exc).__name__}: {exc}; "
+                          f"host {probe}") from exc
+    return {"host": probe, "contract_no_augmentation": contract,
+            "alone": rates, "image_record_iter_images_per_s": iter_rate,
+            "best_workers": best, "config2": config2, **resume,
+            "remote_shard": remote, "seconds": t}
+
+
 def data_decoder(mt):
     """Which JPEG decoder this host has: 'native' (src/imgdec on
     libjpeg), 'pil', or None; and why the native one is missing."""
@@ -6705,6 +7083,10 @@ def phase_data(mt, torch, card):
                              prefix, host_batches[0])
             del mod
             release(torch)
+            service = part("service", data_service, mt, torch, rec,
+                           decoder, alone["images_per_s"], sym, weights,
+                           tmp)
+            release(torch)
             profiled = part("profiler", data_profiler, mt, torch, sym,
                             weights, rec, tmp)
             release(torch)
@@ -6730,6 +7112,7 @@ def phase_data(mt, torch, card):
                      "encode_seconds": enc_s, "quality": DATA_QUALITY,
                      "stored": [DATA_SHORT, DATA_LONG]},
           "image_record_iter": alone, "config2": config2,
+          "data_service": service,
           "copy_stress": stress, "gluon": gluon, "predictor": predictor,
           "profiler": profiled, "check_consistency": consistency,
           "image_det_iter": detection,

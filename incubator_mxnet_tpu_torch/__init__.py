@@ -39,7 +39,8 @@ from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
 from . import rtc
-from . import resilience, serving
+from . import utils
+from . import resilience, telemetry, tracing, serving
 from . import name, attribute
 from .attribute import AttrScope
 from . import symbol
@@ -58,6 +59,7 @@ from . import contrib
 from . import operator
 from . import recordio, image, profiler, predictor, visualization, test_utils
 from .predictor import Predictor
+from .utils.env import list_env
 from .monitor import Monitor
 from .io import DataBatch, DataDesc, DataIter, NDArrayIter
 from .optimizer import Optimizer
@@ -68,7 +70,8 @@ from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
 __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "initializer", "init", "ops", "gluon", "convert", "parallel",
            "engine", "autograd", "optimizer", "lr_scheduler", "nd",
-           "ndarray", "NDArray", "rtc", "resilience", "serving", "name",
+           "ndarray", "NDArray", "rtc", "resilience", "telemetry", "tracing",
+           "list_env", "serving", "name",
            "attribute", "AttrScope", "symbol", "sym", "Symbol",
            "Executor", "graph", "metric", "io", "callback", "model", "monitor",
            "load_checkpoint", "save_checkpoint", "module", "mod",

@@ -2,11 +2,13 @@
 python/mxnet/callback.py — Speedometer, do_checkpoint,
 log_train_metric, module_checkpoint, ProgressBar).
 
-``Speedometer`` logs samples per second; the JAX package also publishes
-it as a telemetry gauge, which comes with the telemetry layer (ROADMAP
-item A11)."""
+``Speedometer`` logs samples per second and publishes it, with the
+epoch and batch, as telemetry gauges (``throughput_samples_per_sec``,
+``epoch``, ``nbatch``), as the JAX package does."""
 import logging
 import time
+
+from . import telemetry
 
 __all__ = ["Speedometer", "ProgressBar", "do_checkpoint",
            "module_checkpoint", "log_train_metric"]
@@ -81,6 +83,9 @@ class Speedometer:
         if window <= 0 or elapsed <= 0:
             return
         speed = self.speed = window * self.batch_size / elapsed
+        telemetry.gauge("throughput_samples_per_sec").set(speed)
+        telemetry.gauge("epoch").set(param.epoch)
+        telemetry.gauge("nbatch").set(count)
         if param.eval_metric is not None:
             name_value = param.eval_metric.get_name_value()
             if self.auto_reset:

@@ -11,8 +11,8 @@ Writer resolution order:
 3. a JSONL fallback writing ``{"tag", "value", "step", "ts"}`` lines,
    with no dependency.
 
-``log_telemetry`` needs the telemetry registry, ROADMAP item A11, and
-raises until then.
+``log_telemetry`` writes the telemetry registry's gauges and counters
+as scalars, as the JAX package does.
 """
 import json
 import os
@@ -53,11 +53,29 @@ def make_writer(logdir):
 
 
 def log_telemetry(writer, snapshot=None, step=None):
-    """Raises: it writes the telemetry registry's gauges and counters,
-    and the registry (``telemetry.py``) comes with ROADMAP item A11."""
-    raise NotImplementedError(
-        "log_telemetry needs telemetry.py, which is not ported yet "
-        "(ROADMAP item A11)")
+    """Write a telemetry registry snapshot's gauges (and counters) as
+    TensorBoard scalars, tagged ``telemetry/<name>``.
+
+    ``snapshot`` defaults to a fresh ``telemetry.snapshot()``;
+    ``step`` defaults to the snapshot's ``train_steps_total`` counter
+    so successive calls land on the training-step axis.  Returns the
+    number of scalars written — 0 with telemetry disabled."""
+    from .. import telemetry
+    if snapshot is None:
+        if not telemetry.enabled():
+            return 0
+        snapshot = telemetry.snapshot()
+    if step is None:
+        step = int(snapshot.get("counters", {})
+                   .get("train_steps_total", 0))
+    written = 0
+    for name, value in sorted(snapshot.get("gauges", {}).items()):
+        writer.add_scalar(f"telemetry/{name}", value, step)
+        written += 1
+    for name, value in sorted(snapshot.get("counters", {}).items()):
+        writer.add_scalar(f"telemetry/{name}", value, step)
+        written += 1
+    return written
 
 
 class LogMetricsCallback:

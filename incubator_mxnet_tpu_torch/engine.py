@@ -13,23 +13,14 @@ left is the control surface:
 - ``bulk(size)``      — a no-op scope kept for API parity
 """
 import contextlib
-import os
 
 import torch
+
+from .utils.env import get_env
 
 __all__ = ["set_engine_type", "maybe_block", "wait_all", "wait", "bulk"]
 
 _state = {"naive": None}
-
-
-def get_env(name):
-    """The environment flag ``name`` (``MXTPU_...``), else the same flag
-    under the reference's ``MXNET_`` prefix, else None: the rule of the
-    JAX package's ``utils/env.py``."""
-    raw = os.environ.get(name)
-    if raw is None and name.startswith("MXTPU_"):
-        raw = os.environ.get("MXNET_" + name[len("MXTPU_"):])
-    return raw
 
 
 def _is_naive():

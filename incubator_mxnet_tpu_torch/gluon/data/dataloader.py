@@ -42,7 +42,9 @@ import numpy as np
 
 from ...context import cpu
 from ...ndarray.ndarray import NDArray, array as _array
-from ...resilience import DataPipelineError, data_env
+from ... import telemetry
+from ...resilience import DataPipelineError, inject
+from ...utils.env import get_env
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
 
 __all__ = ["DataLoader", "default_batchify_fn"]
@@ -203,8 +205,8 @@ def _worker_loop(conn, dataset, batchify, prefix):
         if msg is None:
             return
         token, idxs = msg
-        # the ``dataloader:worker`` fault point comes with item A11
         try:
+            inject("dataloader", "worker")
             desc = _to_shm(batchify([dataset[i] for i in idxs]),
                            prefix + token + "_")
             reply = ("ok", token, desc)
@@ -370,7 +372,7 @@ class DataLoader:
         yield from self._iter_processes(batches)
 
     def _iter_threads(self, batches, batchify):
-        timeout = data_env("MXTPU_DATA_TIMEOUT")
+        timeout = get_env("MXTPU_DATA_TIMEOUT")
         with _futures.ThreadPoolExecutor(self._num_workers) as pool:
             def submit(idxs):
                 return pool.submit(
@@ -398,9 +400,9 @@ class DataLoader:
         # descriptors never reach the parent are swept at the end
         prefix = "%s%x_%s_" % (_SHM_PREFIX, os.getpid(),
                                os.urandom(4).hex())
-        timeout = data_env("MXTPU_DATA_TIMEOUT")
-        grace = data_env("MXTPU_DL_DEAD_GRACE")
-        max_restarts = data_env("MXTPU_DATA_WORKER_RESTARTS")
+        timeout = get_env("MXTPU_DATA_TIMEOUT")
+        grace = get_env("MXTPU_DL_DEAD_GRACE")
+        max_restarts = get_env("MXTPU_DATA_WORKER_RESTARTS")
         pool = _WorkerPool(self._num_workers, self._dataset,
                            worker_batchify, prefix)
         try:
@@ -448,6 +450,8 @@ class DataLoader:
                                 "__getitem__ or batchify_fn for crashes "
                                 "in native code or OOM")
                         restarts += 1
+                        telemetry.counter(
+                            "dataloader_worker_restarts_total").inc()
                         warnings.warn(
                             "a DataLoader worker died holding "
                             f"{len(lost)} batch(es); re-dispatching "

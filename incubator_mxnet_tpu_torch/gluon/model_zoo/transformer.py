@@ -31,12 +31,13 @@ Not in this slice (raises ``NotImplementedError``): sequence
 parallelism.
 """
 import math
+import time
 
 import numpy as np
 import torch
 from torch import nn
 
-from ... import context
+from ... import context, tracing
 from ...ops.flash import flash_attention
 from ...ops.matrix import rope_fn
 from ...ops.moe import moe_ffn_fn
@@ -276,6 +277,7 @@ class TransformerLM(nn.Module):
         kw = dict(device=context.resolve(device))
         self._d = d_model
         self._max_len = max_len
+        self._generate_signatures = set()   # compile-ledger attribution
         self._mlp_ratio = mlp_ratio
         self._pos_kind = pos
         self.embed = Embedding(vocab_size, d_model, **kw)
@@ -437,6 +439,8 @@ class TransformerLM(nn.Module):
                 dim=-1)
             return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
+        key = (b, p, max_new, sample, int(top_k), float(top_p))
+        t0 = time.monotonic()
         wts = self._decode_params()     # no autograd: inference mode
         was_training = self.training
         self.eval()                     # no dropout in the prefill
@@ -452,6 +456,14 @@ class TransformerLM(nn.Module):
         # the one at i+1 (the prefill already emitted p)
         for i in range(p, total - 1):
             toks[:, i + 1] = pick(self._step(wts, caches, toks[:, i], i))
+        if key not in self._generate_signatures:
+            # the first run of a (shape, decode config) signature, where
+            # the JAX package compiles: the compile ledger attributes it
+            self._generate_signatures.add(key)
+            tracing.compile_ledger("transformer_generate").record(
+                {"shape": (b, p),
+                 "static_arg": (max_new, sample, key[4], key[5])},
+                time.monotonic() - t0)
         return toks.to(torch.int32)
 
     def _prefill(self, prompt, total):

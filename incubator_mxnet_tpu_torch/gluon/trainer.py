@@ -27,13 +27,16 @@ and pulls through the store where there is one.  A mesh or store over
 several devices or processes raises (ROADMAP item A9).  The environment
 settings that would turn on the step guard or loss scaling
 (``MXTPU_NONFINITE_POLICY``, ``MXTPU_LOSS_SCALE*``) raise; they come
-with ROADMAP item A11, as do telemetry, tracing and ``arm_perf``.
+with ROADMAP item A11's second half, as does ``arm_perf``.  Telemetry
+is the JAX package's: ``step`` counts ``train_steps_total`` and times
+the update as the ``optimizer`` span, and the parameters and optimizer
+state are attributed to the tracing layer's memory gauges.
 """
 import os
 import pickle
 
 from .. import optimizer as opt_mod
-from .. import resilience
+from .. import resilience, telemetry, tracing
 from ..model import _create_kvstore
 from ..parallel import optim as foptim
 
@@ -77,6 +80,25 @@ class Trainer:
             self._optimizer.set_lr_mult({p.name: p.lr_mult})
             self._optimizer.set_wd_mult({p.name: p.wd_mult})
         self._updater = opt_mod.get_updater(self._optimizer)
+        telemetry.maybe_start_emitter()
+
+        # device-memory attribution (docs/observability.md): weakref
+        # providers so a dropped Trainer stops being counted
+        def _param_arrays(tr):
+            return [p._var for p in tr._params if p._allocated()]
+
+        def _opt_arrays(tr):
+            leaves = []
+            fstate = getattr(tr, "_fstate", None)
+            if fstate is not None:
+                leaves += tracing.updater_state_arrays(fstate)
+            states = getattr(tr._updater, "states", None)
+            if states:
+                leaves += tracing.updater_state_arrays(states)
+            return leaves
+
+        self._mem_unregister = tracing.register_param_opt_providers(
+            self, _param_arrays, _opt_arrays)
         self._kvstore_spec = kvstore
         self._kvstore = None
         self._update_on_kvstore = False
@@ -138,22 +160,24 @@ class Trainer:
                 f"Gradient of Parameter `{missing[0].name}` not set; "
                 "call backward first, or set ignore_stale_grad=True")
         live = [p for p in self._params if p._grad is not None]
-        if self._fused:
-            self._fused_step(live)
-            return
-        kv = self._kvstore
-        for i, p in enumerate(self._params):
-            if p._grad is None:
-                continue
-            if kv is not None and self._update_on_kvstore:
-                kv.push(i, p.grad(), priority=-i)
-                kv.pull(i, out=p.data(), priority=-i)
-            elif kv is not None:
-                kv.push(i, p.grad(), priority=-i)
-                kv.pull(i, out=p.grad(), priority=-i)
-                self._updater(i, p.grad(), p.data())
-            else:
-                self._updater(i, p.grad(), p.data())
+        telemetry.counter("train_steps_total").inc()
+        with telemetry.span("optimizer"):
+            if self._fused:
+                self._fused_step(live)
+                return
+            kv = self._kvstore
+            for i, p in enumerate(self._params):
+                if p._grad is None:
+                    continue
+                if kv is not None and self._update_on_kvstore:
+                    kv.push(i, p.grad(), priority=-i)
+                    kv.pull(i, out=p.data(), priority=-i)
+                elif kv is not None:
+                    kv.push(i, p.grad(), priority=-i)
+                    kv.pull(i, out=p.grad(), priority=-i)
+                    self._updater(i, p.grad(), p.data())
+                else:
+                    self._updater(i, p.grad(), p.data())
 
     def _fused_step(self, live):
         """The whole-tree update of the parameters in ``live``, in

@@ -57,24 +57,30 @@ that waits for its backward, and ``trace_count`` counts each.  A second
 backward through one replayed call raises, since the first one's
 replay may have reused its activations' memory.
 
-The JAX package's telemetry counters and compile ledger wait for the
-operability slice (ROADMAP item A11); the counts stay on the object
-(``hits``, ``misses``, ``trace_count``, ``stats()``).
+Telemetry is the JAX package's: ``cachedop_cache_hits_total`` and
+``cachedop_cache_misses_total`` count lookups, and each miss (the
+entry's build and its first call: a trace on the CPU, the capture on
+the card) is timed into the compile ledger ``cachedop:<block name>``
+with the signature diff against the nearest cached entry.  The counts
+also stay on the object (``hits``, ``misses``, ``trace_count``,
+``stats()``).
 """
 import logging
 import threading
+import time
 import weakref
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from .. import autograd
+from .. import autograd, telemetry, tracing
 from .. import random as _random
 from ..gluon import parameter as _parameter
 from ..ndarray.ndarray import NDArray
 from ..parallel import _graph
-from .passes import env_flag, optimize_symbol
+from ..utils.env import get_env
+from .passes import optimize_symbol
 
 __all__ = ["CachedOp", "UnsupportedSignatureError", "canonical_static",
            "in_trace", "Inside"]
@@ -184,6 +190,30 @@ class _ArgsTemplate:
         return out
 
 
+def _signature_components(template, training):
+    """Flatten a call signature into the named-component dict the
+    compile ledger diffs: tensor shapes, tensor dtypes, canonical
+    static args, train flag (docs/observability.md)."""
+    shapes, dtypes, statics = [], [], []
+
+    def walk(sig):
+        tag = sig[0]
+        if tag == "nd":
+            shapes.append(sig[1])
+            dtypes.append(sig[2])
+        elif tag == "s":
+            statics.append(sig[1])
+        else:                       # L / U nested structures
+            for s in sig[1]:
+                walk(s)
+
+    for s in template.signature:
+        walk(s)
+    return {"shape": tuple(shapes), "dtype": tuple(dtypes),
+            "static_arg": tuple(statics),
+            "train_flag": bool(training)}
+
+
 def _rebuild_args(spec, tensor_vals):
     """Reassemble a call's argument structure around fresh tensors.
     Module-level so an entry keeps only the static ``spec``, never the
@@ -279,12 +309,17 @@ class CachedOp:
     def __init__(self, block, capacity=None):
         self._block = block
         self._capacity = capacity if capacity is not None \
-            else env_flag("MXTPU_CACHEDOP_CAPACITY")
+            else get_env("MXTPU_CACHEDOP_CAPACITY")
         self._entries = OrderedDict()
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self._trace_events = 0
+        # resolved once: the hit path pays no registry lock per call
+        self._hits_ctr = telemetry.counter("cachedop_cache_hits_total")
+        self._misses_ctr = telemetry.counter(
+            "cachedop_cache_misses_total")
+        self._ledger = tracing.compile_ledger(f"cachedop:{block.name}")
         params = block.collect_params()
         self._param_names = sorted(params.keys())
         self._params = [params[n] for n in self._param_names]
@@ -323,7 +358,9 @@ class CachedOp:
             if entry is not None:
                 self._entries.move_to_end(key)
         if entry is None:
+            self._misses_ctr.inc()
             self.misses += 1
+            t0 = time.monotonic()
             entry = self._build_entry(template, training)
             with self._lock:
                 entry = self._entries.setdefault(key, entry)
@@ -331,8 +368,15 @@ class CachedOp:
                 while self._capacity > 0 and \
                         len(self._entries) > self._capacity:
                     self._entries.popitem(last=False)
-        else:
-            self.hits += 1
+            out = self._execute(entry, template, training, recording)
+            # timed through the first call: that call traces (CPU) or
+            # captures (card)
+            self._ledger.record(
+                _signature_components(template, training),
+                time.monotonic() - t0)
+            return out
+        self._hits_ctr.inc()
+        self.hits += 1
         return self._execute(entry, template, training, recording)
 
     # ------------------------------------------------------------ build
@@ -345,7 +389,7 @@ class CachedOp:
         return torch.device("cpu")
 
     def _build_entry(self, template, training):
-        level = env_flag("MXTPU_GRAPH_OPT")
+        level = get_env("MXTPU_GRAPH_OPT")
         if level >= 1 and template.is_flat:
             try:
                 return self._build_graph_entry(template, training, level)

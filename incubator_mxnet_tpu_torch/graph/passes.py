@@ -13,9 +13,9 @@ Level contract (``MXTPU_GRAPH_OPT``):
   elimination, dead-node pruning.  Output-preserving bit for bit.
 - ``2``: adds elementwise-chain pre-fusion (``fuse.py``).
 
-Every pass reports a node delta.  The JAX package also publishes
-telemetry counters and a span here; the port's telemetry comes with the
-operability slice (ROADMAP item A11), so the report is the record.
+Every pass reports a node delta, and publishes it as the JAX package
+does (``graph_passes_total``, ``graph_nodes_eliminated_total``); a
+pipeline run is the ``graph_optimize`` span.
 
 Constant folding evaluates on the graph's device (``optimize_symbol``'s
 ``device``, the device the graph is bound to) and keeps each value as a
@@ -24,29 +24,15 @@ each one a tensor on the bound device once, when it builds the walk.
 """
 import torch
 
-from ..engine import get_env
+from .. import telemetry
+from ..utils.env import get_env
 from ..ops.registry import OpDef
 from ..symbol.symbol import _Node  # graph-ok: the pass pipeline's own module
 from .ir import Graph, entry_key, freeze_params
 
 __all__ = ["GraphPass", "PassManager", "register_pass", "PASSES",
            "default_pass_names", "optimize_symbol", "stamp_rng_indices",
-           "CONST_OP", "FOLD_MAX_ELEMENTS", "env_flag"]
-
-# the graph flags and their defaults, as the JAX package registers them
-# (incubator_mxnet_tpu/utils/env.py); the port's utils/env.py is A11's
-_ENV = {"MXTPU_GRAPH_OPT": 1, "MXTPU_CACHEDOP_CAPACITY": 64}
-
-
-def env_flag(name):
-    """Integer flag ``name``: a missing or unparsable value gives the
-    default."""
-    raw = get_env(name)
-    try:
-        return int(raw) if raw is not None else _ENV[name]
-    except ValueError:
-        return _ENV[name]
-
+           "CONST_OP", "FOLD_MAX_ELEMENTS"]
 
 # Constant folding bakes values at bind time; cap the baked size so a
 # folded subtree never turns into a huge literal.
@@ -407,8 +393,13 @@ class PassManager:
         for p in self._passes:
             before = graph.n_nodes()
             extra = p.run(graph) or {}
+            after = graph.n_nodes()
+            telemetry.counter("graph_passes_total").inc()
+            if before > after:
+                telemetry.counter(
+                    "graph_nodes_eliminated_total").inc(before - after)
             entry = {"pass": p.name, "nodes_before": before,
-                     "nodes_after": graph.n_nodes()}
+                     "nodes_after": after}
             entry.update(extra)
             report["passes"].append(entry)
         report["nodes_after"] = graph.n_nodes()
@@ -427,14 +418,15 @@ def optimize_symbol(symbol, level=None, pass_names=None, *, device=None):
     ``tojson``.
     """
     if level is None:
-        level = env_flag("MXTPU_GRAPH_OPT")
+        level = get_env("MXTPU_GRAPH_OPT")
     level = int(level)
     if level <= 0:
         return symbol, {"level": 0, "nodes_before": None,
                         "nodes_after": None, "passes": []}
-    graph = Graph.from_symbol(symbol, device=device)
-    stamp_rng_indices(graph)
-    pm = PassManager(pass_names or default_pass_names(level))
-    report = pm.run(graph)
-    report["level"] = level
-    return graph.to_symbol(), report
+    with telemetry.span("graph_optimize"):
+        graph = Graph.from_symbol(symbol, device=device)
+        stamp_rng_indices(graph)
+        pm = PassManager(pass_names or default_pass_names(level))
+        report = pm.run(graph)
+        report["level"] = level
+        return graph.to_symbol(), report

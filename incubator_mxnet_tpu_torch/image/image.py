@@ -48,20 +48,24 @@ def _pil_image():
     return Image
 
 
-def imdecode(buf, to_rgb=True, flag=1):
-    """Decode an encoded image buffer to HWC uint8 (ref: image.py
-    imdecode; native ref: src/io/image_io.cc)."""
+def _imdecode_np(buf, to_rgb=True, flag=1):
+    """:func:`imdecode` as a numpy HWC uint8 array."""
     Image = _pil_image()
     img = Image.open(_io.BytesIO(bytes(buf)))
     if flag == 0:
         img = img.convert("L")
-        arr = np.asarray(img)[:, :, None]
-    else:
-        img = img.convert("RGB")
-        arr = np.asarray(img)
-        if not to_rgb:
-            arr = arr[:, :, ::-1]
-    return nd_array(arr)
+        return np.asarray(img)[:, :, None]
+    img = img.convert("RGB")
+    arr = np.asarray(img)
+    if not to_rgb:
+        arr = arr[:, :, ::-1]
+    return arr
+
+
+def imdecode(buf, to_rgb=True, flag=1):
+    """Decode an encoded image buffer to HWC uint8 (ref: image.py
+    imdecode; native ref: src/io/image_io.cc)."""
+    return nd_array(_imdecode_np(buf, to_rgb, flag))
 
 
 def imread(filename, flag=1, to_rgb=True):
@@ -78,11 +82,13 @@ def _to_np(img):
     return img.asnumpy() if isinstance(img, NDArray) else np.asarray(img)
 
 
-def imresize(src, w, h, interp=2):
-    """Bilinear resize preserving the input dtype (float pixel data
-    from CastAug/ColorNormalizeAug must not be truncated to uint8)."""
+# Each function below is a numpy core (``_*_np``: array in, array out)
+# and its NDArray face.  ``augment_to_chw`` chains the cores, so a
+# decode worker process augments without building a tensor.
+
+
+def _imresize_np(arr, w, h):
     Image = _pil_image()
-    arr = _to_np(src)
     if np.issubdtype(arr.dtype, np.floating):
         in_dtype = arr.dtype
         if arr.ndim == 2:
@@ -91,58 +97,85 @@ def imresize(src, w, h, interp=2):
             Image.fromarray(arr[:, :, c].astype(np.float32), mode="F")
             .resize((w, h), Image.BILINEAR))
             for c in range(arr.shape[-1])]
-        return nd_array(np.stack(chans, axis=-1).astype(in_dtype))
+        return np.stack(chans, axis=-1).astype(in_dtype)
     arr = arr.astype(np.uint8)
     pil = Image.fromarray(arr.squeeze() if arr.shape[-1] == 1 else arr)
     out = np.asarray(pil.resize((w, h), Image.BILINEAR))
     if out.ndim == 2:
         out = out[:, :, None]
-    return nd_array(out)
+    return out
+
+
+def imresize(src, w, h, interp=2):
+    """Bilinear resize preserving the input dtype (float pixel data
+    from CastAug/ColorNormalizeAug must not be truncated to uint8)."""
+    return nd_array(_imresize_np(_to_np(src), w, h))
+
+
+def _resize_short_np(arr, size):
+    h, w = arr.shape[:2]
+    if h > w:
+        new_w, new_h = size, int(h * size / w)
+    else:
+        new_w, new_h = int(w * size / h), size
+    return _imresize_np(arr, new_w, new_h)
 
 
 def resize_short(src, size, interp=2):
     """Resize so the shorter side == size (ref: image.py
     resize_short)."""
-    h, w = _to_np(src).shape[:2]
-    if h > w:
-        new_w, new_h = size, int(h * size / w)
-    else:
-        new_w, new_h = int(w * size / h), size
-    return imresize(src, new_w, new_h, interp)
+    return nd_array(_resize_short_np(_to_np(src), size))
 
 
-def fixed_crop(src, x0, y0, w, h, size=None, interp=2):
-    arr = _to_np(src)[y0:y0 + h, x0:x0 + w]
-    out = nd_array(arr)
+def _fixed_crop_np(arr, x0, y0, w, h, size=None):
+    out = arr[y0:y0 + h, x0:x0 + w]
     if size is not None and (w, h) != size:
-        out = imresize(out, size[0], size[1], interp)
+        out = _imresize_np(out, size[0], size[1])
     return out
 
 
-def center_crop(src, size, interp=2):
-    h, w = _to_np(src).shape[:2]
+def fixed_crop(src, x0, y0, w, h, size=None, interp=2):
+    return nd_array(_fixed_crop_np(_to_np(src), x0, y0, w, h, size))
+
+
+def _center_crop_np(arr, size):
+    h, w = arr.shape[:2]
     new_w, new_h = size
     x0 = max((w - new_w) // 2, 0)
     y0 = max((h - new_h) // 2, 0)
-    return fixed_crop(src, x0, y0, min(new_w, w), min(new_h, h),
-                      size, interp), (x0, y0, new_w, new_h)
+    return _fixed_crop_np(arr, x0, y0, min(new_w, w), min(new_h, h),
+                          size), (x0, y0, new_w, new_h)
 
 
-def random_crop(src, size, interp=2):
-    h, w = _to_np(src).shape[:2]
+def center_crop(src, size, interp=2):
+    out, box = _center_crop_np(_to_np(src), size)
+    return nd_array(out), box
+
+
+def _random_crop_np(arr, size):
+    h, w = arr.shape[:2]
     new_w, new_h = min(size[0], w), min(size[1], h)
     x0 = pyrandom.randint(0, w - new_w)
     y0 = pyrandom.randint(0, h - new_h)
-    return fixed_crop(src, x0, y0, new_w, new_h, size, interp), \
+    return _fixed_crop_np(arr, x0, y0, new_w, new_h, size), \
         (x0, y0, new_w, new_h)
 
 
-def color_normalize(src, mean, std=None):
-    arr = _to_np(src).astype(np.float32)
+def random_crop(src, size, interp=2):
+    out, box = _random_crop_np(_to_np(src), size)
+    return nd_array(out), box
+
+
+def _color_normalize_np(arr, mean, std=None):
+    arr = arr.astype(np.float32)
     arr = arr - np.asarray(mean, np.float32)
     if std is not None:
         arr = arr / np.asarray(std, np.float32)
-    return nd_array(arr)
+    return arr
+
+
+def color_normalize(src, mean, std=None):
+    return nd_array(_color_normalize_np(_to_np(src), mean, std))
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +185,18 @@ def color_normalize(src, mean, std=None):
 
 
 class Augmenter:
-    """Image augmenter base (ref: image.py Augmenter:482)."""
+    """Image augmenter base (ref: image.py Augmenter:482).  A subclass
+    defines ``_np`` (numpy HWC in and out); calling it on an NDArray
+    or an array returns an NDArray.  A user's subclass may define
+    ``__call__`` alone."""
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
 
     def __call__(self, src):
+        return nd_array(self._np(_to_np(src)))
+
+    def _np(self, arr):
         raise NotImplementedError
 
 
@@ -166,8 +205,8 @@ class ResizeAug(Augmenter):
         super().__init__(size=size)
         self.size, self.interp = size, interp
 
-    def __call__(self, src):
-        return resize_short(src, self.size, self.interp)
+    def _np(self, arr):
+        return _resize_short_np(arr, self.size)
 
 
 class ForceResizeAug(Augmenter):
@@ -175,8 +214,8 @@ class ForceResizeAug(Augmenter):
         super().__init__(size=size)
         self.size, self.interp = size, interp
 
-    def __call__(self, src):
-        return imresize(src, self.size[0], self.size[1], self.interp)
+    def _np(self, arr):
+        return _imresize_np(arr, self.size[0], self.size[1])
 
 
 class RandomCropAug(Augmenter):
@@ -184,8 +223,8 @@ class RandomCropAug(Augmenter):
         super().__init__(size=size)
         self.size, self.interp = size, interp
 
-    def __call__(self, src):
-        return random_crop(src, self.size, self.interp)[0]
+    def _np(self, arr):
+        return _random_crop_np(arr, self.size)[0]
 
 
 class CenterCropAug(Augmenter):
@@ -193,8 +232,8 @@ class CenterCropAug(Augmenter):
         super().__init__(size=size)
         self.size, self.interp = size, interp
 
-    def __call__(self, src):
-        return center_crop(src, self.size, self.interp)[0]
+    def _np(self, arr):
+        return _center_crop_np(arr, self.size)[0]
 
 
 class HorizontalFlipAug(Augmenter):
@@ -202,10 +241,10 @@ class HorizontalFlipAug(Augmenter):
         super().__init__(p=p)
         self.p = p
 
-    def __call__(self, src):
+    def _np(self, arr):
         if pyrandom.random() < self.p:
-            return nd_array(_to_np(src)[:, ::-1])
-        return src
+            return arr[:, ::-1]
+        return arr
 
 
 class BrightnessJitterAug(Augmenter):
@@ -213,16 +252,15 @@ class BrightnessJitterAug(Augmenter):
         super().__init__(brightness=brightness)
         self.brightness = brightness
 
-    def __call__(self, src):
+    def _np(self, arr):
         alpha = 1.0 + pyrandom.uniform(-self.brightness,
                                        self.brightness)
-        return nd_array(np.clip(_to_np(src).astype(np.float32)
-                                * alpha, 0, 255))
+        return np.clip(arr.astype(np.float32) * alpha, 0, 255)
 
 
 class CastAug(Augmenter):
-    def __call__(self, src):
-        return nd_array(_to_np(src).astype(np.float32))
+    def _np(self, arr):
+        return arr.astype(np.float32)
 
 
 class ColorNormalizeAug(Augmenter):
@@ -230,8 +268,8 @@ class ColorNormalizeAug(Augmenter):
         super().__init__(mean=mean, std=std)
         self.mean, self.std = mean, std
 
-    def __call__(self, src):
-        return color_normalize(src, self.mean, self.std)
+    def _np(self, arr):
+        return _color_normalize_np(arr, self.mean, self.std)
 
 
 def CreateAugmenter(data_shape, resize=0, rand_crop=False,
@@ -262,10 +300,16 @@ def CreateAugmenter(data_shape, resize=0, rand_crop=False,
 
 def augment_to_chw(img, auglist):
     """Run the augmenter chain and emit CHW float32 (shared by
-    ImageIter and ImageRecordIter so the two pipelines can't drift)."""
+    ImageIter, ImageRecordIter and the data service's workers so the
+    pipelines can't drift).  Augmenters with a numpy core run on the
+    array itself; a user's augmenter gets and returns an NDArray."""
+    arr = _to_np(img)
     for aug in auglist:
-        img = aug(img)
-    return _to_np(img).transpose(2, 0, 1)
+        if type(aug).__call__ is Augmenter.__call__:
+            arr = aug._np(arr)
+        else:
+            arr = _to_np(aug(nd_array(arr)))
+    return arr.transpose(2, 0, 1)
 
 
 class ImageIter(DataIter):

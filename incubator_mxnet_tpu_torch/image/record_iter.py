@@ -40,7 +40,9 @@ from .. import recordio as rio
 from ..io.io import (DataBatch, DataDesc, DataIter, _bounded_get,
                      _stop_aware_put)
 from ..io.sharding import shard_keys
-from ..resilience import DataPipelineError, data_env
+from .. import telemetry
+from ..resilience import DataPipelineError, inject
+from ..utils.env import get_env
 from .image import CreateAugmenter, augment_to_chw, imdecode, nd_array
 
 __all__ = ["ImageRecordIter"]
@@ -95,7 +97,7 @@ class ImageRecordIter(DataIter):
         self._native = None
         if (aug_list is None and not rand_crop and resize == 0
                 and self.data_shape[0] == 3
-                and data_env("MXTPU_NATIVE_DECODE") != "0"):
+                and os.environ.get("MXTPU_NATIVE_DECODE", "1") != "0"):
             from . import native_dec
             if native_dec.available():
                 self._native = dict(
@@ -303,8 +305,8 @@ class ImageRecordIter(DataIter):
         """Count one corrupt record against MXTPU_MAX_BAD_RECORDS:
         skip-and-log within the budget, raise past it."""
         self._bad_records += 1
-        # the quarantine counter comes with telemetry, ROADMAP item A11
-        budget = data_env("MXTPU_MAX_BAD_RECORDS")
+        telemetry.counter("data_quarantined_records_total").inc()
+        budget = get_env("MXTPU_MAX_BAD_RECORDS")
         if self._bad_records > budget:
             raise DataPipelineError(
                 f"ImageRecordIter: {self._bad_records} corrupt "
@@ -383,7 +385,7 @@ class ImageRecordIter(DataIter):
                 self._spool_sequential(consumed["n"])
             rec_gen = self._records(consumed)
             while not self._stop.is_set():
-                # the ``data:record_batch`` fault point comes with A11
+                inject("data", "record_batch")
                 pairs = []
                 while len(pairs) < self.batch_size:
                     pair = next(rec_gen, None)
@@ -525,6 +527,7 @@ class ImageRecordIter(DataIter):
             raise err
         data, label, pad, consumed, decoder, self._rng_state = item
         self._nbatch += 1
+        telemetry.counter("prefetch_batches_total").inc()
         self.decoder_counts[decoder] += 1
         self.last_decoder = decoder
         self._records_consumed = consumed

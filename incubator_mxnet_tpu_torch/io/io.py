@@ -19,9 +19,13 @@ straight to CSR.  ``ImageRecordIter`` is ``image.ImageRecordIter``.
 Every wait on a background producer (``PrefetchingIter``,
 ``DevicePrefetchIter``, ``ImageRecordIter``) is bounded by
 ``MXTPU_DATA_TIMEOUT``: a producer that died or wedged surfaces as a
-``DataPipelineError`` naming its source.  Fault injection comes with
-ROADMAP item A11; ``DataServiceIter`` (the multi-process data service)
-is the next slice of item A10 and raises.
+``DataPipelineError`` naming its source.  The producers inject faults
+at the JAX package's points (``data:prefetch``,
+``data:device_prefetch``; ``MXTPU_FAULT_SPEC``), and the consumers
+publish its metrics (``prefetch_queue_wait_seconds``,
+``prefetch_queue_depth``, ``prefetch_batches_total``).
+``DataServiceIter`` is the multi-process data service
+(``data_service/``).
 """
 import gzip
 import queue
@@ -33,7 +37,9 @@ import numpy as np
 
 from ..context import cpu, resolve
 from ..ndarray.ndarray import NDArray, array as nd_array
-from ..resilience import DataPipelineError, data_env, data_timeout
+from .. import telemetry
+from ..resilience import DataPipelineError, data_timeout, inject
+from ..utils.env import get_env
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
            "ResizeIter", "PrefetchingIter", "DevicePrefetchIter",
@@ -47,7 +53,21 @@ def _bounded_get(q, source, thread=None, timeout=None):
     """``q.get()`` bounded by ``MXTPU_DATA_TIMEOUT`` (``timeout=None``
     reads the flag; a value <= 0 disables the deadline).  Raises
     ``DataPipelineError`` naming ``source`` when the producer thread
-    died without delivering, or when nothing arrives in time."""
+    died without delivering, or when nothing arrives in time.
+
+    Telemetry: each successful get publishes its queue-wait time and
+    the post-get queue depth (``prefetch_queue_wait_seconds`` /
+    ``prefetch_queue_depth``)."""
+    t0 = time.monotonic()
+    item = _bounded_get_inner(q, source, thread, timeout)
+    tel_hist = telemetry.histogram("prefetch_queue_wait_seconds")
+    if tel_hist is not telemetry.NULL_METRIC:
+        tel_hist.observe(time.monotonic() - t0)
+        telemetry.gauge("prefetch_queue_depth").set(q.qsize())
+    return item
+
+
+def _bounded_get_inner(q, source, thread, timeout):
     if timeout is None:
         timeout = data_timeout()
     deadline = time.monotonic() + timeout \
@@ -435,8 +455,8 @@ class PrefetchingIter(DataIter):
 
         def worker():
             while not stop.is_set():
-                # the ``data:prefetch`` fault point comes with item A11
                 try:
+                    inject("data", "prefetch")
                     batches = [it.next() for it in self.iters]
                 except StopIteration:
                     _stop_aware_put(q, stop, None)
@@ -538,6 +558,7 @@ class PrefetchingIter(DataIter):
             self._error = _typed(item[1], "PrefetchingIter")
             raise self._error
         self._delivered += 1
+        telemetry.counter("prefetch_batches_total").inc()
         data = [d for b in item for d in b.data]
         label = [lb for b in item for lb in b.label]
         return DataBatch(data, label, pad=item[0].pad)
@@ -592,7 +613,7 @@ class DevicePrefetchIter(DataIter):
         self._iter = data_iter
         self._device = resolve(ctx)
         if depth is None:
-            depth = data_env("MXTPU_DEVICE_PREFETCH_DEPTH")
+            depth = get_env("MXTPU_DEVICE_PREFETCH_DEPTH")
         self._depth = max(1, int(depth))
         self._on_card = self._device.type == "cuda"
         if self._on_card:
@@ -625,8 +646,8 @@ class DevicePrefetchIter(DataIter):
 
         def worker():
             while not stop.is_set():
-                # the ``data:device_prefetch`` fault point comes with A11
                 try:
+                    inject("data", "device_prefetch")
                     batch = self._iter.next()
                 except StopIteration:
                     _stop_aware_put(q, stop, ("end", None))
@@ -774,6 +795,7 @@ class DevicePrefetchIter(DataIter):
                     a._data.record_stream(stream)
         self._room.release()
         self._delivered += 1
+        telemetry.counter("prefetch_batches_total").inc()
         return batch
 
     def iter_next(self):
@@ -919,8 +941,8 @@ def ImageRecordIter(*args, **kwargs):
 
 
 def DataServiceIter(*args, **kwargs):
-    """Raises: the sharded multi-process data service
-    (``data_service/``) is the next slice of ROADMAP item A10."""
-    raise NotImplementedError(
-        "DataServiceIter is not ported yet: the multi-process data "
-        "service (data_service/) is the next slice of ROADMAP item A10")
+    """Sharded multi-process input data service: N decode worker
+    processes feeding bounded shared-memory rings
+    (docs/data_service.md).  Provided by the data_service package."""
+    from ..data_service.service import DataServiceIter as _Impl
+    return _Impl(*args, **kwargs)

@@ -66,6 +66,8 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     save_dict = {f"arg:{k}": v for k, v in arg_params.items()}
     save_dict.update({f"aux:{k}": v for k, v in aux_params.items()})
     nd.save(f"{prefix}-{epoch:04d}.params", save_dict)
+    from . import telemetry
+    telemetry.counter("checkpoint_saves_total").inc()
 
 
 def split_tagged_params(save_dict):
@@ -187,6 +189,8 @@ def load_checkpoint(prefix, epoch, fallback=None, return_epoch=False, *,
                 f"checkpoint {prefix}-{epoch:04d}.params is corrupt "
                 f"({exc}); falling back to newest valid epoch {cand}",
                 RuntimeWarning)
+            from . import telemetry
+            telemetry.counter("checkpoint_fallbacks_total").inc()
             effective = cand
             break
         else:

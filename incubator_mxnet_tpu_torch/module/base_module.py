@@ -5,14 +5,18 @@ python/mxnet/module/base_module.py — fit:376, score, predict).
 ``fit`` runs the reference's loop: bind, init_params, init_optimizer,
 then per batch ``forward_backward``, ``update`` and ``update_metric``,
 the callbacks, and at each epoch's end the epoch callbacks and a
-``score`` on the validation data.  The JAX package also times each
-step's sections as telemetry spans, arms the divergence rollback
-(``checkpoint_prefix``) and publishes debugz status: those come with
-the telemetry and step-guard layer (ROADMAP item A11).
+``score`` on the validation data.  Each step's sections are timed as
+the JAX package times them, as telemetry spans (``data_wait``,
+``forward_backward``, ``optimizer``, ``host_sync``: host clock only,
+no synchronization added), which feed the anomaly watch and the
+debugz ``train`` status.  The divergence rollback
+(``checkpoint_prefix``) comes with the step guard (ROADMAP item A11's
+second half).
 """
 import logging
 import time
 
+from .. import debugz, telemetry
 from .. import initializer as init_mod
 from .. import metric as metric_mod
 from ..io.io import DataBatch
@@ -183,6 +187,7 @@ class BaseModule:
                 "fit(checkpoint_prefix=...) arms the divergence rollback "
                 "of the step guard, which is not ported yet (ROADMAP "
                 "item A11)")
+        telemetry.maybe_start_emitter()
         initializer = initializer or init_mod.Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -203,13 +208,38 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
+            nbatch = 0
             train_data.reset()
-            for nbatch, data_batch in enumerate(train_data):
+            data_iter = iter(train_data)
+            # per-step timeline (docs/observability.md): spans time
+            # host-clock sections only, so no synchronization is added
+            # beyond what a section already does (update_metric's
+            # host pull)
+            watch = telemetry.anomaly_watch("train")
+            while True:
+                sp_data = telemetry.span("data_wait")
+                with sp_data:
+                    data_batch = next(data_iter, None)
+                if data_batch is None:
+                    break
                 if monitor is not None:
                     monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
+                sp_fb = telemetry.span("forward_backward")
+                with sp_fb:
+                    self.forward_backward(data_batch)
+                sp_opt = telemetry.span("optimizer")
+                with sp_opt:
+                    self.update()
+                sp_sync = telemetry.span("host_sync")
+                with sp_sync:
+                    self.update_metric(eval_metric, data_batch.label)
+                split = {"data_wait": sp_data.elapsed,
+                         "forward_backward": sp_fb.elapsed,
+                         "optimizer": sp_opt.elapsed,
+                         "host_sync": sp_sync.elapsed}
+                watch.observe(split)
+                debugz.publish("train", step=nbatch, epoch=epoch,
+                               split=split)
                 if monitor is not None:
                     monitor.toc_print()
                 if batch_end_callback is not None:
@@ -217,6 +247,7 @@ class BaseModule:
                                           locals())
                     for cb in _as_list(batch_end_callback):
                         cb(param)
+                nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

@@ -26,8 +26,10 @@ from the symbol's attributes, and runs by the kvstore:
 
 Not in this slice: the multi-device contexts and the sharded
 checkpoints (ROADMAP item A9); the step guard
-(``MXTPU_NONFINITE_POLICY`` raises), the bind-time memory preflight,
-the perf gauges and telemetry (A11).
+(``MXTPU_NONFINITE_POLICY`` raises), the bind-time memory preflight and
+the perf gauges (A11's second half).  ``update`` counts
+``train_steps_total``, and the eager path attributes its parameters
+and optimizer state to the tracing layer's memory gauges.
 """
 import logging
 import os
@@ -35,7 +37,7 @@ import pickle
 
 from .. import initializer as init_mod
 from .. import optimizer as opt_mod
-from .. import resilience
+from .. import resilience, telemetry, tracing
 from ..context import cpu
 from ..initializer import InitDesc
 from ..io.io import DataDesc
@@ -251,6 +253,10 @@ class Module(BaseModule):
                 kv.set_optimizer(optimizer)
         if not self._update_on_kvstore and not use_mesh_step:
             self._updater = opt_mod.get_updater(optimizer)
+        if not use_mesh_step:
+            # device-memory attribution (docs/observability.md); the
+            # fused step's SymbolTrainStep registers its own providers
+            self._register_memory_providers()
         self.optimizer_initialized = True
         states, self._preload_opt_states = self._preload_opt_states, None
         if states:
@@ -372,6 +378,28 @@ class Module(BaseModule):
         self._mesh_dirty = True
         self._mesh_pending = True
 
+    def _register_memory_providers(self):
+        """Attribute this module's device buffers in the tracing
+        layer's memory gauges: bound params + eager-updater optimizer
+        state.  Weakref'd so a dropped module stops being counted."""
+        for unreg in getattr(self, "_mem_unregister", ()):
+            unreg()
+
+        def _param_arrays(mod):
+            if mod._exec is None:
+                return []
+            return [mod._exec.arg_dict[n]._data
+                    for n in mod._param_names
+                    if n in mod._exec.arg_dict]
+
+        def _opt_arrays(mod):
+            states = getattr(mod._updater, "states", None)
+            return tracing.updater_state_arrays(states) \
+                if states else []
+
+        self._mem_unregister = tracing.register_param_opt_providers(
+            self, _param_arrays, _opt_arrays)
+
     def update(self):
         """Apply the optimizer to every parameter with a gradient (ref:
         module.py update:619, model.py _update_params_on_kvstore:105).
@@ -379,6 +407,7 @@ class Module(BaseModule):
         manual forward/backward loop under kvstore='tpu' runs the eager
         updater."""
         assert self.optimizer_initialized
+        telemetry.counter("train_steps_total").inc()
         if self._mesh_step is not None:
             if self._mesh_pending:
                 self._mesh_pending = False

@@ -7,12 +7,16 @@ Monitor:33, the executor callback of graph_executor.cc:121).
 ``nd`` ops and non-hybridized Gluon are observed; ``install(executor)``
 (or ``Module.install_monitor``) also sets the executor's monitor
 callback, so every op node of its graph goes through the stat function
-in each armed batch (``tic`` .. ``toc``).  The JAX package also marks
-armed batches as telemetry spans, which come with ROADMAP item A11.
+in each armed batch (``tic`` .. ``toc``).  An armed batch is a
+telemetry span (``monitor_armed``), and ``toc`` counts
+``monitor_armed_batches_total`` and ``monitor_stat_rows_total``, as in
+the JAX package.
 """
 import re
 
 import numpy as np
+
+from . import telemetry
 
 __all__ = ["Monitor", "nonfinite_count", "observe_op", "active"]
 
@@ -52,6 +56,7 @@ class Monitor:
         self.step = 0
         self.activated = False
         self.queue = []
+        self._span = None
         self._exes = []
 
     def install(self, target=None):
@@ -77,6 +82,14 @@ class Monitor:
         if self.step % self.interval == 0:
             self.queue = []
             self.activated = True
+            # armed batches are slower: the span makes "the debug tap
+            # was on here" visible in the telemetry timeline
+            if self._span is not None:
+                # the prior armed batch aborted between tic and toc:
+                # close its span now so it still lands in the timeline
+                self._span.__exit__(None, None, None)
+            self._span = telemetry.span("monitor_armed")
+            self._span.__enter__()
         self.step += 1
 
     def toc(self):
@@ -84,7 +97,12 @@ class Monitor:
         if not self.activated:
             return []
         self.activated = False
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+            self._span = None
         res, self.queue = self.queue, []
+        telemetry.counter("monitor_armed_batches_total").inc()
+        telemetry.counter("monitor_stat_rows_total").inc(len(res))
         return sorted(res, key=lambda r: r[1]) if self.sort else res
 
     def toc_print(self):

@@ -19,8 +19,18 @@ The graph runs as bound: the symbol passes (``optimize_symbol``) are
 ROADMAP item A7, and the JAX goldens show they preserve values.  Not
 here: ``numeric_guard`` (the step guard, A11) and the sharded
 checkpoints (A9) raise.
+
+The first call of each batch signature (the capture on the card, the
+first op-by-op run on the CPU) is timed into the compile ledger
+``symbol_train_step``, and the step's parameters, aux states and
+optimizer state are attributed to the tracing layer's memory gauges,
+as the JAX package attributes its compiles and buffers.
 """
+import time
+
 import torch
+
+from .. import tracing
 
 from .. import random as _random
 from ..ndarray.ndarray import NDArray, _as_tensor
@@ -109,6 +119,19 @@ class SymbolTrainStep:
         self._graph = _graph.StepGraph(self._step, self._mutable,
                                        "symbol_train_step",
                                        self.trace_counts)
+        self._signatures = set()
+
+        # device-memory attribution (docs/observability.md): the step
+        # owns the job's params and optimizer state on the device;
+        # weakref providers so a dropped step stops being counted
+        def _param_arrays(st):
+            return list(st.params.values()) + list(st.aux.values())
+
+        def _opt_arrays(st):
+            return _graph.tensors_of(st.opt_state)
+
+        self._mem_unregister = tracing.register_param_opt_providers(
+            self, _param_arrays, _opt_arrays)
 
     def _own(self, v):
         return _tensor(v, self.device).clone()
@@ -168,9 +191,24 @@ class SymbolTrainStep:
                 g.manual_seed((int(rng) + 0x9E3779B9 * (fold + 1))
                               % (1 << 63))
         self._lr.fill_(float(lr))
+        sig = tuple((n, tuple(v.shape), str(v.dtype))
+                    for n, v in zip(self._input_names, vals))
+        first = sig not in self._signatures
+        t0 = time.monotonic()
         if self.device.type != "cuda":
-            return list(self._step(*vals))
-        return list(self._graph(vals, self._gens))
+            outs = list(self._step(*vals))
+        else:
+            outs = list(self._graph(vals, self._gens))
+        if first:
+            # a new batch signature: the card captured it, the CPU ran
+            # it op by op for the first time
+            self._signatures.add(sig)
+            tracing.compile_ledger("symbol_train_step").record(
+                {"shape": tuple(sorted((n, s) for n, s, _ in sig)),
+                 "dtype": tuple(sorted((n, d) for n, _, d in sig)),
+                 "train_flag": True},
+                time.monotonic() - t0)
+        return outs
 
     @torch.no_grad()
     def evaluate(self, inputs, rng=None):

@@ -13,15 +13,17 @@ Two layers, as the reference splits its own op stats from nvprof:
   package's names and wrap ``torch.profiler`` (CPU and CUDA
   activities), writing its Chrome trace into ``logdir``.
 
-The serving engine's lanes come with ROADMAP item A2, the telemetry
-counters in the dump with item A11.
+A dump ends with the telemetry registry's counters and gauges as
+counter ('C') events, and ``telemetry.span`` sections land in the same
+stream (category 'span').  The serving engine's lanes come with
+ROADMAP item A2.
 """
 import json
 import os
 import threading
 import time
 
-from .engine import get_env, wait
+from .engine import wait
 from .resilience import _replace_with_bytes
 
 __all__ = ["set_config", "set_state", "dump_profile", "pause",
@@ -116,9 +118,22 @@ class Profiler:
         return out
 
     def _counter_events(self):
-        """The telemetry registry's counters as 'C' events: they come
-        with telemetry, ROADMAP item A11."""
-        return []
+        """Telemetry registry counters/gauges as chrome-tracing
+        counter ('C') events stamped at dump time, so spans and
+        counters land in ONE timeline (docs/observability.md)."""
+        from . import telemetry
+        if not telemetry.enabled():
+            return []
+        snap = telemetry.snapshot()
+        ts = (time.perf_counter() - self._t0) * 1e6
+        pid = os.getpid()
+        events = []
+        for kind in ("counters", "gauges"):
+            for name, value in sorted(snap[kind].items()):
+                events.append({"name": name, "cat": "telemetry",
+                               "ph": "C", "ts": ts, "pid": pid,
+                               "args": {name: value}})
+        return events
 
     def dump(self, finished=True):
         """Write the trace.  Concurrent-safe: dumps are serialized
@@ -220,5 +235,5 @@ def stop_xla_trace():
 
 
 # autostart parity (ref: MXNET_PROFILER_AUTOSTART)
-if get_env("MXTPU_PROFILER_AUTOSTART") == "1":
+if os.environ.get("MXTPU_PROFILER_AUTOSTART", "") == "1":
     _profiler.set_state("run")

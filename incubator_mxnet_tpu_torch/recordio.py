@@ -189,7 +189,22 @@ class MXRecordIO:
                 buf = ctypes.string_at(data, n)
         else:
             buf = self._py_read()
-        # the ``record:read`` fault point comes with ROADMAP item A11
+        return self._maybe_inject(buf)
+
+    def _maybe_inject(self, buf):
+        """``record:read`` fault point: deterministically corrupt or
+        truncate the record payload a test asked for (kind ``error``
+        raises inside inject) — the CPU-testable stand-in for disk
+        bit-rot under a record iterator."""
+        from .resilience import faults_active, inject
+        if buf is None or not faults_active():
+            return buf
+        kind = inject("record", "read")
+        if kind == "corrupt":
+            first = buf[0] ^ 0xFF if buf else 0xFF
+            return bytes([first]) + buf[1:]
+        if kind == "truncate":
+            return buf[:len(buf) // 2]
         return buf
 
     def tell(self):

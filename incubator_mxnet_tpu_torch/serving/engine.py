@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from .. import resilience
-from ..engine import get_env
+from ..utils.env import get_env
 from ..gluon.model_zoo.transformer import TransformerLM, _not_ported
 from .block_table import BlockPool, BlockPoolExhausted
 from .cache_manager import PrefixCache
@@ -65,37 +65,6 @@ __all__ = ["ServingEngine"]
 
 SNAPSHOT_VERSION = 1
 WARMUP_STEPS = 3        # eager decode steps on a side stream before capture
-
-# the serving flags and their defaults, as the JAX package registers
-# them (incubator_mxnet_tpu/utils/env.py)
-_ENV = {
-    "MXTPU_SERVE_BLOCK_SIZE": (int, 16),
-    "MXTPU_SERVE_NUM_BLOCKS": (int, 512),
-    "MXTPU_SERVE_MAX_BATCH": (int, 8),
-    "MXTPU_SERVE_PREFIX_CACHE": (bool, True),
-    "MXTPU_SERVE_QUANT": (str, "off"),
-    "MXTPU_SERVE_TTFT_DEADLINE": (float, 0.0),
-    "MXTPU_SERVE_DEADLINE": (float, 0.0),
-    "MXTPU_SERVE_QUEUE_LIMIT": (int, 0),
-    "MXTPU_SERVE_QUEUE_TOKENS": (int, 0),
-    "MXTPU_SERVE_STEP_TIMEOUT": (float, 0.0),
-}
-
-
-def _env(name):
-    """Flag ``name`` parsed as the JAX package's registry parses it: a
-    missing or unparsable value gives the default."""
-    type_, default = _ENV[name]
-    raw = get_env(name)
-    if raw is None:
-        return default
-    if type_ is bool:
-        return raw not in ("0", "false", "False", "")
-    try:
-        return type_(raw)
-    except ValueError:
-        return default
-
 
 def _next_pow2(n):
     return 1 << max(0, int(n - 1)).bit_length()
@@ -163,36 +132,36 @@ class ServingEngine:
                 f"{type(model).__name__}")
         model._check_paged()
         self.block_size = int(block_size if block_size is not None
-                              else _env("MXTPU_SERVE_BLOCK_SIZE"))
+                              else get_env("MXTPU_SERVE_BLOCK_SIZE"))
         raw_blocks = num_blocks if num_blocks is not None \
-            else _env("MXTPU_SERVE_NUM_BLOCKS")
+            else get_env("MXTPU_SERVE_NUM_BLOCKS")
         if isinstance(raw_blocks, str) and raw_blocks.lower() == "auto":
             raise _not_ported("num_blocks='auto' (pool sizing from the "
                               "memory planner and device_db)",
                               "operability")
         self.num_blocks = int(raw_blocks)
         self.max_batch = int(max_batch if max_batch is not None
-                             else _env("MXTPU_SERVE_MAX_BATCH"))
+                             else get_env("MXTPU_SERVE_MAX_BATCH"))
         if self.block_size < 1 or self.max_batch < 1:
             raise ValueError(
                 f"bad serving config: block_size={self.block_size}, "
                 f"max_batch={self.max_batch}")
-        quantize = _env("MXTPU_SERVE_QUANT") if quantize is None \
+        quantize = get_env("MXTPU_SERVE_QUANT") if quantize is None \
             else quantize
         if prefix_cache is None:
-            prefix_cache = _env("MXTPU_SERVE_PREFIX_CACHE")
+            prefix_cache = get_env("MXTPU_SERVE_PREFIX_CACHE")
         self.ttft_deadline = float(
             ttft_deadline if ttft_deadline is not None
-            else _env("MXTPU_SERVE_TTFT_DEADLINE"))
+            else get_env("MXTPU_SERVE_TTFT_DEADLINE"))
         self.deadline = float(deadline if deadline is not None
-                              else _env("MXTPU_SERVE_DEADLINE"))
+                              else get_env("MXTPU_SERVE_DEADLINE"))
         self.queue_limit = int(queue_limit if queue_limit is not None
-                               else _env("MXTPU_SERVE_QUEUE_LIMIT"))
+                               else get_env("MXTPU_SERVE_QUEUE_LIMIT"))
         self.queue_tokens = int(queue_tokens if queue_tokens is not None
-                                else _env("MXTPU_SERVE_QUEUE_TOKENS"))
+                                else get_env("MXTPU_SERVE_QUEUE_TOKENS"))
         self.step_timeout = float(
             step_timeout if step_timeout is not None
-            else _env("MXTPU_SERVE_STEP_TIMEOUT"))
+            else get_env("MXTPU_SERVE_STEP_TIMEOUT"))
         if self.step_timeout > 0:
             raise _not_ported("step_timeout > 0 (the decode-step "
                               "watchdog and its flight-recorder dump)",

@@ -795,7 +795,7 @@ def test_cast_and_hybridize_reset_the_cache():
 
 
 def test_graph_flags_default_and_parse(monkeypatch):
-    from incubator_mxnet_tpu_torch.graph.passes import env_flag
+    from incubator_mxnet_tpu_torch.utils.env import get_env as env_flag
     monkeypatch.delenv("MXTPU_GRAPH_OPT", raising=False)
     monkeypatch.delenv("MXTPU_CACHEDOP_CAPACITY", raising=False)
     assert env_flag("MXTPU_GRAPH_OPT") == 1

@@ -391,9 +391,23 @@ def test_host_tensors_pass_through_uncopied():
     assert staged.label[0]._data is batch.label[0]._data
 
 
-def test_data_service_iter_names_the_next_slice():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        mt.io.DataServiceIter()
+def test_data_service_iter_names_the_next_slice(recs):
+    """``io.DataServiceIter`` is the data service's class in both
+    packages: the same arguments it lacks raise, and on a record file
+    it gives the same first batch."""
+    for M in (mx, mt):
+        with pytest.raises(TypeError, match="path_imgrec"):
+            M.io.DataServiceIter()
+    firsts = []
+    for M in (mx, mt):
+        it = M.io.DataServiceIter(recs["plain"], SHAPE, 8, num_workers=1)
+        try:
+            assert type(it).__module__ == \
+                M.__name__ + ".data_service.service"
+            firsts.append(_batches(it, limit=1))
+        finally:
+            it.close()
+    _equal(firsts[0], firsts[1])
 
 
 def _tiny_net(S):

@@ -529,8 +529,8 @@ def test_not_ported_paths_raise(monkeypatch):
                 num_epoch=1, checkpoint_prefix="x")
     with pytest.raises(NotImplementedError, match="A9"):
         mt.mod.Module(_mlp(mt.sym), context=[CPU, CPU])
-    with pytest.raises(NotImplementedError, match="A10"):
-        mt.io.DataServiceIter()
+    with pytest.raises(TypeError, match="path_imgrec"):
+        mt.io.DataServiceIter()      # ported: the arguments it lacks
 
 
 def test_feedforward_fit_predict_score(tmp_path):
@@ -1072,11 +1072,9 @@ def test_sequential_module_fit_equals_one_module():
 
 # ------------------------------------------------- the reference's top level
 # public names of the JAX package's top level that belong to modules not
-# ported yet (ROADMAP A11, A9; ``utils``: the port has utils/registry.py
-# and utils/host_build.py only, env and log are A11; random_state is JAX
-# glue), and the port's own
-NOT_YET_PORTED = {"list_env", "telemetry", "tracing", "dist",
-                  "random_state", "utils"}
+# ported yet (ROADMAP A9's ``dist``; random_state is JAX glue), and the
+# port's own
+NOT_YET_PORTED = {"dist", "random_state"}
 PORT_ONLY = {"MXNetError", "convert", "default_device"}
 
 

@@ -317,8 +317,20 @@ def test_log_metrics_callback_jsonl_matches(tmp_path):
         lines[n] = [{k: v for k, v in json.loads(ln).items() if k != "ts"}
                     for ln in path.read_text().splitlines()]
     assert lines["port"] == lines["jax"] and len(lines["port"]) == 6
-    with pytest.raises(NotImplementedError, match="A11"):
-        mt.contrib.tensorboard.log_telemetry(None)
+    snap = {"counters": {"train_steps_total": 3, "retries": 1},
+            "gauges": {"epoch": 2.0}}
+    logged = {}
+    for n, M in PKGS.items():
+        tb = importlib.import_module(M.__name__ + ".contrib.tensorboard")
+        w = tb._JsonlWriter(str(tmp_path / ("tel_" + n)))
+        assert tb.log_telemetry(w, snapshot=snap) == 3
+        w.close()
+        (path,) = list((tmp_path / ("tel_" + n)).iterdir())
+        logged[n] = [{k: v for k, v in json.loads(ln).items() if k != "ts"}
+                     for ln in path.read_text().splitlines()]
+    assert logged["port"] == logged["jax"]
+    assert logged["port"][0] == {"tag": "telemetry/epoch", "value": 2.0,
+                                 "step": 3}
     with mt.contrib.tensorboard.LogMetricsCallback(
             str(tmp_path / "own"),
             summary_writer=mt.contrib.tensorboard._JsonlWriter(
