@@ -379,6 +379,60 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                shards for 8 batches, bit-identical; every worker
                reports CUDA not initialized in it, the parent's CUDA
                initialized before the fork.
+19. operability  the step guard, loss scaling, divergence rollback, the
+               perf observatory and the memory preflight and OOM ladder
+               (no new kernel; the flash kernels run in (iv) to (vi));
+               first, no earlier phase took a degrade rung or failed to
+               plan.  (i) phase resnet (iv)'s Trainer loop (B=32,
+               deterministic cuDNN) under MXTPU_NONFINITE_POLICY=skip
+               with MXTPU_GUARD_INTERVAL=4, 9 steps, grad:nonfinite at
+               steps 3 and 6: each bad step leaves every parameter and
+               momentum bit-equal, the step count ends 2 lower, 3 guard
+               reads, the steps between reads run under
+               torch.cuda.set_sync_debug_mode("error"), the other losses
+               equal an unguarded run's without those batches bit for
+               bit; guarded and unguarded ms per step; (ii) a static
+               loss scale of 2^15: losses within rel 1e-6 of the
+               unscaled loop (bit-equal printed); a dynamic one (window
+               2) on the hybridized net: an injected overflow halves it,
+               two good windows double it twice, one capture; (iii)
+               phase module (i)'s MLP through Module.fit(checkpoint_
+               prefix=) on 'local' and 'tpu' (the captured
+               SymbolTrainStep with numeric_guard): a checkpoint after
+               the first epoch, 3 consecutive bad steps raise
+               DivergedError and roll back once to it, and the fit
+               resumed from it passes the example's gate (0.95); a child
+               that diverges under install_diverged_exithook exits 13;
+               (iv) bench.py's transformer step (B=8 x L=1024, bf16,
+               captured): cost_analysis (FlopCounterMode on meta copies)
+               arms the clock, and over 19 replays its train_mfu is
+               within 5% of the MFU timed here between CUDA events on
+               the same replays against caps_for(card)'s bf16 peak (the
+               MFU from the host's enqueue time beside it); a replay
+               runs each flash kernel once per layer; ResNet-50's
+               analytic train FLOPs (symbol_cost x 3) within 2% of phase
+               resnet's own count and of FlopCounterMode's, and
+               Module.perf_report()'s roofline table at B=32; (v) the
+               planner against torch.cuda.max_memory_allocated over a
+               step less what was live before the step's objects: the
+               MLP Module (gate 20%), ResNet-50 through Module (printed)
+               and the transformer step eager (gate 20%) and captured
+               (printed), with the elementwise share that would fit;
+               (vi) MXTPU_HBM_BYTES under the transformer's plan: the
+               preflight takes remat (the first step's loss and
+               parameters bit-equal to the plain step's), lower the
+               grad_accum rungs to the first whose plan fits (at this
+               width grad_accum=2 plans above remat: its accumulator
+               costs more than half the activations; loss within rel
+               1e-5), lower still MemoryPlanError after every rung;
+               then the allocator
+               capped (set_per_process_memory_fraction) between the
+               remat and plain first calls' reserved peaks (3/4 up):
+               with
+               MXTPU_MEM_POLICY=off the OOM is raised as an OomError,
+               with the default policy it takes the remat rung
+               (oom_retries_total 1) and the retried step captures once
+               and gives a finite loss; the cap is lifted after.
 
 Then it prints the card's name and power limit (nvidia-smi), the kernel
 table ({"kernels": [...]}; ``launches`` is the sum over the main paths'
@@ -7122,6 +7176,667 @@ def phase_data(mt, torch, card):
     return counts
 
 
+# ---------------------------------------------------------- operability
+# The perf observatory, the step guard and loss scaling, the memory
+# preflight and OOM ladder, and divergence rollback on the card.
+OPS_STEPS = 9                     # (i) guarded ResNet-50 Trainer steps
+OPS_BAD = (3, 6)                  # (i) the steps whose gradients go bad
+OPS_GUARD_INTERVAL = 4
+OPS_STATIC_SCALE = 2.0 ** 15      # (ii)
+OPS_STATIC_STEPS = 4
+OPS_DYNAMIC_STEPS = 6             # (ii): overflow at 2, growth at 5
+OPS_SCALE_WINDOW = 2
+OPS_MAX_BAD = 3                   # (iii) MXTPU_MAX_BAD_STEPS
+OPS_CLOCK_REPLAYS = 20            # (iv)
+OPS_PLAN_GATE = 0.20              # (v) the JAX planner's own tolerance
+OPS_MFU_GATE = 0.05               # (iv) clock vs timed MFU
+OPS_RESNET_FLOPS_GATE = 0.02      # (iv)
+OPS_ACCUM_TOL = 1e-5              # (vi) the grad_accum rung's loss
+OPS_MARGIN = 0.05                 # MXTPU_MEM_GATE_MARGIN's default
+
+
+@contextlib.contextmanager
+def env_set(mt, **kw):
+    """The MXTPU_* settings ``kw`` for the scope (restored after), with
+    the fault-injection counters reset on the way in and out."""
+    import os
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    mt.resilience.reset_faults()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        mt.resilience.reset_faults()
+
+
+def counter(mt, name):
+    return mt.telemetry.get_registry().counter(name).value
+
+
+def ops_loop_values(trainer, net):
+    """Clones of every trainable parameter, every optimizer-state tensor
+    and the step count: what a skipped step must leave as it was (the
+    forward still moves BatchNorm's moving stats, as an unguarded
+    forward does)."""
+    vals = [p._var.detach().clone() for p in net.collect_params().values()
+            if p.grad_req != "null"]
+    vals += [t.detach().clone() for t in
+             trainer._fstate.get("mom", {}).values()]
+    return vals, trainer._optimizer.num_update
+
+
+def ops_guarded_loop(mt, torch, x, y, steps, bad=(), guarded=True,
+                     scale_env=None, hybridize=False):
+    """``steps`` of phase resnet (iv)'s imperative loop (deterministic
+    cuDNN) from the seeded weights; ``bad`` are the guarded steps whose
+    gradients the grad:nonfinite injection poisons.  Returns (losses,
+    ms per step, per bad step whether every value stayed bit-equal,
+    steps run under sync-debug "error", the trainer, the net)."""
+    settings = dict(scale_env or {})
+    if guarded:
+        settings.update(
+            MXTPU_NONFINITE_POLICY="skip",
+            MXTPU_GUARD_INTERVAL=OPS_GUARD_INTERVAL,
+            MXTPU_FAULT_SPEC=",".join(
+                f"grad:nonfinite:{s}:{'nan' if i % 2 == 0 else 'inf'}"
+                for i, s in enumerate(bad)))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with env_set(mt, **settings):
+            net = resnet_net(mt, torch, "cuda")
+            if hybridize:
+                net.hybridize()
+            trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                       RESNET_SGD)
+            loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+            xs, ys = mt.nd.NDArray(x), mt.nd.NDArray(y)
+            losses, ms, kept, quiet, scales = [], [], {}, 0, []
+            for i in range(1, steps + 1):
+                before = ops_loop_values(trainer, net) if i in bad \
+                    else None
+                used = trainer.loss_scale
+                due = not guarded or \
+                    trainer.guard.steps % trainer.guard.interval == 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # the steps between guard reads must not synchronize
+                torch.cuda.set_sync_debug_mode(0 if due else "error")
+                try:
+                    with mt.autograd.record():
+                        loss = loss_fn(net(xs), ys) * used
+                    loss.backward()
+                    trainer.step(RESNET_BATCH)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                quiet += not due
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                # a power of two: the division is exact
+                losses.append(loss.handle.detach().mean() / used)
+                scales.append(trainer.loss_scale)
+                if before is not None:
+                    vals, count = ops_loop_values(trainer, net)
+                    kept[i] = all(torch.equal(a, b)
+                                  for a, b in zip(before[0], vals))
+            losses = [float(v) for v in losses]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return {"losses": losses, "ms": ms, "kept": kept, "quiet_steps": quiet,
+            "scales": scales, "trainer": trainer, "net": net}
+
+
+def ops_trainer_guard(mt, torch, x, y):
+    """(i) the step guard on phase resnet (iv)'s Trainer loop."""
+    ref = ops_guarded_loop(mt, torch, x, y, OPS_STEPS - len(OPS_BAD),
+                           guarded=False)
+    got = ops_guarded_loop(mt, torch, x, y, OPS_STEPS, bad=OPS_BAD)
+    tr = got["trainer"]
+    good = [v for i, v in enumerate(got["losses"], 1) if i not in OPS_BAD]
+    check(all(got["kept"].values()) and len(got["kept"]) == len(OPS_BAD),
+          f"a skipped step changed a parameter or momentum: {got['kept']}")
+    check(tr._optimizer.num_update == OPS_STEPS - len(OPS_BAD),
+          f"step count {tr._optimizer.num_update} after "
+          f"{len(OPS_BAD)} skipped of {OPS_STEPS}")
+    reads = (OPS_STEPS - 1) // OPS_GUARD_INTERVAL + 1
+    check(tr.guard.skipped_steps == len(OPS_BAD)
+          and tr.guard.checks == reads,
+          f"guard skipped {tr.guard.skipped_steps}, read "
+          f"{tr.guard.checks} times")
+    check(good == ref["losses"],
+          f"guarded losses {good} vs the unguarded run's {ref['losses']}")
+    check(got["quiet_steps"] == OPS_STEPS - reads,
+          f"{got['quiet_steps']} steps under sync-debug 'error'")
+    med = lambda v: sorted(v[1:])[len(v[1:]) // 2]
+    return {"steps": OPS_STEPS, "bad_steps": list(OPS_BAD),
+            "guard_interval": OPS_GUARD_INTERVAL,
+            "bad_steps_bit_equal": got["kept"],
+            "losses_equal_unguarded": True,
+            "step_count": tr._optimizer.num_update,
+            "guard_reads": tr.guard.checks,
+            "steps_without_sync": got["quiet_steps"],
+            "guarded_ms": got["ms"], "unguarded_ms": ref["ms"],
+            "guarded_ms_median": med(got["ms"]),
+            "unguarded_ms_median": med(ref["ms"]),
+            "unguarded_losses": ref["losses"]}, ref["losses"]
+
+
+def ops_loss_scaling(mt, torch, x, y, unscaled):
+    """(ii) a static scale of 2^15 against the unscaled loop, and a
+    dynamic one backing off at an injected overflow and growing back,
+    on the hybridized net (one capture)."""
+    static = ops_guarded_loop(
+        mt, torch, x, y, OPS_STATIC_STEPS, guarded=False,
+        scale_env={"MXTPU_LOSS_SCALE": OPS_STATIC_SCALE})
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(static["losses"], unscaled))
+    check(rel <= 1e-6, f"static loss scale: losses {static['losses']} "
+                       f"vs unscaled {unscaled[:OPS_STATIC_STEPS]}")
+    back = counter(mt, "loss_scale_backoffs_total")
+    grow = counter(mt, "loss_scale_growths_total")
+    dyn = ops_guarded_loop(
+        mt, torch, x, y, OPS_DYNAMIC_STEPS, guarded=False,
+        hybridize=True,
+        scale_env={"MXTPU_LOSS_SCALE": OPS_STATIC_SCALE,
+                   "MXTPU_LOSS_SCALE_DYNAMIC": 1,
+                   "MXTPU_LOSS_SCALE_WINDOW": OPS_SCALE_WINDOW,
+                   "MXTPU_FAULT_SPEC": "grad:nonfinite:2:inf"})
+    tr = dyn["trainer"]
+    s = OPS_STATIC_SCALE
+    want = [s, s / 2, s / 2, s, s, s * 2]
+    check(dyn["scales"] == want, f"dynamic scales {dyn['scales']}, not "
+                                 f"{want}")
+    check(tr.guard.policy == "skip" and tr.guard.skipped_steps == 1,
+          f"dynamic scaling: policy {tr.guard.policy}, skipped "
+          f"{tr.guard.skipped_steps}")
+    check(counter(mt, "loss_scale_backoffs_total") - back == 1
+          and counter(mt, "loss_scale_growths_total") - grow == 2,
+          "loss scale counters")
+    stats = dyn["net"]._cached_op.stats()
+    check(stats["traces"] == 1, f"hybridized net captured "
+                                f"{stats['traces']} times, not once")
+    check(all(math.isfinite(v) for v in dyn["losses"]),
+          f"dynamic losses {dyn['losses']}")
+    return {"static_scale": OPS_STATIC_SCALE,
+            "static_losses": static["losses"],
+            "static_max_rel_err": rel,
+            "static_bit_equal": static["losses"]
+            == unscaled[:OPS_STATIC_STEPS],
+            "dynamic_scales": dyn["scales"],
+            "dynamic_window": OPS_SCALE_WINDOW,
+            "dynamic_losses": dyn["losses"],
+            "dynamic_captures": stats["traces"]}
+
+
+def ops_module_rollback(mt, torch, kvstore, tmp):
+    """(iii) phase module (i)'s MNIST MLP through Module.fit with a
+    checkpoint after its first epoch, then OPS_MAX_BAD consecutive bad
+    steps: DivergedError, one rollback to that checkpoint; the fit
+    resumed from it meets the example's gate."""
+    import numpy as np
+    rs = np.random.RandomState(SEED)
+    xtr, ytr = synthetic_mnist(MLP_TRAIN, rs)
+    xva, yva = synthetic_mnist(MLP_VAL, rs)
+    train = mt.io.NDArrayIter(xtr, ytr, MLP_BATCH, shuffle=True, seed=SEED)
+    val = mt.io.NDArrayIter(xva, yva, MLP_BATCH)
+    prefix = f"{tmp}/mlp_{kvstore}"
+    per_epoch = MLP_TRAIN // MLP_BATCH
+    first_bad = per_epoch + 5
+    spec = ",".join(f"grad:nonfinite:{first_bad + k}:nan"
+                    for k in range(OPS_MAX_BAD))
+    mod = mt.mod.Module(mnist_mlp(mt.sym), context="cuda")
+    mt.random.seed(SEED)
+    kw = dict(eval_data=val, kvstore=kvstore, optimizer="sgd",
+              optimizer_params=MLP_SGD, initializer=mt.init.Xavier(),
+              checkpoint_prefix=prefix)
+    rolled = counter(mt, "rollbacks_total")
+    with env_set(mt, MXTPU_NONFINITE_POLICY="skip",
+                 MXTPU_MAX_BAD_STEPS=OPS_MAX_BAD, MXTPU_FAULT_SPEC=spec):
+        mod.fit(train, num_epoch=1, **kw)
+        mod.save_checkpoint(prefix, 1, save_optimizer_states=True,
+                            data_iter=train)
+        saved = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        diverged = False
+        try:
+            mod.fit(train, begin_epoch=1, num_epoch=MLP_EPOCHS, **kw)
+        except mt.resilience.DivergedError:
+            diverged = True
+        check(diverged, f"{kvstore}: {OPS_MAX_BAD} bad steps did not "
+                        "raise DivergedError")
+        n_roll = counter(mt, "rollbacks_total") - rolled
+        check(n_roll == 1, f"{kvstore}: {n_roll} rollbacks, not 1")
+        back = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        check(all(np.array_equal(back[k], saved[k]) for k in saved),
+              f"{kvstore}: the rollback did not restore the checkpoint")
+        mod.fit(train, begin_epoch=1, num_epoch=MLP_EPOCHS, **kw)
+    acc = mod.score(val, "acc")[0][1]
+    check(acc > MLP_GATE, f"{kvstore}: accuracy {acc} after the rollback "
+                          f"<= {MLP_GATE}")
+    return {"kvstore": kvstore, "bad_steps": [first_bad + k for k in
+                                              range(OPS_MAX_BAD)],
+            "rollbacks": n_roll, "val_acc": acc,
+            "guard_skipped": mod._guard.skipped_steps,
+            "captures": (mod._mesh_step.trace_counts
+                         if mod._mesh_step is not None else None)}
+
+
+def ops_exit_code(mt, tmp):
+    """(iii) a child that diverges with the exit hook installed exits
+    13 (a tiny Module.fit on the CPU, every gradient poisoned)."""
+    import os
+    code = (
+        "import numpy as np, incubator_mxnet_tpu_torch as mt\n"
+        "mt.resilience.install_diverged_exithook()\n"
+        "x = np.random.RandomState(0).rand(64, 10).astype('f4')\n"
+        "it = mt.io.NDArrayIter(x, np.zeros(64, 'f4'), 16)\n"
+        "s = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(\n"
+        "    mt.sym.Variable('data'), num_hidden=4), name='softmax')\n"
+        "mt.mod.Module(s, context=mt.cpu()).fit(it, num_epoch=2)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(mt.__file__)))
+    env = dict(os.environ, PYTHONPATH=root,
+               MXTPU_NONFINITE_POLICY="skip", MXTPU_MAX_BAD_STEPS="2",
+               MXTPU_FAULT_SPEC="grad:nonfinite:*:nan",
+               CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env)
+    check(r.returncode == 13 and "DivergedError" in r.stderr,
+          f"diverging child exited {r.returncode}: {r.stderr[-400:]}")
+    return r.returncode
+
+
+def ops_lm(mt, torch, **kw):
+    """bench.py's transformer step (phase train's) from the seeded
+    weights: bf16 over fp32 masters, Adam lr 1e-4, B=8 x L=1024."""
+    net = build_model("cuda")
+    mt.initializer.initialize(net, mt.initializer.Xavier(),
+                              mt.random.generator(SEED))
+    return mt.parallel.ShardedTrainStep(
+        net, "adam", dict(learning_rate=1e-4), loss_fn=lm_loss,
+        compute_dtype=torch.bfloat16, **kw)
+
+
+def ops_tokens(torch):
+    import numpy as np
+    b, l = TRAIN
+    rs = np.random.RandomState(0)       # bench.py's tokens and labels
+    v = MODEL["vocab_size"]
+    return [torch.from_numpy(rs.randint(0, v, (b, l)).astype(np.int32))
+            .cuda() for _ in range(2)]
+
+
+def ops_clock(mt, torch, card, toks, labels):
+    """(iv) cost_analysis arms the clock on the captured transformer
+    step; over OPS_CLOCK_REPLAYS replays the clock's train_mfu against
+    the MFU this script times between CUDA events on the same steps,
+    both over caps_for(card)'s bf16 peak."""
+    step = ops_lm(mt, torch)
+    t0 = time.perf_counter()
+    cost = step.cost_analysis(toks, labels)
+    cost_s = time.perf_counter() - t0
+    check(cost is not None and cost["flops"] > 0, f"cost {cost}")
+    clock = step._perf_clock
+    check(clock is not None and clock.on_card, "cost_analysis armed no "
+                                               "card clock")
+    clock._interval = OPS_CLOCK_REPLAYS
+    clock.arm(tokens_per_step=TRAIN[0] * TRAIN[1])
+    caps = mt.perf.caps_for(torch.device("cuda"))
+    check(caps.kind in card.lower() or not caps.nominal,
+          f"caps {caps.kind} for {card}")
+    step(toks, labels)                   # capture; opens the window
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    host0 = time.perf_counter()
+    for _ in range(OPS_CLOCK_REPLAYS - 1):
+        step(toks, labels)
+    end.record()
+    host_ms = (time.perf_counter() - host0) * 1e3
+    torch.cuda.synchronize()
+    clock.poll()
+    steps = OPS_CLOCK_REPLAYS - 1
+    timed_ms = start.elapsed_time(end)
+    peak = caps.peak("bfloat16")
+    timed_mfu = cost["flops"] * steps / (timed_ms / 1e3) / peak
+    clock_mfu = mt.telemetry.get_registry().gauge("train_mfu").value
+    check(list(clock.windows) and clock.windows[-1][0] == steps,
+          f"clock windows {list(clock.windows)}")
+    check(abs(clock_mfu - timed_mfu) <= OPS_MFU_GATE * timed_mfu,
+          f"clock MFU {clock_mfu} vs timed {timed_mfu}")
+    tok_s = mt.telemetry.get_registry().gauge("train_tokens_per_sec").value
+    check(tok_s > 0, f"train_tokens_per_sec {tok_s}")
+    prof = profile(lambda: step(toks, labels), torch)
+    layers = MODEL["n_layers"]
+    for k in TRAIN_KERNELS:
+        n = prof.get("kernels_by_class", {}).get(k)
+        check(n == layers, f"(iv) a replay ran {k} {n} times, not "
+                           f"{layers}")
+    return {"counted_flops": cost["flops"], "counted_bytes": cost["bytes"],
+            "cost_analysis_s": cost_s,
+            "analytic_flops": step.block.train_flops_per_token(TRAIN[1])
+            * TRAIN[0] * TRAIN[1],
+            "caps": caps.as_dict(), "replays": steps,
+            "timed_ms": timed_ms, "host_enqueue_ms": host_ms,
+            "timed_mfu": timed_mfu, "clock_mfu": clock_mfu,
+            "host_wall_mfu": cost["flops"] * steps / (host_ms / 1e3)
+            / peak, "clock_window": list(clock.windows)[-1],
+            "tokens_per_s_gauge": tok_s,
+            "replay_profile": prof,
+            "captures": dict(step.trace_counts)}
+
+
+def ops_resnet_cost(mt, torch, net):
+    """(iv) ResNet-50's analytic train FLOPs (symbol_cost x 3) against
+    the port's own count (phase resnet's) and FlopCounterMode's, and
+    Module.perf_report's roofline table of its Symbol at B=32."""
+    sym = resnet_symbol(mt, net)
+    rep = mt.perf.symbol_cost(sym, {"data": (1,) + RESNET_IMAGE,
+                                    "softmax_label": (1,)}).scaled(3.0)
+    own = resnet_train_flops(mt, torch, net)
+    with torch.no_grad():
+        counted = mt.perf.counted_cost(
+            lambda: net(torch.zeros(1, *RESNET_IMAGE, device="cuda")))
+    drift_own = abs(rep.flops - own) / own
+    drift_counted = abs(rep.flops - 3 * counted["flops"]) \
+        / (3 * counted["flops"])
+    check(drift_own <= OPS_RESNET_FLOPS_GATE
+          and drift_counted <= OPS_RESNET_FLOPS_GATE,
+          f"ResNet-50 analytic {rep.flops} vs own {own} ({drift_own:.3%}) "
+          f"and FlopCounterMode {3 * counted['flops']} "
+          f"({drift_counted:.3%})")
+    mod = mt.mod.Module(sym, context="cuda")
+    mod.bind(data_shapes=[("data", (RESNET_BATCH,) + RESNET_IMAGE)],
+             label_shapes=[("softmax_label", (RESNET_BATCH,))])
+    report = mod.perf_report()
+    del mod
+    return {"analytic_train_flops_per_image": rep.flops,
+            "own_train_flops_per_image": own,
+            "flop_counter_train_flops_per_image": 3 * counted["flops"],
+            "drift_own": drift_own, "drift_flop_counter": drift_counted,
+            "perf_report": report}
+
+
+def ops_measure(mt, run, before):
+    """Peak bytes allocated over ``run()`` (``perf.cuda_live_bytes``)
+    less ``before``, what was live before the measured object existed."""
+    peak, at_call = mt.perf.cuda_live_bytes(run)
+    return peak + at_call - before
+
+
+def ops_retain_fit(mt, live, plan, measured):
+    """The share of the elementwise outputs kept at which the plan would
+    equal the measurement (the planner's constant: _ELEMENTWISE_RETAIN)."""
+    ew = live.get("elementwise_bytes") or 0.0
+    if not ew:
+        return None
+    heavy = live["retained_bytes"] \
+        - mt.perf.memory_planner._ELEMENTWISE_RETAIN * ew
+    return (measured - (plan.total() - plan.activations) - heavy) / ew
+
+
+def ops_planner(mt, torch, net50, toks, labels):
+    """(v) plan_memory against torch.cuda.max_memory_allocated over a
+    step, less the bytes live before the step's object existed: the
+    MNIST MLP's Module, ResNet-50's Symbol through Module (B=32, fp32)
+    and the transformer step (eager, then captured)."""
+    out = {}
+    for name, sym, shape in (
+            ("mlp", mnist_mlp(mt.sym), (MLP_BATCH, 784)),
+            ("resnet50", resnet_symbol(mt, net50),
+             (RESNET_BATCH,) + RESNET_IMAGE)):
+        release(torch)
+        before = torch.cuda.memory_allocated()
+        mod = mt.mod.Module(sym, context="cuda")
+        mod.bind(data_shapes=[("data", shape)],
+                 label_shapes=[("softmax_label", (shape[0],))])
+        mod.init_params(initializer=mt.init.Xavier())
+        mod.init_optimizer(optimizer="sgd", optimizer_params=MLP_SGD)
+        xb = torch.rand(shape, device="cuda")
+        yb = torch.randint(0, 10, (shape[0],), device="cuda").float()
+        batch = mt.io.DataBatch([mt.nd.NDArray(xb)], [mt.nd.NDArray(yb)])
+
+        def run():
+            mod.forward_backward(batch)
+            mod.update()
+
+        run()                       # the momentum exists after a step
+        measured = ops_measure(mt, run, before)
+        # the Module's plan, with the momentum the updater now holds
+        plan = mod._plan_maker(
+            mod._bound_shapes(), True,
+            mt.perf.tree_bytes([s.handle for s in
+                                mod._updater.states.values()]))(False, 1)
+        ratio = plan.total() / measured
+        out[name] = {"plan": plan.as_dict(), "measured_bytes": measured,
+                     "plan_over_measured": ratio}
+        del mod, batch
+    check(abs(out["mlp"]["plan_over_measured"] - 1) <= OPS_PLAN_GATE,
+          f"MLP plan/measured {out['mlp']['plan_over_measured']}")
+    for way in ("eager", "captured"):
+        release(torch)
+        before = torch.cuda.memory_allocated()
+        step = ops_lm(mt, torch)
+        plan = step.memory_analysis(toks, labels)
+        call = step._eager_call if way == "eager" else step
+        # the first call: the captured way's warm-up, snapshot, capture
+        first = ops_measure(mt, lambda: call(toks, labels), before)
+        measured = ops_measure(mt, lambda: call(toks, labels), before)
+        out[f"transformer_{way}"] = {
+            "plan": plan.as_dict(), "measured_bytes": measured,
+            "first_call_bytes": first,
+            "plan_over_measured": plan.total() / measured,
+            "elementwise_bytes": step._mem_liveness["elementwise_bytes"],
+            "retain_that_fits": ops_retain_fit(mt, step._mem_liveness,
+                                               plan, measured)}
+        del step, call
+    r = out["transformer_eager"]["plan_over_measured"]
+    check(abs(r - 1) <= OPS_PLAN_GATE,
+          f"transformer eager plan/measured {r}")
+    return out
+
+
+def ops_first_step(mt, torch, toks, labels, before, env=None):
+    """A fresh seeded transformer step's first call under ``env``:
+    (step, its loss, the peak bytes over the call less ``before``, the
+    parameters after it, cloned); ``step.reserved_peak`` is the
+    allocator's reserved peak over the call, less what it held before."""
+    with env_set(mt, **(env or {})):
+        step = ops_lm(mt, torch)
+        out = []
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        peak = ops_measure(mt, lambda: out.append(step(toks, labels)),
+                           before)
+        step.reserved_peak = torch.cuda.max_memory_reserved() - reserved
+    return (step, float(out[0]), peak,
+            [p.detach().clone() for p in step.params.values()])
+
+
+def ops_ladder(mt, torch, toks, labels):
+    """(vi) MXTPU_HBM_BYTES under the transformer step's plan: the
+    preflight takes remat (the first step's loss and parameters
+    bit-equal to the plain step's); lower, the grad_accum rungs, up to
+    the first whose plan fits (at this width grad_accum=2's accumulator
+    tree costs more than its halved activations save, so the ladder
+    passes it: the loss within rel OPS_ACCUM_TOL); under every rung a
+    MemoryPlanError.  Then the runtime OOM (``ops_runtime_oom``)."""
+    release(torch)
+    base = torch.cuda.memory_allocated()
+    plain, loss_plain, peak_plain, vals_plain = ops_first_step(
+        mt, torch, toks, labels, base)
+    reserved_plain = plain.reserved_peak
+    plan = plain.memory_analysis(toks, labels)
+    plans = {(r, a): plain._memory_plan(r, a).total()
+             for r, a in ((True, 1), (True, 2), (True, 4), (True, 8))}
+    check(plain.remat is False and plain.grad_accum == 1,
+          "the plain step took a rung")
+    del plain
+    remat_plan = plans[(True, 1)]
+    accum = next((a for a in (2, 4, 8) if plans[(True, a)] < remat_plan),
+                 None)
+    check(remat_plan < plan.total() and accum is not None,
+          f"plans {plan.total()}, {plans}")
+    out = {"plan": plan.as_dict(),
+           "rung_plans": {f"remat={r},grad_accum={a}": v
+                          for (r, a), v in plans.items()},
+           "plain_loss": loss_plain, "plain_first_call_peak_bytes":
+           peak_plain}
+    degr = counter(mt, "memory_plan_degrades_total")
+    runs = {}
+    for rung, cap, knobs in (("remat", remat_plan, (True, 1)),
+                             (f"grad_accum={accum}", plans[(True, accum)],
+                              (True, accum))):
+        release(torch)
+        before = torch.cuda.memory_allocated()
+        hbm = int(cap / (1 - OPS_MARGIN)) + 1
+        step, loss, peak, vals = ops_first_step(
+            mt, torch, toks, labels, before, {"MXTPU_HBM_BYTES": hbm})
+        check((step.remat, step.grad_accum) == knobs,
+              f"rung {rung}: step took {(step.remat, step.grad_accum)}")
+        runs[rung] = {"hbm_bytes": hbm, "loss": loss,
+                      "first_call_peak_bytes": peak, "vals": vals,
+                      "first_call_reserved_bytes": step.reserved_peak,
+                      "plan_bytes": step._mem_plan.total()}
+        del step
+    n_rungs = 1 + 1 + (2, 4, 8).index(accum) + 1
+    check(counter(mt, "memory_plan_degrades_total") - degr == n_rungs,
+          f"the ladder's degrade counter moved "
+          f"{counter(mt, 'memory_plan_degrades_total') - degr}, not "
+          f"{n_rungs}")
+    bit = loss_plain == runs["remat"]["loss"] and all(
+        torch.equal(a, b) for a, b in zip(vals_plain,
+                                          runs["remat"]["vals"]))
+    check(bit, f"remat step {runs['remat']['loss']} vs plain "
+               f"{loss_plain}: not bit-equal")
+    rel = abs(runs[f"grad_accum={accum}"]["loss"] - loss_plain) \
+        / abs(loss_plain)
+    check(rel <= OPS_ACCUM_TOL, f"grad_accum={accum} loss rel err {rel}")
+    del vals_plain
+    for r in runs.values():
+        del r["vals"]
+    release(torch)
+    with env_set(mt, MXTPU_HBM_BYTES=int(1e9)):
+        step = ops_lm(mt, torch)
+        try:
+            step(toks, labels)
+            dry = None
+        except mt.resilience.MemoryPlanError as exc:
+            dry = exc.rungs
+        check(dry == ["remat", "grad_accum=2", "grad_accum=4",
+                      "grad_accum=8"], f"dry ladder: {dry}")
+        del step
+    out.update(rungs=runs, accum_rung=accum, accum_rel_err=rel,
+               remat_bit_equal=bit, dry_ladder_rungs=dry)
+    out["plain_first_call_reserved_bytes"] = reserved_plain
+    out["runtime_oom"] = ops_runtime_oom(
+        mt, torch, toks, labels, reserved_plain,
+        runs["remat"]["first_call_reserved_bytes"])
+    return out
+
+
+def allocator_settings(torch, text):
+    """Set the caching allocator's ``text`` options in this process."""
+    fn = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    fn(text)
+
+
+def ops_runtime_oom(mt, torch, toks, labels, reserved_plain,
+                    reserved_remat):
+    """(vi) the caching allocator capped (``set_per_process_memory_
+    fraction``, which bounds the bytes it reserves) three quarters of the
+    way from the remat step's first-call reserved peak to the plain
+    step's: the plain step's OOM becomes an OomError, takes the remat
+    rung (oom_retries_total 1), and the retry captures once and gives a
+    finite loss.  The preflight plans against the datasheet's capacity,
+    so it steps in nowhere here; under MXTPU_MEM_POLICY=off the runtime
+    ladder is off too, as in the JAX package, and the same OOM is raised
+    as an OomError."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    release(torch)
+    base = torch.cuda.memory_reserved()
+    limit = base + reserved_remat + 0.75 * (reserved_plain - reserved_remat)
+    out = {"limit_bytes": limit, "fraction": limit / total,
+           "reserved_before": base}
+    retries = counter(mt, "oom_retries_total")
+    # without expandable segments the capped allocator's cache splits
+    # into pieces no 1000-MiB block fits (2 to 3 GB of them on the card),
+    # and the retry would fail on fragmentation, not on its need
+    allocator_settings(torch, "expandable_segments:True")
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    try:
+        with env_set(mt, MXTPU_MEM_POLICY="off"):
+            step = ops_lm(mt, torch)
+            raised = None
+            try:
+                step(toks, labels)
+            except mt.resilience.OomError as exc:
+                raised = type(exc.__cause__).__name__
+            check(raised is not None, "policy off: no OomError under the "
+                                      "cap")
+            del step
+        out["policy_off_raised"] = raised
+        release(torch)
+        step = ops_lm(mt, torch)
+        loss = float(step(toks, labels))
+        n = counter(mt, "oom_retries_total") - retries
+        check(n == 1 and step.remat and math.isfinite(loss)
+              and step.trace_counts == {"train_step": 1},
+              f"runtime OOM: {n} retries, remat {step.remat}, loss {loss}, "
+              f"captures {step.trace_counts}")
+        evs = mt.tracing.events("mem_degrade", cause="runtime_oom")
+        out.update(oom_retries=n, rung=evs[-1]["rung"] if evs else None,
+                   loss=loss, captures=dict(step.trace_counts))
+        del step
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        release(torch)
+        allocator_settings(torch, "expandable_segments:False")
+    return out
+
+
+def phase_operability(mt, torch, card):
+    import tempfile
+    degrades = counter(mt, "memory_plan_degrades_total")
+    check(degrades == 0, f"an earlier phase took {degrades} degrade "
+                         "rungs")
+    unplanned = dict(mt.perf.memory_planner.PLAN_FAILURES)
+    check(not unplanned, f"the preflight could not plan {unplanned}")
+    launches = mt.ops.LAUNCHES
+    x, y = resnet_batch(torch)
+    guard, unscaled = ops_trainer_guard(mt, torch, x, y)
+    release(torch)
+    scaling = ops_loss_scaling(mt, torch, x, y, unscaled)
+    release(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        rollback = [ops_module_rollback(mt, torch, kv, tmp)
+                    for kv in ("local", "tpu")]
+        exit_code = ops_exit_code(mt, tmp)
+    release(torch)
+    toks, labels = ops_tokens(torch)
+    mt.ops.reset_launches()
+    clock = ops_clock(mt, torch, card, toks, labels)     # the main path
+    counts = {k: v for k, v in launches.items() if v}
+    release(torch)
+    net50 = resnet_net(mt, torch, "cuda")
+    resnet_cost = ops_resnet_cost(mt, torch, net50)
+    planner = ops_planner(mt, torch, net50, toks, labels)
+    del net50
+    ladder = ops_ladder(mt, torch, toks, labels)
+    emit({"phase": "operability", "card": card,
+          "memory_plan_degrades_before": degrades,
+          "plan_failures_before": unplanned,
+          "trainer_guard": guard, "loss_scaling": scaling,
+          "module_rollback": rollback, "diverged_child_exit": exit_code,
+          "clock": clock, "resnet_cost": resnet_cost,
+          "planner": planner, "ladder": ladder,
+          "kernel_launches": counts})
+    return counts
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7179,6 +7894,8 @@ def main():
         sparse_launches = timed("sparse", phase_sparse, mt, torch, card)
         vision_launches = timed("vision", phase_vision, mt, torch, card)
         data_launches = timed("data", phase_data, mt, torch, card)
+        ops_launches_19 = timed("operability", phase_operability, mt,
+                                torch, card)
         keeps["end"] = trace_keeps(torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
               "trace_keeps": keeps})
@@ -7222,6 +7939,8 @@ def main():
             e["launches_by_path"]["vision"] = vision_launches.get(
                 e["name"], 0)
             e["launches_by_path"]["data"] = data_launches.get(e["name"], 0)
+            e["launches_by_path"]["operability"] = ops_launches_19.get(
+                e["name"], 0)
             if e["name"] in hyb_runs:
                 e["runs_per_replay"] = {"hybridize": hyb_runs[e["name"]]}
             for path, counts in detect_launches.items():

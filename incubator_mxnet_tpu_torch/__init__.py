@@ -28,6 +28,8 @@ continuous batching over a paged KV cache.  The input pipeline is
 ``recordio``, ``image`` (``ImageRecordIter``, ``ImageDetIter``), ``io``'s
 ``DevicePrefetchIter`` and ``gluon.data``; ``profiler``, ``predictor``
 (``Predictor``), ``visualization`` and ``test_utils`` complete the surface.
+``perf`` holds the cost model, the device table, the MFU clock and the
+memory planner that the train steps' preflight reads.
 
 This package imports neither JAX nor ``incubator_mxnet_tpu``.
 """
@@ -41,6 +43,7 @@ from .ndarray import NDArray
 from . import rtc
 from . import utils
 from . import resilience, telemetry, tracing, serving
+from . import perf
 from . import name, attribute
 from .attribute import AttrScope
 from . import symbol
@@ -71,6 +74,7 @@ __all__ = ["__version__", "MXNetError", "base", "context", "random",
            "initializer", "init", "ops", "gluon", "convert", "parallel",
            "engine", "autograd", "optimizer", "lr_scheduler", "nd",
            "ndarray", "NDArray", "rtc", "resilience", "telemetry", "tracing",
+           "perf",
            "list_env", "serving", "name",
            "attribute", "AttrScope", "symbol", "sym", "Symbol",
            "Executor", "graph", "metric", "io", "callback", "model", "monitor",

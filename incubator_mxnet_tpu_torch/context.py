@@ -24,7 +24,8 @@ from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "tpu", "cpu_pinned", "current_context",
            "default_context", "num_gpus", "gpu_memory_info",
-           "default_device", "resolve", "as_device", "current_scope"]
+           "default_device", "resolve", "as_device", "current_scope",
+           "pin_default"]
 
 _TYPES = {"cpu": "cpu", "gpu": "gpu", "cuda": "gpu", "tpu": "gpu",
           "cpu_pinned": "cpu_pinned", "cpu_shared": "cpu_shared"}
@@ -151,12 +152,25 @@ def current_scope():
     return stack[-1] if stack else None
 
 
+# the process-wide default a caller pinned (utils.platform's
+# MXTPU_FORCE_CPU), below every ``with ctx:`` scope
+_PINNED = {"ctx": None}
+
+
+def pin_default(ctx):
+    """Make ``ctx`` (a Context, or None to unpin) the default where no
+    ``with ctx:`` scope is open, in every thread."""
+    _PINNED["ctx"] = ctx
+
+
 def current_context():
-    """The innermost ``with ctx:`` scope, else gpu(0) with a card, else
-    cpu(0)."""
+    """The innermost ``with ctx:`` scope, else the pinned default, else
+    gpu(0) with a card, else cpu(0)."""
     stack = _stack()
     if stack:
         return stack[-1]
+    if _PINNED["ctx"] is not None:
+        return _PINNED["ctx"]
     return gpu(0) if num_gpus() else cpu(0)
 
 
@@ -164,11 +178,13 @@ default_context = current_context
 
 
 def default_device():
-    """The innermost ``with ctx:`` scope's device, else the first CUDA
-    card; raises if there is neither."""
+    """The innermost ``with ctx:`` scope's device, else the pinned
+    default's, else the first CUDA card; raises if there is none."""
     stack = _stack()
     if stack:
         return stack[-1].device
+    if _PINNED["ctx"] is not None:
+        return _PINNED["ctx"].device
     if not torch.cuda.is_available():
         raise MXNetError(
             "no CUDA device on this host: pass device='cpu' to run the "

@@ -9,18 +9,24 @@ the callbacks, and at each epoch's end the epoch callbacks and a
 the JAX package times them, as telemetry spans (``data_wait``,
 ``forward_backward``, ``optimizer``, ``host_sync``: host clock only,
 no synchronization added), which feed the anomaly watch and the
-debugz ``train`` status.  The divergence rollback
-(``checkpoint_prefix``) comes with the step guard (ROADMAP item A11's
-second half).
+debugz ``train`` status.  ``checkpoint_prefix`` arms the divergence
+rollback: when the step guard raises ``DivergedError``
+(MXTPU_MAX_BAD_STEPS consecutive non-finite steps), ``fit`` restores the
+newest ``prefix-NNNN.params`` that passes its CRC sidecar, the
+optimizer's ``.states`` and the data iterator's ``.data`` companion
+(``rollback_checkpoint``), then re-raises, as the JAX package's does:
+the caller (or the launcher's restart loop) resumes from there.
 """
 import logging
 import time
+import warnings
 
 from .. import debugz, telemetry
 from .. import initializer as init_mod
 from .. import metric as metric_mod
 from ..io.io import DataBatch
 from ..model import BatchEndParam
+from ..resilience import CheckpointCorruptError, DivergedError
 
 __all__ = ["BaseModule"]
 
@@ -180,13 +186,11 @@ class BaseModule:
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None, checkpoint_prefix=None):
         """Train on a data iterator for epochs ``begin_epoch`` to
-        ``num_epoch`` (ref: base_module.py fit:376)."""
+        ``num_epoch`` (ref: base_module.py fit:376).  With
+        ``checkpoint_prefix``, a ``DivergedError`` first rolls the
+        module back to the newest valid checkpoint under that prefix
+        (``rollback_checkpoint``), then propagates."""
         assert num_epoch is not None, "num_epoch must be given"
-        if checkpoint_prefix is not None:
-            raise NotImplementedError(
-                "fit(checkpoint_prefix=...) arms the divergence rollback "
-                "of the step guard, which is not ported yet (ROADMAP "
-                "item A11)")
         telemetry.maybe_start_emitter()
         initializer = initializer or init_mod.Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,
@@ -205,6 +209,22 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
 
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             epoch_end_callback, batch_end_callback,
+                             eval_end_callback, eval_batch_end_callback,
+                             begin_epoch, num_epoch, validation_metric,
+                             monitor)
+        except DivergedError:
+            if checkpoint_prefix is not None:
+                self.rollback_checkpoint(checkpoint_prefix,
+                                         data_iter=train_data)
+            raise
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    epoch_end_callback, batch_end_callback,
+                    eval_end_callback, eval_batch_end_callback,
+                    begin_epoch, num_epoch, validation_metric, monitor):
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -264,3 +284,55 @@ class BaseModule:
                 for name, val in res:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
+
+    # ------------------------------------------------------------ rollback
+    def rollback_checkpoint(self, prefix, data_iter=None):
+        """Restore the newest valid ``prefix-NNNN.params`` checkpoint
+        into this (bound) module after divergence: the parameters, the
+        optimizer's ``.states`` companion (fresh state, with a warning,
+        when it is missing or corrupt) and the ``.data`` companion into
+        ``data_iter`` when it has ``load_state_dict``, so the stream
+        resumes at the batch the checkpoint was taken at.  Returns the
+        epoch restored, or None when no checkpoint validates (the
+        parameters are left as they are)."""
+        from ..context import cpu
+        from ..model import (_checkpoint_epochs, checkpoint_companion_path,
+                             load_checkpoint, load_data_state)
+        epochs = _checkpoint_epochs(prefix)
+        if not epochs:
+            warnings.warn(
+                f"divergence rollback: no checkpoints found under "
+                f"prefix {prefix!r}; parameters left as-is",
+                RuntimeWarning)
+            return None
+        newest = epochs[0][0]
+        try:
+            _, arg_params, aux_params, eff = load_checkpoint(
+                prefix, newest, return_epoch=True, ctx=cpu())
+        except CheckpointCorruptError as exc:
+            warnings.warn(
+                f"divergence rollback: no checkpoint under prefix "
+                f"{prefix!r} validates ({exc}); parameters left "
+                "as-is", RuntimeWarning)
+            return None
+        self.set_params(arg_params, aux_params, force_init=True)
+        if self.optimizer_initialized and \
+                hasattr(self, "load_optimizer_states"):
+            states = checkpoint_companion_path(prefix, eff)
+            try:
+                self.load_optimizer_states(states)
+            except (FileNotFoundError, CheckpointCorruptError) as exc:
+                warnings.warn(
+                    f"divergence rollback: optimizer states {states} "
+                    f"could not be loaded ({exc}); continuing with "
+                    "the diverged optimizer state replaced by the "
+                    "restored weights only", RuntimeWarning)
+        if data_iter is not None and \
+                hasattr(data_iter, "load_state_dict"):
+            load_data_state(prefix, eff, data_iter, strict=False)
+        telemetry.counter("rollbacks_total").inc()
+        warnings.warn(
+            f"training diverged; rolled back to checkpoint epoch "
+            f"{eff} of prefix {prefix!r} (params + optimizer + "
+            "data-iterator state)", RuntimeWarning)
+        return eff

@@ -24,15 +24,23 @@ from the symbol's attributes, and runs by the kvstore:
   updater, and the next fused step takes the values up again.  Only an
   optimizer with a functional twin (SGD, NAG, Adam) has a fused step.
 
+The step sentinel (``MXTPU_NONFINITE_POLICY``): on the updater routes
+a ``GuardedUpdater`` skips a bad step whole; under kvstore='tpu' the
+fused step is built with ``numeric_guard`` (the select on the device),
+and ``update`` folds its finiteness scalar into the guard's counter,
+read once every ``MXTPU_GUARD_INTERVAL`` steps.  ``bind`` runs the
+memory preflight (the executor's plan: gradients of every parameter,
+no donation; no rungs, so it fits, warns or raises ``MemoryPlanError``).
+``perf_report`` gives the graph's per-family cost and roofline table,
+and the executor route's ``update`` ticks the MFU clock (the fused step
+ticks its own).
+
 Not in this slice: the multi-device contexts and the sharded
-checkpoints (ROADMAP item A9); the step guard
-(``MXTPU_NONFINITE_POLICY`` raises), the bind-time memory preflight and
-the perf gauges (A11's second half).  ``update`` counts
+checkpoints (ROADMAP item A9).  ``update`` counts
 ``train_steps_total``, and the eager path attributes its parameters
 and optimizer state to the tracing layer's memory gauges.
 """
 import logging
-import os
 import pickle
 
 from .. import initializer as init_mod
@@ -49,14 +57,6 @@ from ..model import (_create_kvstore, save_checkpoint, load_checkpoint,
 from .base_module import BaseModule
 
 __all__ = ["Module"]
-
-
-def _check_guard_env():
-    policy = os.environ.get("MXTPU_NONFINITE_POLICY", "off").lower()
-    if policy not in ("", "off"):
-        raise NotImplementedError(
-            "MXTPU_NONFINITE_POLICY: the step guard is not ported yet "
-            "(ROADMAP item A11)")
 
 
 def _to_desc(d):
@@ -89,8 +89,12 @@ class Module(BaseModule):
         self._exec = None
         self._optimizer = None
         self._updater = None
+        self._guard = None          # step sentinel (MXTPU_NONFINITE_POLICY)
         self._kvstore = None
         self._update_on_kvstore = False
+        self._perf_clock = None     # MFU gauges (perf observatory)
+        self._perf_cost = None      # cached graph CostReport (3x fwd)
+        self._perf_tried = False    # don't re-cost after a failure
         self._mesh_step = None      # kvstore='tpu': the fused step
         self._mesh_dirty = False    # step values newer than the exec's
         self._mesh_pending = False  # the fused step ran; update() owes none
@@ -153,8 +157,11 @@ class Module(BaseModule):
                 req[n] = "null" if frozen else grad_req
         else:
             req = grad_req
+        self._preflight_memory(shapes, for_training)
         self._exec = self._symbol.simple_bind(self._context, grad_req=req,
                                               **shapes)
+        self._perf_cost = None
+        self._perf_tried = False
         # the pass pipeline's report of this bind (None when
         # MXTPU_GRAPH_OPT=0 or placed)
         self._graph_opt_report = self._exec.graph_report
@@ -168,6 +175,40 @@ class Module(BaseModule):
             self.init_params(arg_params=arg, aux_params=aux,
                              force_init=True)
             self._preloaded_params = None
+
+    def _plan_maker(self, shapes, for_training, optimizer_bytes=0.0):
+        """``make_plan(remat, grad_accum)`` of the executor route at
+        ``shapes``: every gradient live (the executor's arrays), the
+        update in place by the per-parameter updater, whose temporaries
+        are counted (``perf.memory_planner.eager_update_bytes``), and
+        the optimizer state given (unknown at bind: 0)."""
+        from ..perf import memory_planner as mp
+        live = mp.symbol_liveness(self._symbol, dict(shapes),
+                                  input_names=[n for n in shapes if n in
+                                               set(self._data_names)
+                                               | set(self._label_names)])
+        return lambda r, a: mp.plan_memory(
+            liveness=live, train=for_training, donate=True,
+            max_param_bytes=live["params_bytes"],
+            optimizer_bytes=optimizer_bytes,
+            update_bytes=mp.eager_update_bytes(live["max_param_bytes"])
+            if for_training else 0.0, grad_accum=a, remat=r)
+
+    def _preflight_memory(self, shapes, for_training):
+        """The memory gate at bind time: plan the executor route's peak
+        live bytes (``_plan_maker``) against the device's capacity per
+        MXTPU_MEM_POLICY.  The executor route has no remat or
+        grad_accum rungs, so the plan fits, warns, or raises a typed
+        MemoryPlanError before anything is allocated.  A planner
+        failure on an exotic graph is logged, not raised."""
+        from ..perf import memory_planner as mp
+        try:
+            mp.preflight(self._plan_maker(shapes, for_training),
+                         site="module_bind", device=self._context)
+        except resilience.MemoryPlanError:
+            raise
+        except Exception:
+            mp.plan_failed("module_bind")
 
     # ------------------------------------------------------------ params
     def init_params(self, initializer=None, arg_params=None,
@@ -224,7 +265,6 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             return
-        _check_guard_env()
         use_mesh_step = isinstance(kvstore, str) and kvstore == "tpu"
         arg_params = {n: self._exec.arg_dict[n] for n in self._param_names}
         kv, update_on_kvstore = (None, False) if use_mesh_step else \
@@ -244,6 +284,10 @@ class Module(BaseModule):
         self._update_on_kvstore = update_on_kvstore and kv is not None
         self._updater = None
         self._mesh_step = None
+        # step sentinel, armed by MXTPU_NONFINITE_POLICY; the Module has
+        # no user-scaled loss, so no LossScaler (that is the Trainer's)
+        guard = resilience.NumericGuard(name="Module")
+        self._guard = guard if guard.enabled else None
         if use_mesh_step:
             self._init_mesh_step()
         if kv is not None:
@@ -252,7 +296,7 @@ class Module(BaseModule):
             if self._update_on_kvstore:
                 kv.set_optimizer(optimizer)
         if not self._update_on_kvstore and not use_mesh_step:
-            self._updater = opt_mod.get_updater(optimizer)
+            self._updater = self._new_updater()
         if not use_mesh_step:
             # device-memory attribution (docs/observability.md); the
             # fused step's SymbolTrainStep registers its own providers
@@ -306,8 +350,16 @@ class Module(BaseModule):
             self._symbol, pvals, aux_vals, input_names, optimizer=fopt,
             mesh=mesh, rescale_grad=getattr(opt, "rescale_grad", 1.0),
             lr_mults={n: opt.lr_mult.get(n, 1.0) for n in trainable},
-            wd_mults=default_wd_mults(trainable, opt.wd_mult))
+            wd_mults=default_wd_mults(trainable, opt.wd_mult),
+            numeric_guard=self._guard is not None,
+            guard_select=self._guard is not None
+            and self._guard.drops_updates)
         self._mesh_dirty = self._mesh_pending = self._mesh_stale = False
+
+    def _new_updater(self):
+        return opt_mod.GuardedUpdater(self._optimizer, guard=self._guard) \
+            if self._guard is not None \
+            else opt_mod.get_updater(self._optimizer)
 
     def _sync_mesh_params(self):
         """Copy the fused step's values into the executor's arrays
@@ -403,19 +455,47 @@ class Module(BaseModule):
     def update(self):
         """Apply the optimizer to every parameter with a gradient (ref:
         module.py update:619, model.py _update_params_on_kvstore:105).
-        After a fused kvstore='tpu' step there is nothing left to do; a
-        manual forward/backward loop under kvstore='tpu' runs the eager
-        updater."""
+        After a fused kvstore='tpu' step there is nothing left to do but
+        the guard's accounting; a manual forward/backward loop under
+        kvstore='tpu' runs the eager updater.
+
+        Step sentinel: with MXTPU_NONFINITE_POLICY armed, the step's
+        gradients reduce to one finiteness scalar, host-read every
+        MXTPU_GUARD_INTERVAL steps; a bad step is skipped whole
+        (weights, optimizer state, LR-schedule count), and
+        MXTPU_MAX_BAD_STEPS consecutive bad steps raise DivergedError
+        for fit's checkpoint rollback."""
         assert self.optimizer_initialized
         telemetry.counter("train_steps_total").inc()
+        if self._mesh_step is None:
+            # the fused step ticks its own clock
+            if self._perf_clock is None and not self._perf_tried:
+                self._arm_perf_clock()
+            if self._perf_clock is not None:
+                self._perf_clock.tick()
         if self._mesh_step is not None:
             if self._mesh_pending:
                 self._mesh_pending = False
+                if self._guard is not None:
+                    self._mesh_guard_read()
                 return
             if self._updater is None:
-                self._updater = opt_mod.get_updater(self._optimizer)
+                self._updater = self._new_updater()
             self._sync_mesh_params()
             self._mesh_stale = True
+        if self._guard is not None:
+            grads = [g for g in (self._exec.grad_dict.get(n)
+                                 for n in self._param_names)
+                     if g is not None]
+            if isinstance(self._updater, opt_mod.GuardedUpdater):
+                proceed = self._updater.begin_step(grads)
+            else:
+                # update_on_kvstore: the optimizer runs in the store, so
+                # the step is guarded before any push
+                proceed = opt_mod.guarded_step_begin(self._guard, None,
+                                                     grads)
+            if not proceed:
+                return
         kv = self._kvstore
         for i, name in enumerate(self._param_names):
             grad = self._exec.grad_dict.get(name)
@@ -431,6 +511,125 @@ class Module(BaseModule):
                 self._updater(i, grad, weight)
             else:
                 self._updater(i, grad, weight)
+
+    def _mesh_guard_read(self):
+        """The fused step already dropped a bad update on the device;
+        the host folds its flag into the guard's counter and, on a due
+        step, reads it for the policy and divergence accounting."""
+        due = self._guard.begin_step()
+        opt_mod.accumulate_window(self._guard, self._mesh_step.last_finite)
+        if not due:
+            return
+        with telemetry.span("host_sync"):
+            bad = opt_mod.read_window_bad(self._guard)
+        if bad and self._guard.drops_updates:
+            # keep the LR schedule in step with the weights (before
+            # record, which raises under policy=raise)
+            self._optimizer.num_update -= bad
+        self._guard.record(bad == 0, dropped=max(bad, 1))
+
+    # ------------------------------------------------------------ perf
+    def _bound_shapes(self):
+        """Variable name -> shape for everything the bind fixed."""
+        shapes = {d.name: tuple(d.shape) for d in self._data_shapes}
+        shapes.update({d.name: tuple(d.shape)
+                       for d in (self._label_shapes or [])})
+        for n in self._param_names:
+            shapes[n] = tuple(self._exec.arg_dict[n].shape)
+        for n in self._aux_names:
+            shapes[n] = tuple(self._exec.aux_dict[n].shape)
+        return shapes
+
+    def _graph_cost(self):
+        """Analytic CostReport of one TRAIN step (3x forward) at the
+        bound shapes; cached per bind."""
+        if self._perf_cost is None:
+            from .. import perf
+            self._perf_cost = perf.symbol_cost(
+                self._symbol, self._bound_shapes()).scaled(3.0)
+        return self._perf_cost
+
+    def _device(self):
+        arrays = list(self._exec.arg_dict.values())
+        return arrays[0]._data.device if arrays else cpu().device
+
+    def _arm_perf_clock(self):
+        """Arm the train_mfu/train_mbu clock once from the graph cost
+        model (never retried after a failure, never on the step
+        path)."""
+        self._perf_tried = True
+        try:
+            from .. import perf
+            rep = self._graph_cost()
+            self._perf_clock = perf.TrainPerfClock(
+                rep.flops, rep.bytes, device=self._device(),
+                dtype=self._dtype())
+        except Exception:
+            self._perf_clock = None
+
+    def _dtype(self):
+        arrays = list(self._exec.arg_dict.values())
+        return str(arrays[0]._data.dtype).replace("torch.", "") \
+            if arrays else "float32"
+
+    def perf_report(self, xla_check=True):
+        """Per-family cost/roofline report for the bound graph.
+
+        Returns a dict: ``per_family`` rows (flops%, bytes%,
+        predicted-time%, bound-by label, arithmetic intensity),
+        ``total`` summary, coverage counts, the device roofline verdict
+        for one train step and the device's caps.  ``xla_check`` (the
+        JAX package's name) adds ``flop_counter_check``: the analytic
+        forward FLOPs against ``FlopCounterMode``'s count of the bound
+        graph's forward on ``meta`` tensors (products only), or None."""
+        assert self.binded, "call bind before perf_report"
+        from .. import perf
+        rep = self._graph_cost()
+        caps = perf.caps_for(self._device())
+        dtype = self._dtype()
+        out = {
+            "per_family": rep.table(caps, dtype),
+            "total": rep.summary(),
+            "coverage": rep.coverage,
+            "default_ops": rep.default_ops,
+            "unknown_ops": rep.unknown_ops,
+            "roofline": perf.roofline(rep.flops, rep.bytes, caps, dtype),
+            "device": caps.as_dict(),
+            "n_nodes": rep.n_nodes,
+        }
+        if xla_check:
+            out["flop_counter_check"] = self._counted_fwd_delta(rep)
+        return out
+
+    def _counted_fwd_delta(self, train_rep):
+        """Analytic-vs-counted forward FLOPs of the bound graph (its
+        forward run once on ``meta`` tensors under FlopCounterMode), or
+        None when counting fails."""
+        import torch
+
+        from .. import perf
+        from ..executor import build_graph_fn
+        ex = self._exec
+        meta = {n: torch.empty(tuple(v.shape), dtype=v._data.dtype,
+                               device="meta")
+                for n, v in ex.arg_dict.items()}
+        aux = {n: torch.empty(tuple(v.shape), dtype=v._data.dtype,
+                              device="meta")
+               for n, v in ex.aux_dict.items()}
+        try:
+            run = build_graph_fn(self._symbol,
+                                 default_device=torch.device("meta"))
+            cost = perf.jit_cost(
+                lambda: run(meta, aux, lambda fold, dev: None, False))
+        except Exception:
+            return None
+        if not cost or not cost.get("flops"):
+            return None
+        analytic_fwd = train_rep.flops / 3.0
+        return {"analytic_fwd_flops": analytic_fwd,
+                "counted_fwd_flops": cost["flops"],
+                "rel_delta": abs(analytic_fwd - cost["flops"])
+                / cost["flops"]}
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec.outputs

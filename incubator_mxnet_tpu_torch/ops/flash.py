@@ -21,8 +21,13 @@ Pallas interpreter and has no counterpart here.
 For a CUDA tensor, ``flash_attention`` and its backward launch the
 kernels or raise: there is no fallback.  For a CPU tensor they compute
 the plain versions, ``_reference_fwd`` and ``_reference_bwd``, which
-are also what the kernels are held against on the card.
+are also what the kernels are held against on the card.  On ``meta``
+tensors (shape inference, the perf package's counted cost) they run the
+plain versions too, so a FLOP counter sees their products; inside
+``meta_shapes_only()`` (the memory planner's trace) they give their
+outputs' shapes alone, as the kernels keep no (L, L) tensor.
 """
+import contextlib
 import ctypes
 import math
 
@@ -31,7 +36,7 @@ import torch
 from . import _build
 from .registry import defop
 
-__all__ = ["flash_attention", "flash_attention_fwd"]
+__all__ = ["flash_attention", "flash_attention_fwd", "meta_shapes_only"]
 
 _NEG = -1e30
 # the kernels' tile sizes (csrc/hopper_tc.cuh BQ/BK)
@@ -46,6 +51,26 @@ TF32_BK = {32: 64, 64: 32, 128: 32}
 TF32_BWD_BN = {32: 32, 64: 16, 128: 16}
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+_SHAPES_ONLY = [False]
+
+
+@contextlib.contextmanager
+def meta_shapes_only():
+    """Within the scope, the op on ``meta`` tensors makes its outputs
+    (o, lse; dq, dk, dv) without the plain version's intermediates."""
+    was = _SHAPES_ONLY[0]
+    _SHAPES_ONLY[0] = True
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY[0] = was
+
+
+def _meta_fwd(q):
+    return torch.empty_like(q), q.new_empty(q.shape[:2],
+                                            dtype=torch.float32)
 
 
 def _reference_fwd(q, k, v, causal, scale, window=0):
@@ -308,9 +333,9 @@ def _prepare(q, k, v, causal, scale, window):
     _check_args(q, k, v, causal, window)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None \
         else float(scale)
-    if q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, "
+                         f"not {q.device}")
     return causal, scale, window
 
 
@@ -328,6 +353,8 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, window=0):
     causal, scale, window = _prepare(q, k, v, causal, scale, window)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale, window)
+    if q.device.type == "meta" and _SHAPES_ONLY[0]:
+        return _meta_fwd(q)
     return _reference_fwd(q, k, v, causal, scale, window)
 
 
@@ -348,6 +375,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "meta" and _SHAPES_ONLY[0]:
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None, None, None)
         bwd = _launch_bwd if q.device.type == "cuda" else _reference_bwd
         dq, dk, dv = bwd(q, k, v, o, lse, g.contiguous(), *ctx.args)
         return dq, dk, dv, None, None, None

@@ -13,8 +13,17 @@ with the reference's formulas.  ``Optimizer._get_wd`` keeps the
 reference's default: a name ending in neither ``_weight`` nor ``_gamma``
 gets wd_mult 0.
 
-Not in this slice (ROADMAP item A11): ``LossScaler``, ``GuardedUpdater``
-and the step-guard helpers.
+The training-step sentinel's half (the JAX module's second half):
+``all_finite`` reduces a step's gradients to ONE on-device finiteness
+scalar (a multi-tensor max-abs, ``torch._foreach_norm`` at ord inf, which
+is NaN or inf exactly when some element is), ``accumulate_window`` folds
+it into the guard's on-device bad-step count and ``read_window_bad``
+reads that count once per ``MXTPU_GUARD_INTERVAL`` (the guard's one
+device-to-host transfer); ``grad_poison`` fires the ``grad:nonfinite``
+injection; ``guarded_step_begin`` is the eager paths' skip decision;
+``LossScaler`` the dynamic loss scale (a host number, changed only at a
+guard read, so it forces no sync); ``GuardedUpdater`` the skip-aware
+``Updater``.
 """
 import math
 import pickle
@@ -29,7 +38,10 @@ from .utils.registry import get_registry
 
 __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad",
            "RMSProp", "AdaDelta", "Ftrl", "Adamax", "Nadam", "Signum",
-           "Test", "Updater", "get_updater", "create", "register"]
+           "Test", "Updater", "get_updater", "create", "register",
+           "all_finite", "grad_poison", "accumulate_window",
+           "read_window_bad", "guarded_step_begin", "LossScaler",
+           "GuardedUpdater"]
 
 _REG = get_registry("optimizer")
 # register(name=None, obj=None, aliases=()): a bare @register takes the
@@ -538,3 +550,209 @@ class Updater:
 
 def get_updater(optimizer):
     return Updater(optimizer)
+
+
+# ---------------------------------------------------------------------------
+# training-step sentinel: fused finiteness guard + dynamic loss scale
+# ---------------------------------------------------------------------------
+
+# gradient poison applied by the grad:nonfinite injection scope
+_POISON = {"nan": float("nan"), "inf": float("inf")}
+
+
+def _tensor_of(a):
+    return a._data if isinstance(a, NDArray) else a
+
+
+def all_finite(arrays):
+    """Reduce a whole step's gradients to ONE on-device finiteness
+    scalar (0-dim bool tensor) — no host sync happens here.
+
+    The float leaves' max-abs values come from one multi-tensor
+    ``torch._foreach_norm(ord=inf)`` (NaN or inf exactly when a leaf
+    holds one; a max cannot overflow), and the scalar is whether all of
+    them are finite.  Integer leaves are skipped (always finite); an
+    empty/None-only list returns plain True."""
+    floats = [t for t in (_tensor_of(a) for a in arrays if a is not None)
+              if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    if not floats:
+        return True
+    by_device = {}
+    for t in floats:
+        by_device.setdefault(t.device, []).append(t)
+    acc = None
+    for ts in by_device.values():
+        norms = torch._foreach_norm(ts, float("inf"))
+        f = torch.isfinite(torch.stack(
+            [n.float() for n in norms])).all()
+        acc = f if acc is None else acc & f.to(acc.device)
+    return acc
+
+
+def grad_poison():
+    """Fire the ``grad:nonfinite`` injection scope; returns the
+    poison multiplier (nan/inf) due on this step, or None.  The one
+    definition all guarded update paths share: the eager updaters apply
+    it to a real gradient, the fused steps feed it in as a multiplier."""
+    from . import resilience
+    if not resilience.faults_active():
+        return None
+    return _POISON.get(resilience.inject("grad", "nonfinite"))
+
+
+def accumulate_window(guard, flag):
+    """Fold one step's finiteness scalar into the guard's on-device
+    bad-step counter — a tiny device add, NO host sync.
+
+    This is what makes MXTPU_GUARD_INTERVAL > 1 sound: every step's
+    flag lands in the counter, so a bad step between host reads is
+    still observed at the next read."""
+    if isinstance(flag, torch.Tensor):
+        bad = torch.logical_not(flag).to(torch.int32)
+    else:
+        bad = torch.tensor(int(not flag), dtype=torch.int32)
+    pending = getattr(guard, "_window_bad", None)
+    guard._window_bad = bad if pending is None \
+        else pending + bad.to(pending.device)
+
+
+def read_window_bad(guard):
+    """Host-read and reset the guard's accumulated bad-step count — the
+    sentinel's ONE device-to-host transfer per guard interval.  (The
+    JAX package allreduce-maxes the count over ranks first; one process
+    has nothing to reduce, and several are ROADMAP item A9.)"""
+    pending = getattr(guard, "_window_bad", None)
+    guard._window_bad = None
+    if pending is None:
+        return 0
+    return int(pending)  # sync-ok: the one guard-interval host read
+
+
+def guarded_step_begin(guard, scaler, grads):
+    """One skip-step decision for an eager update path.
+
+    Fires the ``grad:nonfinite`` injection scope (poisoning a real
+    gradient so an unguarded run genuinely diverges), folds the
+    all-parameters finiteness scalar into the guard's on-device window
+    counter, and on due steps host-reads the accumulated bad count (one
+    scalar per MXTPU_GUARD_INTERVAL), feeds the loss scaler's overflow
+    signal, and consults the guard.  Returns True to apply this step's
+    updates, False to skip them entirely (no weight, optimizer-state or
+    step-count advance)."""
+    if not guard.enabled:
+        return True
+    poison = grad_poison()
+    if poison is not None and grads:
+        _tensor_of(grads[0]).mul_(poison)
+    due = guard.begin_step()
+    accumulate_window(guard, all_finite(grads))
+    if not due:
+        return True
+    from . import telemetry
+    with telemetry.span("host_sync"):
+        bad = read_window_bad(guard)
+    if scaler is not None:
+        scaler.update(overflow=bad > 0)
+    # dropped=1: on an eager path only the CURRENT step is withheld —
+    # with interval > 1 earlier bad steps in the window were applied
+    return guard.record(bad == 0) != "skip"
+
+
+class LossScaler:
+    """Dynamic loss scale (the reference's AMP GradScaler role).
+
+    Training loops multiply the loss by :attr:`scale` before backward
+    (gluon: ``Trainer.loss_scale``); ``Trainer.step`` folds ``1/scale``
+    into ``rescale_grad`` so updates see true-magnitude gradients.
+    With ``MXTPU_LOSS_SCALE_DYNAMIC`` the scale backs off by
+    ``MXTPU_LOSS_SCALE_BACKOFF`` on an overflow (non-finite) step and
+    grows by ``MXTPU_LOSS_SCALE_GROWTH`` after
+    ``MXTPU_LOSS_SCALE_WINDOW`` consecutive good steps, capped at
+    ``MXTPU_LOSS_SCALE_MAX``.  The overflow signal comes from the step
+    sentinel's finiteness scalar, so dynamic scaling adds no
+    device-to-host reads; the scale is a host number, so a change to it
+    needs no new capture."""
+
+    def __init__(self, init_scale=None, dynamic=None, growth=None,
+                 backoff=None, window=None, max_scale=None):
+        from .utils.env import get_env
+        self.scale = float(init_scale if init_scale is not None
+                           else get_env("MXTPU_LOSS_SCALE"))
+        self.dynamic = bool(dynamic if dynamic is not None
+                            else get_env("MXTPU_LOSS_SCALE_DYNAMIC"))
+        self.growth = float(growth if growth is not None
+                            else get_env("MXTPU_LOSS_SCALE_GROWTH"))
+        self.backoff = float(backoff if backoff is not None
+                             else get_env("MXTPU_LOSS_SCALE_BACKOFF"))
+        self.window = int(window if window is not None
+                          else get_env("MXTPU_LOSS_SCALE_WINDOW"))
+        self.max_scale = float(max_scale if max_scale is not None
+                               else get_env("MXTPU_LOSS_SCALE_MAX"))
+        self._good_steps = 0
+        self.num_backoffs = 0
+        self.num_growths = 0
+
+    @property
+    def active(self):
+        """Whether loss scaling changes anything (scale != 1 or
+        dynamic adjustment on)."""
+        return self.dynamic or self.scale != 1.0
+
+    def update(self, overflow):
+        """Consume one step's overflow signal; returns the scale to
+        use for the *next* step."""
+        if not self.dynamic:
+            return self.scale
+        from . import telemetry
+        if overflow:
+            self.scale = max(self.scale * self.backoff, 1.0)
+            self._good_steps = 0
+            self.num_backoffs += 1
+            telemetry.counter("loss_scale_backoffs_total").inc()
+        else:
+            self._good_steps += 1
+            if self._good_steps >= self.window:
+                self.scale = min(self.scale * self.growth,
+                                 self.max_scale)
+                self._good_steps = 0
+                self.num_growths += 1
+                telemetry.counter("loss_scale_growths_total").inc()
+        telemetry.gauge("loss_scale").set(self.scale)
+        return self.scale
+
+    def state_dict(self):
+        return {"scale": self.scale, "good_steps": self._good_steps}
+
+    def load_state_dict(self, state):
+        self.scale = float(state["scale"])
+        self._good_steps = int(state.get("good_steps", 0))
+
+
+class GuardedUpdater(Updater):
+    """Skip-step-aware :class:`Updater`.
+
+    Callers invoke :meth:`begin_step` ONCE per step with the step's
+    full gradient list; when it returns False every per-index
+    ``__call__`` of that step is a no-op — weights, optimizer state,
+    and the step count (``num_update``, hence the LR schedule) stay
+    exactly as they were, as if the bad batch never happened."""
+
+    def __init__(self, optimizer, guard=None, scaler=None):
+        super().__init__(optimizer)
+        from . import resilience
+        self.guard = guard if guard is not None \
+            else resilience.NumericGuard(name="Updater")
+        self.scaler = scaler
+        self._skip = False
+
+    def begin_step(self, grads):
+        """Open a step over ``grads`` (list of NDArrays); returns
+        True to proceed.  See :func:`guarded_step_begin`."""
+        self._skip = not guarded_step_begin(self.guard, self.scaler,
+                                            grads)
+        return not self._skip
+
+    def __call__(self, index, grad, weight):
+        if self._skip:
+            return
+        super().__call__(index, grad, weight)

@@ -20,6 +20,11 @@ generators it draws from), as jit traces once per signature:
 - the outputs are cloned out of the graph's memory pool before they
   reach the caller, so the next replay cannot overwrite a returned
   loss;
+- between the warm-up and the capture the allocator's cached blocks
+  are released (``torch.cuda.empty_cache``): the capture allocates from
+  a private pool, and the warm-up's cache would otherwise hold the card
+  beside it (an out-of-memory during either propagates; the train
+  steps' OOM ladder drops the graph and captures again);
 - ``counts[name]`` counts captures, as the serving engine's
   ``trace_counts`` does.
 
@@ -201,9 +206,21 @@ class StepGraph:
                               generators)
             if refused:
                 return refused
+            # the capture allocates from a pool of its own: hand back
+            # what the warm-up left cached, so the two never hold the
+            # card's memory at once
+            torch.cuda.empty_cache()
             graph = new_graph(device, generators)
-            with torch.cuda.graph(graph):
-                out = self.fn(*static_in)
+            try:
+                with torch.cuda.graph(graph):
+                    out = self.fn(*static_in)
+            except BaseException:
+                # a failed capture (out of memory, most often) leaves no
+                # graph behind and hands its pool back at once
+                graph.reset()
+                del graph
+                torch.cuda.empty_cache()
+                raise
         out = out if isinstance(out, tuple) else (out,)
         self.counts[self.name] = self.counts.get(self.name, 0) + 1
         return _Captured(graph, static_in, out, generators)

@@ -18,8 +18,26 @@ once per batch signature: the parameters, optimizer state and states
 are the graph's buffers, updated in place, and the learning rate is a
 device tensor written before each replay.  On the CPU the same step runs
 op by op.
+
+Before its first step the memory preflight plans the step
+(``perf.memory_planner``: the parameters, gradients and optimizer state
+from the real tensors, the activations from the aten ops the forward
+dispatches on ``meta`` tensors) against the card's capacity, and under
+``MXTPU_MEM_POLICY=degrade`` a predicted overflow walks the ladder:
+remat, then the next divisor of the batch as ``grad_accum``, then a
+typed ``MemoryPlanError``.  A step that runs out of memory anyway
+(``torch.OutOfMemoryError``, during a step or its capture, or the
+``mem:oom`` injection) becomes an ``OomError``: the step drops its
+captured graphs and their memory pools, releases the allocator's cached
+blocks, takes one rung and runs the batch once more; a second OOM
+raises.  ``arm_perf`` / ``cost_analysis`` arm the MFU clock
+(``perf.TrainPerfClock``, device time), ``memory_analysis`` returns the
+planner's ``MemoryPlan``.
 """
 import contextlib
+import copy
+import gc
+import logging
 
 import numpy as np
 import torch
@@ -107,10 +125,8 @@ class ShardedTrainStep:
     the CUDA graph captures (one per batch signature and generator).
     Not in this slice (the JAX step's
     ``mesh``, ``rules``, ``batch_axis`` / ``seq_axis``, ``zero``,
-    ``donate``, ``example_args``, the memory preflight and OOM ladder,
-    ``arm_perf`` / ``cost_analysis`` / ``memory_analysis`` and
-    checkpoints): the multi-card modes come with the parallel-modes
-    slice, the operability hooks with the operability slice.
+    ``donate``, ``example_args`` and checkpoints): the multi-card modes
+    come with the parallel-modes slice (ROADMAP item A9).
     """
 
     def __init__(self, block, optimizer="sgd", optimizer_params=None,
@@ -149,7 +165,17 @@ class ShardedTrainStep:
         self._twins = {}     # remat: id(generator) -> (generator, twin)
         self.trace_counts = {}     # captures (the card), by name
         self._capture_gen = None   # the generator a capture draws from
-        self._graph = _graph.StepGraph(
+        self._graph = self._new_graph()
+        # perf observatory: armed by cost_analysis()/arm_perf()
+        self._perf_clock = None
+        # memory planner: the preflight's accepted plan and the cached
+        # forward liveness (planned once, never on the step path)
+        self._mem_plan = None
+        self._mem_liveness = None
+        self._planned = False
+
+    def _new_graph(self):
+        return _graph.StepGraph(
             lambda x, y: self._step(x, y, self._capture_gen),
             self._mutable, "train_step", self.trace_counts)
 
@@ -266,13 +292,37 @@ class ShardedTrainStep:
 
         On a CUDA device the step is one CUDA graph replay, captured at
         the first call with a new signature (``trace_counts``); on the
-        CPU it runs eagerly."""
-        if self.device.type != "cuda":
-            return self._eager_call(x, y, generator)
-        x, y, gen, gens = self._prepare(x, y, generator)
-        self._capture_gen = gen     # read at a capture (one per generator)
-        (loss,) = self._graph((x, y), gens)
-        self.step_count += 1
+        CPU it runs eagerly.  The first call runs the memory preflight;
+        an out-of-memory step takes one rung of the ladder and runs
+        once more."""
+        from ..resilience import as_oom_error, check_oom
+        for attempt in (0, 1):
+            try:
+                if not self._planned:
+                    self._preflight(x, y)
+                # mem:oom injection point; one env read without a spec
+                check_oom("sharded_train_step")
+                if self.device.type != "cuda":
+                    loss = self._eager_call(x, y, generator)
+                else:
+                    xb, yb, gen, gens = self._prepare(x, y, generator)
+                    # read at a capture (one per generator)
+                    self._capture_gen = gen
+                    (loss,) = self._graph((xb, yb), gens)
+                    self.step_count += 1
+                break
+            except Exception as exc:
+                oom = as_oom_error(exc, "sharded_train_step",
+                                   plan=self._mem_plan)
+                if oom is None:
+                    raise
+                if attempt or not self._oom_rung(x):
+                    raise oom from exc
+            # out of the handler, the failed attempt's frames are gone:
+            # what they held can go back to the card before the retry
+            self._release_graphs()
+        if self._perf_clock is not None:
+            self._perf_clock.tick()       # device events, no sync
         return loss
 
     step = __call__
@@ -291,6 +341,170 @@ class ShardedTrainStep:
         loss = self._step(x, y, gen)
         self.step_count += 1
         return loss
+
+    # ------------------------------------------------------ memory plan
+    def _meta_args(self, x, y):
+        meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+        x, y = self._batch_meta(x), self._batch_meta(y)
+        return ({n: meta(p).requires_grad_(p.requires_grad)
+                 for n, p in self.params.items()},
+                {n: meta(v) for n, v in self.states.items()}, x, y)
+
+    def _batch_meta(self, a):
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a))
+        return torch.empty(a.shape, dtype=a.dtype, device="meta")
+
+    def _trace_liveness(self, x, y):
+        """The activation term of the plan: ``dispatch_liveness`` of the
+        forward loss on ``meta`` tensors (cached; never on the step
+        path)."""
+        if self._mem_liveness is not None:
+            return
+        from ..perf.memory_planner import dispatch_liveness
+        cdt = self.compute_dtype
+
+        def fwd(params, states, xa, ya):
+            if cdt is not None:
+                params = _cast_floats(params, cdt)
+                if xa.is_floating_point():
+                    xa = xa.to(cdt)
+            out, _ = self._forward(params, states, xa, [None])
+            outs = list(out) if isinstance(out, (list, tuple)) else [out]
+            return self.loss_fn(outs, ya)
+
+        self._mem_liveness = dispatch_liveness(
+            fwd, *self._meta_args(x, y), data_args=(2, 3))
+
+    def _memory_plan(self, remat, grad_accum):
+        """The MemoryPlan of this step at the given knobs.  The step
+        takes every gradient at once (``torch.autograd.grad``), so the
+        working gradient is the whole trainable tree."""
+        from ..perf import memory_planner as mp
+        return mp.plan_memory(
+            liveness=self._mem_liveness,
+            params_bytes=mp.tree_bytes(self.params)
+            + mp.tree_bytes(self.states),
+            max_param_bytes=mp.tree_bytes(self.params),
+            optimizer_bytes=mp.tree_bytes(self.opt_state),
+            grad_accum=grad_accum, remat=remat, donate=True)
+
+    def _preflight(self, x, y):
+        """Plan the step before its first run; under
+        MXTPU_MEM_POLICY=degrade a predicted overflow walks the ladder
+        (remat -> next grad_accum divisor) and the step adopts the
+        knobs that fit.  A dry ladder raises ``MemoryPlanError``; a
+        planner that cannot trace the block logs it and plans nothing
+        (the gate is a guard, not a dependency)."""
+        from ..perf.memory_planner import plan_failed, preflight
+        from ..resilience import MemoryPlanError
+        self._planned = True
+        try:
+            self._trace_liveness(x, y)
+            res = preflight(
+                self._memory_plan, site="sharded_train_step",
+                device=self.device, can_remat=True,
+                batch_size=int(np.shape(x)[0]) if np.ndim(x) else 0,
+                remat=self.remat, grad_accum=self.grad_accum)
+        except MemoryPlanError:
+            raise
+        except Exception:
+            plan_failed("sharded_train_step")
+            return
+        if res is not None:
+            self.remat = res.remat
+            self.grad_accum = res.grad_accum
+            self._mem_plan = res.plan
+
+    def _release_graphs(self):
+        """Drop every captured graph and its memory pool, and hand the
+        allocator's cached blocks back: what a rung does before the
+        retry captures again."""
+        self._graph = self._new_graph()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+
+    def _oom_rung(self, x):
+        """One runtime degrade rung after a real (or injected) OOM:
+        remat, else the next divisor of the batch as grad_accum (the
+        caller then drops the captured graphs, so the retry captures
+        once more).  Returns False (the caller raises the OomError) when
+        the ladder is dry or MXTPU_MEM_POLICY=off."""
+        from .. import telemetry, tracing
+        from ..perf.memory_planner import next_divisor
+        from ..utils.env import get_env
+        if str(get_env("MXTPU_MEM_POLICY")).lower() == "off":
+            return False
+        rung = None
+        if not self.remat:
+            self.remat, rung = True, "remat"
+        else:
+            nxt = next_divisor(int(np.shape(x)[0]), self.grad_accum)
+            if nxt is not None:
+                self.grad_accum, rung = nxt, f"grad_accum={nxt}"
+        if rung is None:
+            return False
+        telemetry.counter("oom_retries_total").inc()
+        tracing.trace_event("mem_degrade", site="sharded_train_step",
+                            rung=rung, cause="runtime_oom")
+        logging.getLogger("mxtpu.memory").warning(
+            "OOM at sharded_train_step: degrade ladder rung '%s', "
+            "retrying once%s", rung,
+            " (numerics change: smaller micro-batches)"
+            if rung.startswith("grad_accum") else
+            " (numerics unchanged; more compute)")
+        return True
+
+    # ------------------------------------------------------------- perf
+    def arm_perf(self, flops_per_step=0.0, bytes_per_step=0.0,
+                 tokens_per_step=0.0, dtype=None):
+        """Arm the train_mfu/train_mbu/train_tokens_per_sec gauges with
+        a per-step cost (e.g. from :meth:`cost_analysis` or
+        ``model.train_flops_per_token * tokens``).  The clock reads
+        CUDA events it records at its window edges, never a device
+        value."""
+        from ..perf import TrainPerfClock
+        if dtype is None:
+            dtype = str(self.compute_dtype) if self.compute_dtype \
+                is not None else "float32"
+        if self._perf_clock is None:
+            self._perf_clock = TrainPerfClock(
+                flops_per_step, bytes_per_step, tokens_per_step,
+                device=self.device, dtype=dtype)
+        else:
+            self._perf_clock.arm(flops_per_step, bytes_per_step,
+                                 tokens_per_step, device=self.device)
+        return self._perf_clock
+
+    def cost_analysis(self, x, y):
+        """The counted cost of one training step, ``{"flops",
+        "bytes"}`` (``perf.counted_cost``: FlopCounterMode's products of
+        the forward, backward and update, run on ``meta`` copies of the
+        step's tensors, so nothing moves and the step's values stay as
+        they are), or None where counting fails.  On success the MFU
+        clock is armed with it (if not armed already), the role of the
+        JAX step's XLA cost analysis."""
+        from ..perf import jit_cost
+        params, states, xm, ym = self._meta_args(x, y)
+        twin = copy.copy(self)
+        twin.params, twin.states = params, states
+        twin.opt_state = self.opt.init(params)
+        twin.remat = False
+        twin._lr = torch.zeros((), device="meta")
+        cost = jit_cost(lambda: twin._step(xm, ym, None))
+        if cost is not None and self._perf_clock is None:
+            self.arm_perf(cost["flops"], cost["bytes"])
+        return cost
+
+    def memory_analysis(self, x, y):
+        """The planner's ``MemoryPlan`` of one step at the step's
+        current knobs (the question the JAX step's ``memory_analysis``
+        answers from XLA's buffer assignment; nothing runs).  The
+        measured counterpart is ``perf.cuda_live_bytes`` over a step."""
+        self._trace_liveness(x, y)
+        return self._memory_plan(self.remat, self.grad_accum)
 
     @torch.no_grad()
     def evaluate(self, x):

@@ -15,10 +15,19 @@ aux states and optimizer state are the graph's buffers, updated in
 place, and the learning rate and ``rescale_grad`` are device tensors
 written before each replay.  On the CPU the same step runs op by op.
 
-The graph runs as bound: the symbol passes (``optimize_symbol``) are
-ROADMAP item A7, and the JAX goldens show they preserve values.  Not
-here: ``numeric_guard`` (the step guard, A11) and the sharded
-checkpoints (A9) raise.
+``numeric_guard=True`` is the step sentinel's variant: the gradients
+(times a ``poison`` device tensor, 1 unless the ``grad:nonfinite``
+injection fires) reduce to one on-device finiteness scalar, kept as
+``last_finite`` for the host's guard-interval read, and with
+``guard_select`` (default: guarded; False for policy ``warn``) the
+parameters, aux states and optimizer state are selected against their
+values before the update, ``torch.where(finite, new, old)``, inside the
+step (and its graph), so a bad step changes none of them.  Before the
+first step the memory preflight plans the graph (``perf.
+memory_planner.symbol_liveness``); this step has no rungs, so the plan
+fits, warns, or raises ``MemoryPlanError``.  The first step also costs
+the graph (``perf.symbol_cost``, 3x the forward) and arms the MFU clock.
+The sharded checkpoints (A9) raise.
 
 The first call of each batch signature (the capture on the card, the
 first op-by-op run on the CPU) is timed into the compile ledger
@@ -72,10 +81,6 @@ class SymbolTrainStep:
                  rescale_grad=1.0, lr_mults=None, wd_mults=None,
                  batch_axis=0, numeric_guard=False,
                  guard_select=None):
-        if numeric_guard:
-            raise NotImplementedError(
-                "numeric_guard: the step guard is not ported yet "
-                "(ROADMAP item A11)")
         from ..executor import _next_seed, build_graph_fn
         from ..symbol.symbol import _topo
         first = next(iter(param_vals.values()))
@@ -109,6 +114,16 @@ class SymbolTrainStep:
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         self._scale = torch.full((), self.rescale_grad,
                                  dtype=torch.float32, device=self.device)
+        self._guarded = bool(numeric_guard)
+        self._guard_select = self._guarded if guard_select is None \
+            else bool(guard_select)
+        # the grad:nonfinite injection's multiplier, read by the step
+        self._poison = torch.ones((), dtype=torch.float32,
+                                  device=self.device)
+        self.last_finite = None
+        self._mem_plan = None
+        self.cost_report = None
+        self._perf_clock = None
         # one generator per random node of the graph, seeded from the
         # package's seed (random.seed): a replay draws fresh masks
         n_rng = sum(1 for node in _topo(symbol._heads)
@@ -138,7 +153,8 @@ class SymbolTrainStep:
 
     # ------------------------------------------------------------ step
     def _step(self, *inputs):
-        """The whole step, in place; returns the graph's outputs."""
+        """The whole step, in place; returns the graph's outputs (and,
+        guarded, the gradients' finiteness scalar after them)."""
         vals = dict(zip(self._input_names, inputs))
         leaves = {n: p.detach().requires_grad_(True)
                   for n, p in self.params.items()
@@ -159,13 +175,32 @@ class SymbolTrainStep:
                 [torch.ones_like(h) for h in heads], allow_unused=True)
         grads = {n: torch.zeros_like(leaves[n]) if g is None else g
                  for n, g in zip(names, grads)}
+        finite = old = None
+        if self._guarded:
+            grads = dict(zip(names, torch._foreach_mul(
+                list(grads.values()), self._poison)))
+            from ..optimizer import all_finite
+            finite = all_finite(list(grads.values()))
+            if finite is True:
+                finite = torch.ones((), dtype=torch.bool,
+                                    device=self.device)
+            if self._guard_select:
+                touched = self._mutable()
+                with torch.no_grad():
+                    old = [t.clone() for t in touched]
         self.opt.update({n: self.params[n] for n in names}, grads,
                         self.opt_state, scale=self._scale, lr=self._lr,
                         lr_mults=self._lr_mults, wd_mults=self._wd_mults)
         with torch.no_grad():
             for n, v in aux_upd.items():
                 self.aux[n].copy_(v)
-        return tuple(o.detach() for o in outs)
+            if old is not None:
+                # a bad step leaves params, aux states and optimizer
+                # state as they were, on the device, at every step
+                for t, o in zip(touched, old):
+                    torch.where(finite, t, o, out=t)
+        outs = tuple(o.detach() for o in outs)
+        return outs + (finite,) if self._guarded else outs
 
     def _mutable(self):
         return (list(self.params.values()) + list(self.aux.values())
@@ -191,24 +226,119 @@ class SymbolTrainStep:
                 g.manual_seed((int(rng) + 0x9E3779B9 * (fold + 1))
                               % (1 << 63))
         self._lr.fill_(float(lr))
+        if self._guarded:
+            from ..optimizer import grad_poison
+            self._poison.fill_(grad_poison() or 1.0)
         sig = tuple((n, tuple(v.shape), str(v.dtype))
                     for n, v in zip(self._input_names, vals))
         first = sig not in self._signatures
+        from ..resilience import as_oom_error, check_oom
         t0 = time.monotonic()
-        if self.device.type != "cuda":
-            outs = list(self._step(*vals))
-        else:
-            outs = list(self._graph(vals, self._gens))
+        try:
+            if first and self._mem_plan is None:
+                self._preflight(vals)
+            # mem:oom injection point; one env read without a spec
+            check_oom("symbol_train_step")
+            if self.device.type != "cuda":
+                outs = list(self._step(*vals))
+            else:
+                outs = list(self._graph(vals, self._gens))
+        except Exception as exc:
+            # this step has no runtime rungs: a real (or injected) OOM
+            # is typed and stays loud
+            oom = as_oom_error(exc, "symbol_train_step",
+                               plan=self._mem_plan)
+            if oom is None:
+                raise
+            raise oom from exc
+        if self._guarded:
+            self.last_finite = outs.pop()
         if first:
             # a new batch signature: the card captured it, the CPU ran
             # it op by op for the first time
             self._signatures.add(sig)
+            cost = self._arm_perf(vals)
             tracing.compile_ledger("symbol_train_step").record(
                 {"shape": tuple(sorted((n, s) for n, s, _ in sig)),
                  "dtype": tuple(sorted((n, d) for n, _, d in sig)),
                  "train_flag": True},
-                time.monotonic() - t0)
+                time.monotonic() - t0, cost=cost)
+        if self._perf_clock is not None:
+            self._perf_clock.tick()
         return outs
+
+    def _shapes(self, vals):
+        shapes = {n: tuple(v.shape)
+                  for n, v in zip(self._input_names, vals)}
+        shapes.update({n: tuple(v.shape) for n, v in self.params.items()})
+        shapes.update({n: tuple(v.shape) for n, v in self.aux.items()})
+        return shapes
+
+    def _preflight(self, vals):
+        """Plan the graph's step before its first run.  This step fixes
+        remat and grad_accum at construction, so the ladder has no
+        rungs here: the plan fits (within MXTPU_MEM_GATE_MARGIN), warns
+        or raises ``MemoryPlanError`` per MXTPU_MEM_POLICY.  A planner
+        failure on an exotic graph is logged, not raised."""
+        from ..perf import memory_planner as mp
+        from ..resilience import MemoryPlanError
+        try:
+            dtypes = {n: str(v.dtype).replace("torch.", "")
+                      for n, v in zip(self._input_names, vals)}
+            live = mp.symbol_liveness(
+                self._symbol, self._shapes(vals), dtypes=dtypes,
+                input_names=list(self._input_names))
+            res = mp.preflight(
+                lambda r, a: mp.plan_memory(
+                    liveness=live,
+                    params_bytes=mp.tree_bytes(self.params)
+                    + mp.tree_bytes(self.aux),
+                    max_param_bytes=mp.tree_bytes(self.params),
+                    optimizer_bytes=mp.tree_bytes(self.opt_state),
+                    grad_accum=a, remat=r, donate=True),
+                site="symbol_train_step", device=self.device)
+        except MemoryPlanError:
+            raise
+        except Exception:
+            mp.plan_failed("symbol_train_step")
+            return
+        if res is not None:
+            self._mem_plan = res.plan
+
+    def _arm_perf(self, vals):
+        """Cost the graph at the first batch's shapes (a ``meta`` walk,
+        at the first step only) and arm the train_mfu/train_mbu clock.
+        Returns the compile ledger's cost summary, or None when costing
+        fails."""
+        try:
+            from ..perf import TrainPerfClock, symbol_cost
+            # a train step ~= 3x the forward graph (fwd + bwd)
+            self.cost_report = symbol_cost(
+                self._symbol, self._shapes(vals)).scaled(3.0)
+            dtype = str(next(iter(self.params.values())).dtype) \
+                if self.params else "float32"
+            self._perf_clock = TrainPerfClock(
+                self.cost_report.flops, self.cost_report.bytes,
+                device=self.device, dtype=dtype)
+            return self.cost_report.summary()
+        except Exception:
+            self.cost_report = None
+            self._perf_clock = None
+            return None
+
+    def arm_perf(self, flops_per_step=0.0, bytes_per_step=0.0,
+                 tokens_per_step=0.0, dtype=None):
+        """Arm (or re-arm) the MFU clock with a per-step cost, in place
+        of the graph's own (the first step arms that)."""
+        from ..perf import TrainPerfClock
+        if self._perf_clock is None:
+            self._perf_clock = TrainPerfClock(
+                flops_per_step, bytes_per_step, tokens_per_step,
+                device=self.device, dtype=dtype or "float32")
+        else:
+            self._perf_clock.arm(flops_per_step, bytes_per_step,
+                                 tokens_per_step)
+        return self._perf_clock
 
     @torch.no_grad()
     def evaluate(self, inputs, rng=None):

@@ -22,10 +22,20 @@ heartbeats, and deterministic fault injection (twin of
   ``data_service:worker`` / ``data_service:ring``); the grammar and
   the exception types are the JAX package's.
 
-The numeric guard (``NumericGuard``, ``BadStepError``,
-``DivergedError``) and the OOM types (``MemoryPlanError``,
-``OomError``, ``is_oom``) are not in this module yet.
+- The training-step sentinel: :class:`NumericGuard` (policy and
+  accounting of the guarded updates' one finiteness scalar),
+  :class:`BadStepError` and :class:`DivergedError`, and
+  :func:`install_diverged_exithook` (exit 13 for divergence, 15 for
+  device memory).
+- Device-memory exhaustion: :class:`MemoryPlanError` (the preflight
+  planner's ladder ran dry) and :class:`OomError` (memory really ran
+  out); :func:`is_oom` knows torch's exhaustion
+  (``torch.OutOfMemoryError``, "CUDA out of memory", cuBLAS's and
+  cuDNN's allocation-failure statuses) and the JAX package's markers, so
+  the synthetic ``mem:oom`` injection (:func:`check_oom`) classifies
+  the same way.
 """
+import math
 import os
 import random
 import tempfile
@@ -49,7 +59,10 @@ __all__ = ["ResilienceError", "TransientError", "DeadlineExceededError",
            "atomic_write_bytes", "checksum_path", "verify_checkpoint",
            "validate_or_raise", "read_validated_bytes",
            "start_heartbeat", "stop_heartbeat", "heartbeat_age",
-           "collective_timeout", "data_timeout"]
+           "collective_timeout", "data_timeout",
+           "BadStepError", "DivergedError", "NumericGuard",
+           "install_diverged_exithook", "MemoryPlanError", "OomError",
+           "OOM_EXIT_CODE", "is_oom", "check_oom", "as_oom_error"]
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +161,133 @@ class DataPipelineError(ResilienceError):
     def __init__(self, *args):
         super().__init__(*args)
         _flight_dump("data_pipeline_error")
+
+
+class BadStepError(ResilienceError, ArithmeticError):
+    """A single training step produced non-finite gradients (or a
+    loss spike) under ``MXTPU_NONFINITE_POLICY=raise``.
+
+    Also an ArithmeticError so generic numeric guards in user loops
+    (``except ArithmeticError``) keep working."""
+
+
+class DivergedError(ResilienceError, ArithmeticError):
+    """Training diverged: MXTPU_MAX_BAD_STEPS *consecutive* steps
+    were non-finite, so skipping updates can no longer save the run.
+
+    The fit loops roll back to the newest valid checkpoint before
+    re-raising this, and training mains should exit with
+    :data:`EXIT_CODE` (see :func:`install_diverged_exithook`) so the
+    launcher restart loop can tell divergence from an ordinary crash.
+    Constructing one dumps the flight recorder when
+    ``MXTPU_TRACE_DUMP`` is set."""
+
+    EXIT_CODE = 13
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        _flight_dump("diverged_error")
+
+
+# a worker that dies on device-memory exhaustion (predicted by the
+# planner with the ladder exhausted, or a real OOM past the one-rung
+# retry) exits distinctly from crashes (1), divergence (13), elastic (14)
+OOM_EXIT_CODE = 15
+
+
+class MemoryPlanError(ResilienceError):
+    """The preflight memory gate predicts this step cannot fit and the
+    degrade ladder has no rungs left.  Raised before the step is built
+    or captured, with the full per-category plan in the message."""
+
+    EXIT_CODE = OOM_EXIT_CODE
+
+    def __init__(self, site, plan=None, rungs=(), capacity=None):
+        self.site = site
+        self.plan = plan
+        self.rungs = list(rungs)
+        self.capacity = capacity
+        msg = f"memory plan overflow at {site}"
+        if capacity:
+            msg += f": capacity {capacity / (1 << 20):.1f}MB"
+        if plan is not None:
+            msg += f", predicted {plan.describe()}"
+        if self.rungs:
+            msg += f"; ladder exhausted after {self.rungs}"
+        else:
+            msg += "; no degrade rungs available"
+        msg += " (MXTPU_MEM_POLICY/MXTPU_HBM_BYTES/" \
+               "MXTPU_MEM_GATE_MARGIN control the gate)"
+        super().__init__(msg)
+        _flight_dump("memory_plan_error")
+
+
+class OomError(ResilienceError):
+    """Device memory actually ran out: a step or its capture raised
+    torch's out-of-memory (or the ``mem:oom`` injection fired).  Typed
+    so the one-rung runtime retry and the launcher can tell OOM from a
+    crash; carries the planner's plan when the preflight ran."""
+
+    EXIT_CODE = OOM_EXIT_CODE
+
+    def __init__(self, site, cause=None, plan=None):
+        self.site = site
+        self.plan = plan
+        msg = f"device out of memory at {site}"
+        if plan is not None:
+            msg += f" (planner predicted {plan.describe()})"
+        if cause is not None:
+            msg += f": {cause}"
+        super().__init__(msg)
+        _flight_dump("oom_error")
+
+
+# the JAX package's markers (the synthetic mem:oom text among them) and
+# torch's: the caching allocator's message, and cuBLAS's and cuDNN's
+# allocation-failure statuses
+_OOM_MARKERS = ("RESOURCE_EXHAUSTED", "Out of memory", "out of memory",
+                "Allocator ran out", "CUBLAS_STATUS_ALLOC_FAILED",
+                "CUDNN_STATUS_ALLOC_FAILED",
+                "CUDNN_STATUS_NOT_ENOUGH_WORKSPACE")
+
+
+def is_oom(exc):
+    """True when an exception is device-memory exhaustion:
+    ``torch.OutOfMemoryError``, a message with one of the markers above,
+    or an already-typed :class:`OomError`; never a
+    :class:`MemoryPlanError` (a predicted overflow allocated nothing)."""
+    if isinstance(exc, OomError):
+        return True
+    if isinstance(exc, MemoryPlanError):
+        return False
+    import sys
+    torch = sys.modules.get("torch")
+    oom_type = getattr(torch, "OutOfMemoryError", None)
+    if oom_type is not None and isinstance(exc, oom_type):
+        return True
+    text = str(exc)
+    return any(m in text for m in _OOM_MARKERS)
+
+
+def check_oom(site):
+    """The ``mem:oom`` injection point: raise a synthetic
+    RESOURCE_EXHAUSTED at the nth guarded step, so the runtime OOM path
+    (typed error, one ladder rung, one retry) runs on the CPU.  One env
+    read when no fault spec is set; never touches the device."""
+    if not faults_active():
+        return
+    if fault_for("mem", "oom") is not None:
+        raise RuntimeError(
+            f"RESOURCE_EXHAUSTED: injected mem:oom at {site} "
+            "(synthetic device allocation failure)")
+
+
+def as_oom_error(exc, site, plan=None):
+    """An :class:`OomError` for a caught exception that is memory
+    exhaustion, None for anything else (which the caller re-raises)."""
+    if not is_oom(exc):
+        return None
+    return OomError(site, cause=exc, plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -864,6 +1004,204 @@ def stop_heartbeat():
         _HB_STATE.update(thread=None, stop=None, path=None)
     if t is not None and t.is_alive():
         t.join(timeout=5)
+
+
+# ---------------------------------------------------------------------------
+# training-step sentinel
+# ---------------------------------------------------------------------------
+
+
+class NumericGuard:
+    """Policy and accounting for the training-step sentinel.
+
+    The guarded update paths (``optimizer.GuardedUpdater``,
+    ``gluon.Trainer.step``, Module's fused step) reduce a step's
+    gradients to ONE on-device finiteness scalar; this class decides
+    what the host does with it.  ``MXTPU_NONFINITE_POLICY``:
+
+    - ``off``   — sentinel disabled (default; no cost).
+    - ``warn``  — warn on a bad step but apply the update anyway.
+    - ``skip``  — skip the update (weights, optimizer state and the
+      LR-scheduler/step-count advance all stay untouched).
+    - ``raise`` — raise :class:`BadStepError` on the first bad step.
+
+    The device-to-host read happens every ``MXTPU_GUARD_INTERVAL``
+    guarded steps (``checks`` counts them).  ``MXTPU_MAX_BAD_STEPS``
+    *consecutive* bad verdicts raise :class:`DivergedError` whatever the
+    policy.  :meth:`check_loss` judges a host-side loss (non-finite, or
+    ``MXTPU_LOSS_SPIKE_FACTOR`` above the running mean).  The injection
+    scopes ``grad:nonfinite`` (applied by the guarded updaters) and
+    ``loss:spike`` (applied here) drive every policy on the CPU."""
+
+    POLICIES = ("off", "warn", "skip", "raise")
+
+    def __init__(self, policy=None, interval=None, max_bad_steps=None,
+                 spike_factor=None, name="train"):
+        self.policy = (policy if policy is not None
+                       else get_env("MXTPU_NONFINITE_POLICY")).lower()
+        if self.policy not in self.POLICIES:
+            raise ValueError(
+                f"bad MXTPU_NONFINITE_POLICY {self.policy!r}: want "
+                f"one of {self.POLICIES}")
+        self.interval = max(1, int(
+            interval if interval is not None
+            else get_env("MXTPU_GUARD_INTERVAL")))
+        self.max_bad_steps = int(
+            max_bad_steps if max_bad_steps is not None
+            else get_env("MXTPU_MAX_BAD_STEPS"))
+        self.spike_factor = float(
+            spike_factor if spike_factor is not None
+            else get_env("MXTPU_LOSS_SPIKE_FACTOR"))
+        self.name = name
+        self.steps = 0              # guarded steps begun
+        self.checks = 0             # host reads consumed (sync cost)
+        self.bad_steps = 0          # bad verdicts seen (total)
+        self.consecutive_bad = 0
+        self.skipped_steps = 0
+        self._loss_ema = None
+        self._warned_skip = False
+
+    @property
+    def enabled(self):
+        return self.policy != "off"
+
+    @property
+    def drops_updates(self):
+        """Whether a bad step's update must not reach the weights
+        (``skip`` and ``raise``): the fused paths then route the update
+        through the on-device select.  ``warn`` applies it."""
+        return self.policy in ("skip", "raise")
+
+    def begin_step(self):
+        """Advance the guarded-step counter; True when this step is due
+        a host read of the finiteness scalar (every ``interval``-th
+        guarded step)."""
+        due = self.enabled and (self.steps % self.interval == 0)
+        self.steps += 1
+        return due
+
+    def record(self, finite, what="gradients", dropped=1):
+        """Consume one host-read verdict -> ``"ok"`` | ``"skip"``.
+
+        Applies the policy, tracks consecutive bad steps and raises
+        :class:`DivergedError` once ``max_bad_steps`` consecutive
+        verdicts were bad (0 disables it).  ``dropped`` is how many
+        updates this bad verdict stands for (a window's exact on-device
+        bad count on the fused paths)."""
+        from . import telemetry, tracing
+        self.checks += 1
+        if finite:
+            self.consecutive_bad = 0
+            telemetry.gauge("sentinel_consecutive_bad").set(0)
+            return "ok"
+        self.bad_steps += 1
+        self.consecutive_bad += 1
+        telemetry.counter("sentinel_bad_steps_total").inc()
+        telemetry.gauge("sentinel_consecutive_bad").set(
+            self.consecutive_bad)
+        tracing.trace_event(
+            "sentinel_bad_step", guard=self.name, what=what,
+            step=self.steps, consecutive=self.consecutive_bad,
+            policy=self.policy)
+        msg = (f"non-finite {what} in guarded step {self.steps} "
+               f"({self.name}; consecutive bad: "
+               f"{self.consecutive_bad})")
+        if self.max_bad_steps > 0 and \
+                self.consecutive_bad >= self.max_bad_steps:
+            telemetry.counter("sentinel_divergences_total").inc()
+            tracing.trace_event(
+                "sentinel_diverged", guard=self.name,
+                step=self.steps, consecutive=self.consecutive_bad)
+            raise DivergedError(
+                f"{msg}: {self.max_bad_steps} consecutive bad steps "
+                "— training diverged; roll back to the newest valid "
+                "checkpoint")
+        if self.policy == "raise":
+            raise BadStepError(msg)
+        if self.policy == "warn":
+            warnings.warn(msg + "; applying the update anyway "
+                          "(MXTPU_NONFINITE_POLICY=warn)",
+                          RuntimeWarning)
+            return "ok"
+        self.skipped_steps += max(int(dropped), 1)
+        telemetry.counter("sentinel_skipped_steps_total").inc(
+            max(int(dropped), 1))
+        if not self._warned_skip:
+            warnings.warn(
+                msg + "; skipping the update (weights, optimizer "
+                "state, and LR schedule untouched; warned once)",
+                RuntimeWarning)
+            self._warned_skip = True
+        return "skip"
+
+    def check_loss(self, value, what="loss"):
+        """Judge a host-side loss scalar -> ``"ok"`` | ``"skip"``.
+
+        Injection point ``loss:spike`` (kinds nan/inf/spike).  A
+        non-finite loss is always bad; with ``spike_factor`` > 0 a
+        finite loss larger than ``spike_factor`` times the running mean
+        of the earlier good losses is bad too."""
+        if not self.enabled:
+            return "ok"
+        kind = inject("loss", "spike") if faults_active() else None
+        v = float(value)
+        injected_spike = kind == "spike"
+        if kind == "nan":
+            v = float("nan")
+        elif kind == "inf":
+            v = float("inf")
+        elif injected_spike:
+            base = abs(self._loss_ema) if self._loss_ema else 1.0
+            v = base * max(self.spike_factor, 2.0) * 10.0
+        finite = math.isfinite(v)
+        # an injected spike is bad by definition, whatever the
+        # detector's threshold
+        spiked = injected_spike or (
+            finite and self.spike_factor > 0
+            and self._loss_ema is not None
+            and abs(v) > self.spike_factor
+            * max(abs(self._loss_ema), 1e-12))
+        verdict = self.record(finite and not spiked, what=what)
+        if finite and not spiked:
+            self._loss_ema = v if self._loss_ema is None \
+                else 0.9 * self._loss_ema + 0.1 * v
+        return verdict
+
+
+_DIVERGED_HOOK = {"installed": False}
+
+
+def install_diverged_exithook():
+    """Make an uncaught :class:`DivergedError` end the process with
+    exit code 13, and an uncaught :class:`OomError` or
+    :class:`MemoryPlanError` with :data:`OOM_EXIT_CODE` (15), instead
+    of the generic 1, so a restart loop can tell divergence and memory
+    exhaustion from a crash.  An uncaught
+    :class:`ElasticRestartRequested` maps to :data:`ELASTIC_EXIT_CODE`
+    (14).  Idempotent; chains to the previous excepthook."""
+    import sys
+    if _DIVERGED_HOOK["installed"]:
+        return
+    _DIVERGED_HOOK["installed"] = True
+    prev = sys.excepthook
+
+    def hook(tp, val, tb):
+        prev(tp, val, tb)
+        code = None
+        if isinstance(val, DivergedError):
+            code = DivergedError.EXIT_CODE
+        elif isinstance(val, (OomError, MemoryPlanError)):
+            code = OOM_EXIT_CODE
+        elif isinstance(val, ElasticRestartRequested):
+            code = ELASTIC_EXIT_CODE
+        if code is not None:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            # an excepthook cannot set the exit status: the traceback
+            # is printed and the buffers flushed, so exit hard
+            os._exit(code)
+
+    sys.excepthook = hook
 
 
 # ---------------------------------------------------------------------------

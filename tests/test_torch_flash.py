@@ -103,8 +103,15 @@ def test_argument_errors():
                                 (qg,))
     assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
     assert float(dq.abs().max()) > 0
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tflash.flash_attention(*(t.to("meta") for t in (k, k, v)))
+    # meta tensors (shape inference, counted cost, the memory planner's
+    # trace) take the plain version, or give the shapes alone
+    qm, km, vm = (t.to("meta") for t in (q, k, v))
+    o, lse = tflash.flash_attention_fwd(qm, km, vm)
+    assert o.shape == q.shape and lse.shape == q.shape[:2]
+    assert o.device.type == lse.device.type == "meta"
+    with tflash.meta_shapes_only():
+        o2, lse2 = tflash.flash_attention_fwd(qm, km, vm)
+    assert o2.shape == o.shape and lse2.dtype == torch.float32
 
 
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():

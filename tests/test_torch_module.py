@@ -520,13 +520,15 @@ def test_not_ported_paths_raise(monkeypatch):
         mp.setenv("MXTPU_NUM_WORKERS", "2")
         with pytest.raises(NotImplementedError, match="A9"):
             mod.init_optimizer(kvstore="dist_sync", force_init=True)
+    # the step guard and the divergence rollback are ported
     monkeypatch.setenv("MXTPU_NONFINITE_POLICY", "skip")
-    with pytest.raises(NotImplementedError, match="A11"):
-        mod.init_optimizer(force_init=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        mod.fit(mt.io.NDArrayIter(np.zeros((4, 20), "f4"),
-                                  np.zeros(4, "f4"), batch_size=4),
-                num_epoch=1, checkpoint_prefix="x")
+    mod.init_optimizer(force_init=True)
+    assert mod._guard.policy == "skip"
+    assert isinstance(mod._updater, mt.optimizer.GuardedUpdater)
+    mod.fit(mt.io.NDArrayIter(np.zeros((4, 20), "f4"),
+                              np.zeros(4, "f4"), batch_size=4),
+            num_epoch=1, checkpoint_prefix="x")
+    assert mod._guard.steps == 1 and mod._guard.skipped_steps == 0
     with pytest.raises(NotImplementedError, match="A9"):
         mt.mod.Module(_mlp(mt.sym), context=[CPU, CPU])
     with pytest.raises(TypeError, match="path_imgrec"):

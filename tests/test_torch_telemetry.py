@@ -497,12 +497,9 @@ def test_fit_spans_and_counters_match_jax():
     ref = _fit(mx, jtel)
     port = _fit(mt, ptel)
     assert port[:2] == ref[:2]
-    # the JAX package's extra gauges are its perf observatory's and
-    # memory planner's (perf/*, not ported yet)
-    assert set(ref[2]) - set(port[2]) == {
-        "memory_plan_peak_bytes", "train_mbu", "train_mfu",
-        "train_tokens_per_sec"}
-    assert set(port[2]) <= set(ref[2])
+    # the gauges too: the perf observatory's and the memory planner's
+    # (train_mfu, train_mbu, train_tokens_per_sec, memory_plan_peak_bytes)
+    assert set(port[2]) == set(ref[2])
     counters, hists, _ = port
     assert counters["train_steps_total"] == 4
     for name in ("data_wait", "forward_backward", "optimizer",

@@ -330,9 +330,10 @@ def test_trainer_updater_route_and_states(data, tmp_path, monkeypatch):
         mt.gluon.Trainer(net.collect_params(), "sgd",
                          kvstore="dist_sync").step(B)
     monkeypatch.delenv("MXTPU_NUM_WORKERS")
+    # dynamic loss scaling is ported: it turns the guard to skip
     monkeypatch.setenv("MXTPU_LOSS_SCALE_DYNAMIC", "1")
-    with pytest.raises(NotImplementedError, match="A11"):
-        mt.gluon.Trainer(net.collect_params(), "sgd")
+    scaled = mt.gluon.Trainer(net.collect_params(), "sgd")
+    assert scaled.guard.policy == "skip" and scaled.loss_scale == 1.0
 
 
 # ------------------------------------------------------------ the families
