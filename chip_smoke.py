@@ -58,7 +58,41 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                p50/p99, the busy share over profiled steps, the graph's
                device ms, the step's byte bound and the prefix-cache
                hits.
-7. train       (i) one fp32 loss and every parameter's gradient at B=1 x
+7. fleet       the serving fleet and the engine's operability hooks at
+               serve_engine's width and traffic, every request held
+               against an in-process engine over the replica CLI's
+               _build_tiny of that width, but at printed top-two ties
+               of the forward's logits within 1e-5; no flash kernel
+               runs.  (i) with telemetry on: the counters equal the
+               traffic's (requests, tokens, prefill tokens, prefix
+               hits), one decode capture, and one synchronizing CUDA
+               call a decode-only iteration (set_sync_debug_mode
+               "warn"); decode ms per iteration with MXTPU_TELEMETRY=0
+               and =1 in turns; (ii) serve:step:2:hang of 0.05 s
+               against step_timeout=0.02: one serve_step_overrun of at
+               least 0.05 s and a flight-recorder dump whose first line
+               names it, the tokens unchanged; (iii) num_blocks="auto":
+               the block count, the plan, the peak the engine allocated
+               against it; under MXTPU_HBM_BYTES of half the weights a
+               MemoryPlanError before any pool; (iv) perf_report's
+               roofline ms for one decode step beside the measured
+               decode ms, serving_mfu finite and in (0, 1); (v) three
+               replica processes (python -m incubator_mxnet_tpu_torch.
+               serving.replica, 512 blocks each, prefix cache on)
+               behind a ServingRouter here, replica 0 under
+               router:replica:3:kill, the router under router:net:9:
+               hang: replica 0 exits 1, a re-dispatch counted, one
+               router_terminal a request, every request finished, the
+               survivors' pools holding only their prefix caches'
+               blocks, the shared-prompt requests ending on fewer
+               replicas than the others; tokens/s and TTFT through the
+               router beside the engine's (and again through the two
+               survivors, warm), the recovery seconds after the death,
+               each survivor's peak memory; (vi) a second
+               batch drained once tokens flow: both survivors exit 0,
+               each snapshot restores into a fresh engine on the card,
+               no request lost.
+8. train       (i) one fp32 loss and every parameter's gradient at B=1 x
                L=256 on the card equal the same weights' on the CPU's
                plain path; (ii) bench.py's training step (B=8 x L=1024,
                Adam lr 1e-4, bf16 compute over fp32 masters, its LM
@@ -83,7 +117,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                repeats them, the eager step from the same seed gives the
                same losses, and the Dropout op captured alone keeps 1 -
                rate within 5 binomial standard deviations.
-8. resnet      bench.py's headline workload on the port's Gluon path, no
+9. resnet      bench.py's headline workload on the port's Gluon path, no
                hand kernel on it: (i) resnet50_v1() from seed 0 on the
                card and on the CPU (load_gluon_params), fp32 with TF32
                off, one ShardedTrainStep SGD step at B=2 x 3x224x224:
@@ -112,7 +146,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                (The loss rises for steps 3 to 7 at lr 0.1 before it
                falls, so each run takes 23 steps.)  Each
                kernel's launches on this path are counted ("resnet").
-9. rtc         the user-kernel path (rtc_examples.py): builds the four
+10. rtc        the user-kernel path (rtc_examples.py): builds the four
                CUDA twins of the Pallas user kernels through
                rtc.compile_kernel (ptxas report), holds each against
                its plain version at the JAX test's shape and at fp32
@@ -133,7 +167,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                kernel's calls, alone and through nd, with cProfile
                (host_profile).
 
-10. module     the symbolic frontend: (i) the MNIST MLP through
+11. module     the symbolic frontend: (i) the MNIST MLP through
                Module.fit to validation accuracy 0.95; (ii) ResNet-50 as
                a Symbol (_to_symbol under SoftmaxOutput) through Module
                at B=32, fp32: card vs CPU at B=2, the first loss vs the
@@ -148,7 +182,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                nd path, one launch a forward, 5 Module SGD steps, and
                the same steps with kvstore='tpu' (one run of the kernel
                a replay, the first loss equal to the nd path's).
-11. hybridize  HybridBlock.hybridize() through graph.CachedOp: (i)
+12. hybridize  HybridBlock.hybridize() through graph.CachedOp: (i)
                bench.py's CachedOp bench (24 x Dense(64, relu) +
                Dense(10), B=32): eager ms per call beside replay ms per
                call, one trace (capture) after 201 same-shape calls and
@@ -170,7 +204,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                and in jit mode: gradients bit-equal to the chain not
                hybridized, one captured pair per call that waits for
                the backward (3 captures).
-12. moe        TransformerLM at bench.py's width with moe_experts=8
+13. moe        TransformerLM at bench.py's width with moe_experts=8
                (capacity factor 1.25; 922.9M parameters): forward at
                B=8 x L=1024 (logits and aux finite, flash_fwd once per
                layer, the card within rel 1e-3 of the CPU at B=1 x
@@ -183,7 +217,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                the first of B=8, 4, 2 (x L=1024) whose peak stays under
                60 GB, eager and captured, bit-equal, one capture, each
                flash kernel once per layer per replay, peak memory.
-13. ops        the samplers, ordering and linear algebra (no hand
+14. ops        the samplers, ordering and linear algebra (no hand
                kernel on them): each of the 15 sampler ops (26 names
                with their aliases) draws 10^6 values on the card whose
                mean and variance lie within 5 standard errors of the
@@ -195,7 +229,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                each _linalg_ op and khatri_rao in float64 within 1e-10
                (max error over max) of the CPU, eigenvector and Q rows
                sign-normalised.
-14. rnn        the recurrent stack (cuDNN's RNN, no hand kernel): (i)
+15. rnn        the recurrent stack (cuDNN's RNN, no hand kernel): (i)
                the fused RNN op for each mode, one way and
                bidirectional, at the word LM's width (2 layers of 1500,
                T=35, N=20): outputs within 1e-4 and gradients within
@@ -225,7 +259,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                (iv) a HybridBlock holding rnn.LSTM hybridized: one
                capture with cuDNN's RNN inside, replays bit-equal to
                the eager call.
-15. detect     config 4 (SSD) and the detection, CTC and contrib ops, each
+16. detect     config 4 (SSD) and the detection, CTC and contrib ops, each
                held against the port on the CPU with the same inputs:
                (i) MultiBoxTarget (hard negative mining, ratio 3) and
                MultiBoxDetection (NMS 0.45 at nms_topk 400 and at the
@@ -291,7 +325,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                bit for bit).  nms_boxes's launches are counted per path
                (detect_ssd300, detect_train, detect_capture,
                detect_rcnn), and the ops launch nothing else.
-16. sparse     config 5, the sparse linear classifier
+17. sparse     config 5, the sparse linear classifier
                (examples/linear_classification.py's loop through
                incubator_mxnet_tpu_torch/tools/linear_classification.py:
                LibSVMIter's CSR batches, the weight in a KVStore with
@@ -314,7 +348,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                rows and updated weight rows within rel 1e-5 of the
                CPU's.  The path runs torch's own ops: it launches no
                kernel of the port.
-17. vision     alexnet, vgg16, squeezenet1_1, densenet121, mobilenet1_0
+18. vision     alexnet, vgg16, squeezenet1_1, densenet121, mobilenet1_0
                and inception_v3 (the model zoo's other families) at
                their published inputs (224; 299) from seeded Xavier
                weights: at B=1 the card's forward within 1e-3 (max error
@@ -324,7 +358,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                cuDNN, ms and img/s of each; inception_v3 then takes 5
                gluon.Trainer SGD steps on one fixed batch of 32 and its
                loss falls.  No kernel of the port runs.
-18. data       the input pipeline (no hand kernel: decode, augmentation
+19. data       the input pipeline (no hand kernel: decode, augmentation
                and batching run on the host, the copy is a DMA): which
                JPEG decoder the host has (native or PIL); (i) 10,000
                RecordIO records of 100 KB written and read back through
@@ -379,7 +413,7 @@ Phases, each printing one JSON line; any failed check exits non-zero:
                shards for 8 batches, bit-identical; every worker
                reports CUDA not initialized in it, the parent's CUDA
                initialized before the fork.
-19. operability  the step guard, loss scaling, divergence rollback, the
+20. operability  the step guard, loss scaling, divergence rollback, the
                perf observatory and the memory preflight and OOM ladder
                (no new kernel; the flash kernels run in (iv) to (vi));
                first, no earlier phase took a degrade rung or failed to
@@ -1407,6 +1441,556 @@ def phase_serve_engine(mt, torch, net):
     del eng
     torch.cuda.empty_cache()
     return flash_launches
+
+
+# ------------------------------------------------------------------- fleet
+# A2's rest at the serve_engine phase's width: the engine's operability
+# hooks, the step watchdog, the auto-sized pool and the perf report, then
+# three replica processes behind a ServingRouter under the JAX package's
+# chaos acceptance (tests/test_serving_fleet.py:474): one replica killed
+# at its 3rd dispatch, the router's 9th frame delayed; then a drain whose
+# snapshots restore on the card.
+FLEET_SPEC = "vocab=32000,d_model=1024,n_layers=12,n_heads=16,max_len=1024"
+FLEET_REPLICAS = 3
+FLEET_KILL = "router:replica:3:kill"     # replica 0's 3rd dispatch
+FLEET_NET = "router:net:9:hang"          # the router's 9th frame
+FLEET_NET_HANG_S = 0.2
+FLEET_STEP_HANG = "serve:step:2:hang"    # (ii): the 2nd decode step
+FLEET_STEP_HANG_S = 0.05
+FLEET_STEP_TIMEOUT = 0.02
+FLEET_TURNS = 4                          # (i): telemetry off, on, off, on
+FLEET_TIMED_STEPS = 16                   # decode-only steps timed a turn
+FLEET_BOOT_S = 300                       # the replicas' start, deadline
+FLEET_WAIT_S = 300                       # a batch's terminals, deadline
+FLEET_COUNTERS = ("serving_requests_total", "serving_tokens_total",
+                  "serving_prefill_tokens_total",
+                  "serving_prefix_cache_hits_total",
+                  "serving_prefix_cache_misses_total",
+                  "serving_preemptions_total")
+
+
+def fleet_counted(mt, path, fn, *args):
+    """``fn(*args)`` with the kernel wrappers' counts set to 0 before and
+    added into ``path`` after: the fleet path's launches."""
+    mt.ops.reset_launches()
+    try:
+        return fn(*args)
+    finally:
+        for k, v in mt.ops.LAUNCHES.items():
+            if v:
+                path[k] = path.get(k, 0) + v
+
+
+def fleet_traffic(eng, prompts):
+    """Every prompt submitted at once, the engine driven to its end:
+    (requests, wall seconds, [(step ms, decode only)])."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    steps = []
+    while eng.has_work():
+        t = time.perf_counter()
+        events = eng.step()
+        steps.append(((time.perf_counter() - t) * 1e3,
+                      len(events) == len({r.id for r, _ in events})))
+    return reqs, time.perf_counter() - t0, steps
+
+
+def fleet_margin(net, torch, tokens):
+    """(top1 - top2) / |top1| of the forward's logits after ``tokens``,
+    and the two token ids."""
+    with torch.inference_mode():
+        logits = net(torch.tensor([tokens], device=DEV))[0, -1]
+    top = logits.topk(2)
+    v = top.values.tolist()
+    return (v[0] - v[1]) / abs(v[0]), top.indices.tolist()
+
+
+def fleet_compare(net, torch, got, ref, what):
+    """``got`` and ``ref``: {key: (prompt, generated)}.  Each ``got``
+    equals its ``ref`` but where the two part at a tie: the forward's
+    top-two logits after the shared tokens within TIE_REL, and the two
+    tokens the top two (printed; that request is compared no further)."""
+    ties = []
+    for key, (prompt, gen) in sorted(got.items()):
+        ref_gen = ref[key][1]
+        check(ref[key][0] == prompt, f"{what} {key}: another prompt")
+        check(len(gen) == len(ref_gen),
+              f"{what} {key}: {len(gen)} tokens, the reference "
+              f"{len(ref_gen)}")
+        diff = [j for j in range(len(gen)) if gen[j] != ref_gen[j]]
+        if not diff:
+            continue
+        j = diff[0]
+        margin, top2 = fleet_margin(net, torch, prompt + gen[:j])
+        ties.append({"what": what, "request": key, "new_token": j,
+                     "got": gen[j], "reference": ref_gen[j],
+                     "top2_rel_margin": margin})
+        check(margin <= TIE_REL and {gen[j], ref_gen[j]} == set(top2),
+              f"{what} {key} differs from the reference at new token "
+              f"{j} ({gen[j]} vs {ref_gen[j]}), top-two margin {margin} "
+              f"> {TIE_REL} or not the top two {top2}")
+    return ties
+
+
+def fleet_reading(mt):
+    reg = mt.telemetry.get_registry()
+    return {n: reg.counter(n).value for n in FLEET_COUNTERS}
+
+
+def fleet_sync_wave(torch, eng, prompts):
+    """One wave under ``set_sync_debug_mode("warn")``: each step's count
+    of synchronizing CUDA calls, for decode-only steps and for steps
+    that admitted (prefill copies its inputs and reads its first
+    token)."""
+    import warnings
+    for p in prompts:
+        eng.submit(p, NEW_TOKENS)
+    decode, admit = [], []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        while eng.has_work():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                events = eng.step()
+            n = sum("synchroniz" in str(w.message) for w in caught)
+            only = len(events) == len({r.id for r, _ in events})
+            (decode if only else admit).append(n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return decode, admit
+
+
+def fleet_turns(mt, torch, net, prompts):
+    """Decode ms per iteration with MXTPU_TELEMETRY=0 and =1, in turns
+    (off, on, off, on): an engine built under each setting, a full
+    batch admitted by one step, then FLEET_TIMED_STEPS decode-only steps
+    timed on the host clock (each ends in its token read)."""
+    from incubator_mxnet_tpu_torch.serving import ServingEngine
+    engines = {}
+    for flag in ("0", "1"):
+        with env_set(mt, MXTPU_TELEMETRY=flag):
+            engines[flag] = ServingEngine(net, **ENGINE)
+    out = {"0": [], "1": []}
+    for turn in range(FLEET_TURNS):
+        flag = "01"[turn % 2]
+        eng = engines[flag]
+        with env_set(mt, MXTPU_TELEMETRY=flag):
+            for p in prompts[:eng.max_batch]:
+                eng.submit(p, NEW_TOKENS)
+            eng.step()
+            check(eng._sched.n_running() == eng.max_batch,
+                  "a turn's batch admitted by one step")
+            times = []
+            for _ in range(FLEET_TIMED_STEPS):
+                t = time.perf_counter()
+                eng.step()
+                times.append((time.perf_counter() - t) * 1e3)
+            eng.run()
+        out[flag].append(sorted(times)[len(times) // 2])
+    check(all(e.trace_counts.get("decode") == 1 for e in engines.values()),
+          "a turn's engine captured decode more than once")
+    return {"telemetry_off_ms": out["0"], "telemetry_on_ms": out["1"]}
+
+
+def fleet_engine(mt, torch, net, prompts, path):
+    """(i) the hooked engine on the phase serve_engine's traffic with
+    telemetry on: counters against the traffic, one decode capture, one
+    synchronizing call a decode-only iteration; then the in-turns
+    timing; (iv) the perf report and the serving_mfu gauge."""
+    import numpy as np
+    from incubator_mxnet_tpu_torch.serving import FINISHED, ServingEngine
+    before = fleet_reading(mt)
+    eng = ServingEngine(net, **ENGINE)
+    reqs, wall, steps = fleet_counted(mt, path, fleet_traffic, eng,
+                                      prompts)
+    delta = {k: v - before[k] for k, v in fleet_reading(mt).items()}
+    check(all(r.state == FINISHED for r in reqs),
+          f"(i) states {[r.state for r in reqs]}")
+    n_prompt = sum(len(p) for p in prompts)
+    hits = eng.prefix_hit_tokens
+    want = {"serving_requests_total": len(prompts),
+            "serving_tokens_total": len(prompts) * NEW_TOKENS,
+            "serving_prefill_tokens_total": n_prompt - hits,
+            "serving_prefix_cache_hits_total": hits,
+            "serving_prefix_cache_misses_total": n_prompt - hits,
+            "serving_preemptions_total": 0}
+    check(delta == want and hits > 0,
+          f"(i) counters {delta} against the traffic's {want}")
+    check(eng.trace_counts.get("decode") == 1,
+          f"(i) decode captured {eng.trace_counts.get('decode')} times")
+    reg = mt.telemetry.get_registry()
+    mfu = reg.gauge("serving_mfu").value
+    check(math.isfinite(mfu) and 0.0 < mfu < 1.0,
+          f"(iv) serving_mfu {mfu} not in (0, 1)")
+    full = [ms for ms, only in steps if only]
+    decode_ms = float(np.median(full))
+    ctx = int(np.mean([len(p) + NEW_TOKENS / 2 for p in prompts]))
+    rep = eng.perf_report(context_len=ctx, batch=eng.max_batch)
+    sync_decode, sync_admit = fleet_counted(
+        mt, path, fleet_sync_wave, torch, eng, prompts[:eng.max_batch])
+    check(sync_admit and min(sync_admit) >= 1,
+          f"(i) the sync counter saw no prefill sync: {sync_admit}")
+    check(sync_decode and set(sync_decode) == {1},
+          f"(i) synchronizing calls a decode-only step: {sync_decode}")
+    check(eng.trace_counts.get("decode") == 1, "(i) one capture after "
+          "the sync wave")
+    ref = {r.id: (r.prompt, list(r.generated)) for r in reqs}
+    ttft = [r.first_token_ts - r.submit_ts for r in reqs]
+    out = {"wall_s": wall,
+           "tokens_per_s": len(prompts) * NEW_TOKENS / wall,
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_p99_s": float(np.percentile(ttft, 99)),
+           "decode_ms_per_iteration": decode_ms,
+           "counters": delta, "trace_counts": dict(eng.trace_counts),
+           "syncs_per_decode_step": sync_decode,
+           "syncs_per_admit_step": sync_admit,
+           "serving_mfu": mfu,
+           "serving_flops_per_token":
+               reg.gauge("serving_flops_per_token").value,
+           "perf_report": {
+               "context_len": rep["context_len"], "batch": rep["batch"],
+               "dtype": rep["dtype"], "device": rep["device"],
+               "flops_per_token": rep["flops_per_token"],
+               "roofline_ms": rep["roofline"]["predicted_s"] * 1e3,
+               "bound": rep["roofline"]["bound"],
+               "per_family": rep["per_family"]},
+           "span_serve_decode_p50_s": reg.histogram(
+               "span_serve_decode_seconds").percentile(0.5)}
+    del eng
+    out["in_turns"] = fleet_counted(mt, path, fleet_turns, mt, torch, net,
+                                    prompts)
+    return ref, out
+
+
+def fleet_watchdog(mt, torch, net, prompts, ref, tmp, path):
+    """(ii) serve:step:2:hang of 0.05 s against a 0.02-s budget: one
+    serve_step_overrun of at least 0.05 s, the flight recorder dumped
+    for it, and every request with the unfaulted run's tokens."""
+    import os
+    from incubator_mxnet_tpu_torch.serving import FINISHED, ServingEngine
+    eng = ServingEngine(net, **ENGINE, step_timeout=FLEET_STEP_TIMEOUT)
+    eng._capture()          # the capture's time stays out of the watch
+    dump = os.path.join(tmp, "flight.jsonl")
+    with env_set(mt, MXTPU_FAULT_SPEC=FLEET_STEP_HANG,
+                 MXTPU_FAULT_HANG_S=FLEET_STEP_HANG_S,
+                 MXTPU_TRACE_DUMP=dump):
+        reqs, _, _ = fleet_counted(mt, path, fleet_traffic, eng, prompts)
+    evs = mt.tracing.events("serve_step_overrun", engine=eng.engine_id)
+    hung = [e for e in evs if e["seconds"] >= FLEET_STEP_HANG_S]
+    check(len(hung) == 1, f"(ii) overruns {evs}")
+    with open(dump) as f:
+        head = json.loads(f.readline())
+    check(head.get("reason") == "serve_step_overrun",
+          f"(ii) the dump's first line {head}")
+    check(all(r.state == FINISHED for r in reqs), "(ii) states")
+    check(eng.trace_counts.get("decode") == 1, "(ii) one capture")
+    got = {r.id: (r.prompt, list(r.generated)) for r in reqs}
+    ties = fleet_compare(net, torch, got, ref, "watchdog")
+    return {"overruns": [{"seconds": e["seconds"], "budget": e["budget"]}
+                         for e in evs],
+            "dump_reason": head.get("reason"), "ties": ties}
+
+
+def fleet_auto_pool(mt, torch, net, prompts, ref, path):
+    """(iii) num_blocks="auto" on the card: the pool's block count and
+    the plan, the traffic served, the peak the engine allocated against
+    the plan; a budget below the weights refused before any pool."""
+    from incubator_mxnet_tpu_torch.serving import FINISHED, ServingEngine
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(net, **dict(ENGINE, num_blocks="auto"))
+    plan = eng.memory_plan
+    reqs, _, _ = fleet_counted(mt, path, fleet_traffic, eng, prompts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(r.state == FINISHED for r in reqs), "(iii) states")
+    got = {r.id: (r.prompt, list(r.generated)) for r in reqs}
+    ties = fleet_compare(net, torch, got, ref, "auto_pool")
+    out = {"num_blocks": eng.num_blocks,
+           "cap": eng.max_batch * eng.max_blocks + 1,
+           "plan": plan.as_dict(),
+           "engine_peak_bytes": peak,
+           "engine_peak_over_plan_kv_and_workspace":
+               peak / (plan.kv_pool + plan.activations),
+           "ties": ties}
+    del eng, reqs
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    refused = None
+    with env_set(mt, MXTPU_HBM_BYTES=plan.params / 2):
+        try:
+            ServingEngine(net, **dict(ENGINE, num_blocks="auto"))
+        except mt.resilience.MemoryPlanError as exc:
+            refused = str(exc)
+    torch.cuda.synchronize()
+    check(refused is not None, "(iii) no MemoryPlanError below the weights")
+    check(torch.cuda.memory_allocated() == held,
+          "(iii) the refused engine allocated device memory")
+    out["refusal"] = refused[:200]
+    return out
+
+
+def fleet_spawn(tmp, i, fault):
+    import os
+    env = dict(os.environ)
+    for k in ("MXTPU_FAULT_SPEC", "MXTPU_FAULT_HANG_S", "MXTPU_TRACE_DUMP",
+              "MXTPU_HBM_BYTES", "MXTPU_TELEMETRY"):
+        env.pop(k, None)
+    if fault:
+        env["MXTPU_FAULT_SPEC"] = fault
+    if DEV == "cpu":
+        env["MXTPU_FORCE_CPU"] = "1"
+    port_file = os.path.join(tmp, f"port{i}")
+    log = open(os.path.join(tmp, f"replica{i}.log"), "wb")
+    cmd = [sys.executable, "-m", "incubator_mxnet_tpu_torch.serving.replica",
+           "--tiny", FLEET_SPEC, "--name", f"fleet{i}",
+           "--max-batch", str(ENGINE["max_batch"]),
+           "--block-size", str(ENGINE["block_size"]),
+           "--num-blocks", str(ENGINE["num_blocks"]),
+           "--prefix-cache", str(int(ENGINE["prefix_cache"])),
+           "--port-file", port_file]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), env=env, stdout=log, stderr=subprocess.STDOUT)
+    return proc, port_file, log
+
+
+def fleet_log_tail(tmp, i, n=2000):
+    import os
+    try:
+        with open(os.path.join(tmp, f"replica{i}.log"), "rb") as f:
+            return f.read()[-n:].decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def fleet_ports(procs, tmp):
+    import os
+    deadline = time.monotonic() + FLEET_BOOT_S
+    while time.monotonic() < deadline:
+        for i, (proc, _, _) in enumerate(procs):
+            check(proc.poll() is None,
+                  f"(v) replica {i} exited {proc.returncode} at start: "
+                  f"{fleet_log_tail(tmp, i)}")
+        if all(os.path.exists(pf) for _, pf, _ in procs):
+            return [int(open(pf).read()) for _, pf, _ in procs]
+        time.sleep(0.1)
+    check(False, f"(v) the replicas did not come up in {FLEET_BOOT_S} s")
+
+
+def fleet_wait_tokens(router, reqs):
+    deadline = time.monotonic() + FLEET_WAIT_S
+    while time.monotonic() < deadline and \
+            not any(r.generated for r in reqs):
+        router.poll()
+        time.sleep(0.02)
+    check(any(r.generated for r in reqs), "(vi) no token flowed")
+
+
+def fleet_chaos(mt, torch, net, prompts, ref, tmp, path):
+    """(v) three replica processes on the card behind a ServingRouter in
+    this process; (vi) the drain."""
+    import os
+
+    import numpy as np
+    from incubator_mxnet_tpu_torch.serving import (FINISHED, ServingEngine,
+                                                   ServingRouter)
+    from incubator_mxnet_tpu_torch.serving import router as router_mod
+    procs, router, out = [], None, {}
+    try:
+        t_boot = time.perf_counter()
+        for i in range(FLEET_REPLICAS):
+            procs.append(fleet_spawn(tmp, i, FLEET_KILL if i == 0 else ""))
+        ports = fleet_ports(procs, tmp)
+        out["boot_s"] = time.perf_counter() - t_boot
+        mt.tracing.get_recorder().clear()
+        # the router module's own handles (a registry reset would leave
+        # them out of the registry)
+        red0 = router_mod._m_redispatch.value
+        fail_hist = router_mod._m_failover
+        fail0 = fail_hist.count
+        with env_set(mt, MXTPU_FAULT_SPEC=FLEET_NET,
+                     MXTPU_FAULT_HANG_S=FLEET_NET_HANG_S):
+            router = ServingRouter(
+                replicas=[("127.0.0.1", p) for p in ports],
+                block_size=ENGINE["block_size"], poll_interval=0.02,
+                stale_after=10.0).connect()
+            t0 = time.perf_counter()
+            reqs = [router.submit(p, NEW_TOKENS, deadline=FLEET_WAIT_S)
+                    for p in prompts]
+            done = router.wait(reqs, timeout=FLEET_WAIT_S)
+            wall = time.perf_counter() - t0
+        check(done, f"(v) not every request ended: "
+              f"{[r.state for r in reqs]}")
+        check(all(r.state == FINISHED for r in reqs),
+              f"(v) states {[(r.id, r.state, r.error) for r in reqs]}")
+        for r in reqs:
+            n = len(mt.tracing.events("router_terminal", rid=r.id))
+            check(n == 1, f"(v) request {r.id}: {n} router_terminal events")
+        code = procs[0][0].wait(timeout=60)
+        check(code == 1, f"(v) replica 0 exited {code}, not 1")
+        redispatches = router_mod._m_redispatch.value - red0
+        red_events = mt.tracing.events("router_redispatch")
+        check(redispatches >= 1 and red_events,
+              f"(v) re-dispatches {redispatches}, events {len(red_events)}")
+        homes = {}
+        for ev in mt.tracing.events():
+            if ev.get("event") in ("router_dispatch", "router_redispatch"):
+                homes.setdefault(ev["rid"], []).append(ev["replica"])
+        even = {homes[r.id][-1] for r in reqs if r.id % 2 == 0}
+        odd = {homes[r.id][-1] for r in reqs if r.id % 2 == 1}
+        check(len(even) < len(odd),
+              f"(v) the shared-prompt requests landed on {sorted(even)}, "
+              f"the others on {sorted(odd)}")
+        got = {r.id: (r.prompt, list(r.generated)) for r in reqs}
+        survivors = [f"replica{i}" for i in range(1, FLEET_REPLICAS)]
+        stats = {}
+        for name in survivors:
+            st = router.replica_stats(name, timeout=30.0)
+            cache = {int(k): v for k, v in st["cache_refs"].items()}
+            live = {int(k): v for k, v in st["pool_live"].items()}
+            check(live == cache and st["num_allocated"]
+                  == sum(cache.values()),
+                  f"(v) {name} holds blocks beyond its prefix cache: "
+                  f"{live} against {cache}")
+            stats[name] = {
+                "num_allocated": st["num_allocated"],
+                "cache_blocks": len(cache),
+                "device_peak_bytes": st["memory"].get("device_peak_bytes"),
+                "decode_captures": st["stats"]["trace_counts"].get("decode")}
+        samples = list(fail_hist._samples)[-(fail_hist.count - fail0):] \
+            if fail_hist.count > fail0 else []
+        ttft = [r.first_token_ts - r.submit_ts for r in reqs]
+        # the same traffic again through the two survivors, now warm (the
+        # chaos batch paid each replica's capture and first prefills)
+        t0 = time.perf_counter()
+        warm = [router.submit(p, NEW_TOKENS, deadline=FLEET_WAIT_S)
+                for p in prompts]
+        check(router.wait(warm, timeout=FLEET_WAIT_S)
+              and all(r.state == FINISHED for r in warm),
+              f"(v) warm batch states {[r.state for r in warm]}")
+        warm_wall = time.perf_counter() - t0
+        warm_ttft = [r.first_token_ts - r.submit_ts for r in warm]
+        got_warm = {i: (r.prompt, list(r.generated))
+                    for i, r in enumerate(warm)}
+        out.update({
+            "wall_s": wall,
+            "tokens_per_s": len(prompts) * NEW_TOKENS / wall,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "warm_survivors": {
+                "wall_s": warm_wall,
+                "tokens_per_s": len(prompts) * NEW_TOKENS / warm_wall,
+                "ttft_p50_s": float(np.percentile(warm_ttft, 50)),
+                "ttft_p99_s": float(np.percentile(warm_ttft, 99))},
+            "replica0_exit": code, "redispatches": redispatches,
+            "redispatched_requests": sorted(
+                r.id for r in reqs if r.redispatches),
+            "recovery_s": samples,
+            "homes_even": sorted(even), "homes_odd": sorted(odd),
+            "survivors": stats})
+        # (vi) a second batch, drained once tokens flow
+        reqs2 = [router.submit(p, NEW_TOKENS, deadline=FLEET_WAIT_S)
+                 for p in prompts]
+        fleet_wait_tokens(router, reqs2)
+        snapdir = os.path.join(tmp, "snaps")
+        os.makedirs(snapdir)
+        drained = router.drain(wait=True, timeout=120.0,
+                               snapshot_dir=snapdir)
+        check(drained == set(survivors), f"(vi) drained {drained}")
+        for i in range(1, FLEET_REPLICAS):
+            code = procs[i][0].wait(timeout=120)
+            check(code == 0, f"(vi) replica {i} exited {code}: "
+                  f"{fleet_log_tail(tmp, i)}")
+        key = {r.id: i for i, r in enumerate(reqs2)}
+        restored = {}
+        for name in sorted(drained):
+            eng = ServingEngine.restore(
+                net, os.path.join(snapdir, f"{name}.snap"), **ENGINE)
+            res = fleet_counted(mt, path, eng.run)
+            states = eng.stats()["terminal_counts"]
+            check(set(states) == {FINISHED},
+                  f"(vi) restored requests ended {states}")
+            check(eng.trace_counts.get("decode", 0) <= 1,
+                  "(vi) a restored engine captured twice")
+            for rid, toks in res.items():
+                p = prompts[key[rid]]
+                restored[key[rid]] = (p, toks[len(p):])
+            del eng
+        live_done = {key[r.id]: (r.prompt, list(r.generated))
+                     for r in reqs2 if r.done}
+        check(all(r.state == FINISHED for r in reqs2 if r.done),
+              "(vi) a drained request ended otherwise than finished")
+        lost = [key[r.id] for r in reqs2
+                if not r.done and key[r.id] not in restored]
+        check(not lost, f"(vi) requests lost: {lost}")
+        check(len(restored) > 0 and any(not r.done for r in reqs2),
+              "(vi) the drain left no work to restore")
+        out["drain"] = {"finished_live": len(live_done),
+                        "restored": len(restored),
+                        "snapshots": sorted(drained)}
+        out["ties"] = fleet_compare(net, torch, got, ref, "fleet")
+        out["ties"] += fleet_compare(net, torch, got_warm, ref, "warm")
+        out["ties"] += fleet_compare(net, torch, live_done, ref,
+                                     "drained_live")
+        out["ties"] += fleet_compare(net, torch, restored, ref, "restored")
+    except CheckFailed:
+        emit({"phase": "fleet", "failed": True,
+              "router": router.stats() if router is not None else None,
+              "replica_logs": {i: fleet_log_tail(tmp, i)
+                               for i in range(len(procs))}})
+        raise
+    finally:
+        if router is not None:
+            router.close()
+        for proc, _, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            log.close()
+    return out
+
+
+def phase_fleet(mt, torch, card):
+    """A2's rest on the card at the serve_engine phase's width: the
+    hooked engine (i), the watchdog (ii), the auto pool (iii), the perf
+    report (iv), the three-replica fleet under the chaos faults (v) and
+    its drain (vi).  Every request of every part is held against the
+    in-process engine's tokens over ``_build_tiny`` of the replicas'
+    spec, but at printed top-two ties within TIE_REL."""
+    import shutil
+    import tempfile
+    from incubator_mxnet_tpu_torch.serving.replica import _build_tiny
+    path = {}
+    net = _build_tiny(FLEET_SPEC)
+    check(net.device.type == DEV, f"_build_tiny built on {net.device}")
+    prompts = engine_prompts(MODEL["vocab_size"])
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    try:
+        # every part keys a request by its place in the traffic: engine
+        # and router ids count from 0 in submission order
+        ref, engine = fleet_engine(mt, torch, net, prompts, path)
+        watchdog = fleet_watchdog(mt, torch, net, prompts, ref, tmp, path)
+        auto = fleet_auto_pool(mt, torch, net, prompts, ref, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        chaos = fleet_chaos(mt, torch, net, prompts, ref, tmp, path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not any(k.startswith("flash") for k in path),
+          f"the fleet path launched {path}")
+    emit({"phase": "fleet", "card": card, "spec": FLEET_SPEC,
+          "config": ENGINE, "requests": len(prompts),
+          "new_tokens": NEW_TOKENS, "tie_rel": TIE_REL,
+          "engine": engine, "watchdog": watchdog, "auto_pool": auto,
+          "fleet": chaos, "launches": path})
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path
 
 
 def lm_loss(outputs, labels):
@@ -7877,6 +8461,7 @@ def main():
         serve_launches = timed("serve", phase_serve, mt, torch, net)
         engine_launches = timed("serve_engine", phase_serve_engine, mt,
                                 torch, net)
+        fleet_launches = timed("fleet", phase_fleet, mt, torch, card)
         train_launches, fp32_launches, replay_runs = timed(
             "train", phase_train, mt, torch, net, card)
         del net
@@ -7939,6 +8524,8 @@ def main():
             e["launches_by_path"]["vision"] = vision_launches.get(
                 e["name"], 0)
             e["launches_by_path"]["data"] = data_launches.get(e["name"], 0)
+            e["launches_by_path"]["fleet"] = fleet_launches.get(e["name"],
+                                                                0)
             e["launches_by_path"]["operability"] = ops_launches_19.get(
                 e["name"], 0)
             if e["name"] in hyb_runs:

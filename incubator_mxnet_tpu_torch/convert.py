@@ -91,8 +91,15 @@ def load_gluon_params(block, arrays, ctx=None):
 def load_reference_weights(model, wts):
     """Copy ``wts`` into ``model``'s parameters; returns the model.
     Raises ``ValueError`` on a missing key or a shape mismatch (a dense
-    layer against an MoE one among them), and ``NotImplementedError`` on
-    int8 ``{q, s}`` leaves, which the port does not carry."""
+    layer against an MoE one among them).
+
+    ``wts`` may be int8-quantized (the JAX package's
+    ``serving.quantize_weights``: a matrix as ``{"q": int8 (out, in),
+    "s": float32 (out,)}``).  Such a leaf loads as ``q * s[:, None]`` in
+    fp32, the value the JAX step dequantizes to, so an engine built with
+    ``quantize="int8"`` re-derives the same int8 codes (symmetric absmax
+    per output row: a row's largest code is 127, which gives back its
+    scale) and serves in the port's ``serving/quantize.py`` layout."""
     with torch.no_grad():
         _copy(model._decode_params(), wts, "wts")
     return model
@@ -116,9 +123,17 @@ def _copy(dst, src, path):
             _copy(d, s, f"{path}[{i}]")
     else:
         if isinstance(src, dict):
-            raise NotImplementedError(
-                f"{path}: int8 {{q, s}} weights are not ported yet")
-        arr = np.array(src, dtype=np.float32)
+            if set(src) != {"q", "s"}:
+                raise ValueError(f"{path}: expected an array or an int8 "
+                                 f"{{q, s}} pair, got keys {sorted(src)}")
+            q = np.asarray(src["q"])
+            if q.dtype != np.int8 or q.ndim != 2:
+                raise ValueError(f"{path}: q must be a 2-D int8 array, "
+                                 f"got {q.dtype} {q.shape}")
+            arr = q.astype(np.float32) \
+                * np.asarray(src["s"], dtype=np.float32)[:, None]
+        else:
+            arr = np.array(src, dtype=np.float32)
         if arr.shape != tuple(dst.shape):
             raise ValueError(f"{path}: shape {arr.shape}, the model has "
                              f"{tuple(dst.shape)}")

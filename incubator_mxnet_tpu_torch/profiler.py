@@ -15,8 +15,9 @@ Two layers, as the reference splits its own op stats from nvprof:
 
 A dump ends with the telemetry registry's counters and gauges as
 counter ('C') events, and ``telemetry.span`` sections land in the same
-stream (category 'span').  The serving engine's lanes come with
-ROADMAP item A2.
+stream (category 'span').  The serving engine's per-request async
+events land on named synthetic lanes (``SERVE_QUEUE_LANE``, and
+``SERVE_SLOT_LANE0 + slot``).
 """
 import json
 import os
@@ -28,6 +29,13 @@ from .resilience import _replace_with_bytes
 
 __all__ = ["set_config", "set_state", "dump_profile", "pause",
            "resume", "start_xla_trace", "stop_xla_trace", "Profiler"]
+
+# synthetic thread ids ("lanes") for async request streams: chrome
+# tracing wants a tid per row, and the serving engine's per-request
+# b/e events should render on named serving rows next to the span
+# stream, not interleaved with real thread ids
+SERVE_QUEUE_LANE = 900000
+SERVE_SLOT_LANE0 = 900001
 
 
 class Profiler:

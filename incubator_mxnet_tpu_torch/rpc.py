@@ -16,9 +16,9 @@ propagates the *remaining* per-request deadline across the process
 boundary, so a request re-dispatched after a replica death runs under
 what is left of its budget, not a fresh one (docs/serving.md "Fleet").
 
-Two planes speak this transport in the JAX package: the serving
-fleet (``serving/rpc.py``, not ported yet) and the remote
-data-service ranks (``data_service/net.py``,
+Two planes speak this transport: the serving fleet
+(``serving/rpc.py``, ``serving/router.py``, ``serving/replica.py``) and
+the remote data-service ranks (``data_service/net.py``,
 docs/data_service.md "Remote ranks").  The only plane-specific knob
 is the fault-injection scope: the frame *send* path consults
 ``fault_scope`` (default ``("router", "net")``; the data plane's
@@ -273,6 +273,13 @@ class RpcClient:
             raise RpcError(
                 f"rpc connect to {self.host}:{self.port} failed: "
                 f"{e}") from None
+        if sock.getsockname() == sock.getpeername():
+            # TCP self-connect: a local port in the ephemeral range with
+            # nothing listening (a dead replica's) can hand a retrying
+            # client its own socket; the link would echo its frames
+            sock.close()
+            raise RpcError(f"rpc connect to {self.host}:{self.port} "
+                           "reached itself (nothing listens there)")
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sock = sock
         return self

@@ -13,11 +13,19 @@ prefix-cache hits, ``keep_logits`` rows within rtol 1e-4, atol 1e-5
 (fp32 on the CPU, sums in another order), and a snapshot file the JAX
 engine wrote restores in the port's engine and finishes token-identical.
 
-Not here (their mechanisms are not ported yet): fault injection,
-telemetry counters and trace events, the step watchdog and SIGTERM.
+Then the operability hooks against the JAX engine: counters, histogram
+sample counts, gauges and per-request trace events on one lockstep
+workload (exactly; host-clock values take no part), the serve:* fault
+points and the step watchdog, ``num_blocks="auto"`` (the same block
+count), ``perf_report`` (the same flops and bytes), SIGTERM's
+snapshot-then-drain, and int8 reference weights.  The fleet is in
+``tests/test_torch_fleet.py``.
 """
 import gc
+import json
 import os
+import signal
+import threading
 import time
 
 import numpy as np
@@ -33,11 +41,13 @@ from incubator_mxnet_tpu import telemetry  # noqa: E402
 from incubator_mxnet_tpu.gluon.model_zoo import transformer as jtr  # noqa: E402
 import incubator_mxnet_tpu_torch as mt  # noqa: E402
 from incubator_mxnet_tpu_torch import resilience  # noqa: E402
+from incubator_mxnet_tpu_torch import telemetry as ptelemetry  # noqa: E402
+from incubator_mxnet_tpu_torch import tracing as ptracing  # noqa: E402
 from incubator_mxnet_tpu_torch.convert import load_reference_weights  # noqa: E402
 from incubator_mxnet_tpu_torch.gluon.model_zoo.transformer import (  # noqa: E402
     TransformerLM)
 from incubator_mxnet_tpu_torch.serving import (  # noqa: E402
-    CANCELLED, EXPIRED, FINISHED, BlockPool, BlockPoolExhausted,
+    CANCELLED, EXPIRED, FAILED, FINISHED, BlockPool, BlockPoolExhausted,
     PrefixCache, RequestTooLargeError, ServeRejectedError, ServingEngine,
     ServingError, quantization_error, quantize_weights, weights_nbytes)
 from torch_port_threads import one_intra_op_thread  # noqa: E402,F401
@@ -292,10 +302,11 @@ def test_engine_rejects_unsupported_models_and_unported_options():
     moe.moe_experts = 2   # the guard reads the flag before any weight
     with pytest.raises(NotImplementedError, match="MoE"):
         _engine(moe)
-    with pytest.raises(NotImplementedError, match="auto"):
-        _engine(num_blocks="auto")
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        _engine(step_timeout=1.0)
+    # the options the JAX engine takes construct here too: nothing is
+    # refused as not ported
+    eng = _engine(num_blocks="auto")
+    assert eng.auto_blocks and eng.num_blocks > 1
+    assert _engine(step_timeout=1.0).step_timeout == 1.0
 
 
 def test_engine_defaults_come_from_the_environment(monkeypatch):
@@ -608,3 +619,302 @@ def test_quantize_matches_jax():
     assert weights_nbytes(pq) == jserving.weights_nbytes(jq)
     assert quantization_error(port._decode_params(), pq) == pytest.approx(
         jserving.quantization_error(_JAX["wts"], jq), rel=1e-5)
+
+
+# ------------------------------------------- operability hooks (A2)
+_COUNTERS = ("serving_requests_total", "serving_tokens_total",
+             "serving_prefill_tokens_total",
+             "serving_prefix_cache_hits_total",
+             "serving_prefix_cache_misses_total",
+             "serving_preemptions_total", "serving_evictions_total",
+             "serving_rejected_total", "serving_expired_total",
+             "serving_cancelled_total", "serving_drains_total")
+_HISTS = ("serving_queue_wait_seconds", "serving_ttft_seconds",
+          "serving_token_latency_seconds", "span_serve_prefill_seconds",
+          "span_serve_decode_seconds")
+_GAUGES = ("serving_batch_occupancy", "serving_block_pool_utilization",
+           "serving_queue_depth", "serving_queued_prompt_tokens")
+
+
+def _reading(tel):
+    reg = tel.get_registry()
+    return ({n: reg.counter(n).value for n in _COUNTERS},
+            {n: reg.histogram(n).count for n in _HISTS})
+
+
+def _gauges(tel):
+    reg = tel.get_registry()
+    return {n: reg.gauge(n).value for n in _GAUGES}
+
+
+def _lifecycles(trc, eng):
+    """Per request id, the names of its trace events, in order."""
+    out = {}
+    for ev in trc.events(engine=eng.engine_id):
+        if "rid" in ev:
+            out.setdefault(ev["rid"], []).append(ev["event"])
+    return out
+
+
+def test_hooks_match_jax_engine_counters_gauges_and_events():
+    """One workload through both engines in lockstep, over the same
+    weights: prefix hits, a preemption (a 10-block pool), a submission
+    shed at the queue limit, a TTFT expiry, a cancel and a drain.  Every
+    counter's delta, every histogram's sample count, the occupancy,
+    pool and queue gauges after every iteration, and each request's
+    sequence of trace-event names agree; the host-clock values do not
+    take part."""
+    from incubator_mxnet_tpu import tracing as jtracing
+    net, port = _jax_pair()
+    rs = np.random.RandomState(71)
+    system = list(rs.randint(0, VOCAB, 8))
+    plan = [(system + list(rs.randint(0, VOCAB, 3)), 12, None),
+            (system + list(rs.randint(0, VOCAB, 5)), 12, None),
+            (list(rs.randint(0, VOCAB, 6)), 4, None),
+            (list(rs.randint(0, VOCAB, 5)), 4, 1e-6)]
+    cfg = dict(max_batch=2, block_size=4, num_blocks=10,
+               prefix_cache=True, queue_limit=4)
+    engines = {"jax": (jserving.ServingEngine(net, **cfg), telemetry,
+                       jtracing),
+               "port": (ServingEngine(port, **cfg), ptelemetry,
+                        ptracing)}
+    before = {k: _reading(tel) for k, (_, tel, _) in engines.items()}
+    reqs = {}
+    for key, (eng, _, _) in engines.items():
+        reqs[key] = [eng.submit(p, n, ttft_deadline=t)
+                     for p, n, t in plan]
+        with pytest.raises((ServeRejectedError,
+                            jserving.ServeRejectedError),
+                           match="queue_limit"):
+            eng.submit([1, 2, 3], 2)
+    time.sleep(2e-3)                    # past the 1 us TTFT budget
+    it = 0
+    jeng, peng = engines["jax"][0], engines["port"][0]
+    while jeng.has_work() or peng.has_work():
+        if it == 6:
+            assert jeng.cancel(reqs["jax"][2].id)
+            assert peng.cancel(reqs["port"][2].id)
+        jev, pev = jeng.step(), peng.step()
+        assert [(r.id, t) for r, t in pev] == \
+            [(r.id, int(t)) for r, t in jev]
+        assert _gauges(ptelemetry) == pytest.approx(_gauges(telemetry))
+        it += 1
+    jeng.drain()
+    peng.drain()
+    states = [[r.state for r in reqs[k]] for k in ("jax", "port")]
+    assert states[0] == states[1]
+    assert set(states[1]) == {FINISHED, EXPIRED, CANCELLED}
+    after = {k: _reading(tel) for k, (_, tel, _) in engines.items()}
+    delta = {k: ({n: after[k][0][n] - before[k][0][n] for n in _COUNTERS},
+                 {n: after[k][1][n] - before[k][1][n] for n in _HISTS})
+             for k in engines}
+    assert delta["port"] == delta["jax"]
+    counters = delta["port"][0]
+    assert counters["serving_preemptions_total"] > 0
+    assert counters["serving_prefix_cache_hits_total"] > 0
+    assert counters["serving_rejected_total"] == 1
+    assert counters["serving_expired_total"] == 1
+    assert counters["serving_cancelled_total"] == 1
+    assert counters["serving_drains_total"] == 1
+    jl, pl = (_lifecycles(trc, eng)
+              for eng, _, trc in engines.values())
+    assert pl == jl and len(pl) == len(plan)
+    assert pl[reqs["port"][1].id].count("serve_preempt") + \
+        pl[reqs["port"][0].id].count("serve_preempt") > 0
+
+
+def test_injected_faults_watchdog_and_dump(tmp_path, monkeypatch):
+    """The four serve:* fault points and the step watchdog."""
+    monkeypatch.setenv("MXTPU_FAULT_SPEC", "serve:step:1:hang")
+    monkeypatch.setenv("MXTPU_FAULT_HANG_S", "0.05")
+    resilience.reset_faults()
+    eng = _engine(step_timeout=0.01)
+    req = eng.submit([1, 2, 3], 2)
+    eng.run()
+    assert req.state == FINISHED    # detected, not fatal
+    evs = ptracing.events("serve_step_overrun", engine=eng.engine_id)
+    assert evs and evs[0]["seconds"] >= 0.05     # the hung first step
+    # every step overruns a 1 ns budget: the flight recorder dumps
+    path = str(tmp_path / "flight.jsonl")
+    monkeypatch.setenv("MXTPU_FAULT_SPEC", "")
+    monkeypatch.setenv("MXTPU_TRACE_DUMP", path)
+    eng = _engine(step_timeout=1e-9)
+    eng.submit([1, 2, 3], 2)
+    eng.run()
+    lines = [json.loads(line) for line in open(path).read().splitlines()]
+    assert lines[0]["reason"] == "serve_step_overrun"
+    assert any(e.get("event") == "serve_step_overrun" for e in lines[1:])
+    monkeypatch.delenv("MXTPU_TRACE_DUMP")
+    # an injected step error is loud and leaves no half-filled input
+    monkeypatch.setenv("MXTPU_FAULT_SPEC", "serve:step:1:error")
+    resilience.reset_faults()
+    eng = _engine()
+    eng.submit([1, 2, 3], 2)
+    with pytest.raises(resilience.TransientError):
+        eng.run()
+    assert not eng._host_np[0].any() and not eng._host_np[2].any()
+    # shedding, SLO breach and eviction of the Nth submission/admission
+    monkeypatch.setenv("MXTPU_FAULT_SPEC",
+                       "serve:queue:2:error,serve:deadline:2:error,"
+                       "serve:request:2:error")
+    resilience.reset_faults()
+    eng = _engine(max_batch=2)
+    r1 = eng.submit([1, 2, 3], 3)
+    with pytest.raises(ServeRejectedError, match="injected"):
+        eng.submit([4, 5, 6], 3)
+    r2 = eng.submit([4, 5, 6], 3)       # 2nd past the queue: expires
+    r3 = eng.submit([7, 8, 9], 3)       # 2nd admission: evicted
+    eng.run()
+    monkeypatch.setenv("MXTPU_FAULT_SPEC", "")
+    resilience.reset_faults()
+    assert (r1.state, r2.state, r3.state) == (FINISHED, EXPIRED, FAILED)
+    assert isinstance(r3.error, resilience.TransientError)
+    assert eng.pool.num_allocated == 0
+    assert [e["event"] for e in ptracing.events(rid=r3.id,
+                                                engine=eng.engine_id)] \
+        == ["serve_enqueue", "serve_evict"]
+
+
+def test_auto_pool_matches_jax_and_refuses_typed(monkeypatch):
+    """num_blocks='auto' under one MXTPU_HBM_BYTES: the same block count
+    in both packages, below the full-context cap; a budget below the
+    weights raises MemoryPlanError in both, before any pool exists."""
+    from incubator_mxnet_tpu import resilience as jres
+    from incubator_mxnet_tpu_torch.perf import memory_planner as mp
+    net, port = _jax_pair()
+    cfg = dict(max_batch=2, block_size=4, prefix_cache=False)
+    wts = mp.tree_bytes(port._decode_params())
+    per_block = 2 * 2 * 4 * 4 * 8 * 4
+    workspace = 4 * 2 * (VOCAB + 8 * 32)
+    monkeypatch.setenv("MXTPU_HBM_BYTES",
+                       str((wts + workspace + 10.5 * per_block) / 0.95))
+    jeng = jserving.ServingEngine(net, num_blocks="auto", **cfg)
+    peng = ServingEngine(port, num_blocks="auto", **cfg)
+    assert peng.num_blocks == jeng.num_blocks == 10
+    assert peng.num_blocks < peng.max_batch * peng.max_blocks + 1
+    assert peng.memory_plan.kv_pool == 10 * per_block
+    req = peng.submit([1, 2, 3, 4, 5], 6)
+    peng.run()
+    assert req.tokens == _gen_ref(port, [1, 2, 3, 4, 5], 6)
+    monkeypatch.setenv("MXTPU_HBM_BYTES", str(wts / 2))
+    with pytest.raises(jres.MemoryPlanError):
+        jserving.ServingEngine(net, num_blocks="auto", **cfg)
+    with pytest.raises(resilience.MemoryPlanError, match="serving_engine"):
+        ServingEngine(port, num_blocks="auto", **cfg)
+
+
+def test_perf_report_and_mfu_match_jax(monkeypatch):
+    net, port = _jax_pair()
+    cfg = dict(max_batch=2, block_size=4, num_blocks=32)
+    jrep = jserving.ServingEngine(net, **cfg).perf_report(
+        context_len=40, batch=2)
+    monkeypatch.setenv("MXTPU_PERF_INTERVAL", "2")
+    peng = ServingEngine(port, **cfg)
+    prep = peng.perf_report(context_len=40, batch=2)
+    assert prep["flops_per_token"] == jrep["flops_per_token"]
+    assert (prep["context_len"], prep["batch"], prep["dtype"]) == \
+        (jrep["context_len"], jrep["batch"], jrep["dtype"]) \
+        == (40, 2, "float32")
+    key = ("family", "ops", "gflops", "gbytes", "flops_pct", "bytes_pct")
+    assert [[r[k] for k in key] for r in prep["per_family"]] == \
+        [[r[k] for k in key] for r in jrep["per_family"]]
+    assert prep["total"] == jrep["total"]
+    # the live batch's defaults, and the MFU gauges after traffic
+    assert peng.perf_report()["context_len"] == 32
+    peng.submit([1, 2, 3, 4], 8)
+    peng.run()
+    reg = ptelemetry.get_registry()
+    assert reg.gauge("serving_flops_per_token").value > 0
+    assert 0 < reg.gauge("serving_mfu").value < 1
+
+
+def test_sigterm_latch_counts_drain(tmp_path):
+    eng = _engine()
+    eng.submit([1, 2, 3], 2)
+    path = str(tmp_path / "sig.snap")
+    counter = ptelemetry.get_registry().counter("serving_drains_total")
+    before = counter.value
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        # a benign baseline: an ambient handler chain ending in SIG_DFL
+        # would kill this process
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        assert eng.install_sigterm(path, drain=True)
+        signal.raise_signal(signal.SIGTERM)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    assert eng._draining and os.path.exists(path)
+    assert counter.value == before + 1
+    assert ptracing.events("serve_drain", engine=eng.engine_id)
+    eng.drain()                 # latched once, not twice
+    assert counter.value == before + 1
+    out = ServingEngine.restore(_tiny(), path).run()
+    assert out == {0: [1, 2, 3] + _gen_ref(_tiny(), [1, 2, 3], 2)[3:]}
+
+
+def test_sigterm_chains_handlers_and_falls_through_after_gc(tmp_path):
+    e1, e2 = _engine(), _engine()
+    e1.submit([1, 2], 2)
+    e2.submit([3, 4], 2)
+    p1, p2 = str(tmp_path / "e1.snap"), str(tmp_path / "e2.snap")
+    hits = []
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        signal.signal(signal.SIGTERM, lambda num, frame: hits.append(num))
+        assert e1.install_sigterm(p1, drain=True)
+        assert e2.install_sigterm(p2, drain=True)
+        signal.raise_signal(signal.SIGTERM)
+        assert os.path.exists(p1) and os.path.exists(p2)
+        assert hits == [signal.SIGTERM]     # down to the baseline
+        assert e1._draining and e2._draining
+        # an engine that is gone must not consume the signal
+        signal.signal(signal.SIGTERM, lambda num, frame: hits.append(num))
+        eng = _engine()
+        gone = str(tmp_path / "gone.snap")
+        assert eng.install_sigterm(gone, drain=True)
+        del eng
+        gc.collect()
+        signal.raise_signal(signal.SIGTERM)
+        assert hits == [signal.SIGTERM] * 2
+        assert not os.path.exists(gone)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    results = []
+    t = threading.Thread(target=lambda: results.append(
+        e1.install_sigterm(str(tmp_path / "s"))))
+    t.start()
+    t.join(timeout=10)
+    assert results == [False]           # main thread only
+
+
+def test_int8_reference_weights_load_and_serve_like_jax():
+    """A JAX int8-quantized weight tree loads into the port (as q * s)
+    and a port int8 engine over it re-derives the JAX codes exactly and
+    serves the JAX int8 engine's tokens."""
+    net, _ = _jax_pair()
+    jq = jax.tree_util.tree_map(np.asarray,
+                                jserving.quantize_weights(_JAX["wts"]))
+    port = load_reference_weights(
+        TransformerLM(VOCAB, **CFG, device="cpu"), jq)
+    pq = quantize_weights(port._decode_params())
+    np.testing.assert_array_equal(pq["layers"][0]["qkv"][0]["q"].numpy(),
+                                  jq["layers"][0]["qkv"][0]["q"])
+    np.testing.assert_array_equal(pq["embed"]["s"].numpy(),
+                                  jq["embed"]["s"])
+    rs = np.random.RandomState(73)
+    # one prefill bucket: the JAX engine compiles it once
+    prompts = [list(rs.randint(0, VOCAB, n)) for n in (5, 8, 6)]
+    cfg = dict(max_batch=2, block_size=4, num_blocks=32,
+               quantize="int8")
+    jeng = jserving.ServingEngine(net, **cfg)
+    peng = ServingEngine(port, **cfg)
+    jreqs = [jeng.submit(p, 7) for p in prompts]
+    preqs = [peng.submit(p, 7) for p in prompts]
+    jeng.run()
+    peng.run()
+    assert [r.tokens for r in preqs] == \
+        [[int(t) for t in r.tokens] for r in jreqs]
+    with pytest.raises(ValueError, match="int8"):
+        load_reference_weights(TransformerLM(VOCAB, **CFG, device="cpu"),
+                               dict(jq, head={"q": jq["head"]["s"],
+                                              "s": jq["head"]["s"]}))

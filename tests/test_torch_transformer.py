@@ -184,7 +184,8 @@ _SLICE_MODULES = ("ops.flash", "gluon.model_zoo.transformer",
                   "kvstore", "context", "parallel._graph", "parallel.mesh",
                   "parallel.symbol_step", "parallel.optim", "ops.moe",
                   "graph.ir", "graph.passes", "graph.fuse",
-                  "graph.cached_op")
+                  "graph.cached_op", "serving.rpc", "serving.replica",
+                  "serving.router")
 
 
 def test_port_imports_no_jax():
