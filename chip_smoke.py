@@ -8421,6 +8421,328 @@ def phase_operability(mt, torch, card):
     return counts
 
 
+# ----------------------------------------------------------------- dist
+# A9a: dist on torch.distributed, the dp x tp ShardedTrainStep and the
+# reshardable checkpoint, at bench.py's transformer width (MODEL, TRAIN:
+# B=8 x L=1024, bf16 over fp32 masters, Adam lr 1e-4).  (i) one rank
+# over NCCL in this process; (ii) two ranks on the one card over gloo
+# (NCCL refuses two ranks on one device), dp=2 at B=4 a rank, each a
+# child process (``--dist-child``).  (iii), Megatron tp=2 over gloo on
+# CUDA tensors, is not run: on the card's torch, gloo takes every
+# collective of torch.distributed for CUDA tensors, but the functional
+# all_gather that DTensor's Shard -> Replicate (and Shard -> Shard)
+# redistributions call crashes its process (SIGSEGV in ``wait_tensor``;
+# ``incubator_mxnet_tpu_torch/tools/gloo_cuda_probe.py``), and a tp step
+# gathers activations and gradients that way.  Two ranks share the card,
+# so the times are correctness numbers, not scaling.
+DIST_STEPS = 3
+DIST_WAIT_S = 400                 # every child wait has this deadline
+DIST_TP_NOT_RUN = (
+    "not run: gloo's functional all_gather on CUDA tensors (DTensor's "
+    "Shard -> Replicate) crashes its process on this torch "
+    "(tools/gloo_cuda_probe.py); tp is held on the CPU "
+    "(tests/test_torch_sharded_checkpoint.py)")
+
+
+def dist_free_port():
+    """A port free on every local address (a store listens on all of
+    them), to be bound at once: a port picked long before its bind can
+    be taken meanwhile by any socket on the host."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+def dist_coordinator(rank, tmp):
+    """(ii)'s coordinator address, into MXTPU_COORD_ADDR: rank 0 picks
+    the port just before its join and publishes it in ``tmp/coord``;
+    rank 1 waits for that file."""
+    import os
+    path = os.path.join(tmp, "coord")
+    if rank == 0:
+        addr = f"localhost:{dist_free_port()}"
+        with open(path + ".part", "w") as f:
+            f.write(addr)
+        os.replace(path + ".part", path)
+    else:
+        deadline = time.time() + DIST_WAIT_S
+        while not os.path.exists(path):
+            check(time.time() < deadline, "rank 0 published no port")
+            time.sleep(0.05)
+        with open(path) as f:
+            addr = f.read()
+    os.environ["MXTPU_COORD_ADDR"] = addr
+
+
+def dist_prints(mt, torch, tree):
+    """{leaf key: [sum of its 32-bit patterns, the same weighted by
+    position mod 65521 + 1]} of a checkpoint tree, on the card: equal
+    trees print equal, and a moved bit moves both sums."""
+    from incubator_mxnet_tpu_torch.parallel.checkpoint import _flatten
+    out = {}
+    for key, leaf in _flatten(tree):
+        t = leaf.detach().to("cuda").contiguous().reshape(-1)
+        bits = t.view(torch.int32).long()
+        w = torch.arange(bits.numel(), device="cuda") % 65521 + 1
+        out[key] = [int(bits.sum()), int((bits * w).sum())]
+    return out
+
+
+def dist_step(mt, torch, seed=SEED, **kw):
+    net = build_model("cuda")
+    mt.initializer.initialize(net, mt.initializer.Xavier(),
+                              mt.random.generator(seed))
+    return mt.parallel.ShardedTrainStep(
+        net, optimizer="adam", optimizer_params=dict(learning_rate=1e-4),
+        loss_fn=lm_loss, compute_dtype=torch.bfloat16, **kw)
+
+
+def dist_tokens(torch):
+    import numpy as np
+    b, l = TRAIN
+    rs = np.random.RandomState(0)       # bench.py's tokens and labels
+    return [torch.from_numpy(rs.randint(0, MODEL["vocab_size"], (b, l))
+                             .astype(np.int32)) for _ in range(2)]
+
+
+def dist_allreduce_rate(mt, torch, n):
+    """GB/s of one dist.allreduce_sum of ``n`` fp32 values (bytes over
+    seconds between CUDA events, host staging of gloo included)."""
+    buf = torch.ones(n, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = mt.dist.allreduce_sum(buf)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check(float(out[0]) == mt.dist.num_workers(), "allreduce value")
+    return {"bytes": 4 * n, "seconds": sec, "gb_per_s": 4 * n / sec / 1e9}
+
+
+def dist_one_rank(mt, torch, toks, labels):
+    """(i): a one-rank NCCL group; every collective; the dp=1 step on
+    the world's mesh is one captured graph, bit-equal to the step made
+    without a mesh."""
+    mt.dist.init(coordinator_address=f"localhost:{dist_free_port()}",
+                 num_workers_=1, rank_=0)
+    try:
+        check(mt.dist.group_backend() == "nccl" and mt.dist.backend(1)
+              == "nccl", f"one rank joined {mt.dist.group_backend()}")
+        v = torch.arange(4.0, device="cuda")
+        check(torch.equal(mt.dist.allreduce_sum({"v": v})["v"], v)
+              and torch.equal(mt.dist.allreduce_max(v), v)
+              and torch.equal(mt.dist.broadcast([v])[0], v),
+              "one-rank collectives changed their value")
+        mt.dist.barrier("chip_smoke")
+        rate = dist_allreduce_rate(mt, torch, 1 << 26)
+        mesh = mt.parallel.make_mesh()
+        check(mesh.size == 1 and not mesh.spans_world, f"mesh {mesh}")
+        mt.ops.reset_launches()
+        step = dist_step(mt, torch, mesh=mesh)
+        losses = [step(toks, labels) for _ in range(DIST_STEPS)]
+        counts = {k: mt.ops.LAUNCHES[k] for k in TRAIN_KERNELS}
+        check(step.trace_counts.get("train_step") == 1,
+              f"captures {step.trace_counts}")
+        got = ([float(x) for x in losses],
+               [p.detach().clone() for p in step.params.values()])
+        ms = call_ms(lambda: step(toks, labels), torch, warmup=1, reps=5)
+        del step
+        release(torch)
+    finally:
+        mt.dist.shutdown()
+    plain = dist_step(mt, torch)
+    ref = [float(plain(toks, labels)) for _ in range(DIST_STEPS)]
+    same = ref == got[0] and all(
+        torch.equal(a, b) for a, b in zip(got[1], plain.params.values()))
+    check(same, f"dp=1 step in the NCCL world {got[0]} vs plain {ref}")
+    del plain, got
+    release(torch)
+    layers = MODEL["n_layers"]
+    first = (mt.parallel._graph.WARMUP_STEPS + 1) * layers
+    check(all(n == first for n in counts.values()),
+          f"(i) launched {counts}, not {first} each at its capture")
+    return {"backend": "nccl", "losses": ref, "bitwise_equal_plain": same,
+            "captures": 1, "step_ms": ms, "allreduce": rate,
+            "launches": counts}
+
+
+def dist_child(rank, tmp):
+    """One rank of (ii): joins, builds its step, waits for the parent's
+    ``start`` file (the parent's own timed work is done by then), runs
+    the dp=2 steps, saves, restores into a fresh step at world 2 and
+    writes rank<r>.json."""
+    import os
+    import torch
+    import incubator_mxnet_tpu_torch as mt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist_coordinator(rank, tmp)
+    mt.dist.init()
+    check(mt.dist.group_backend() == "gloo" and mt.dist.num_workers() == 2,
+          f"joined {mt.dist.group_backend()} x {mt.dist.num_workers()}")
+    mesh = mt.parallel.make_mesh()
+    check(mesh.shape["dp"] == 2 and mesh.spans_world, f"mesh {mesh}")
+    toks, labels = (t.cuda() for t in dist_tokens(torch))
+    step = dist_step(mt, torch, mesh=mesh)
+    deadline = time.time() + DIST_WAIT_S
+    while not os.path.exists(os.path.join(tmp, "start")):
+        check(time.time() < deadline, "no start from the parent")
+        time.sleep(0.1)
+    mt.ops.reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(step(toks, labels))]
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses += [float(step(toks, labels)) for _ in range(DIST_STEPS - 1)]
+    step_ms = (time.perf_counter() - t0) / (DIST_STEPS - 1) * 1e3
+    counts = {k: mt.ops.LAUNCHES[k] for k in TRAIN_KERNELS}
+    check("train_step" not in step.trace_counts, "a gloo step captured")
+    rate = dist_allreduce_rate(mt, torch, sum(
+        p.numel() for p in step.params.values()))
+    ckpt = os.path.join(tmp, "ckpt")
+    t0 = time.perf_counter()
+    step.save_checkpoint(ckpt)
+    save_s = time.perf_counter() - t0
+    prints = dist_prints(mt, torch, step._ckpt_tree())
+    if rank == 0:
+        with open(os.path.join(tmp, "saved.json"), "w") as f:
+            json.dump(prints, f)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = dist_step(mt, torch, seed=SEED + 1, mesh=mesh)
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(ckpt)
+    restore_s = time.perf_counter() - t0
+    back = dist_prints(mt, torch, fresh._ckpt_tree())
+    mt.dist.barrier("restored")
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "first_step_s": first_s,
+                   "step_ms": step_ms, "launches": counts,
+                   "allreduce": rate, "save_s": save_s,
+                   "restore_world2_s": restore_s,
+                   "restore_world2_bitwise": back == prints,
+                   "prints": prints,
+                   "mem_peak": torch.cuda.max_memory_allocated()}, f)
+    mt.dist.shutdown()
+    return 0
+
+
+def dist_wait(procs, paths, logs):
+    import os
+    deadline = time.time() + DIST_WAIT_S
+    while not all(os.path.exists(p) for p in paths):
+        for i, p in enumerate(procs):
+            if p.poll() not in (None, 0):
+                logs[i].flush()
+                with open(logs[i].name, "rb") as f:
+                    tail = f.read()[-3000:].decode(errors="replace")
+                raise CheckFailed(f"dist rank {i} exited {p.returncode}:"
+                                  f"\n{tail}")
+        check(time.time() < deadline, f"dist ranks gave no {paths}")
+        time.sleep(0.1)
+    out = []
+    for p in paths:
+        with open(p) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dist_spawn(tmp):
+    """The two ranks of (ii), started at once: they import, join and
+    build while this process runs (i).  Rank 0 picks the coordinator's
+    port (``dist_coordinator``): (i)'s sockets open meanwhile."""
+    import os
+    env = dict(os.environ, MXTPU_NUM_WORKERS="2")
+    env.pop("MXTPU_COORD_ADDR", None)
+    procs, logs = [], []
+    for r in range(2):
+        logs.append(open(os.path.join(tmp, f"rank{r}.log"), "wb"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-child",
+             str(r), tmp], env=dict(env, MXTPU_WORKER_RANK=str(r)),
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=logs[r], stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def dist_two_ranks(mt, torch, toks, labels, tmp, procs, logs):
+    """(ii): two gloo ranks on the card, dp=2 at B=4 a rank, against one
+    process's step on B=8; the checkpoint saved at world 2 and restored
+    at world 1 here while the ranks restore it at world 2, bit for
+    bit."""
+    import os
+    ref = dist_step(mt, torch)
+    ref_losses = [float(ref._eager_call(toks, labels))
+                  for _ in range(DIST_STEPS)]
+    del ref
+    release(torch)
+    open(os.path.join(tmp, "start"), "w").close()
+    (prints,) = dist_wait(procs, [os.path.join(tmp, "saved.json")], logs)
+    one = dist_step(mt, torch, seed=SEED + 1)
+    t0 = time.perf_counter()
+    one.load_checkpoint(os.path.join(tmp, "ckpt"))
+    restore1_s = time.perf_counter() - t0
+    world1 = dist_prints(mt, torch, one._ckpt_tree()) == prints
+    del one
+    release(torch)
+    ranks = dist_wait(procs, [os.path.join(tmp, f"rank{r}.json")
+                              for r in range(2)], logs)
+    for p in procs:
+        p.wait(timeout=DIST_WAIT_S)
+        check(p.returncode == 0, f"a dist rank exited {p.returncode}")
+    tol = TOL["bfloat16"]
+    for r, rec in enumerate(ranks):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                      ref_losses))
+        check(rel <= tol, f"rank {r} losses {rec['losses']} vs one "
+                          f"process's B=8 {ref_losses}: rel {rel} > {tol}")
+        rec["loss_rel_err"] = rel
+    check(ranks[0]["prints"] == ranks[1]["prints"] == prints,
+          "the two ranks' states differ")
+    check(world1, "restore at world 1 is not bit-equal to the save")
+    check(all(r["restore_world2_bitwise"] for r in ranks),
+          "restore at world 2 is not bit-equal to the save")
+    layers = MODEL["n_layers"]
+    for r, rec in enumerate(ranks):
+        check(all(n == layers * DIST_STEPS
+                  for n in rec["launches"].values()),
+              f"rank {r} launched {rec['launches']}, not {layers} a step")
+        del rec["prints"]
+    return {"backend": "gloo", "dp": 2, "batch_per_rank": TRAIN[0] // 2,
+            "ref_losses_B8": ref_losses, "loss_tol_rel": tol,
+            "ranks": ranks, "restore_world1_s": restore1_s,
+            "restore_world1_bitwise": world1,
+            "launches": {k: sum(rec["launches"][k] for rec in ranks)
+                         for k in TRAIN_KERNELS}}
+
+
+def phase_dist(mt, torch, card):
+    import tempfile
+    toks, labels = (t.cuda() for t in dist_tokens(torch))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = dist_spawn(tmp)
+        try:
+            t0 = time.perf_counter()
+            one = dist_one_rank(mt, torch, toks, labels)
+            one["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            two = dist_two_ranks(mt, torch, toks, labels, tmp, procs, logs)
+            two["seconds"] = time.perf_counter() - t0
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+    emit({"phase": "dist", "card": card, "steps": DIST_STEPS,
+          "batch": TRAIN[0], "seq": TRAIN[1], "compute_dtype": "bfloat16",
+          "one_rank_nccl": one, "two_ranks_gloo": two,
+          "megatron_tp2_gloo": DIST_TP_NOT_RUN})
+    return {k: one["launches"][k] + two["launches"][k]
+            for k in TRAIN_KERNELS}
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8481,6 +8803,7 @@ def main():
         data_launches = timed("data", phase_data, mt, torch, card)
         ops_launches_19 = timed("operability", phase_operability, mt,
                                 torch, card)
+        dist_launches = timed("dist", phase_dist, mt, torch, card)
         keeps["end"] = trace_keeps(torch)
         emit({"phase_seconds": seconds, "device_ms_traces": TRACES,
               "trace_keeps": keeps})
@@ -8528,6 +8851,7 @@ def main():
                                                                 0)
             e["launches_by_path"]["operability"] = ops_launches_19.get(
                 e["name"], 0)
+            e["launches_by_path"]["dist"] = dist_launches.get(e["name"], 0)
             if e["name"] in hyb_runs:
                 e["runs_per_replay"] = {"hybridize": hyb_runs[e["name"]]}
             for path, counts in detect_launches.items():
@@ -8547,4 +8871,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-child"]:
+        import faulthandler
+        faulthandler.enable()       # a crashed rank's stack reaches its log
+        sys.exit(dist_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -53,6 +53,7 @@ from .executor import Executor
 from . import graph
 from . import metric, io, callback, kvstore, model, monitor
 from . import kvstore as kv
+from . import dist
 from .model import load_checkpoint, save_checkpoint
 from . import module
 from . import module as mod

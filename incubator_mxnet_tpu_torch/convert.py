@@ -31,6 +31,15 @@ cuts such a flat vector into the Gluon layer's names, and
 ``load_rnn_parameters(layer, flat)`` fills a Gluon fused layer from it,
 so a symbolic model's weights carry over to the Gluon one.
 
+For a training step: ``load_train_step_state(step, tree)`` carries
+the JAX ``ShardedTrainStep``'s state, its ``_ckpt_tree()`` as numpy
+(``jax.tree_util.tree_map(np.asarray, jstep._ckpt_tree())``: params,
+states, the optimizer state with Adam's ``m``, ``v`` and ``t``, and
+``step_count``), into the port's ``parallel.ShardedTrainStep``, in
+place and in its layout (a tp-sharded master takes this rank's slice).
+A sharded checkpoint generation (``parallel/checkpoint.py``) is the
+other bridge, through files, in both directions.
+
 Arrays of the ``nd`` surface need no function here: they cross between
 the packages as numpy arrays (``nd.array(x.asnumpy(), ctx=...)``),
 through DLPack (``nd.from_dlpack``), or as files, since ``nd.save`` and
@@ -43,7 +52,7 @@ from .context import as_device
 
 __all__ = ["load_reference_weights", "load_gluon_params",
            "load_module_checkpoint", "unpack_rnn_parameters",
-           "load_rnn_parameters"]
+           "load_rnn_parameters", "load_train_step_state"]
 
 
 def _src_prefix(names):
@@ -230,3 +239,13 @@ def load_module_checkpoint(module, prefix, epoch, ctx=None):
     _check_rnn_nodes(module.symbol, arg, shapes)
     module.set_params(arg, aux)
     return symbol
+
+
+def load_train_step_state(step, tree):
+    """Copy ``tree`` (the JAX ``ShardedTrainStep``'s ``_ckpt_tree()`` as
+    numpy) into the port's ``ShardedTrainStep`` ``step``, in place;
+    returns the step.  Keys, shapes and dtypes must be the step's own
+    (``step._ckpt_tree()``), or it raises ``ValueError`` naming them."""
+    from .parallel.checkpoint import restore_arrays
+    step._restore(restore_arrays(tree, step._ckpt_tree(), step.mesh))
+    return step

@@ -23,8 +23,11 @@ store; a ``KVStore`` object, a 'dist_*' name or 'tpu' give one.
 Trainer is made, as the reference does; the gradients come reduced from
 the step that made them, so no store is needed.  The whole-tree update
 runs whatever the store, on one process; the per-parameter route pushes
-and pulls through the store where there is one.  A mesh or store over
-several devices or processes raises (ROADMAP item A9).
+and pulls through the store where there is one.  On a store over
+several processes (``dist_sync`` under ``tools/launch.py``) the step
+takes the per-parameter route, whose push allreduces each gradient over
+the workers, as the JAX Trainer does; ``'tpu'`` over a world of several
+ranks takes the world's mesh (one device a rank).
 
 The step sentinel (``MXTPU_NONFINITE_POLICY``, ``MXTPU_GUARD_INTERVAL``,
 ``MXTPU_MAX_BAD_STEPS``) and the loss scale (``MXTPU_LOSS_SCALE*``) are
@@ -122,7 +125,7 @@ class Trainer:
             # the ambient mesh now: step() may run outside use_mesh()
             from ..parallel import current_mesh, make_mesh
             self._mesh = current_mesh() or make_mesh()
-            self._mesh.device        # one device, or A9 raises
+            self._mesh.device        # this process's one device
 
     def _init_kvstore(self):
         """(ref: trainer.py:102) the store, at the first step."""
@@ -181,7 +184,10 @@ class Trainer:
         """Pick the route: the functional twin of the optimizer, if it
         has one, for the whole-tree update."""
         self._fopt = foptim.from_imperative(self._optimizer)
-        self._fused = self._fopt is not None
+        kv = self._kvstore
+        # a store over several workers reduces per parameter in push
+        self._fused = self._fopt is not None and not (
+            kv is not None and getattr(kv, "num_workers", 1) > 1)
         if self._fused:
             self._fstate = self._fopt.init(
                 {p.name: p._var for p in self._params})

@@ -343,3 +343,25 @@ def initialize(module, init, generator=None):
             chosen = create(p.init) if p.init is not None else init
             p._init_on(p._target(None), chosen, generator, False)
     return module
+
+
+class _InitModule:
+    """The ``init`` namespace alias (``mx.init.Xavier()`` in the
+    reference)."""
+    InitDesc = InitDesc
+    Initializer = Initializer
+    Zero = Zero
+    One = One
+    Constant = Constant
+    Uniform = Uniform
+    Normal = Normal
+    Orthogonal = Orthogonal
+    Xavier = Xavier
+    MSRAPrelu = MSRAPrelu
+    Bilinear = Bilinear
+    LSTMBias = LSTMBias
+    Mixed = Mixed
+    Load = Load
+
+
+init = _InitModule()

@@ -2,8 +2,10 @@
 from .io import (DataDesc, DataBatch, DataIter, NDArrayIter, ResizeIter,
                  PrefetchingIter, DevicePrefetchIter, CSVIter, MNISTIter,
                  ImageRecordIter, LibSVMIter, DataServiceIter)
+from .sharding import shard_keys, shard_range, assigned_batches
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
            "ResizeIter", "PrefetchingIter", "DevicePrefetchIter",
            "CSVIter", "MNISTIter", "ImageRecordIter", "LibSVMIter",
-           "DataServiceIter"]
+           "DataServiceIter", "shard_keys", "shard_range",
+           "assigned_batches"]

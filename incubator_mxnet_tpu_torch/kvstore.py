@@ -9,17 +9,18 @@ There is no parameter server, as in the JAX package:
   in order, and runs the updater where one is set; ``pull`` hands back
   the stored weight (or, without an updater, the summed gradient).
 - 'tpu' (also 'dist_sync', 'dist_device_sync', 'dist_sync_device',
-  'nccl', 'horovod'): the reduction belongs to the training step
-  (``parallel.ShardedTrainStep``, ``parallel.SymbolTrainStep``), so the
-  store holds the master copy and applies the optimizer; on one process
-  push and pull are the local ops.
+  'nccl', 'horovod'): the in-step reduction belongs to the training
+  step (``parallel.ShardedTrainStep``, ``parallel.SymbolTrainStep``),
+  so the store holds the master copy and applies the optimizer.  Over
+  several processes (``tools/launch.py``, ``dist.init``), ``init``
+  broadcasts rank 0's value and ``push`` allreduces the summed replicas
+  over every worker before the updater runs, so every replica applies
+  the same gradient (the reference's server-side sum); ``rank``,
+  ``num_workers`` and ``barrier`` are the process group's.  The
+  collectives run through ``dist`` (NCCL or gloo by ``dist.backend``),
+  retried on transient failures before the op is entered, never after.
 - 'dist_async' has no synchronous-collective analog and raises.
-
-A store over several processes (``MXTPU_NUM_WORKERS`` > 1, or a
-``torch.distributed`` group of more than one rank) needs the multi-card
-modes over NCCL, ROADMAP item A9, and raises.
 """
-import os
 import pickle
 
 import torch
@@ -30,23 +31,12 @@ from . import resilience
 
 __all__ = ["KVStore", "create"]
 
-_MULTI = ("a kvstore over several processes needs the multi-card modes "
-          "(NCCL process groups), ROADMAP item A9")
-
-
-def _world_size():
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return int(os.environ.get("MXTPU_NUM_WORKERS", "1"))
-
 
 class KVStore:
-    """A single-process store with Comm-style aggregation."""
+    """A store with Comm-style aggregation (over processes for a
+    'tpu'-type store in a world of several)."""
 
     def __init__(self, kv_type="local"):
-        if _world_size() > 1:
-            raise NotImplementedError(_MULTI)
         self.type = kv_type
         self._store = {}
         self._updater = None
@@ -55,24 +45,54 @@ class KVStore:
     # ------------------------------------------------------------ basics
     @property
     def rank(self):
-        return 0
+        from . import dist
+        return dist.rank()
 
     @property
     def num_workers(self):
-        return 1
+        from . import dist
+        return dist.num_workers()
+
+    @staticmethod
+    def _dist_retry(fn, op_name, *args):
+        """A dist collective with bounded retry on transient errors
+        raised before the op is entered; deadline expiries and in-op
+        failures (``CollectiveAbortedError``) are never retried: peers
+        may have completed the op."""
+        return resilience.retry_call(
+            resilience.call_transient_mapped, fn, *args,
+            op_name=op_name, retry_on=(resilience.TransientError,))
+
+    def _multi(self):
+        return self.type == "tpu" and self.num_workers > 1
 
     def init(self, key, value):
         """Initialize key(s) with initial weight(s) (ref: kvstore.py
-        init:96); a key already there keeps its value."""
+        init:96); a key already there keeps its value.  Over several
+        processes rank 0's value is broadcast, so every worker starts
+        from the same weights."""
+        from . import dist
+        from .ndarray.ndarray import NDArray
+        multi = self._multi()
         for k, v in self._pairs(key, value):
             if k in self._store:
                 continue
             vv = v[0] if isinstance(v, (list, tuple)) else v
-            self._store[k] = vv.copy()
+            if multi:
+                self._store[k] = NDArray(
+                    self._dist_retry(dist.broadcast,
+                                     f"kvstore.init({k}).broadcast",
+                                     vv._data), vv.context)
+            else:
+                self._store[k] = vv.copy()
 
     def push(self, key, value, priority=0):
-        """Push gradient(s): a key's replicas are summed in order, then
-        the updater runs if one is set (ref: kvstore.py push:140)."""
+        """Push gradient(s): a key's replicas are summed in order and,
+        over several processes, allreduced over every worker; then the
+        updater runs if one is set (ref: kvstore.py push:140)."""
+        from . import dist
+        from .ndarray.ndarray import NDArray
+        multi = self._multi()
         for k, v in self._pairs(key, value):
             vals = v if isinstance(v, (list, tuple)) else [v]
             merged = vals[0]
@@ -80,6 +100,11 @@ class KVStore:
                 merged = vals[0].copy()
                 for extra in vals[1:]:
                     merged += extra.as_in_context(merged.context)
+            if multi:
+                merged = NDArray(
+                    self._dist_retry(dist.allreduce_sum,
+                                     f"kvstore.push({k}).allreduce",
+                                     merged._data), merged.context)
             if self._updater is not None:
                 if k not in self._store:
                     raise KeyError(f"key {k} not initialized")
@@ -152,7 +177,10 @@ class KVStore:
 
     # ----------------------------------------------------------- dist API
     def barrier(self):
-        """Nothing to wait for in one process."""
+        """Wait for every worker (nothing to wait for in one
+        process)."""
+        from . import dist
+        dist.barrier("kvstore_barrier")
 
     def send_command_to_servers(self, head, body):
         """No servers: kept for the API."""
@@ -197,6 +225,10 @@ def create(name="local"):
         return KVStore(name)
     if name in ("tpu", "dist_sync", "dist_device_sync", "dist_sync_device",
                 "nccl", "horovod"):
+        # over several processes (tools/launch.py) this joins the
+        # process group; push then allreduces over the workers
+        from . import dist
+        dist.init()
         return KVStore("tpu")
     if name == "dist_async":
         raise ValueError(

@@ -240,7 +240,10 @@ class FeedForward:
 
     def fit(self, X, y=None, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
-            kvstore="local", logger=None):
+            kvstore="local", logger=None, checkpoint_prefix=None):
+        """Train a Module on (X, y) or an iterator.  ``checkpoint_prefix``
+        arms the step sentinel's divergence rollback, as in
+        ``BaseModule.fit``."""
         import logging
         from . import initializer as init_mod
         from .module import Module
@@ -259,6 +262,7 @@ class FeedForward:
                 arg_params=self.arg_params, aux_params=self.aux_params,
                 allow_missing=self.arg_params is not None,
                 begin_epoch=self.begin_epoch,
+                checkpoint_prefix=checkpoint_prefix,
                 # num_epoch is the END epoch (reference semantics)
                 num_epoch=self.num_epoch if self.num_epoch is not None
                 else self.begin_epoch + 1)

@@ -35,8 +35,11 @@ no donation; no rungs, so it fits, warns or raises ``MemoryPlanError``).
 and the executor route's ``update`` ticks the MFU clock (the fused step
 ticks its own).
 
-Not in this slice: the multi-device contexts and the sharded
-checkpoints (ROADMAP item A9).  ``update`` counts
+A context list binds one executor over the whole batch on its first
+context, as the JAX Module's numbers are a single context's.
+``save_sharded_checkpoint`` / ``load_sharded_checkpoint`` write and
+restore the fused step's reshardable generations
+(``parallel/checkpoint.py``).  ``update`` counts
 ``train_steps_total``, and the eager path attributes its parameters
 and optimizer state to the tracing layer's memory gauges.
 """
@@ -70,11 +73,13 @@ class Module(BaseModule):
                  state_names=None):
         super().__init__(logger)
         if isinstance(context, (list, tuple)):
-            if len(context) != 1:
-                raise NotImplementedError(
-                    "Module over several devices: the multi-card modes "
-                    "are ROADMAP item A9; give one device (a mesh step "
-                    "takes kvstore='tpu')")
+            # the JAX Module binds one executor over the whole batch
+            # whatever the list holds (its numbers are a single
+            # context's): the port runs the batch on the list's first
+            # context; data parallelism over devices is the mesh step's
+            # (kvstore='tpu') or the processes' (dist_sync)
+            if not context:
+                raise ValueError("an empty context list")
             context = context[0]
         self._symbol = symbol
         self._data_names = list(data_names or [])
@@ -661,6 +666,47 @@ class Module(BaseModule):
         """Restore ``data_iter`` from the checkpoint's ``.data``
         companion (``model.load_data_state``)."""
         return load_data_state(prefix, epoch, data_iter, strict=strict)
+
+    # ---------------------------------------------------- elastic ckpt
+    def save_sharded_checkpoint(self, ckpt_dir, step=None,
+                                data_iter=None):
+        """Reshardable sharded checkpoint (``parallel/checkpoint.py``):
+        parameters, aux states and the fused step's optimizer state land
+        as one manifest generation under ``ckpt_dir``, each rank writing
+        the slices it owns; the input pipeline's position rides in the
+        same generation when ``data_iter`` is given.  kvstore='tpu'
+        only (the eager paths keep the prefix/epoch format).  Returns
+        the generation directory."""
+        if self._mesh_step is None:
+            raise RuntimeError(
+                "save_sharded_checkpoint needs the kvstore='tpu' mesh "
+                "step (legacy contexts: use save_checkpoint)")
+        if self._mesh_stale:
+            # an eager update or set_params touched the executor since
+            # the last fused step: save what the user sees
+            self._push_mesh_params()
+        data_state = data_iter.state_dict() \
+            if data_iter is not None else None
+        return self._mesh_step.save_checkpoint(
+            ckpt_dir, step=step, data_state=data_state)
+
+    def load_sharded_checkpoint(self, ckpt_dir, data_iter=None):
+        """Restore the newest valid sharded generation into the fused
+        step, resharded onto this job's mesh, and the data iterator's
+        cursor from the generation's companion when ``data_iter`` is
+        given.  Returns the companion state (or None)."""
+        if self._mesh_step is None:
+            raise RuntimeError(
+                "load_sharded_checkpoint needs the kvstore='tpu' mesh "
+                "step (legacy contexts: use model.load_checkpoint)")
+        state = self._mesh_step.load_checkpoint(ckpt_dir)
+        # the restored values are the truth now: the executor re-pulls
+        # them, and no stale push may overwrite them
+        self._mesh_dirty = True
+        self._mesh_stale = False
+        if data_iter is not None and state is not None:
+            data_iter.load_state_dict(state)
+        return state
 
     def save_optimizer_states(self, fname):
         """The optimizer state: the fused step's tree (numpy, as the JAX

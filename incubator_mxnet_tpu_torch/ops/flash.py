@@ -30,6 +30,7 @@ outputs' shapes alone, as the kernels keep no (L, L) tensor.
 import contextlib
 import ctypes
 import math
+import sys
 
 import torch
 
@@ -387,12 +388,45 @@ def flash_attention(q, k, v, causal=True, scale=None, window=0):
     """Attention output (the JAX op's surface), differentiable in q, k
     and v.  Under autograd it saves what the backward kernels need;
     otherwise (inference) it runs the forward alone and saves
-    nothing."""
+    nothing.  DTensor inputs (a tensor-parallel step) go through
+    :func:`_flash_dtensor`."""
+    if _is_dtensor(q):
+        return _flash_dtensor(q, k, v, causal, scale, window)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
         args = _prepare(q, k, v, causal, scale, window)
         return _FlashAttention.apply(q, k, v, *args)
     return flash_attention_fwd(q, k, v, causal, scale, window)[0]
+
+
+def _is_dtensor(t):
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _flash_dtensor(q, k, v, causal, scale, window):
+    """Attention of DTensors on the rows this rank owns: the heads are
+    split over the mesh's 'tp' dim.  q, k and v come replicated (any
+    placement is redistributed to that first); each rank runs the kernel
+    on its 1/tp of the (batch x head) rows, and the outputs are
+    all-gathered back to replicated, differentiably (the backward runs
+    the kernels on the same rows and gathers dq, dk, dv).  With no 'tp'
+    dim, or rows that do not split evenly, each rank runs all rows.
+    Every other mesh dim stays replicated: the step's batch is declared
+    replicated over 'dp', so no collective may run over it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    names = mesh.mesh_dim_names or ()
+    rows = list(rep)
+    if "tp" in names and q.shape[0] % mesh.size(names.index("tp")) == 0:
+        rows[names.index("tp")] = Shard(0)
+    q, k, v = (t.redistribute(mesh, rep).redistribute(mesh, rows)
+               for t in (q, k, v))
+    o = flash_attention(q.to_local(), k.to_local(), v.to_local(),
+                        causal=causal, scale=scale, window=window)
+    return DTensor.from_local(o, mesh, rows, run_check=False).redistribute(
+        mesh, rep)
 
 
 @defop("_flash_attention")

@@ -618,13 +618,20 @@ def accumulate_window(guard, flag):
 
 def read_window_bad(guard):
     """Host-read and reset the guard's accumulated bad-step count — the
-    sentinel's ONE device-to-host transfer per guard interval.  (The
-    JAX package allreduce-maxes the count over ranks first; one process
-    has nothing to reduce, and several are ROADMAP item A9.)"""
+    sentinel's ONE device-to-host transfer per guard interval.
+
+    Over several ranks the count is allreduce-maxed first, so every
+    rank reaches the same verdict (and the same num_update
+    compensation).  Max, not sum: the fused paths compute a replicated
+    flag, every rank counts the same bad step, and a sum would multiply
+    one dropped update by the world size."""
     pending = getattr(guard, "_window_bad", None)
     guard._window_bad = None
     if pending is None:
         return 0
+    from . import dist
+    if dist.is_initialized() and dist.num_workers() > 1:
+        pending = dist.allreduce_max(pending)
     return int(pending)  # sync-ok: the one guard-interval host read
 
 

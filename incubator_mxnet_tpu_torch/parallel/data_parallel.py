@@ -1,5 +1,5 @@
 """The training step (twin of
-``incubator_mxnet_tpu/parallel/data_parallel.py``), on one card.
+``incubator_mxnet_tpu/parallel/data_parallel.py``).
 
 ``ShardedTrainStep`` runs forward, backward and the optimizer update
 of a module for one batch: a plain torch module (``TransformerLM``),
@@ -33,6 +33,31 @@ blocks, takes one rung and runs the batch once more; a second OOM
 raises.  ``arm_perf`` / ``cost_analysis`` arm the MFU clock
 (``perf.TrainPerfClock``, device time), ``memory_analysis`` returns the
 planner's ``MemoryPlan``.
+
+Over a mesh that spans a world of several ranks (``dist.init``, one
+device a rank) the step is data and tensor parallel.  Each rank takes
+its dp slice of the global batch.  A parameter whose rule shards it
+over an axis of size > 1 (``tp``; ``dp`` for ZeRO's masters) is a
+DTensor of this rank's slice on the mesh's ``DeviceMesh``, and the
+forward runs under DTensor's ``implicit_replication`` (plain tensors
+are replicated), so DTensor's sharding propagation inserts the tp
+collectives of the forward and backward (Megatron's column/row split:
+the partial sums of a row-parallel product are all-reduced on the way
+out).  The batch is declared replicated over ``dp``: DTensor makes no dp
+collective, and the step all-reduces the loss, every gradient (each
+rank's local slice) and the floating states over ``dp`` in one flat
+buffer, then divides by dp (a BatchNorm normalizes over its rank's
+slice, and the moving stats are the ranks' mean).  ``zero=True`` with
+dp > 1 shards the fp32 masters of the tp-replicated parameters, and
+their optimizer state, over ``dp`` (first dim divisible by dp): the
+forward all-gathers the cast masters (DTensor redistribution), and
+each rank updates its slice.  On one CUDA rank the step is one captured
+CUDA graph; over several, it is captured when the group's backend is
+NCCL (its collectives can be captured) and runs op by op over gloo
+(whose collectives cannot).  ``save_checkpoint`` / ``load_checkpoint``
+write and restore reshardable generations (``parallel/checkpoint.py``):
+a generation saved on one mesh restores onto another, or into the JAX
+package's step.
 """
 import contextlib
 import copy
@@ -48,6 +73,8 @@ from ..gluon.block import Block
 from . import _graph
 from . import optim as foptim
 from .functional import PureBlock, functionalize
+from .mesh import current_mesh, is_dtensor, make_mesh
+from .sharding import ShardingRules, tp_rules_for_dense_stacks
 
 __all__ = ["ShardedTrainStep"]
 
@@ -120,20 +147,34 @@ class ShardedTrainStep:
         learning-rate tensor before each step (``optim.warmup_cosine``
         / ``warmup_linear``).
 
+    mesh : a ``parallel.Mesh`` (default: the ambient ``use_mesh``
+        mesh, else the world's ranks on 'dp', else the parameters'
+        device)
+    rules : ShardingRules for the parameters (default: replicated; on a
+        tp mesh ``tp_rules_for_dense_stacks()``)
+    batch_axis / seq_axis : the input dims split over 'dp' / 'sp' (an
+        sp axis above 1 is ROADMAP item A9b)
+    donate : kept for the JAX signature: the port always updates the
+        parameters and optimizer state in place
+    example_args : inputs for ``functionalize`` of a Gluon block
+    zero : with dp > 1, shard the fp32 masters and optimizer state of
+        the tp-replicated parameters over 'dp' (ZeRO-1)
+
     The parameters are the module's own fp32 ``nn.Parameter``s (the
-    masters), updated in place.  ``trace_counts["train_step"]`` counts
-    the CUDA graph captures (one per batch signature and generator).
-    Not in this slice (the JAX step's
-    ``mesh``, ``rules``, ``batch_axis`` / ``seq_axis``, ``zero``,
-    ``donate``, ``example_args`` and checkpoints): the multi-card modes
-    come with the parallel-modes slice (ROADMAP item A9).
+    masters), updated in place; over a tp mesh (or with ``zero``) a
+    sharded parameter's master is a DTensor the step holds
+    (``write_back`` copies it into the module).
+    ``trace_counts["train_step"]`` counts the CUDA graph captures (one
+    per batch signature and generator).
     """
 
     def __init__(self, block, optimizer="sgd", optimizer_params=None,
-                 loss_fn=None, compute_dtype=None, grad_accum=1,
-                 remat=False, lr_schedule=None):
+                 mesh=None, loss_fn=None, rules=None, batch_axis=0,
+                 seq_axis=None, donate=True, example_args=None,
+                 compute_dtype=None, grad_accum=1, remat=False,
+                 lr_schedule=None, zero=False):
         if isinstance(block, Block):
-            block = functionalize(block)
+            block = functionalize(block, *(example_args or ()))
         self.pure = block if isinstance(block, PureBlock) else None
         self.block = block._block if self.pure is not None else block
         self.loss_fn = loss_fn or _default_loss
@@ -158,7 +199,9 @@ class ShardedTrainStep:
         if not self.params:
             raise ValueError("the block has no trainable parameters")
         self.device = next(iter(self.params.values())).device
-        self.opt_state = self.opt.init(self.params)
+        self._lay_out(mesh, rules, batch_axis, seq_axis, zero)
+        self._donate = donate
+        self.opt_state = self.opt.init(self._local)
         # the learning rate every update reads: written before each
         # step, so a captured graph follows the schedule
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -174,6 +217,65 @@ class ShardedTrainStep:
         self._mem_liveness = None
         self._planned = False
 
+    def _lay_out(self, mesh, rules, batch_axis, seq_axis, zero):
+        """The mesh, the rules and each parameter's master: the module's
+        own tensor where its layout splits nothing, else a DTensor of
+        this rank's slice (``NamedSharding.place``)."""
+        if mesh is None:
+            mesh = current_mesh()
+        if mesh is None:
+            from .mesh import _world
+            mesh = make_mesh() if _world()[1] > 1 \
+                else make_mesh(devices=[self.device])
+        self.mesh = mesh
+        if mesh.device != self.device:
+            raise ValueError(f"the parameters are on {self.device}, the "
+                             f"mesh's device is {mesh.device}")
+        if seq_axis is not None and mesh.shape.get("sp", 1) > 1:
+            raise NotImplementedError(
+                "seq_axis over sp > 1: sequence parallelism is ROADMAP "
+                "item A9b")
+        if rules is None and (mesh.shape.get("tp", 1) > 1
+                              or mesh.shape.get("ep", 1) > 1):
+            rules = tp_rules_for_dense_stacks().restrict_to_axes(
+                mesh.axis_names)
+        self.rules = rules or ShardingRules()
+        self.batch_axis = batch_axis
+        self.seq_axis = seq_axis
+        self.param_shardings = self.rules.shardings(mesh, self.params)
+        self._compute_shardings = dict(self.param_shardings)
+        self._dp = int(mesh.shape.get("dp", 1))
+        self.zero = bool(zero) and self._dp > 1
+        if self.zero:
+            from .mesh import NamedSharding, PartitionSpec as P
+            for n, p in self.params.items():
+                if not self.param_shardings[n].is_replicated_everywhere():
+                    continue        # rule-sharded (tp) leaves keep theirs
+                for ax, d in enumerate(p.shape):
+                    if d > 0 and d % self._dp == 0:
+                        spec = [None] * p.ndim
+                        spec[ax] = "dp"
+                        self.param_shardings[n] = NamedSharding(
+                            mesh, P(*spec))
+                        break
+        self._sharded = {n for n, sh in self.param_shardings.items()
+                         if not sh.is_replicated_everywhere()}
+        self._zero_names = [n for n in self.params
+                            if self.param_shardings[n]
+                            is not self._compute_shardings[n]]
+        me = mesh.local_ids()[0]
+        self._zero_index = {
+            n: self.param_shardings[n].index_for(
+                me, tuple(self.params[n].shape))
+            for n in self._zero_names}
+        if self._sharded:
+            with torch.no_grad():
+                for n in self._sharded:
+                    self.params[n] = self.param_shardings[n].place(
+                        self.params[n]).requires_grad_(True)
+        # the tensors the update writes: each master's local slice
+        self._local = {n: _local(p) for n, p in self.params.items()}
+
     def _new_graph(self):
         return _graph.StepGraph(
             lambda x, y: self._step(x, y, self._capture_gen),
@@ -186,22 +288,59 @@ class ShardedTrainStep:
             a = torch.as_tensor(np.asarray(a))
         return a.to(self.device)
 
-    def _forward(self, params, states, x, gens):
+    def _forward(self, params, states, x, gens, training=True):
         """(outputs, new states) of the forward; its random masks come
-        from ``gens[0]``."""
-        if self.pure is not None:
-            return self.pure.apply(params, states, [x], gens[0],
-                                   training=True)
-        with _random.key_provider(gens[0]):
-            return torch.func.functional_call(self.block, params,
-                                              (x,)), states
+        from ``gens[0]``.  With DTensor masters it runs under
+        ``implicit_replication`` and hands back plain tensors (a
+        sharded output is gathered, differentiably)."""
+        sharded = bool(self._sharded)
+        with self._replicating():
+            if self.pure is not None:
+                out, states = self.pure.apply(params, states, [x],
+                                              gens[0], training=training)
+            else:
+                with _random.key_provider(gens[0]):
+                    out = torch.func.functional_call(self.block, params,
+                                                     (x,))
+        if sharded:
+            out = [_full(o) for o in out] \
+                if isinstance(out, (list, tuple)) else _full(out)
+            states = {n: _full(v) for n, v in states.items()}
+        return out, states
 
-    def _grad_of(self, x, y, gen, states):
+    def _replicating(self):
+        """DTensor's ``implicit_replication`` where there are DTensor
+        masters (a plain tensor meeting one, in the forward or the
+        backward, is replicated), else nothing."""
+        if not self._sharded:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+
+    def _leaves(self):
+        """The tensors the gradient is taken of: the masters, and for
+        ZeRO's dp-sharded masters their all-gathered fp32 copies (fresh
+        leaves, so each rank's gradient is whole before the dp
+        all-reduce; the update then takes this rank's slice)."""
+        if not self.zero:
+            return self.params
+        out = dict(self.params)
+        with torch.no_grad():
+            for n in self._zero_names:
+                v = self.params[n]
+                out[n] = v.redistribute(
+                    v.device_mesh, self._compute_shardings[n].placements())
+        return {n: t.detach().requires_grad_(True) if n in self._zero_names
+                else t for n, t in out.items()}
+
+    def _grad_of(self, x, y, gen, states, leaves):
         """(loss, {name: fp32 gradient}, new states) of one
-        (micro-)batch."""
-        names = list(self.params)
-        masters = list(self.params.values())
-        params = self.params
+        (micro-)batch: the gradient of the tensors in ``leaves``
+        (``_leaves()``), each as this rank's local tensor."""
+        names = list(leaves)
+        masters = list(leaves.values())
+        params = leaves
         if self.compute_dtype is not None:
             params = _cast_floats(params, self.compute_dtype)
             if x.is_floating_point():
@@ -218,9 +357,11 @@ class ShardedTrainStep:
             out, states = self._forward(params, states, x, gens)
         outs = list(out) if isinstance(out, (list, tuple)) else [out]
         loss = self.loss_fn(outs, y)
-        grads = torch.autograd.grad(loss, masters, allow_unused=True)
+        with self._replicating():
+            grads = torch.autograd.grad(loss, masters, allow_unused=True)
         return loss.detach(), {
-            n: torch.zeros_like(p) if g is None else g
+            n: torch.zeros_like(_local(p)) if g is None
+            else _local_grad(g, p)
             for n, p, g in zip(names, masters, grads)}, states
 
     def _step(self, x, y, gen):
@@ -228,12 +369,15 @@ class ShardedTrainStep:
         ``grad_accum`` loop and the update; the states are written back
         into ``self.states``'s tensors.  Returns the loss."""
         accum = self.grad_accum
+        leaves = self._leaves()
         if accum <= 1:
-            loss, grads, states = self._grad_of(x, y, gen, self.states)
+            loss, grads, states = self._grad_of(x, y, gen, self.states,
+                                                leaves)
         else:
             grads, loss, states = None, None, self.states
             for xb, yb in zip(x.chunk(accum), y.chunk(accum)):
-                lb, gb, states = self._grad_of(xb, yb, gen, states)
+                lb, gb, states = self._grad_of(xb, yb, gen, states,
+                                               leaves)
                 if grads is None:
                     grads, loss = gb, lb
                 else:
@@ -242,25 +386,63 @@ class ShardedTrainStep:
                     loss = loss + lb
             grads = {n: g / accum for n, g in grads.items()}
             loss = loss / accum
-        self.opt.update(self.params, grads, self.opt_state, lr=self._lr)
+        if self._dp > 1:
+            loss = self._reduce_dp(loss, grads, states)
+        for n in self._zero_names:       # this rank's slice of the mean
+            grads[n] = grads[n][self._zero_index[n]]
+        self.opt.update(self._local, grads, self.opt_state, lr=self._lr)
         with torch.no_grad():
             for n, s in states.items():
                 if s is not self.states[n]:
                     self.states[n].copy_(s)
         return loss
 
+    @torch.no_grad()
+    def _reduce_dp(self, loss, grads, states):
+        """The mean over 'dp' of the loss, every gradient and the
+        floating states, in place, as one flat all-reduce over this
+        rank's dp group; returns the loss."""
+        floats = [n for n, v in states.items() if v.is_floating_point()]
+        parts = [loss.reshape(1).float()] \
+            + [grads[n].reshape(-1).float() for n in grads] \
+            + [states[n].reshape(-1).float() for n in floats]
+        flat = torch.cat(parts)
+        torch.distributed.all_reduce(flat, group=self.mesh.group("dp"))
+        flat.div_(self._dp)
+        out = list(flat.split([t.numel() for t in parts]))
+        loss = out[0].reshape(()).to(loss.dtype)
+        for i, n in enumerate(grads):
+            grads[n].copy_(out[1 + i].view_as(grads[n]))
+        for i, n in enumerate(floats):
+            states[n].copy_(out[1 + len(grads) + i].view_as(states[n]))
+        return loss
+
     def _mutable(self):
         """The tensors a step changes in place (a torch module's buffers
         too: a BatchNorm's running stats)."""
         buffers = list(self.block.buffers()) if self.pure is None else []
-        return (list(self.params.values())
+        return (list(self._local.values())
                 + _graph.tensors_of(self.opt_state)
                 + list(self.states.values()) + buffers)
+
+    def _dp_slice(self, a):
+        """This rank's dp slice of a global batch (along
+        ``batch_axis``)."""
+        if self._dp <= 1:
+            return a
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a))
+        n = a.shape[self.batch_axis]
+        if n % self._dp:
+            raise ValueError(f"global batch {n} is not divisible by "
+                             f"dp={self._dp}")
+        c = self.mesh.coord(self.mesh.local_ids()[0])["dp"]
+        return a.narrow(self.batch_axis, c * (n // self._dp), n // self._dp)
 
     def _prepare(self, x, y, generator):
         """(x, y, generator, the generators the step draws from) for one
         step; writes this step's learning rate and syncs remat's twin."""
-        x, y = self._batch(x), self._batch(y)
+        x, y = self._batch(self._dp_slice(x)), self._batch(self._dp_slice(y))
         accum = self.grad_accum
         if accum > 1 and x.shape[0] % accum != 0:
             raise ValueError(
@@ -294,15 +476,21 @@ class ShardedTrainStep:
         the first call with a new signature (``trace_counts``); on the
         CPU it runs eagerly.  The first call runs the memory preflight;
         an out-of-memory step takes one rung of the ladder and runs
-        once more."""
+        once more.  Over several ranks, each passes the same global
+        batch and runs on its dp slice; the returned loss is the global
+        batch's mean."""
+        from ..dist import elastic_probe, group_backend
         from ..resilience import as_oom_error, check_oom
+        elastic_probe()     # elastic:rank<N> injection
+        capture = self.device.type == "cuda" and (
+            not self.mesh.spans_world or group_backend() == "nccl")
         for attempt in (0, 1):
             try:
                 if not self._planned:
                     self._preflight(x, y)
                 # mem:oom injection point; one env read without a spec
                 check_oom("sharded_train_step")
-                if self.device.type != "cuda":
+                if not capture:
                     loss = self._eager_call(x, y, generator)
                 else:
                     xb, yb, gen, gens = self._prepare(x, y, generator)
@@ -383,11 +571,12 @@ class ShardedTrainStep:
         from ..perf import memory_planner as mp
         return mp.plan_memory(
             liveness=self._mem_liveness,
-            params_bytes=mp.tree_bytes(self.params)
+            params_bytes=mp.sharded_tree_bytes(self.params)
             + mp.tree_bytes(self.states),
-            max_param_bytes=mp.tree_bytes(self.params),
+            max_param_bytes=mp.sharded_tree_bytes(self.params),
             optimizer_bytes=mp.tree_bytes(self.opt_state),
-            grad_accum=grad_accum, remat=remat, donate=True)
+            grad_accum=grad_accum, remat=remat, donate=True,
+            batch_shards=self._dp)
 
     def _preflight(self, x, y):
         """Plan the step before its first run; under
@@ -490,6 +679,9 @@ class ShardedTrainStep:
         params, states, xm, ym = self._meta_args(x, y)
         twin = copy.copy(self)
         twin.params, twin.states = params, states
+        # one rank's work, on plain meta copies: no collective, no slice
+        twin._local, twin._dp, twin.zero = params, 1, False
+        twin._sharded, twin._zero_names = set(), []
         twin.opt_state = self.opt.init(params)
         twin.remat = False
         twin._lr = torch.zeros((), device="meta")
@@ -512,8 +704,11 @@ class ShardedTrainStep:
         Gluon block with ``training=False`` on the step's states), as a
         list of outputs."""
         if self.pure is not None:
-            return self.pure.apply(self.params, self.states,
-                                   [self._batch(x)], training=False)[0]
+            return self._forward(self.params, self.states,
+                                 self._batch(x), [None],
+                                 training=False)[0]
+        if self._sharded:
+            self.write_back()
         was_training = self.block.training
         self.block.eval()
         try:
@@ -525,7 +720,111 @@ class ShardedTrainStep:
     def write_back(self):
         """Copy the step's values into the live parameters.  The
         trainable ones are the masters the step updates in place, so
-        this copies a Gluon block's states (BatchNorm's moving stats);
-        for a plain torch module it does nothing."""
+        this copies a Gluon block's states (BatchNorm's moving stats)
+        and the whole of each DTensor master (gathered)."""
+        full = {n: _full(p.detach()) for n, p in self.params.items()}
         if self.pure is not None:
-            self.pure.write_back(self.params, self.states)
+            self.pure.write_back(full, self.states)
+            return
+        with torch.no_grad():
+            live = dict(self.block.named_parameters())
+            for n in self._sharded:
+                live[n].copy_(full[n])
+
+    # ------------------------------------------------------- checkpoint
+    def save_checkpoint(self, path, data_state=None):
+        """Write params, states and optimizer state to ``path`` (a
+        checkpoint directory) as one sharded generation
+        (``parallel/checkpoint.py``): each rank writes the slices it
+        owns, the lowest rank the manifest, and generations accumulate
+        with corrupt-shard fallback on load.  ``data_state`` (an input
+        iterator's ``state_dict()``) rides in the same generation.  The
+        tree is the JAX step's: ``params``, ``states``, ``opt_state``
+        (Adam's ``t`` as int32) and ``step_count``.  Returns the
+        generation directory."""
+        from . import checkpoint as _ckpt
+        tree = self._ckpt_tree()
+        return _ckpt.save_sharded(
+            path, tree, self.mesh, step=int(self.step_count),
+            data_state=data_state,
+            extra={"optimizer": foptim.state_structure(tree["opt_state"])})
+
+    def load_checkpoint(self, path):
+        """Restore the newest valid generation under ``path`` into this
+        step, in place, in this step's layout: each leaf is assembled
+        from the saved slices that overlap this rank's own, so the save
+        may have run on another mesh or world size (or in the JAX
+        package).  Returns the generation's data-iterator companion
+        state (or None)."""
+        from . import checkpoint as _ckpt
+        restored, manifest, gen_dir = _ckpt.load_latest(
+            path, self._ckpt_tree(), self.mesh)
+        self._restore(restored)
+        return _ckpt.load_data_companion(gen_dir, manifest)
+
+    def _restore(self, restored):
+        """Write a tree in ``_ckpt_tree``'s layout into the step's
+        tensors, in place (a captured graph keeps reading them)."""
+        with torch.no_grad():
+            for n, v in restored["params"].items():
+                self._local[n].copy_(_local(v))
+            for n, v in restored["states"].items():
+                self.states[n].copy_(v)
+            foptim.load_state(self.opt_state, restored["opt_state"])
+        self.step_count = int(restored["step_count"])
+
+    def _ckpt_tree(self):
+        """Copies of the step's state in the JAX step's tree, each
+        optimizer-state leaf laid out as its parameter's master."""
+        def like(tree):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out[k] = like(v)
+                elif k in self._sharded and _local(v) is v:
+                    m = self.params[k]
+                    out[k] = _dtensor_like(v, m)
+                else:
+                    out[k] = v
+            return out
+        return {"params": {n: p.detach().clone()
+                           for n, p in self.params.items()},
+                "states": {n: v.detach().clone()
+                           for n, v in self.states.items()},
+                "opt_state": like(foptim.checkpoint_state(self.opt_state)),
+                "step_count": torch.tensor(self.step_count,
+                                           dtype=torch.int32)}
+
+
+def _local(t):
+    """A DTensor's local slice (sharing its storage); any other tensor
+    itself."""
+    local = getattr(t, "_local_tensor", None)
+    return t if local is None else local
+
+
+def _local_grad(g, p):
+    """The gradient ``g`` of master ``p`` as ``p``'s local slice
+    (redistributed first when DTensor gave it another placement)."""
+    if not is_dtensor(g):
+        return g
+    if not is_dtensor(p):               # a replicated master
+        return g.full_tensor()
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g.to_local()
+
+
+def _full(t):
+    """A DTensor gathered into a plain tensor (differentiably); any
+    other value as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _dtensor_like(local, master):
+    """``local`` (a slice shaped like ``master``'s) as a DTensor with
+    ``master``'s placements."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, master.device_mesh, master.placements,
+                              run_check=False, shape=master.shape,
+                              stride=master.stride())

@@ -35,7 +35,7 @@ import torch
 __all__ = ["FunctionalOptimizer", "sgd", "adam", "nag", "create",
            "warmup_cosine", "warmup_linear", "default_wd_mults",
            "scheduled_lr", "from_imperative", "state_to_numpy",
-           "load_state"]
+           "load_state", "state_structure", "checkpoint_state"]
 
 
 def default_wd_mults(names, overrides=None):
@@ -289,5 +289,25 @@ def load_state(state, tree):
     for k, v in tree.items():
         if isinstance(state[k], dict):
             load_state(state[k], v)
-        else:
-            state[k].copy_(torch.as_tensor(v))
+            continue
+        local = getattr(v, "_local_tensor", None)   # a DTensor's slice
+        state[k].copy_(local if local is not None else torch.as_tensor(v))
+
+
+def state_structure(state):
+    """JSON-able description of an optimizer state, ``{keystr path:
+    [shape, dtype]}``, recorded in a sharded checkpoint's manifest
+    (``extra['optimizer']``) for operators and tooling; loading checks
+    the structure by its own key, shape and dtype tests."""
+    from .checkpoint import _dtype_name, _flatten, _shape
+    return {k: [list(_shape(leaf)), _dtype_name(leaf)]
+            for k, leaf in _flatten(state)}
+
+
+def checkpoint_state(state):
+    """Copies of an optimizer state in the JAX package's layout, as a
+    sharded checkpoint holds it: Adam's step count ``t`` as int32 (the
+    port keeps it fp32 on the device, read by a captured update)."""
+    return {k: checkpoint_state(v) if isinstance(v, dict)
+            else v.detach().to(torch.int32) if k == "t"
+            else v.detach().clone() for k, v in state.items()}

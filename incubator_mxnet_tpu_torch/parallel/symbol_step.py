@@ -27,7 +27,9 @@ first step the memory preflight plans the graph (``perf.
 memory_planner.symbol_liveness``); this step has no rungs, so the plan
 fits, warns, or raises ``MemoryPlanError``.  The first step also costs
 the graph (``perf.symbol_cost``, 3x the forward) and arms the MFU clock.
-The sharded checkpoints (A9) raise.
+``save_checkpoint`` / ``load_checkpoint`` write and restore reshardable
+generations (``parallel/checkpoint.py``; parameters, aux states and the
+optimizer state in the JAX package's layout, restored in place).
 
 The first call of each batch signature (the capture on the card, the
 first op-by-op run on the CPU) is timed into the compile ledger
@@ -373,11 +375,29 @@ class SymbolTrainStep:
 
     # ------------------------------------------------------ checkpoint
     def save_checkpoint(self, path, step=None, data_state=None):
-        raise NotImplementedError(
-            "sharded checkpoints (parallel/checkpoint.py) are ROADMAP "
-            "item A9; save through Module.save_checkpoint")
+        """Write params, aux states and optimizer state as one sharded
+        generation under ``path`` (``parallel/checkpoint.py``), with
+        the input iterator's ``data_state`` in the same generation.
+        Returns the generation directory."""
+        from . import checkpoint as _ckpt
+        params, aux = self.owned_values()
+        state = foptim.checkpoint_state(self.opt_state)
+        return _ckpt.save_sharded(
+            path, {"params": params, "aux": aux, "opt_state": state},
+            self.mesh, step=step, data_state=data_state,
+            extra={"optimizer": foptim.state_structure(state)})
 
     def load_checkpoint(self, path):
-        raise NotImplementedError(
-            "sharded checkpoints (parallel/checkpoint.py) are ROADMAP "
-            "item A9; load through Module.load")
+        """Restore the newest valid generation under ``path`` into this
+        step's tensors, in place (a captured graph keeps reading them).
+        Returns the generation's data-iterator companion state (or
+        None)."""
+        from . import checkpoint as _ckpt
+        tree = {"params": self.params, "aux": dict(self.aux),
+                "opt_state": foptim.checkpoint_state(self.opt_state)}
+        restored, manifest, gen_dir = _ckpt.load_latest(
+            path, tree, self.mesh)
+        self.set_values(restored["params"], restored["aux"])
+        with torch.no_grad():
+            foptim.load_state(self.opt_state, restored["opt_state"])
+        return _ckpt.load_data_companion(gen_dir, manifest)

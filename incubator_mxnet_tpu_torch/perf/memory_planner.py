@@ -107,27 +107,57 @@ def tree_bytes(tree):
     return float(sum(_leaf_bytes(leaf) for leaf in _leaves(tree)))
 
 
+def _leaf_slice_bytes(leaf, sharding):
+    """Largest per-device slice of one leaf under ``sharding`` (a
+    ``parallel.NamedSharding``; the full size where there is none or
+    a dim does not split evenly).  A DTensor leaf without a sharding
+    counts its local slice."""
+    from ..parallel.sharding import shard_bounds
+    shape = tuple(getattr(leaf, "shape", ()))
+    if sharding is None:
+        local = getattr(leaf, "_local_tensor", None)
+        if local is not None:
+            return _leaf_bytes(local)
+        return _leaf_bytes(leaf)
+    if not shape:
+        return _leaf_bytes(leaf)
+    try:
+        slice_elems = max(
+            _prod([hi - lo for lo, hi in bounds])
+            for bounds in shard_bounds(sharding, shape))
+    except ValueError:          # a dim that does not split evenly
+        slice_elems = _prod(shape)
+    return slice_elems * (_leaf_bytes(leaf) // max(1, _prod(shape)))
+
+
+def _iter_sharded_leaves(tree, shardings):
+    if shardings is not None and hasattr(shardings, "get") \
+            and hasattr(tree, "items"):
+        for name, leaf in tree.items():
+            yield leaf, shardings.get(name)
+        return
+    for leaf in _leaves(tree):
+        yield leaf, None
+
+
 def sharded_tree_bytes(tree, shardings=None):
-    """Per-device bytes of a tree.  On one device every leaf is whole,
-    so this is :func:`tree_bytes`; per-device slices under a sharding
-    come with the port's multi-card modes (ROADMAP item A9), and a
-    ``shardings`` argument raises until then."""
-    if shardings:
-        raise NotImplementedError(
-            "sharded_tree_bytes over shardings: the multi-card modes "
-            "are ROADMAP item A9")
-    return tree_bytes(tree)
+    """Per-device bytes of a tree: each leaf contributes its largest
+    per-device slice, so ZeRO/tp sharding shrinks the plan as it
+    shrinks the card.  Pass a name -> NamedSharding dict for a dict
+    tree, or nothing to count each leaf as it lies (a DTensor by its
+    local slice)."""
+    return float(sum(_leaf_slice_bytes(leaf, sh)
+                     for leaf, sh in _iter_sharded_leaves(
+                         tree, shardings)))
 
 
 def max_leaf_bytes(tree, shardings=None):
-    """Largest single leaf in a tree — the planner's "working
-    gradient" bound under donation."""
-    if shardings:
-        raise NotImplementedError(
-            "max_leaf_bytes over shardings: the multi-card modes are "
-            "ROADMAP item A9")
-    return float(max((_leaf_bytes(leaf) for leaf in _leaves(tree)),
-                     default=0.0))
+    """Largest single per-device leaf slice in a tree — the planner's
+    "working gradient" bound under donation."""
+    return float(max(
+        (_leaf_slice_bytes(leaf, sh)
+         for leaf, sh in _iter_sharded_leaves(tree, shardings)),
+        default=0.0))
 
 
 def _sweep(t_bytes, t_prod, last_use):

@@ -554,6 +554,10 @@ def compile_ledger(site):
 _MEM_LOCK = threading.Lock()
 _MEM_PROVIDERS = {}     # kind -> {token: provider()->iterable arrays}
 _MEM_TOKEN = itertools.count()
+# (kind, token) of unregistered providers, dropped under _MEM_LOCK by the
+# next reader or writer: an owner's finalizer may run in a GC pass that
+# fires while this thread holds the lock, so unregistering takes none
+_MEM_DEAD = []
 MEMORY_KINDS = ("params", "optimizer", "kv_pools")
 # latest preflight memory plan (predicted peak live bytes), set by
 # perf.memory_planner at bind/preflight time; the heartbeat gauges
@@ -604,15 +608,22 @@ def register_memory(kind, provider, owner=None):
             f"{MEMORY_KINDS}")
     token = next(_MEM_TOKEN)
     with _MEM_LOCK:
+        _drop_dead_providers()
         _MEM_PROVIDERS.setdefault(kind, {})[token] = provider
 
     def unregister():
-        with _MEM_LOCK:
-            _MEM_PROVIDERS.get(kind, {}).pop(token, None)
+        _MEM_DEAD.append((kind, token))
     if owner is not None:
         import weakref
         weakref.finalize(owner, unregister)
     return unregister
+
+
+def _drop_dead_providers():
+    """Forget the unregistered providers (call with _MEM_LOCK held)."""
+    while _MEM_DEAD:
+        kind, token = _MEM_DEAD.pop()
+        _MEM_PROVIDERS.get(kind, {}).pop(token, None)
 
 
 def register_param_opt_providers(owner, param_arrays, opt_arrays):
@@ -700,6 +711,7 @@ def device_memory_stats():
                 for st in stats)
     out["device_live_bytes"] = total
     with _MEM_LOCK:
+        _drop_dead_providers()
         providers = {k: list(v.values())
                      for k, v in _MEM_PROVIDERS.items()}
     attributed = 0
@@ -783,6 +795,7 @@ def reset_for_tests():
         _COMPILE_TOTALS.update(events=0, seconds=0.0, warn_at=None)
     with _MEM_LOCK:
         _MEM_PROVIDERS.clear()
+        del _MEM_DEAD[:]
         _MEM_PLAN["bytes"] = None
         _MEM_PLAN["categories"] = None
 

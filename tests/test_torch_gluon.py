@@ -67,26 +67,30 @@ def _op_pair(name, inputs, params, diff, seed=9):
     def jcall(*xs):
         return jfn(*xs, **params)
 
-    jin = [None if a is None else jnp.asarray(a) for a in inputs]
-    tin = [None if a is None else torch.from_numpy(a.copy())
-           .requires_grad_(i in diff) for i, a in enumerate(inputs)]
-    jout = jcall(*jin)
-    tout = tfn(*tin, **params)
-    jfirst = jout[0] if isinstance(jout, tuple) else jout
-    tfirst = tout[0] if isinstance(tout, tuple) else tout
-    if not diff:
-        return jout, tout, [], []
-    ct = _rand(*jfirst.shape, seed=seed)
-
-    def head(*xs):
-        full = list(jin)
-        for i, x in zip(diff, xs):
+    def head(xs, *ds):
+        full = list(xs)
+        for i, x in zip(diff, ds):
             full[i] = x
         out = jcall(*full)
         return out[0] if isinstance(out, tuple) else out
 
-    _, vjp = jax.vjp(head, *[jin[i] for i in diff])
-    jg = vjp(jnp.asarray(ct))
+    jin = [None if a is None else jnp.asarray(a) for a in inputs]
+    tin = [None if a is None else torch.from_numpy(a.copy())
+           .requires_grad_(i in diff) for i, a in enumerate(inputs)]
+    tout = tfn(*tin, **params)
+    tfirst = tout[0] if isinstance(tout, tuple) else tout
+    if not diff:
+        return jax.jit(lambda xs: jcall(*xs))(jin), tout, [], []
+    ct = _rand(*jax.eval_shape(head, jin).shape, seed=seed)
+
+    # the JAX op's outputs and its vjp of the cotangent, as one compiled
+    # function (one compile, not one per primitive)
+    @jax.jit
+    def forward_and_vjp(xs, c):
+        _, vjp = jax.vjp(lambda *ds: head(xs, *ds), *[xs[i] for i in diff])
+        return jcall(*xs), vjp(c)
+
+    jout, jg = forward_and_vjp(jin, jnp.asarray(ct))
     tg = torch.autograd.grad(tfirst, [tin[i] for i in diff],
                              torch.from_numpy(ct), allow_unused=True)
     return jout, tout, [np.asarray(g) for g in jg], \

@@ -107,8 +107,18 @@ def test_op_matches_jax(name):
             args[i] = d
         return jfn(*args, **params)
 
-    jout, vjp = jax.vjp(jax_f, *(jnp.asarray(inputs[i]) for i in wrt))
-    jouts = list(jout) if isinstance(jout, (tuple, list)) else [jout]
+    # the JAX op's outputs and its vjp of seeded cotangents, as one
+    # compiled function (one compile, not one per primitive)
+    primals = [jnp.asarray(inputs[i]) for i in wrt]
+    shapes = jax.eval_shape(jax_f, *primals)
+    multi = isinstance(shapes, (tuple, list))
+    rs = np.random.RandomState(11)
+    cts = [rs.normal(0, 1, j.shape).astype(np.float32)
+           for j in (shapes if multi else [shapes])]
+    jout, jgrads = jax.jit(lambda p, c: (
+        jax_f(*p), jax.vjp(jax_f, *p)[1](c) if p else ()))(
+            primals, tuple(cts) if multi else cts[0])
+    jouts = list(jout) if multi else [jout]
 
     xs = [mt.nd.array(a, ctx=CPU) for a in inputs]
     for i in wrt:
@@ -124,9 +134,6 @@ def test_op_matches_jax(name):
         np.testing.assert_allclose(t.asnumpy(), j, err_msg=name, **TOL)
     if not wrt:
         return
-    rs = np.random.RandomState(11)
-    cts = [rs.normal(0, 1, np.shape(j)).astype(np.float32) for j in jouts]
-    jgrads = vjp(tuple(cts) if len(cts) > 1 else cts[0])
     mt.autograd.backward(touts, [mt.nd.array(c, ctx=CPU) for c in cts])
     for i, jg in zip(wrt, jgrads):
         np.testing.assert_allclose(xs[i].grad.asnumpy(), np.asarray(jg),

@@ -311,8 +311,10 @@ def test_next_divisor_and_tree_bytes():
     assert mp.tree_bytes(tree) == 64 * 32 * 4 + 32 * 2 + 7 * 4
     assert mp.max_leaf_bytes(tree) == 64 * 32 * 4
     assert mp.sharded_tree_bytes(tree) == mp.tree_bytes(tree)
-    with pytest.raises(NotImplementedError, match="A9"):
-        mp.sharded_tree_bytes(tree, {"w": "dp"})
+    mesh = mt.parallel.make_mesh(dp=2, devices=["cpu"] * 2)
+    by_dp = {"w": mt.parallel.named_sharding(mesh, "dp")}
+    assert mp.sharded_tree_bytes({"w": tree["w"]}, by_dp) == 32 * 32 * 4
+    assert mp.max_leaf_bytes({"w": tree["w"]}, by_dp) == 32 * 32 * 4
 
 
 def _counter(name):

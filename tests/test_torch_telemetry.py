@@ -42,6 +42,10 @@ def _fresh(monkeypatch):
                  "MXTPU_WORKER_RANK", "MXTPU_HEARTBEAT_FILE"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("MXTPU_RPC_TIMEOUT", "10")
+    # modules hold the counters they resolved at import (rpc, the
+    # router): the metrics are put back after the test, so that later
+    # test files in this process still read those counters
+    held = {k: dict(t.get_registry()._metrics) for k, t in TEL.items()}
 
     def clean():
         for t in TEL.values():
@@ -56,6 +60,8 @@ def _fresh(monkeypatch):
     clean()
     yield
     clean()
+    for k, t in TEL.items():
+        t.get_registry()._metrics.update(held[k])
     pdebugz.stop()
     jdebugz.stop()
 

@@ -192,15 +192,15 @@ def _jax_run(optimizer, params, steps=3):
         mx.random.seed(0)
         net = jtr.TransformerLM(VOCAB, **CFG)
         net.initialize(mx.initializer.Xavier())
-        net(mx.nd.array(toks))                 # settles shapes
-        wts = jax.tree_util.tree_map(np.asarray, net._decode_weights())
-        port = load_reference_weights(
-            TransformerLM(VOCAB, **CFG, device="cpu"), wts)
+        # example_args' forward settles the shapes (one eager forward)
         step = jparallel.ShardedTrainStep(
             net, optimizer=optimizer, optimizer_params=params,
             loss_fn=_jax_loss,
             example_args=[mx.nd.array(np.zeros((2, L), "int32"))],
             mesh=jparallel.make_mesh(devices=jax.devices("cpu")[:1]))
+        wts = jax.tree_util.tree_map(np.asarray, net._decode_weights())
+        port = load_reference_weights(
+            TransformerLM(VOCAB, **CFG, device="cpu"), wts)
         losses = [float(step(jnp.asarray(toks), jnp.asarray(labels)))
                   for _ in range(steps)]
         step.write_back()

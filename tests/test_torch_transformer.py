@@ -185,7 +185,8 @@ _SLICE_MODULES = ("ops.flash", "gluon.model_zoo.transformer",
                   "parallel.symbol_step", "parallel.optim", "ops.moe",
                   "graph.ir", "graph.passes", "graph.fuse",
                   "graph.cached_op", "serving.rpc", "serving.replica",
-                  "serving.router")
+                  "serving.router", "dist", "parallel.sharding",
+                  "parallel.checkpoint")
 
 
 def test_port_imports_no_jax():

@@ -326,7 +326,8 @@ def test_trainer_updater_route_and_states(data, tmp_path, monkeypatch):
     trainer.save_states(path)
     trainer.load_states(path)
     monkeypatch.setenv("MXTPU_NUM_WORKERS", "2")   # two processes
-    with pytest.raises(NotImplementedError, match="A9"):
+    monkeypatch.delenv("MXTPU_COORD_ADDR", raising=False)
+    with pytest.raises(RuntimeError, match="no MXTPU_COORD_ADDR"):
         mt.gluon.Trainer(net.collect_params(), "sgd",
                          kvstore="dist_sync").step(B)
     monkeypatch.delenv("MXTPU_NUM_WORKERS")
